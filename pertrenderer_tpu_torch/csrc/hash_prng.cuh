@@ -1,0 +1,64 @@
+// Counter-based hash PRNG (murmur3 finalizer), device side.
+//
+// Port of _mix / _hash_words / _uniform01 / _draw_block in
+// pertrenderer_tpu/ops/fused_render.py.  The JAX package writes this
+// unsigned arithmetic in int32 (wraparound multiplies, logical shifts);
+// here it is uint32_t, which is the same bits.  The uniform stage is an
+// integer hash plus a power-of-two scale, so it is bit-exact against
+// tests/goldens/prng_goldens.npz; the gaussian / cauchy maps use the
+// precise (non fast-math) logf / sqrtf / sinf / cosf / tanf.
+//
+// Shared by the probe (K1) and the fused forward (K3); the backward and
+// stream kernels will key their replays on the same words.
+#pragma once
+
+#include <stdint.h>
+
+namespace ptt {
+
+__device__ __forceinline__ uint32_t mix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// Mixed counter for (seed words, sample s, channel row, pixel position).
+__device__ __forceinline__ uint32_t hash_words(uint32_t seed0, uint32_t seed1,
+                                               uint32_t s, uint32_t row,
+                                               uint32_t pos) {
+  uint32_t x = mix(pos);
+  x = mix(x ^ (seed0 + s * 0x9E3779B9u + row * 0x85EBCA77u));
+  return x ^ seed1;
+}
+
+// Low 23 bits -> (m + 0.5) * 2^-23 in (0, 1).
+__device__ __forceinline__ float uniform01(uint32_t h) {
+  return ((float)(h & 0x7FFFFFu) + 0.5f) * 1.1920928955078125e-07f;
+}
+
+// Both Box-Muller outputs of one hash word: the cos half goes to row r,
+// the sin half to row r + c/2 of a c-row block.
+__device__ __forceinline__ void gaussian_pair(uint32_t x, float* cos_half,
+                                              float* sin_half) {
+  const float u1 = uniform01(x);
+  const float u2 = uniform01(mix(x + 0xBB67AE85u));
+  const float r = sqrtf(-2.0f * logf(u1));
+  const float th = 6.2831854820251465f * u2;   // float32(2 pi)
+  *cos_half = r * cosf(th);
+  *sin_half = r * sinf(th);
+}
+
+__device__ __forceinline__ float uniform_draw(uint32_t x) {
+  return uniform01(mix(x + 0x6A09E667u));
+}
+
+// Standard cauchy, clamped to +-1e7.
+__device__ __forceinline__ float cauchy_draw(uint32_t x) {
+  const float t = tanf(3.1415927410125732f * (uniform_draw(x) - 0.5f));
+  return fminf(fmaxf(t, -1e7f), 1e7f);
+}
+
+}  // namespace ptt
