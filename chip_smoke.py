@@ -2,32 +2,50 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero before a result
-is printed):
+The headline configuration throughout: the cube x2, 256^2, K=50, S=8,
+GaussianRast + GaussianAgg (sigma 1e-3, gamma 1e-2), point light
+(0, 2, -2), camera dist 6.7 elev 30 azim 120.  Phases (each prints one
+line; any failure exits non-zero before a result is printed):
 
 1. device — the card must be CUDA capability 9.0 (Hopper); builds the
-   kernels from csrc/ with nvcc and reports the build time;
+   kernels from csrc/ with nvcc (one process per source) and reports the
+   build time;
 2. K1 — the hash-PRNG probe against tests/goldens/prng_goldens.npz
    (uniform bit-exact, gaussian 5e-4 abs, cauchy 1e-5 rel) and against its
    plain PyTorch version on the card;
-3. K3 — the fused forward against its plain version on the card at the
-   headline configuration: the cube x2, 256^2, K=50, S=8,
-   GaussianRast + GaussianAgg (sigma 1e-3, gamma 1e-2), point light
-   (0, 2, -2), camera dist 6.7 elev 30 azim 120, N=4 random poses.  MC
-   tolerance: mean |d| <= 1e-5 and >= 99.9% of pixels within 1e-4; the
-   deterministic softras pair at atol 2e-5.  Times both with CUDA events;
-4. serve — 8 render requests of N=4 poses through MeshRenderer with a
-   seeded torch.Generator; launch counts are reset just before and read
-   just after; outputs must be finite with a plausible coverage share, and
-   the first request must agree with the same request rendered on the CPU
-   by the plain version.
+3. K3 — the fused forward against its plain version, N=4 random poses.
+   MC tolerance: mean |d| <= 1e-5 and >= 99.9% of pixels within 1e-4; the
+   deterministic softras pair at atol 2e-5;
+4. K4 — the fused backward against its plain version (torch autograd
+   through the plain forward) for a seeded random cotangent, N=4, gaussian
+   and softras.  Each gradient table, and each of the 34 scalar gradients
+   on its own, within 1e-3 (MC: shared noise, threshold flips only) or
+   1e-4 (softras) of its max |grad|, and the same bits on a second launch;
+5. K2 — the fused loss-and-grad against its plain version (loss rtol
+   1e-5, tables as K4), and the dual path: K2 equals K3 + K4 fed the L2
+   cotangent (tables and scalars within 1e-5 of their max);
+6. serve — 8 render requests of N=4 poses through MeshRenderer;
+7. render-grad — 4 requests that render N=4 poses through MeshRenderer
+   and take the gradient of an image objective with respect to the poses;
+8. train — optimize_pose for 30 steps at N=1 from 20 degrees off the true
+   pose, lr 5e-2, against the port's own render of the true pose through
+   the flat HardRast + HardAgg pair; its first step must equal the same
+   step on the CPU through the plain versions (loss rtol 1e-4, pose
+   gradient within 1e-3 of its max).
 
-The last two lines are the card's nvidia-smi name and power limit, then
-one JSON object: {"ok": true, "device": {...}}.  The line before those is
-the per-kernel report.
+Phases 6-8 are the main paths: the launch counts are reset just before
+each and read just after, and each must have launched its kernels (serve:
+K1 and K3; render-grad: K3 and K4; train: K2 once per step).  Times are
+CUDA events except the per-request and per-step times (host clock ending
+in a device synchronisation).  Kernel and plain version are timed in
+turns (plain, kernel, kernel, plain) after a warm-up call.
+
+The last lines are the per-kernel report (one JSON object), the card's
+nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -39,12 +57,47 @@ import torch
 
 import pertrenderer_tpu_torch as ptt
 from pertrenderer_tpu_torch import _build
+from pertrenderer_tpu_torch.experiments import harness
 from pertrenderer_tpu_torch.ops import fused_render as fr
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens", "prng_goldens.npz")
 N_POSES, N_REQUESTS, IMAGE, K, S = 4, 8, 256, 50, 8
 SIGMA, GAMMA = 1e-3, 1e-2
+TRAIN_STEPS, TRAIN_LR, TRAIN_OFFSET_DEG = 30, 5e-2, 20.0
+
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores.
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# Float32 operations counted from csrc/ (adds, multiplies, compares,
+# divisions; each log / sqrt / sin / cos / tan / exp / pow as one).  The
+# integer hash is left out (the data sheet gives no integer rate outside
+# the tensor cores), so the bounds are lower bounds.  Each term is counted
+# over the work the function needs on this run's data (``work``), not over
+# the kernels' padded loops: geometry for every real face at every pixel
+# (it decides candidacy); texel, shading, coverage, z_map, blend and the
+# adjoints per candidate (slot, pixel); aggregation per live z_map row
+# (candidates and the background); noise only for the draws those rows use.
+OPS_GEOM = 121        # per real face and pixel: edges, distances, depth
+OPS_CLIP = 9          # ... clipped barycentrics
+OPS_PERSP = 12        # ... perspective correction
+OPS_TEXEL = {"corner": 18, "atlas": 11}   # per candidate
+OPS_PHONG = 113       # per candidate: Phong shading
+OPS_PAIR = 14         # per Box-Muller pair: 2 uniforms, log, sqrt, sincos
+OPS_CAUCHY = 7        # per Cauchy draw: uniform, tan, clamp
+OPS_COVER = 4         # per candidate and sample: perturb, test, add
+OPS_COVER_BWD = 4     # ... plus the score coefficient (backward)
+OPS_SOFT_COVER = 5    # per candidate: sigmoid of -d / sigma
+OPS_ZMAP = 8          # per candidate: z_inv, log, scale, shift
+OPS_AGG = 5           # per live row and sample: perturb, max, test
+OPS_AGG_BWD = 8       # ... plus one-hot difference, dot, score, phi
+OPS_SOFTMAX = 6       # per live row, forward or backward
+OPS_BLEND = 8         # per candidate: weighted colour, alpha product
+OPS_BG = 7            # per pixel: background blend, alpha
+OPS_SLOT_BWD = 534    # per candidate: adjoints of det2, coverage, det1
+OPS_CLIP_BWD = 26     # ... of the clipped barycentrics
+OPS_PERSP_BWD = 41    # ... of the perspective correction
+OPS_LOSS = 12         # per pixel: the image loss and its cotangent
 
 
 def fail(msg):
@@ -86,6 +139,11 @@ def timed_pair(kernel, plain, reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def reset_counts():
+    for k in fr.launch_counts:
+        fr.launch_counts[k] = 0
+
+
 def mc_close(got, want):
     """(ok, max |d|, mean |d|, share of pixels beyond 1e-4)."""
     d = (got - want).abs()
@@ -95,14 +153,130 @@ def mc_close(got, want):
     return ok, d.max().item(), d.mean().item(), flips
 
 
-def headline_renderer(noise, device):
-    """The headline scene's renderer (cameras, light, estimators)."""
+def tables_close(got, want, tol):
+    """(ok, worst error, where): each gradient table's max |d| over its max
+    |want|; the scalar table (N, 34) column by column, each scalar against
+    its own max |want| over N, floored at 1e-6 of the table's max for
+    columns that are 0 in the reference."""
+    worst, where = 0.0, ""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(g).all()):
+            return False, math.inf, f"table {i} not finite"
+        d = (g - w).abs()
+        if i == 4:
+            scale = w.abs().amax(dim=0)
+            scale = torch.clamp(torch.maximum(scale, 1e-6 * scale.max()),
+                                min=1e-30)
+            col = d.amax(dim=0) / scale
+            j = int(col.argmax())
+            err, name = col[j].item(), f"scalar {j}"
+        else:
+            err = d.max().item() / max(w.abs().max().item(), 1e-30)
+            name = f"table {i}"
+        if err >= worst:
+            worst, where = err, name
+    return worst <= tol, worst, where
+
+
+def bound(nbytes, ops):
+    """(bound ms, what bounds it): the larger of bytes over the memory
+    rate and operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _pairs_used(rows):
+    """Box-Muller pairs that feed at least one used row: pair h gives rows
+    h and h + R/2 of an R-row block.  ``rows`` is (N, R, P) bool."""
+    half = rows.shape[1] // 2
+    return int((rows[:, :half] | rows[:, half:2 * half]).sum().item())
+
+
+def work(cfg, ins):
+    """What the function needs on these inputs, as counts: pixels, (real
+    face, pixel) pairs, candidate (slot, pixel) pairs, live z_map rows
+    (candidates and the background), and the operations of the noise draws
+    per sample.  The MC aggregation's gamma gradient sums a term over every
+    row up to bg_row; with variance reduction it is 0 at a pixel with no
+    candidate (the background always wins), so the backward needs those
+    rows (``grad_rows``, ``agg_draw_ops_grad``) at pixels with a candidate,
+    or at every pixel without variance reduction."""
+    n, c = ins[0].shape[0], cfg.c_zpad
+    pixels = n * cfg.image_size ** 2
+    _pos, px, py = fr._pixel_coords(cfg.image_size, ins[0].device)
+    sc = lambda i: ins[5][:, i].view(n, 1, 1)
+    cand = fr._det1(cfg, px, py, *ins[:5], sc)[-1] > 0     # (N, F_pad, P)
+    live = torch.zeros(n, c, cand.shape[-1], dtype=torch.bool,
+                       device=cand.device)
+    live[:, :cfg.f_pad] = cand
+    live[:, cfg.bg_row] = True
+    grad_px = cand.any(dim=1) if cfg.agg_vr else torch.ones_like(cand[:, 0])
+    up_to_bg = torch.arange(c, device=cand.device).view(1, c, 1) <= cfg.bg_row
+    grad_live = live | (up_to_bg & grad_px[:, None, :])
+    draws = lambda rows, noise: (_pairs_used(rows) * OPS_PAIR
+                                 if noise == "gaussian"
+                                 else int(rows.sum().item()) * OPS_CAUCHY)
+    return dict(pixels=pixels, faces=pixels * cfg.f_real,
+                cand=int(cand.sum().item()), live=int(live.sum().item()),
+                grad_rows=int((up_to_bg & grad_px[:, None, :]).sum().item()),
+                rast_draw_ops=draws(cand, cfg.rast_noise),
+                agg_draw_ops=draws(live, cfg.agg_noise),
+                agg_draw_ops_grad=draws(grad_live, cfg.agg_noise))
+
+
+def forward_ops(cfg, w):
+    """Float32 operations of the forward render on the ``work`` counts."""
+    geom = OPS_GEOM + OPS_CLIP * cfg.clip_bary + (
+        OPS_PERSP * cfg.perspective_correct)
+    shade = OPS_TEXEL[cfg.tex_mode] + (
+        OPS_PHONG if cfg.shade == "phong" else 0)
+    ops = (w["faces"] * geom + w["pixels"] * OPS_BG
+           + w["cand"] * (shade + OPS_ZMAP + OPS_BLEND))
+    if cfg.rast_kind == "mc":
+        ops += cfg.s_rast * (w["rast_draw_ops"] + w["cand"] * OPS_COVER)
+    else:
+        ops += w["cand"] * OPS_SOFT_COVER
+    if cfg.agg_kind == "mc":
+        ops += cfg.s_agg * (w["agg_draw_ops"] + w["live"] * OPS_AGG)
+    elif cfg.agg_kind == "soft":
+        ops += w["live"] * OPS_SOFTMAX
+    return ops
+
+
+def grad_ops(cfg, w, loss):
+    """Float32 operations of K4 (loss=False) or K2 on the ``work`` counts:
+    the forward, then the adjoints.  The noise is counted once: the
+    function needs each draw once, however often a kernel replays it."""
+    ops = forward_ops(cfg, w) + w["cand"] * (
+        OPS_SLOT_BWD + OPS_CLIP_BWD * cfg.clip_bary
+        + OPS_PERSP_BWD * cfg.perspective_correct)
+    if cfg.rast_kind == "mc":
+        ops += cfg.s_rast * w["cand"] * OPS_COVER_BWD
+    if cfg.agg_kind == "mc":
+        ops += cfg.s_agg * (w["grad_rows"] * OPS_AGG_BWD
+                            + w["agg_draw_ops_grad"] - w["agg_draw_ops"])
+    elif cfg.agg_kind == "soft":
+        ops += w["live"] * OPS_SOFTMAX
+    return ops + (w["pixels"] * OPS_LOSS if loss else 0)
+
+
+def table_bytes(cfg, n):
+    """Bytes of the face tables, validity, scalars and seeds."""
+    return 4 * n * (cfg.f_pad * (27 + cfg.tex_d + 1) + 34 + 4)
+
+
+def scene(device):
     r, t = ptt.look_at_view_transform(dist=6.7, elev=30.0, azim=120.0,
                                       device=device)
-    cams = ptt.PerspectiveCameras.create(
-        R=r.expand(N_POSES, 3, 3), T=t.expand(N_POSES, 3), fov=60.0,
-        device=device)
     lights = ptt.PointLights.create(location=(0.0, 2.0, -2.0), device=device)
+    return r, t, lights
+
+
+def headline_renderer(noise, device, n=N_POSES):
+    """The headline scene's renderer (cameras, light, estimators)."""
+    r, t, lights = scene(device)
+    cams = ptt.PerspectiveCameras.create(
+        R=r.expand(n, 3, 3), T=t.expand(n, 3), fov=60.0, device=device)
     if noise == "gaussian":
         sr = ptt.GaussianRast.create(sigma=SIGMA, nb_samples=S)
         sa = ptt.GaussianAgg.create(gamma=GAMMA, nb_samples=S)
@@ -119,10 +293,11 @@ def headline_renderer(noise, device):
     return ptt.MeshRenderer(ptt.MeshRasterizer(cams, settings), shader)
 
 
-def posed_cube(generator, device):
+def posed_cube(generator, device, log_rot=None):
     """The cube x2 at N_POSES random rotations drawn from ``generator``."""
     cube = ptt.load_cube(device=device).scale_verts(2.0).extend(N_POSES)
-    log_rot = torch.randn(N_POSES, 3, generator=generator).to(device)
+    if log_rot is None:
+        log_rot = torch.randn(N_POSES, 3, generator=generator).to(device)
     rot = ptt.so3_exp_map(log_rot)
     return cube.update_padded(ptt.Rotate(rot).transform_points(cube.verts))
 
@@ -136,23 +311,15 @@ def kernel_inputs(renderer, mesh, seeds):
                                    sh.blend_params, settings, seeds, "phong")
 
 
-def main():
-    if not torch.cuda.is_available():
-        fail("no CUDA device: this smoke test runs the port on a GPU")
-    dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-    cap = torch.cuda.get_device_capability(0)
-    smi = smi_name_power()
-    if cap != (9, 0):
-        fail(f"{name} has capability {cap}; the kernels are built for sm_90a")
-    t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
-    print(f"[device] {name} capability {cap} | nvidia-smi: {smi} | torch "
-          f"{torch.__version__} cuda {torch.version.cuda} | kernel build "
-          f"{build_s:.2f} s (nvcc {_build.build_seconds})", flush=True)
+def headline_inputs(noise, dev):
+    renderer = headline_renderer(noise, dev)
+    mesh = posed_cube(torch.Generator().manual_seed(0), dev)
+    seeds = fr.draw_seeds(N_POSES, torch.Generator().manual_seed(1),
+                          device=dev)
+    return kernel_inputs(renderer, mesh, seeds)
 
-    # ---- K1 --------------------------------------------------------------
+
+def phase_k1(dev, smi, report):
     goldens = np.load(GOLDENS)
     k1_err = 0.0
     for nt in ("uniform", "gaussian", "cauchy"):
@@ -174,21 +341,22 @@ def main():
         k1_err = max(k1_err, perr)
         if not ok or perr > 1e-5:
             fail(f"K1 {nt}: vs goldens {gerr}, vs plain {perr}")
-    k1_ms, k1_plain_ms = timed_pair(
+    ms, plain_ms = timed_pair(
         lambda: fr.prng_probe("gaussian", device=dev),
         lambda: fr.prng_probe_plain("gaussian", device=dev), 50)
+    # (4, 16, 256) gaussian: 4 * 8 * 256 Box-Muller pairs, 64 KB out.
+    b_ms, b_by = bound(4 * 16 * 256 * 4, 4 * 8 * 256 * OPS_PAIR)
+    report["prng_probe"] = dict(max_abs_err=k1_err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by)
     print(f"[K1] prng_probe: uniform bit-exact vs goldens, gaussian/cauchy "
           f"within 5e-4 abs / 1e-5 rel; max |kernel - plain| {k1_err:.3g}; "
-          f"{k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms | {smi}",
-          flush=True)
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.2e} ms "
+          f"({b_by}) | {smi}", flush=True)
 
-    # ---- K3 at the headline configuration -------------------------------
-    k3 = {}
+
+def phase_k3(dev, smi, report):
     for noise in ("gaussian", "softras"):
-        renderer = headline_renderer(noise, dev)
-        mesh = posed_cube(torch.Generator().manual_seed(0), dev)
-        seeds = fr.draw_seeds(N_POSES, torch.Generator().manual_seed(1))
-        cfg, ins = kernel_inputs(renderer, mesh, seeds)
+        cfg, ins = headline_inputs(noise, dev)
         got = fr.fused_forward(cfg, *ins)
         want = fr.forward_plain(cfg, *ins)
         torch.cuda.synchronize()
@@ -202,22 +370,109 @@ def main():
             fail(f"K3 {noise}: max {dmax} mean {dmean} flips {flips}")
         k_ms, p_ms = timed_pair(lambda: fr.fused_forward(cfg, *ins),
                                 lambda: fr.forward_plain(cfg, *ins), 20)
-        k3[noise] = dict(max_abs_err=dmax, ms=k_ms, plain_ms=p_ms)
+        w = work(cfg, ins)
+        b_ms, b_by = bound(table_bytes(cfg, N_POSES) + 16 * w["pixels"],
+                           forward_ops(cfg, w))
+        if noise == "gaussian":
+            report["fused_forward"] = dict(max_abs_err=dmax, ms=k_ms,
+                                           plain_ms=p_ms, bound_ms=b_ms,
+                                           bound_by=b_by)
         print(f"[K3] fused_forward {noise} 256^2 K=50 S=8 N=4 (f_pad "
               f"{cfg.f_pad}, c_zpad {cfg.c_zpad}): max |d| {dmax:.3g}, mean "
               f"|d| {dmean:.3g}, pixels beyond 1e-4 {flips:.3g}; "
-              f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms per render | {smi}",
+              f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms per render, bound "
+              f"{b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+
+
+def phase_k4(dev, smi, report):
+    for noise in ("gaussian", "softras"):
+        cfg, ins = headline_inputs(noise, dev)
+        g_out = torch.randn(N_POSES, IMAGE, IMAGE, 4,
+                            generator=torch.Generator().manual_seed(2)).to(dev)
+        got = fr.fused_backward(cfg, *ins, g_out)
+        again = fr.fused_backward(cfg, *ins, g_out)
+        want = fr.backward_plain(cfg, *ins, g_out)
+        torch.cuda.synchronize()
+        tol = 1e-3 if noise == "gaussian" else 1e-4
+        ok, err, where = tables_close(got, want, tol)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not ok or not same:
+            fail(f"K4 {noise}: worst table error {err} at {where} "
+                 f"(tolerance {tol}), repeat bit-equal {same}")
+        k_ms, p_ms = timed_pair(
+            lambda: fr.fused_backward(cfg, *ins, g_out),
+            lambda: fr.backward_plain(cfg, *ins, g_out), 5)
+        w = work(cfg, ins)
+        nbytes = 2 * table_bytes(cfg, N_POSES) + 16 * w["pixels"]
+        b_ms, b_by = bound(nbytes, grad_ops(cfg, w, False))
+        if noise == "gaussian":
+            report["fused_backward"] = dict(max_abs_err=err, ms=k_ms,
+                                            plain_ms=p_ms, bound_ms=b_ms,
+                                            bound_by=b_by)
+        print(f"[K4] fused_backward {noise} 256^2 K=50 S=8 N=4: worst table "
+              f"error {err:.3g} of max |grad| at {where} (tolerance {tol}), "
+              f"repeat bit-equal; {w['cand']} candidate (slot, pixel) pairs, "
+              f"{w['live']} live z_map rows; {k_ms:.4f} "
+              f"ms vs plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | "
+              f"{smi}", flush=True)
+
+
+def phase_k2(dev, smi, report):
+    for noise in ("gaussian", "softras"):
+        cfg, ins = headline_inputs(noise, dev)
+        n, hw = N_POSES, IMAGE * IMAGE
+        target = torch.rand(n, 3, hw,
+                            generator=torch.Generator().manual_seed(3)).to(dev)
+        lscale = 1.0 / (n * hw * 3)
+        loss, *got = fr.fused_loss_grad(cfg, *ins, target, "l2_rgb", lscale)
+        want_loss, *want = fr.loss_grad_plain(cfg, *ins, target, "l2_rgb",
+                                              lscale)
+        torch.cuda.synchronize()
+        tol = 1e-3 if noise == "gaussian" else 1e-4
+        ok, err, where = tables_close(got, want, tol)
+        lerr = ((loss - want_loss).abs() / want_loss.abs()).max().item()
+        if not ok or lerr > 1e-5:
+            fail(f"K2 {noise}: worst table error {err} at {where} "
+                 f"(tolerance {tol}), loss rel error {lerr}")
+        # Dual path: K3's image, the L2 cotangent, K4.
+        img = fr.fused_forward(cfg, *ins)
+        d = img[..., :3].reshape(n, hw, 3).transpose(1, 2) - target
+        g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(n, IMAGE, IMAGE,
+                                                            3)
+        g_out = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1])], dim=-1)
+        dual = fr.fused_backward(cfg, *ins, g_out.contiguous())
+        dual_loss = torch.sum(d * d, dim=(1, 2)) * lscale
+        ok, derr, dwhere = tables_close(got, dual, 1e-5)
+        dlerr = ((loss - dual_loss).abs() / dual_loss.abs()).max().item()
+        if not ok or dlerr > 1e-5:
+            fail(f"K2 {noise} vs K3 + K4: worst table error {derr} at "
+                 f"{dwhere}, loss rel error {dlerr}")
+        k_ms, p_ms = timed_pair(
+            lambda: fr.fused_loss_grad(cfg, *ins, target, "l2_rgb", lscale),
+            lambda: fr.loss_grad_plain(cfg, *ins, target, "l2_rgb", lscale),
+            5)
+        w = work(cfg, ins)
+        nbytes = 2 * table_bytes(cfg, n) + 12 * w["pixels"] + 4 * n
+        b_ms, b_by = bound(nbytes, grad_ops(cfg, w, True))
+        if noise == "gaussian":
+            report["fused_loss_grad"] = dict(max_abs_err=err, ms=k_ms,
+                                             plain_ms=p_ms, bound_ms=b_ms,
+                                             bound_by=b_by)
+        print(f"[K2] fused_loss_grad {noise} 256^2 K=50 S=8 N=4: loss rel "
+              f"error {lerr:.3g}, worst table error {err:.3g} at {where} (tolerance "
+              f"{tol}); vs K3 + K4 {derr:.3g}; {k_ms:.4f} ms vs plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}",
               flush=True)
 
-    # ---- serve: the main path ---------------------------------------------
+
+def phase_serve(dev, smi, report):
     gen = torch.Generator().manual_seed(2026)
     warm = headline_renderer("gaussian", dev)
     warm(posed_cube(gen, dev), generator=gen)         # build + cache warm
     torch.cuda.synchronize()
     renderer = headline_renderer("gaussian", dev)
     first_state, first_image, lat_ms, alphas = None, None, [], []
-    for k in fr.launch_counts:
-        fr.launch_counts[k] = 0
+    reset_counts()
     t_all = time.perf_counter()
     for i in range(N_REQUESTS):
         t0 = time.perf_counter()
@@ -239,13 +494,15 @@ def main():
         fail(f"serve: launch counts {counts}")
     if not all(0.02 < a < 0.6 for a in alphas):
         fail(f"serve: coverage shares {alphas}")
+    report["prng_probe"]["launches"] = counts["prng_probe"]
+    report["fused_forward"]["launches"] = counts["fused_forward"]
     # The first request again on the CPU, through the plain version.
     cpu_renderer = headline_renderer("gaussian", "cpu")
     cpu_mesh = ptt.Meshes(
         verts=first_mesh.verts.cpu(), faces=first_mesh.faces.cpu(),
         num_verts=first_mesh.num_verts.cpu(),
         num_faces=first_mesh.num_faces.cpu(),
-        textures=ptt.load_cube().textures.extend(N_POSES))
+        textures=ptt.load_cube(device="cpu").textures.extend(N_POSES))
     cpu_gen = torch.Generator()
     cpu_gen.set_state(first_state)
     ok, dmax, dmean, flips = mc_close(first_image.cpu(),
@@ -258,23 +515,212 @@ def main():
     print(f"[serve] {N_REQUESTS} requests x {N_POSES} poses through "
           f"MeshRenderer: launches {counts}; coverage share alpha>0.5 "
           f"{min(alphas):.3f}-{max(alphas):.3f}; request latency median "
-          f"{med:.3f} ms (after the first), {N_REQUESTS * N_POSES / total_s:.1f}"
-          f" renders/s; vs CPU plain max |d| {dmax:.3g} | {smi}", flush=True)
+          f"{med:.3f} ms (after the first), "
+          f"{N_REQUESTS * N_POSES / total_s:.1f} renders/s; vs CPU plain max "
+          f"|d| {dmax:.3g} | {smi}", flush=True)
 
-    report = {"kernels": [
-        {"name": "prng_probe", "route": "cuda",
-         "source": "pertrenderer_tpu_torch/csrc/prng_probe.cu",
-         "replaces": "pertrenderer_tpu/ops/fused_render.py:263",
-         "launches": counts["prng_probe"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "fused_forward", "route": "cuda",
-         "source": "pertrenderer_tpu_torch/csrc/fused_forward.cu",
-         "replaces": "pertrenderer_tpu/ops/fused_render.py:799",
-         "launches": counts["fused_forward"],
-         "max_abs_err": k3["gaussian"]["max_abs_err"],
-         "ms": k3["gaussian"]["ms"], "plain_ms": k3["gaussian"]["plain_ms"]},
-    ]}
-    print(json.dumps(report))
+
+def phase_render_grad(dev, smi, report):
+    """Gradients of an image objective through MeshRenderer: K3 forward,
+    K4 backward."""
+    gen = torch.Generator().manual_seed(2028)
+    renderer = headline_renderer("gaussian", dev)
+    weights = torch.linspace(0.0, 1.0, 4, device=dev)
+    reset_counts()
+    lat_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        log_rot = torch.randn(N_POSES, 3, generator=gen).to(dev)
+        log_rot.requires_grad_()
+        img = renderer(posed_cube(gen, dev, log_rot), generator=gen)
+        (g,) = torch.autograd.grad(torch.mean(img * weights), [log_rot])
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (bool(torch.isfinite(g).all()) and g.abs().max() > 0):
+            fail(f"render-grad: pose gradient {g}")
+    counts = dict(fr.launch_counts)
+    if counts["fused_forward"] != 4 or counts["fused_backward"] != 4:
+        fail(f"render-grad: launch counts {counts}")
+    report["fused_backward"]["launches"] = counts["fused_backward"]
+    print(f"[render-grad] 4 requests x {N_POSES} poses, render + pose "
+          f"gradient through MeshRenderer: launches {counts}; request "
+          f"latency median {statistics.median(lat_ms[1:]):.3f} ms | {smi}",
+          flush=True)
+
+
+def train_setup(device, r_true, gen_seed):
+    """(mesh, cameras, lights, renderer, log_rot_init, target) of the pose
+    loop on ``device``: the headline scene at N=1."""
+    r, t, lights = scene(device)
+    cams = ptt.PerspectiveCameras.create(R=r, T=t, fov=60.0, device=device)
+    mesh = ptt.load_cube(device=device).scale_verts(2.0)
+    hard = ptt.MeshRenderer(
+        ptt.MeshRasterizer(cams, ptt.RasterizationSettings(
+            image_size=IMAGE, blur_radius=0.0, faces_per_pixel=K)),
+        ptt.RandomPhongShader.create(
+            cameras=cams, lights=lights, smoothrast=ptt.HardRast.create(),
+            smoothagg=ptt.HardAgg.create(),
+            blend_params=ptt.BlendParams(SIGMA, GAMMA, (0.0, 0.0, 0.0)),
+            device=device))
+    posed = mesh.update_padded(ptt.Rotate(r_true).transform_points(
+        mesh.verts))
+    target = hard(posed, seeds=torch.zeros(1, 4, dtype=torch.int32))[0, ...,
+                                                                      :3]
+    log_rot, (renderer,) = harness.init_renderers(
+        cams, lights, r_true, torch.Generator().manual_seed(gen_seed),
+        pert_init_intensity=TRAIN_OFFSET_DEG, sigma=SIGMA, gamma=GAMMA,
+        nb_samples=S, noise_type=("gaussian",), imsize=IMAGE,
+        faces_per_pixel=K)
+    return mesh, cams, lights, renderer, log_rot, target
+
+
+def degrees_off(log_rot, r_true):
+    return float(ptt.so3_relative_angle(ptt.so3_exp_map(log_rot), r_true)
+                 .item()) * 180.0 / math.pi
+
+
+def phase_train(dev, smi, report):
+    r_true = ptt.random_rotations(1, torch.Generator().manual_seed(2027),
+                                  device="cpu")
+    mesh, cams, lights, renderer, log_rot, target = train_setup(
+        dev, r_true.to(dev), 5)
+
+    # The first step, on the card and on the CPU (plain versions).
+    seeds = fr.draw_seeds(1, torch.Generator().manual_seed(7), device="cpu")
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        if where == dev:
+            m, c, li, rd, tg = mesh, cams, lights, renderer, target
+        else:
+            m, c, li, rd, _lr, _tg = train_setup(where, r_true, 5)
+            tg = target.cpu()
+        st = harness.PoseState.start(log_rot.to(where))
+        opt = torch.optim.Adam([st.log_rot], lr=TRAIN_LR)
+        outs.append(harness.pose_step(m, tg, st, rd, c, li, opt,
+                                      seeds.to(where),
+                                      torch.zeros(1, 3))[1])
+    gpu, cpu = outs
+    lerr = abs(gpu.loss.item() - cpu.loss.item()) / abs(cpu.loss.item())
+    gerr = ((gpu.g_pose.cpu() - cpu.g_pose).abs().max()
+            / cpu.g_pose.abs().max()).item()
+    if lerr > 1e-4 or gerr > 1e-3:
+        fail(f"train: first step card vs CPU plain: loss rel {lerr}, pose "
+             f"gradient {gerr} of its max")
+
+    # The main path: optimize_pose, counts reset just before.
+    start_deg = degrees_off(log_rot, r_true.to(dev))
+    torch.cuda.synchronize()
+    reset_counts()
+    res = harness.optimize_pose(
+        mesh, cams, lights, log_rot, renderer, [target],
+        generator=torch.Generator().manual_seed(8), lr_init=TRAIN_LR,
+        Niter=TRAIN_STEPS, segment_size=TRAIN_STEPS)
+    counts = dict(fr.launch_counts)
+    if counts["fused_loss_grad"] != TRAIN_STEPS:
+        fail(f"train: launch counts {counts}")
+    if not (np.all(np.isfinite(res.losses))
+            and np.all(np.isfinite(res.grad_norms))):
+        fail(f"train: losses {res.losses} grad norms {res.grad_norms}")
+    best = float(np.min(res.losses))
+    if not best < res.losses[0]:
+        fail(f"train: best loss {best} not below the first {res.losses[0]}")
+    report["fused_loss_grad"]["launches"] = counts["fused_loss_grad"]
+    steps_s = TRAIN_STEPS / res.runtimes["total"][0]
+    end_deg = degrees_off(res.best_log_rot, r_true.to(dev))
+
+    # Where a step's time goes: the whole step (synchronised), K2 alone
+    # and the Adam update alone, at the final pose.
+    gen = torch.Generator().manual_seed(9)
+    st = harness.PoseState.start(res.log_rot)
+    opt = torch.optim.Adam([st.log_rot], lr=TRAIN_LR)
+    step_ms = []
+    for _ in range(11):
+        sd = fr.draw_seeds(1, gen, device=dev)
+        t0 = time.perf_counter()
+        st, _out = harness.pose_step(mesh, target, st, renderer, cams,
+                                     lights, opt, sd, torch.zeros(1, 3))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    sd = fr.draw_seeds(1, gen, device=dev)
+
+    def prep():          # pose -> kernel inputs, with the autograd graph
+        posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(
+            st.log_rot)).transform_points(mesh.verts))
+        return kernel_inputs(renderer, posed, sd)
+
+    prep_ms = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        cfg, ins = prep()
+        torch.cuda.synchronize()
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    ins = [t.detach() for t in ins]
+    tcm = target.permute(2, 0, 1).reshape(1, 3, -1).contiguous()
+    k2_ms = cuda_ms(lambda: fr.fused_loss_grad(
+        cfg, *ins, tcm, "l2_rgb", 1.0 / (3 * IMAGE * IMAGE)), 10)
+    st.log_rot.grad = torch.ones_like(st.log_rot)
+    adam_ms = cuda_ms(opt.step, 20)
+    med = statistics.median(step_ms[1:])
+    prep_med = statistics.median(prep_ms[1:])
+    print(f"[train] optimize_pose {TRAIN_STEPS} steps, N=1, headline "
+          f"config, lr {TRAIN_LR}: launches {counts}; loss "
+          f"{res.losses[0]:.5g} -> best {best:.5g}; pose error "
+          f"{start_deg:.2f} -> {end_deg:.2f} deg; "
+          f"{steps_s:.1f} steps/s ({res.runtimes['total'][0] * 1e3:.1f} ms "
+          f"for {TRAIN_STEPS} steps); synchronised step median {med:.3f} ms: "
+          f"input prep {prep_med:.3f} ms (host clock), K2 {k2_ms:.4f} ms, "
+          f"Adam {adam_ms:.4f} ms (CUDA events), the rest (the prep's "
+          f"backward, Python) {med - prep_med - k2_ms - adam_ms:.3f} ms; "
+          f"first step vs CPU plain: loss rel {lerr:.3g}, pose "
+          f"gradient {gerr:.3g} of max | {smi}", flush=True)
+
+
+SOURCES = {
+    "prng_probe": ("csrc/prng_probe.cu", "ops/fused_render.py:263"),
+    "fused_forward": ("csrc/fused_forward.cu", "ops/fused_render.py:799"),
+    "fused_backward": ("csrc/fused_backward.cu", "ops/fused_render.py:873"),
+    "fused_loss_grad": ("csrc/fused_loss_grad.cu",
+                        "ops/fused_render.py:2962"),
+}
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke test runs the port on a GPU")
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    smi = smi_name_power()
+    if cap != (9, 0):
+        fail(f"{name} has capability {cap}; the kernels are built for sm_90a")
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    print(f"[device] {name} capability {cap} | nvidia-smi: {smi} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda} | kernel build "
+          f"{build_s:.2f} s (nvcc {_build.build_seconds})", flush=True)
+
+    report = {}
+    phase_k1(dev, smi, report)
+    phase_k3(dev, smi, report)
+    phase_k4(dev, smi, report)
+    phase_k2(dev, smi, report)
+    phase_serve(dev, smi, report)
+    phase_render_grad(dev, smi, report)
+    phase_train(dev, smi, report)
+
+    kernels = []
+    for kname, (src, replaces) in SOURCES.items():
+        r = report[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"pertrenderer_tpu_torch/{src}",
+            "replaces": f"pertrenderer_tpu/{replaces}",
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

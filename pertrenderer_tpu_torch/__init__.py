@@ -3,10 +3,13 @@
 Differentiable rendering with perturbed optimizers, ported from the JAX
 package ``pertrenderer_tpu`` (the reference it is held against) to PyTorch
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).  The port covers
-the flat fused forward render: ``MeshRenderer(meshes, seeds=...)`` on scenes
-whose faces all fit a slot (F <= faces_per_pixel), through kernel K3, with
-the hash PRNG pinned by kernel K1.  On CPU tensors every kernel runs as its
-plain PyTorch version.
+the flat fused route, on scenes whose faces all fit a slot
+(F <= faces_per_pixel): ``MeshRenderer(meshes, seeds=...)`` renders through
+kernel K3 and its gradients come from K4; ``MeshRenderer.render_loss``
+gives an image loss and every gradient from one launch of K2; the hash
+PRNG is pinned by K1.  ``experiments.harness.optimize_pose`` runs the pose
+optimisation loop on top.  On CPU tensors every kernel runs as its plain
+PyTorch version.
 
 Everything is float32.  TF32 is turned off here, at import: a TF32 matmul
 keeps ~3 decimal digits, which moves projected vertices by more than a
@@ -74,6 +77,7 @@ from pertrenderer_tpu_torch.textures import (  # noqa: E402
 )
 from pertrenderer_tpu_torch.transforms import (  # noqa: E402
     Rotate,
+    random_rotations,
     so3_exp_map,
     so3_exponential_map,
     so3_log_map,

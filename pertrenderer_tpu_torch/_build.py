@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  Nothing is
+shared library with a plain C interface, loaded with ``ctypes``: one
+``nvcc -c`` per source, all started together, then one link.  Nothing is
 compiled at import: the CPU tests import every module of the package.
 
 The library lands in ``pertrenderer_tpu_torch/_build/`` under a name keyed
@@ -24,11 +25,12 @@ from typing import Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("prng_probe.cu", "fused_forward.cu")
-HEADERS = ("hash_prng.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
+           "fused_loss_grad.cu")
+HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                     "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -60,18 +62,34 @@ def _digest() -> str:
 def _compile(target: str) -> None:
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    tag = f"{target}.{os.getpid()}"
+    objs = [f"{tag}.{i}.o" for i in range(len(SOURCES))]
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+            for src, obj in zip(SOURCES, objs)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [pr.communicate()[0] for pr in procs]
+    link = [nvcc, *ARCH, "-shared", "-o", f"{tag}.tmp", *objs]
+    failed = [c for c, pr in zip(cmds, procs) if pr.returncode != 0]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(link)
     build_seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr            # ptxas resource use (-v)
+    log = "\n".join(" ".join(c) + "\n" + out          # ptxas resource use
+                    for c, out in zip(cmds + [link], logs))
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, target)     # atomic: a concurrent loader sees all or none
+        f.write(log)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n{log}")
+    os.replace(f"{tag}.tmp", target)   # atomic: a concurrent loader sees all
 
 
 def library() -> ctypes.CDLL:
@@ -86,9 +104,19 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pt_prng_probe.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.pt_prng_probe.restype = i32
-    lib.pt_fused_forward.argtypes = ([ptr] * 8 + [i32] * 13
-                                     + [ctypes.c_float] + [i32] * 4 + [ptr])
+    # n and the static configuration (fused_render._cfg_args).
+    config = [i32] * 16 + [ctypes.c_float] + [i32] * 4
+    lib.pt_fused_forward.argtypes = [ptr] * 8 + config + [ptr]
     lib.pt_fused_forward.restype = i32
+    grads = ([ptr] * 9 + [i32] + [ptr] * 6 + config
+             + [i32, ctypes.c_float, ptr])
+    for fn in (lib.pt_fused_backward, lib.pt_fused_loss_grad):
+        fn.argtypes = grads
+        fn.restype = i32
+    lib.pt_grad_partial_warps.argtypes = [i32] * 4
+    lib.pt_grad_partial_warps.restype = i32
+    lib.pt_grad_partial_width.argtypes = [i32] * 2
+    lib.pt_grad_partial_width.restype = i32
     lib.pt_error_string.argtypes = [i32]
     lib.pt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -47,7 +47,7 @@ class PerspectiveCameras:
 
     @classmethod
     def create(cls, R=None, T=None, fov=60.0, znear=1.0, zfar=100.0,
-               aspect_ratio=1.0, device="cpu") -> "PerspectiveCameras":
+               aspect_ratio=1.0, device="cuda") -> "PerspectiveCameras":
         R = torch.eye(3)[None] if R is None else R
         R = _f32(R, device)
         if R.dim() == 2:
@@ -91,7 +91,7 @@ OpenGLPerspectiveCameras = PerspectiveCameras
 
 
 def look_at_rotation(camera_position, at=None, up=None,
-                     device="cpu") -> torch.Tensor:
+                     device="cuda") -> torch.Tensor:
     """Rotations (N, 3, 3) whose columns are the camera x/y/z axes in world
     coordinates, for cameras at ``camera_position`` looking at ``at``."""
     camera_position = torch.atleast_2d(_f32(camera_position, device))
@@ -111,7 +111,7 @@ def look_at_rotation(camera_position, at=None, up=None,
 
 
 def look_at_view_transform(dist=1.0, elev=0.0, azim=0.0, degrees=True,
-                           at=None, up=None, device="cpu"
+                           at=None, up=None, device="cuda"
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Camera (R, T) from spherical coordinates; dist/elev/azim broadcast to
     a common batch (N,).  elev = azim = 0 puts the camera at (0, 0, dist)."""

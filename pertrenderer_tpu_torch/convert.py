@@ -4,7 +4,11 @@ Each function takes plain values — numpy arrays, or anything ``np.asarray``
 accepts, such as the JAX objects' fields — and builds the port's object.
 :func:`from_reference` walks a JAX scene object (mesh, textures, cameras,
 lights, materials, estimators, settings, shader, rasterizer or renderer)
-by its field names, so the tests feed both packages the same scene.  No
+by its field names, so the tests feed both packages the same scene, and a
+pose-optimisation state (``log_rot`` through :func:`tensor`; sigma, gamma
+and alpha as tensors, ``nb_samples`` and the blur override through the
+renderer) starts the same in both.  Every estimator of the menu keeps its
+class, so the ``_wovr`` members keep their variance-reduction bit.  No
 JAX import is needed: fields are read with ``np.asarray``.
 """
 
@@ -27,12 +31,12 @@ __all__ = ["tensor", "meshes", "textures_uv", "textures_vertex",
            "smoothagg_from", "from_reference"]
 
 
-def tensor(x, dtype=torch.float32, device="cpu") -> torch.Tensor:
+def tensor(x, dtype=torch.float32, device="cuda") -> torch.Tensor:
     """A numpy-convertible array as a tensor (copied)."""
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def textures_uv(maps, verts_uvs, faces_uvs, atlas_size=0, device="cpu"):
+def textures_uv(maps, verts_uvs, faces_uvs, atlas_size=0, device="cuda"):
     return textures.TexturesUV(
         maps=tensor(maps, device=device),
         verts_uvs=tensor(verts_uvs, device=device),
@@ -40,15 +44,15 @@ def textures_uv(maps, verts_uvs, faces_uvs, atlas_size=0, device="cpu"):
         atlas_size=int(atlas_size))
 
 
-def textures_vertex(verts_features, device="cpu"):
+def textures_vertex(verts_features, device="cuda"):
     return textures.TexturesVertex(tensor(verts_features, device=device))
 
 
-def textures_atlas(atlas, device="cpu"):
+def textures_atlas(atlas, device="cuda"):
     return textures.TexturesAtlas(tensor(atlas, device=device))
 
 
-def meshes(verts, faces, num_verts, num_faces, tex=None, device="cpu"):
+def meshes(verts, faces, num_verts, num_faces, tex=None, device="cuda"):
     return structures.Meshes(
         verts=tensor(verts, device=device),
         faces=tensor(faces, torch.int64, device),
@@ -56,7 +60,8 @@ def meshes(verts, faces, num_verts, num_faces, tex=None, device="cpu"):
         num_faces=tensor(num_faces, torch.int64, device), textures=tex)
 
 
-def perspective_cameras(R, T, fov, znear, zfar, aspect_ratio, device="cpu"):
+def perspective_cameras(R, T, fov, znear, zfar, aspect_ratio,
+                        device="cuda"):
     f = lambda x: tensor(x, device=device)
     return cameras.PerspectiveCameras(R=f(R), T=f(T), fov=f(fov),
                                       znear=f(znear), zfar=f(zfar),
@@ -64,44 +69,46 @@ def perspective_cameras(R, T, fov, znear, zfar, aspect_ratio, device="cpu"):
 
 
 def point_lights(location, ambient_color, diffuse_color, specular_color,
-                 device="cpu"):
+                 device="cuda"):
     f = lambda x: tensor(x, device=device)
     return lights.PointLights(f(location), f(ambient_color),
                               f(diffuse_color), f(specular_color))
 
 
 def directional_lights(direction, ambient_color, diffuse_color,
-                       specular_color, device="cpu"):
+                       specular_color, device="cuda"):
     f = lambda x: tensor(x, device=device)
     return lights.DirectionalLights(f(direction), f(ambient_color),
                                     f(diffuse_color), f(specular_color))
 
 
 def materials(ambient_color, diffuse_color, specular_color, shininess,
-              device="cpu"):
+              device="cuda"):
     f = lambda x: tensor(x, device=device)
     return lights.Materials(f(ambient_color), f(diffuse_color),
                             f(specular_color), f(shininess))
 
 
-def smoothrast_from(name: str, sigma, nb_samples: int):
+def smoothrast_from(name: str, sigma, nb_samples: int, device="cuda"):
     """The SmoothRast member ``name`` (the JAX class name)."""
     cls = getattr(smoothrast, name)
     if cls is smoothrast.HardRast:
         return cls()
-    return dataclasses.replace(cls.create(), sigma=tensor(sigma),
+    return dataclasses.replace(cls.create(), sigma=tensor(sigma,
+                                                          device=device),
                                nb_samples=int(nb_samples))
 
 
 def smoothagg_from(name: str, gamma, alpha, eps: float, nb_samples: int,
-                   fixed_noise: bool = False):
+                   fixed_noise: bool = False, device="cuda"):
     """The SmoothAgg member ``name`` (the JAX class name)."""
     cls = getattr(smoothagg, name)
     if cls is smoothagg.HardAgg:
         return cls(eps=float(eps))
-    agg = dataclasses.replace(cls.create(), gamma=tensor(gamma),
-                              alpha=tensor(alpha), eps=float(eps),
-                              nb_samples=int(nb_samples))
+    agg = dataclasses.replace(cls.create(), gamma=tensor(gamma,
+                                                         device=device),
+                              alpha=tensor(alpha, device=device),
+                              eps=float(eps), nb_samples=int(nb_samples))
     if fixed_noise:
         agg = dataclasses.replace(agg, fixed_noise=True)
     return agg
@@ -113,7 +120,7 @@ _AGG_NAMES = ("SoftAgg", "GaussianAgg", "GaussianAgg_wovr", "CauchyAgg",
               "HardAgg")
 
 
-def from_reference(obj, device="cpu", _memo=None):
+def from_reference(obj, device="cuda", _memo=None):
     """The port's counterpart of a JAX scene object, read field by field.
     Objects shared inside ``obj`` (a shader's and a rasterizer's cameras)
     stay shared."""
@@ -148,11 +155,11 @@ def from_reference(obj, device="cpu", _memo=None):
         out = materials(obj.ambient_color, obj.diffuse_color,
                         obj.specular_color, obj.shininess, device)
     elif name in _RAST_NAMES:
-        out = smoothrast_from(name, obj.sigma, obj.nb_samples)
+        out = smoothrast_from(name, obj.sigma, obj.nb_samples, device)
     elif name in _AGG_NAMES:
         out = smoothagg_from(name, obj.gamma, obj.alpha, obj.eps,
                              obj.nb_samples,
-                             getattr(obj, "fixed_noise", False))
+                             getattr(obj, "fixed_noise", False), device)
     elif name == "BlendParams":
         out = blending.BlendParams(
             float(obj.sigma), float(obj.gamma),
@@ -171,7 +178,7 @@ def from_reference(obj, device="cpu", _memo=None):
         out = renderer.MeshRasterizer(conv(obj.cameras),
                                       conv(obj.raster_settings))
         if obj.blur_override is not None:
-            out.update_blur(float(np.asarray(obj.blur_override)))
+            out = out.update_blur(float(np.asarray(obj.blur_override)))
     elif name == "MeshRenderer":
         out = renderer.MeshRenderer(conv(obj.rasterizer), conv(obj.shader))
     else:

@@ -50,7 +50,7 @@ def cube_texture_image(strip_px: int = 16, height: int = 8) -> np.ndarray:
     return img
 
 
-def load_cube(device="cpu") -> Meshes:
+def load_cube(device="cuda") -> Meshes:
     """The Rubik's-cube test asset with a one-texel-per-face baked atlas
     (exact: each cube side maps to a constant strip)."""
     verts, faces, verts_uvs, faces_uvs = cube_mesh_data()

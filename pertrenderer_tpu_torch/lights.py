@@ -28,7 +28,7 @@ class Materials:
     def create(cls, ambient_color=(1.0, 1.0, 1.0),
                diffuse_color=(1.0, 1.0, 1.0),
                specular_color=(1.0, 1.0, 1.0), shininess=64.0, batch=1,
-               device="cpu") -> "Materials":
+               device="cuda") -> "Materials":
         shin = torch.as_tensor(shininess, dtype=torch.float32, device=device)
         return cls(ambient_color=_color(ambient_color, batch, device),
                    diffuse_color=_color(diffuse_color, batch, device),
@@ -46,7 +46,7 @@ class PointLights:
     @classmethod
     def create(cls, location=(0.0, 1.0, 0.0), ambient_color=(0.5, 0.5, 0.5),
                diffuse_color=(0.3, 0.3, 0.3), specular_color=(0.2, 0.2, 0.2),
-               batch=1, device="cpu") -> "PointLights":
+               batch=1, device="cuda") -> "PointLights":
         return cls(location=_color(location, batch, device),
                    ambient_color=_color(ambient_color, batch, device),
                    diffuse_color=_color(diffuse_color, batch, device),
@@ -63,7 +63,7 @@ class DirectionalLights:
     @classmethod
     def create(cls, direction=(0.0, 1.0, 0.0), ambient_color=(0.5, 0.5, 0.5),
                diffuse_color=(0.3, 0.3, 0.3), specular_color=(0.2, 0.2, 0.2),
-               batch=1, device="cpu") -> "DirectionalLights":
+               batch=1, device="cuda") -> "DirectionalLights":
         return cls(direction=_color(direction, batch, device),
                    ambient_color=_color(ambient_color, batch, device),
                    diffuse_color=_color(diffuse_color, batch, device),

@@ -2,9 +2,10 @@
 ``pertrenderer_tpu/models/renderer.py``).
 
 ``MeshRenderer(meshes, seeds=..., generator=...)`` renders (N, H, W, 4) RGBA
-through the flat fused forward (kernel K3).  Configurations the JAX package
-sends down another route (stream, binned, sharded, staged) raise
-``NotImplementedError`` naming the route.
+through the flat fused forward (kernel K3), whose gradients come from K4;
+``render_loss`` gives an image loss and all its gradients from one launch
+of K2.  Configurations the JAX package sends down another route (stream,
+binned, sharded, staged) raise ``NotImplementedError`` naming the route.
 """
 
 from __future__ import annotations
@@ -45,10 +46,11 @@ class MeshRasterizer(nn.Module):
         return self.raster_settings.blur_radius
 
     def update_blur(self, blur_radius) -> "MeshRasterizer":
-        """Set the blur override in place; returns self."""
-        self.blur_override = torch.as_tensor(blur_radius,
-                                             dtype=torch.float32)
-        return self
+        """A rasterizer with the blur override set (the settings and the
+        cameras are shared, this one is unchanged)."""
+        out = MeshRasterizer(self.cameras, self.raster_settings)
+        out.blur_override = torch.as_tensor(blur_radius, dtype=torch.float32)
+        return out
 
 
 class MeshRenderer(nn.Module):
@@ -66,6 +68,22 @@ class MeshRenderer(nn.Module):
     @classmethod
     def create(cls, rasterizer, shader):
         return cls(rasterizer=rasterizer, shader=shader)
+
+    def replace(self, rasterizer=None, shader=None) -> "MeshRenderer":
+        """A renderer with the given parts swapped in (the JAX package's
+        ``renderer.replace``); it shares this one's checked devices."""
+        out = MeshRenderer(rasterizer if rasterizer is not None
+                           else self.rasterizer,
+                           shader if shader is not None else self.shader)
+        out._checked_devices = self._checked_devices
+        return out
+
+    def _check_device(self, dev):
+        """Check a CUDA device's hash-PRNG stream (K1) once: every MC
+        render draws from it and every MC gradient replays it."""
+        if dev.type == "cuda" and dev not in self._checked_devices:
+            fused_render.check_prng_stream(dev)
+            self._checked_devices.add(dev)
 
     def _fused_args(self, kwargs):
         shader = self.shader
@@ -100,10 +118,7 @@ class MeshRenderer(nn.Module):
         the card's hash-PRNG stream (kernel K1) before rendering."""
         (cameras, lights, materials, sr, sa, blend, settings), shade = \
             self._fused_args(kwargs)
-        dev = meshes.device
-        if dev.type == "cuda" and dev not in self._checked_devices:
-            fused_render.check_prng_stream(dev)
-            self._checked_devices.add(dev)
+        self._check_device(meshes.device)
         return fused_render.try_render(
             meshes, cameras, lights, materials, sr, sa, blend, settings,
             shade, seeds=seeds, generator=generator,
@@ -116,9 +131,23 @@ class MeshRenderer(nn.Module):
         return fused_render.render_plan(meshes, lights, sr, sa, settings,
                                         shade)
 
-    def render_loss(self, meshes, target, seeds=None, loss_kind="l2_rgb",
-                    **kwargs):
-        """Image loss with gradients: needs the backward kernels."""
-        raise NotImplementedError(
-            "render_loss: the backward kernels are not ported to PyTorch "
-            "yet")
+    def render_loss(self, meshes, target, seeds=None,
+                    generator: Optional[torch.Generator] = None,
+                    loss_kind: str = "l2_rgb", **kwargs):
+        """Mean image loss against ``target`` (broadcast to (N, H, W, 3))
+        over the RGB channels: ``l2_rgb`` = mean squared error (the pose
+        loop's loss), ``l1_rgb`` = mean absolute error.  The loss and every
+        gradient come from one launch of K2, so ``loss.backward()``
+        launches nothing more.  The target is a constant: it gets no
+        gradient.  ``seeds``, ``generator`` and kwargs as for
+        :meth:`forward`."""
+        if loss_kind not in fused_render.LOSS_KINDS:
+            raise ValueError(f"unknown loss_kind {loss_kind!r} (expected "
+                             "'l2_rgb' or 'l1_rgb')")
+        (cameras, lights, materials, sr, sa, blend, settings), shade = \
+            self._fused_args(kwargs)
+        self._check_device(meshes.device)
+        return fused_render.try_render_loss(
+            meshes, cameras, lights, materials, sr, sa, blend, settings,
+            shade, target, loss_kind, seeds=seeds, generator=generator,
+            blur_override=self.rasterizer.blur_override)

@@ -3,7 +3,8 @@
 
 They hold the shading and smoothing configuration that ``MeshRenderer``
 hands to the fused forward.  The staged per-fragment ``__call__`` is not
-ported yet.
+ported yet.  ``update_smoothing`` / ``update_nb_samples`` return new
+shaders, as the pose loop's annealing uses them.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ class _RandomShader:
     @classmethod
     def create(cls, cameras=None, lights=None, materials=None,
                smoothrast=None, smoothagg=None, blend_params=None,
-               device="cpu"):
+               device="cuda"):
         return cls(
             cameras=cameras,
             lights=(lights if lights is not None
@@ -51,10 +52,18 @@ class _RandomShader:
         return (self.smoothrast.sigma, self.smoothagg.gamma,
                 self.smoothagg.alpha)
 
+    def get_nb_samples(self):
+        return self.smoothagg.nb_samples
+
     def update_smoothing(self, sigma=4e-4, gamma=4e-2, alpha=1.0):
         return dataclasses.replace(
             self, smoothrast=self.smoothrast.update_smoothing(sigma),
             smoothagg=self.smoothagg.update_smoothing(gamma, alpha))
+
+    def update_nb_samples(self, nb_samples=16):
+        return dataclasses.replace(
+            self, smoothrast=self.smoothrast.update_nb_samples(nb_samples),
+            smoothagg=self.smoothagg.update_nb_samples(nb_samples))
 
 
 @dataclasses.dataclass
@@ -70,7 +79,7 @@ class RandomSimpleShader(_RandomShader):
     @classmethod
     def create(cls, cameras=None, lights=None, materials=None,
                smoothrast=None, smoothagg=None, blend_params=None,
-               device="cpu"):
+               device="cuda"):
         if cameras is None:
             r, t = look_at_view_transform(dist=2.7, elev=0.0, azim=0.0,
                                           device=device)

@@ -1,8 +1,9 @@
 """Aggregation front-ends, the SmoothAgg family (PyTorch port of
 ``pertrenderer_tpu/models/smoothagg.py``) as parameter holders.
 
-``gamma`` and ``alpha`` are float32 scalar tensors (learnable); ``eps``,
-``nb_samples`` and ``fixed_noise`` are plain values.  The fused kernel
+``gamma`` and ``alpha`` are float32 scalar tensors (learnable: a tensor
+that requires grad passed to ``update_smoothing`` is kept as it is);
+``eps``, ``nb_samples`` and ``fixed_noise`` are plain values.  The fused kernel
 evaluates the aggregation; the staged ``aggregate`` is not ported yet.
 """
 
@@ -31,6 +32,9 @@ class _Agg:
     def update_smoothing(self, gamma=4e-2, alpha=1.0):
         return dataclasses.replace(self, gamma=_scalar(gamma),
                                    alpha=_scalar(alpha))
+
+    def update_nb_samples(self, nb_samples):
+        return dataclasses.replace(self, nb_samples=int(nb_samples))
 
 
 @dataclasses.dataclass
@@ -91,4 +95,7 @@ class HardAgg(_Agg):
         return cls(eps=eps)
 
     def update_smoothing(self, gamma=4e-2, alpha=1.0):
+        return self
+
+    def update_nb_samples(self, nb_samples):
         return self

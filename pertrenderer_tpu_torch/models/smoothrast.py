@@ -1,10 +1,12 @@
 """Coverage front-ends, the SmoothRast family (PyTorch port of
 ``pertrenderer_tpu/models/smoothrast.py``) as parameter holders.
 
-``sigma`` is a float32 scalar tensor (learnable); ``nb_samples`` sets the
-Monte-Carlo sample count.  The fused kernel evaluates the estimators; the
-staged ``rasterize`` is not ported yet.  ``sample_axis`` names the
-sample-sharded route, which the port does not run yet.
+``sigma`` is a float32 scalar tensor (learnable: ``update_smoothing``
+keeps a tensor that requires grad, so the pose step's gradient reaches
+it); ``nb_samples`` sets the Monte-Carlo sample count, which annealing
+doubles through ``update_nb_samples``.  The fused kernels evaluate the
+estimators; the staged ``rasterize`` is not ported yet.  ``sample_axis``
+names the sample-sharded route, which the port does not run yet.
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ class _Rast:
 
     def update_smoothing(self, sigma):
         return dataclasses.replace(self, sigma=_scalar(sigma))
+
+    def update_nb_samples(self, nb_samples):
+        return dataclasses.replace(self, nb_samples=int(nb_samples))
 
 
 @dataclasses.dataclass
@@ -85,4 +90,7 @@ class HardRast(_Rast):
         return cls()
 
     def update_smoothing(self, sigma):
+        return self
+
+    def update_nb_samples(self, nb_samples):
         return self

@@ -1,15 +1,27 @@
-"""Fused flat-route forward render (PyTorch port of the forward half of
-``pertrenderer_tpu/ops/fused_render.py``).
+"""Fused flat-route render with its gradients (PyTorch port of the flat
+route of ``pertrenderer_tpu/ops/fused_render.py``).
 
-Two kernels, each with a plain PyTorch version beside it:
+Four kernels, each with a plain PyTorch version beside it:
 
 * K1 ``prng_probe`` (csrc/prng_probe.cu) — the counter-hash PRNG probe,
   pinned against ``tests/goldens/prng_goldens.npz``;
 * K3 ``fused_forward`` (csrc/fused_forward.cu) — rasterize, shade, texture,
-  both perturbed estimators and the blend for one pixel per thread.
+  both perturbed estimators and the blend for one pixel per thread;
+* K4 ``fused_backward`` (csrc/fused_backward.cu) — K3's vector-Jacobian
+  product: every face-table gradient and the 34 scalar gradients;
+* K2 ``fused_loss_grad`` (csrc/fused_loss_grad.cu) — K4 with the image-loss
+  cotangent derived in place from a target: loss and every gradient in one
+  launch (the pose step's kernel).
 
 A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches its kernel or raises; there is no fallback.
+
+The plain versions are the reference of the kernels: ``forward_plain`` with
+the score-function estimators as ``autograd.Function``s, and
+``backward_plain`` / ``loss_grad_plain`` as torch autograd through it.
+Where autograd's tie rules differ from JAX's, the plain pipeline is written
+so that they agree with JAX (``torch.maximum`` / ``torch.amax`` instead of
+``torch.clamp``; see ``ops/rasterize.py``).
 
 Layout: the plain versions work on channel-major ``(N, rows, P)`` blocks,
 rows being face slots (or z_map channels) and P the row-major pixel id of
@@ -17,7 +29,10 @@ the whole image.  The JAX package cuts P into tiles and may pack a tile's
 faces into fewer rows; neither changes a pixel's value except packing,
 which keys the MC noise on packed slot positions.  The port keys noise on
 the unpacked slot row and the absolute pixel id, which is what the JAX
-flat route draws with ``PERTRENDERER_PACK=off``.
+flat route draws with ``PERTRENDERER_PACK=off``.  The JAX backward also
+skips tiles with no candidate face and gives them only the background
+gradient; the port runs every pixel through the full pipeline, which
+agrees except for the ``_wovr`` aggregation (ROADMAP Queue 3).
 
 Only the flat route is ported: every face holds a slot (F <= K and
 F_pad <= MAX_SLOTS).  The stream, binned, sharded and staged routes raise
@@ -35,11 +50,13 @@ import numpy as np
 import torch
 
 from pertrenderer_tpu_torch.ops.perturbed import log_corrected, prod_corrected
-from pertrenderer_tpu_torch.ops.rasterize import _face_pixel_geometry
+from pertrenderer_tpu_torch.ops.rasterize import _face_pixel_geometry, _max
 
 __all__ = ["FusedConfig", "RenderPlan", "render_plan", "try_render",
-           "prng_probe", "prng_probe_plain", "fused_forward",
-           "forward_plain", "draw_seeds", "launch_counts", "MAX_SLOTS"]
+           "try_render_loss", "prng_probe", "prng_probe_plain",
+           "fused_forward", "forward_plain", "fused_backward",
+           "backward_plain", "fused_loss_grad", "loss_grad_plain",
+           "draw_seeds", "launch_counts", "MAX_SLOTS", "LOSS_KINDS"]
 
 MAX_SLOTS = 256          # flat-mode face budget (F_pad <= MAX_SLOTS)
 _CAUCHY_CLAMP = 1e7
@@ -65,7 +82,9 @@ _NS = 34
 
 # Launches of each kernel since the last reset: a wrapper adds one where it
 # launches its kernel and nowhere else (plain CPU calls do not count).
-launch_counts = {"prng_probe": 0, "fused_forward": 0}
+launch_counts = {"prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
+                 "fused_loss_grad": 0}
+LOSS_KINDS = ("l2_rgb", "l1_rgb")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -74,7 +93,9 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class FusedConfig:
-    """Static configuration of the flat fused forward."""
+    """Static configuration of the flat fused render.  ``rast_vr`` /
+    ``agg_vr``: the estimators' variance reduction, which changes only
+    the backward."""
 
     image_size: int
     f_pad: int                 # face slots (multiple of 8)
@@ -82,9 +103,11 @@ class FusedConfig:
     k: int                     # reference faces_per_pixel
     rast_kind: str             # 'soft' | 'affine' | 'hard' | 'mc'
     rast_noise: str            # 'gaussian' | 'cauchy'
+    rast_vr: bool
     s_rast: int
     agg_kind: str              # 'soft' | 'hard' | 'mc'
     agg_noise: str
+    agg_vr: bool
     s_agg: int
     eps_bg: float
     shade: str                 # 'phong' | 'none'
@@ -187,7 +210,7 @@ def _seed_words(seeds: torch.Tensor, col: int) -> torch.Tensor:
 
 
 def prng_probe_plain(noise_type: str = "gaussian", s: int = 4, c: int = 16,
-                     p: int = 256, device="cpu") -> torch.Tensor:
+                     p: int = 256, device="cuda") -> torch.Tensor:
     """Plain version of K1: ``s`` (c, p) noise blocks for the probe seeds at
     pixel positions 7 .. p + 6."""
     seeds = torch.tensor([_PROBE_SEEDS], dtype=torch.int32, device=device)
@@ -198,7 +221,7 @@ def prng_probe_plain(noise_type: str = "gaussian", s: int = 4, c: int = 16,
 
 
 def prng_probe(noise_type: str = "gaussian", s: int = 4, c: int = 16,
-               p: int = 256, device="cpu") -> torch.Tensor:
+               p: int = 256, device="cuda") -> torch.Tensor:
     """K1: the hash-PRNG identity probe (replaces ``prng_probe`` of
     ``pertrenderer_tpu/ops/fused_render.py``).  (s, c, p) float32."""
     device = torch.device(device)
@@ -210,9 +233,9 @@ def prng_probe(noise_type: str = "gaussian", s: int = 4, c: int = 16,
         raise ValueError(f"prng_probe: noise {noise_type!r}, c={c}")
     from pertrenderer_tpu_torch import _build
 
-    lib = _build.library()
     seeds = torch.tensor([_PROBE_SEEDS], dtype=torch.int32, device=device)
     out = torch.empty((s, c, p), dtype=torch.float32, device=device)
+    lib = _build.library()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         err = lib.pt_prng_probe(seeds.data_ptr(), out.data_ptr(),
@@ -235,8 +258,10 @@ def check_prng_stream(device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Plain forward (the K3 reference): one channel-major pipeline over the
-# whole image, batched over N.
+# Plain pipeline (the reference of K3, K4 and K2): one channel-major pass
+# over the whole image, batched over N.  The MC estimators are
+# autograd.Functions whose backward is the reference's score-function
+# estimator, replaying the forward's hash-PRNG noise.
 # ---------------------------------------------------------------------------
 
 def _pixel_coords(image_size: int, device):
@@ -253,7 +278,8 @@ def _pixel_coords(image_size: int, device):
 def _det1(cfg: FusedConfig, px, py, fv_ndc, fv_world, fn, tex, valid, sc):
     """Geometry + texturing + shading -> (dist, z, c0, c1, c2, maskf), each
     (N, F_pad, P).  Colors and interpolants are masked where the slot is
-    not a candidate, as the JAX kernel masks them."""
+    not a candidate, as the JAX kernel masks them.  ``maskf`` and the
+    shininess carry no gradient (JAX stop-gradients both)."""
     col = lambda t, i: t[:, :, i:i + 1]
     coords = [col(fv_ndc, i) for i in range(9)]
     w0, w1, w2, z, dist, inside, degen = _face_pixel_geometry(
@@ -262,14 +288,14 @@ def _det1(cfg: FusedConfig, px, py, fv_ndc, fv_world, fn, tex, valid, sc):
     zmaxf = torch.maximum(torch.maximum(coords[2], coords[5]), coords[8])
     validb = (valid[:, :, None] > 0.5) & (zmaxf > 0)
     cand = ((inside | (dist <= sc(_S_BLUR))) & ~degen & validb & (z > 0))
-    maskf = cand.to(torch.float32)
+    maskf = cand.to(torch.float32).detach()
 
     if cfg.tex_mode == "corner":
         texel = [(w0 * col(tex, c) + w1 * col(tex, 3 + c)
                   + w2 * col(tex, 6 + c)) * maskf for c in range(3)]
     elif cfg.atlas_r == 1:
         texel = [maskf * col(tex, c) for c in range(3)]
-    else:   # atlas cell from quantized (w1, w2)
+    else:   # atlas cell from quantized (w1, w2); no gradient to the cell
         r = cfg.atlas_r
         xi = torch.clamp((torch.clamp(w1, 0.0, 1.0) * r).to(torch.int64),
                          0, r - 1)
@@ -291,17 +317,16 @@ def _det1(cfg: FusedConfig, px, py, fv_ndc, fv_world, fn, tex, valid, sc):
     else:
         tl = [(-sc(_S_LIGHT + v)).expand_as(pnt[v]) for v in range(3)]
     tln = torch.sqrt(tl[0] * tl[0] + tl[1] * tl[1] + tl[2] * tl[2])
-    tl = [v / torch.clamp(tln, min=1e-8) for v in tl]
+    tl = [v / _max(tln, 1e-8) for v in tl]
     cos = nrm[0] * tl[0] + nrm[1] * tl[1] + nrm[2] * tl[2]
     vd = [sc(_S_CAM + v) - pnt[v] for v in range(3)]
     vdn = torch.sqrt(vd[0] * vd[0] + vd[1] * vd[1] + vd[2] * vd[2])
-    vd = [v / torch.clamp(vdn, min=1e-8) for v in vd]
+    vd = [v / _max(vdn, 1e-8) for v in vd]
     refl = [2.0 * cos * nrm[v] - tl[v] for v in range(3)]
-    spec_a = torch.clamp(vd[0] * refl[0] + vd[1] * refl[1]
-                         + vd[2] * refl[2], min=0.0)
+    spec_a = _max(vd[0] * refl[0] + vd[1] * refl[1] + vd[2] * refl[2], 0.0)
     facing = (cos > 0.0).to(torch.float32)
-    spec_pow = facing * torch.pow(spec_a, sc(_S_SHIN))
-    cmax = torch.clamp(cos, min=0.0)
+    spec_pow = facing * torch.pow(spec_a, sc(_S_SHIN).detach())
+    cmax = _max(cos, 0.0)
     out = []
     for c in range(3):
         ambient = sc(_S_MAMB + c) * sc(_S_LAMB + c)
@@ -309,6 +334,47 @@ def _det1(cfg: FusedConfig, px, py, fv_ndc, fv_world, fn, tex, valid, sc):
         specular = spec_pow * sc(_S_LSPEC + c) * sc(_S_MSPEC + c)
         out.append((ambient + diffuse) * texel[c] + specular)
     return (dist, z, *out, maskf)
+
+
+def _heaviside(x):
+    return (x >= 0).to(torch.float32)
+
+
+def _score(noise, noise_type: str):
+    """d log p / d noise of the noise density, up to sign."""
+    if noise_type == "gaussian":
+        return noise
+    return 2.0 * noise / (1.0 + noise * noise)          # cauchy
+
+
+class _MCRast(torch.autograd.Function):
+    """MC coverage: mean over samples of H(d + sigma * Z), Z over an
+    f_pad-row noise block.  Backward (``_mc_rast_fwd_coeff`` of the JAX
+    package): grad wrt d is coeff * g, and the sigma grad is sum(coeff * g)
+    over slots and pixels — the reference's overwrite quirk, not the true
+    derivative.  The coefficient shares the forward's noise pass."""
+
+    @staticmethod
+    def forward(ctx, cfg, d, sigma, seeds, pos):
+        s0, s1 = _seed_words(seeds, 0), _seed_words(seeds, 1)
+        want = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        h0 = _heaviside(d) if cfg.rast_vr else torch.zeros_like(d)
+        acc = torch.zeros_like(d)
+        acc_c = torch.zeros_like(d)
+        for s in range(cfg.s_rast):
+            z = _draw_block(cfg.rast_noise, s0, s1, s, cfg.f_pad, pos)
+            h = _heaviside(d + sigma * z)
+            acc = acc + h
+            if want:
+                acc_c = acc_c + (h - h0) * _score(z, cfg.rast_noise)
+        ctx.save_for_backward(acc_c / (cfg.s_rast * sigma))
+        return acc * (1.0 / cfg.s_rast)
+
+    @staticmethod
+    def backward(ctx, g):
+        (coeff,) = ctx.saved_tensors
+        g_d = coeff * g
+        return None, g_d, g_d.sum(dim=(1, 2), keepdim=True), None, None
 
 
 def _coverage(cfg: FusedConfig, dist, sc, seeds, pos):
@@ -319,26 +385,17 @@ def _coverage(cfg: FusedConfig, dist, sc, seeds, pos):
     if cfg.rast_kind == "affine":
         p = -dist / sigma + 0.5
         p = torch.where(-dist / sigma > 0.5, torch.ones_like(p), p)
-        return torch.clamp(p, min=0.0)
+        return _max(p, 0.0)
     if cfg.rast_kind == "hard":
-        return (-dist >= 0).to(torch.float32)
-    # MC: mean over samples of H(-dist + sigma * Z); the noise block has
-    # f_pad rows.
-    s0, s1 = _seed_words(seeds, 0), _seed_words(seeds, 1)
-    d = -dist
-    acc = torch.zeros_like(d)
-    for s in range(cfg.s_rast):
-        z = _draw_block(cfg.rast_noise, s0, s1, s, cfg.f_pad, pos)
-        acc = acc + (d + sigma * z >= 0).to(torch.float32)
-    return acc * (1.0 / cfg.s_rast)
+        return _heaviside(-dist)
+    return _MCRast.apply(cfg, -dist, sigma, seeds, pos)
 
 
 def _zmap(cfg: FusedConfig, prob, z, maskf, sc):
     """The aggregation preamble: (N, c_zpad, P) z_map with the background
     channel in row bg_row and -inf padding rows."""
     z_inv = (sc(_S_ZFAR) - z) / (sc(_S_ZFAR) - sc(_S_ZNEAR)) * maskf
-    z_inv_max = torch.clamp(torch.amax(z_inv, dim=1, keepdim=True),
-                            min=cfg.eps_bg)
+    z_inv_max = _max(torch.amax(z_inv, dim=1, keepdim=True), cfg.eps_bg)
     lp = log_corrected(prob)
     if cfg.agg_kind == "hard":
         scaled = (1.0 / 1e6) * lp
@@ -363,34 +420,71 @@ def _first_onehot(zf):
     return (ridx == first).to(torch.float32)
 
 
+def _onehot_ge(zp):
+    return (zp >= torch.amax(zp, dim=1, keepdim=True)).to(torch.float32)
+
+
+class _MCAgg(torch.autograd.Function):
+    """MC aggregation: mean over samples of the >=-max one-hot (ties may
+    light several rows) of z_map + gamma * N over a c_zpad-row noise block.
+
+    Backward (``_mc_agg_fwd_grads`` of the JAX package) replays the noise,
+    masked to the rows that can win (slots + background, rows <= bg_row):
+    the VR baseline is the first-wins one-hot; g_zmap averages
+    <g_w, w - w0> * score(n); the gamma term uses phi = sum of n^2
+    (gaussian) or score(n) * n (cauchy) over those rows plus the k - bg_row
+    compensation for the reference's missing empty-slot channels."""
+
+    @staticmethod
+    def forward(ctx, cfg, zmap, gamma, seeds, pos):
+        s0, s1 = _seed_words(seeds, 2), _seed_words(seeds, 3)
+        acc = torch.zeros_like(zmap)
+        for s in range(cfg.s_agg):
+            n = _draw_block(cfg.agg_noise, s0, s1, s, cfg.c_zpad, pos)
+            acc = acc + _onehot_ge(zmap + gamma * n)
+        ctx.cfg = cfg
+        ctx.save_for_backward(zmap, gamma, seeds, pos)
+        return acc * (1.0 / cfg.s_agg)
+
+    @staticmethod
+    def backward(ctx, g_w):
+        cfg = ctx.cfg
+        zmap, gamma, seeds, pos = ctx.saved_tensors
+        s0, s1 = _seed_words(seeds, 2), _seed_words(seeds, 3)
+        rows = torch.arange(cfg.c_zpad, device=zmap.device).view(1, -1, 1)
+        cmask = (rows <= cfg.bg_row).to(torch.float32)
+        phi_comp = float(cfg.k - cfg.bg_row)
+        w0 = _first_onehot(zmap) if cfg.agg_vr else torch.zeros_like(zmap)
+        acc_z = torch.zeros_like(zmap)
+        acc_g = torch.zeros_like(zmap[:, :1])
+        for s in range(cfg.s_agg):
+            n = _draw_block(cfg.agg_noise, s0, s1, s, cfg.c_zpad, pos) * cmask
+            diff = (_onehot_ge(zmap + gamma * n) - w0) * cmask
+            dot = torch.sum(g_w * diff, dim=1, keepdim=True)
+            score = _score(n, cfg.agg_noise)
+            acc_z = acc_z + dot * score
+            phi = torch.sum(score * n * cmask, dim=1, keepdim=True) + phi_comp
+            acc_g = acc_g + dot * (phi - 1.0)
+        g_zmap = acc_z / (cfg.s_agg * gamma)
+        g_gamma = torch.sum(acc_g / (cfg.s_agg * gamma), dim=2, keepdim=True)
+        return None, g_zmap, g_gamma, None, None
+
+
 def _weights(cfg: FusedConfig, zmap, sc, seeds, pos):
     """Aggregation weights over the z_map rows, (N, c_zpad, P)."""
     if cfg.agg_kind == "soft":
+        # jax.nn.softmax: the max shift carries no gradient.
         x = prod_corrected(1.0 / sc(_S_GAMMA), zmap)
-        e = torch.exp(x - torch.amax(x, dim=1, keepdim=True))
+        e = torch.exp(x - torch.amax(x, dim=1, keepdim=True).detach())
         return e / torch.sum(e, dim=1, keepdim=True)
     if cfg.agg_kind == "hard":
         return _first_onehot(zmap)
-    # MC: mean over samples of the >=-max one-hot (ties may light several
-    # rows) of z_map + gamma * N; the noise block has c_zpad rows.
-    s0, s1 = _seed_words(seeds, 2), _seed_words(seeds, 3)
-    gamma = sc(_S_GAMMA)
-    acc = torch.zeros_like(zmap)
-    for s in range(cfg.s_agg):
-        n = _draw_block(cfg.agg_noise, s0, s1, s, cfg.c_zpad, pos)
-        zp = zmap + gamma * n
-        acc = acc + (zp >= torch.amax(zp, dim=1, keepdim=True)).to(
-            torch.float32)
-    return acc * (1.0 / cfg.s_agg)
+    return _MCAgg.apply(cfg, zmap, sc(_S_GAMMA), seeds, pos)
 
 
-def forward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds) -> torch.Tensor:
-    """Plain version of K3 on any device: (N, H, W, 4) RGBA.
-
-    fv_ndc / fv_world / fn: (N, F_pad, 9); tex: (N, F_pad, tex_d); valid:
-    (N, F_pad); scal: (N, 34); seeds: (N, 4) int32 [rast0, rast1, agg0,
-    agg1]."""
+def _render_cm(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+               seeds) -> torch.Tensor:
+    """The plain pipeline: (N, 4, P) channel-major RGBA."""
     n = fv_ndc.shape[0]
     pos, px, py = _pixel_coords(cfg.image_size, fv_ndc.device)
     sc = lambda i: scal[:, i].view(n, 1, 1)
@@ -407,42 +501,120 @@ def forward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     ap = torch.ones_like(wb)
     for i in range(cfg.f_pad):
         ap = ap * (1.0 - prob[:, i:i + 1])
-    out = torch.cat(rgb + [1.0 - ap], dim=1)             # (N, 4, P)
+    return torch.cat(rgb + [1.0 - ap], dim=1)
+
+
+def forward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                  seeds) -> torch.Tensor:
+    """Plain version of K3 on any device: (N, H, W, 4) RGBA.
+
+    fv_ndc / fv_world / fn: (N, F_pad, 9); tex: (N, F_pad, tex_d); valid:
+    (N, F_pad); scal: (N, 34); seeds: (N, 4) int32 [rast0, rast1, agg0,
+    agg1]."""
+    out = _render_cm(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds)
     s = cfg.image_size
-    return out.transpose(1, 2).reshape(n, s, s, 4)
+    return out.transpose(1, 2).reshape(out.shape[0], s, s, 4)
+
+
+def _grad_leaves(fv_ndc, fv_world, fn, tex, scal):
+    return [t.detach().requires_grad_() for t in
+            (fv_ndc, fv_world, fn, tex, scal)]
+
+
+def _grads(value, leaves, g_value=None):
+    """(g_ndc, g_world, g_fn, g_tex, g_scal); zeros where a table is not
+    read (fv_world and fn without Phong shading)."""
+    grads = torch.autograd.grad(value, leaves, g_value, allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads))
+
+
+def backward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                   seeds, g_out):
+    """Plain version of K4: the vector-Jacobian product of
+    :func:`forward_plain` with ``g_out`` (N, H, W, 4), alpha included.
+    Returns (g_ndc, g_world, g_fn, g_tex, g_scal) shaped like the inputs;
+    ``valid`` and ``seeds`` get no gradient."""
+    with torch.enable_grad():
+        leaves = _grad_leaves(fv_ndc, fv_world, fn, tex, scal)
+        out = forward_plain(cfg, *leaves[:4], valid, leaves[4], seeds)
+        return _grads(out, leaves, g_out)
+
+
+def _image_loss(loss_kind: str, rgb_cm, target_cm, lscale: float):
+    """Per batch element: lscale * sum of (rgb - target)^2 (``l2_rgb``) or
+    |rgb - target| (``l1_rgb``) over the RGB channels and pixels."""
+    d = rgb_cm - target_cm
+    e = d * d if loss_kind == "l2_rgb" else torch.abs(d)
+    return torch.sum(e, dim=(1, 2)) * lscale
+
+
+def loss_grad_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
+                    scal, seeds, target, loss_kind: str, lscale: float):
+    """Plain version of K2: the image loss against ``target`` (N, 3, H*W)
+    and its gradients, as ``_loss_cotangent`` of the JAX package defines
+    them.  Returns (loss (N,), g_ndc, g_world, g_fn, g_tex, g_scal)."""
+    with torch.enable_grad():
+        leaves = _grad_leaves(fv_ndc, fv_world, fn, tex, scal)
+        out = _render_cm(cfg, *leaves[:4], valid, leaves[4], seeds)
+        loss = _image_loss(loss_kind, out[:, :3], target, lscale)
+        return (loss.detach(), *_grads(loss.sum(), leaves))
 
 
 # ---------------------------------------------------------------------------
-# K3 wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
 
 _RAST_IDS = {"soft": 0, "affine": 1, "hard": 2, "mc": 3}
 _AGG_IDS = {"soft": 0, "hard": 1, "mc": 2}
 
 
-def _check_inputs(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds):
-    n, f = fv_ndc.shape[0], cfg.f_pad
-    want = {"fv_ndc": (fv_ndc, (n, f, 9), torch.float32),
-            "fv_world": (fv_world, (n, f, 9), torch.float32),
-            "fn": (fn, (n, f, 9), torch.float32),
-            "tex": (tex, (n, f, cfg.tex_d), torch.float32),
-            "valid": (valid, (n, f), torch.float32),
-            "scal": (scal, (n, _NS), torch.float32),
-            "seeds": (seeds, (n, 4), torch.int32)}
-    for name, (t, shape, dtype) in want.items():
-        if t.device != fv_ndc.device:
-            raise ValueError(f"fused_forward: {name} on {t.device}, "
-                             f"fv_ndc on {fv_ndc.device}")
+def _check(kernel: str, ref: torch.Tensor, tensors: dict):
+    """Raise unless every (tensor, shape, dtype) lies on ref's device, has
+    that shape and dtype and is contiguous."""
+    for name, (t, shape, dtype) in tensors.items():
+        if t.device != ref.device:
+            raise ValueError(f"{kernel}: {name} on {t.device}, fv_ndc on "
+                             f"{ref.device}")
         if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"fused_forward: {name} is {tuple(t.shape)} "
+            raise ValueError(f"{kernel}: {name} is {tuple(t.shape)} "
                              f"{t.dtype}, expected {shape} {dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"fused_forward: {name} is not contiguous")
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def _check_inputs(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                  seeds, kernel: str = "fused_forward"):
+    n, f = fv_ndc.shape[0], cfg.f_pad
+    _check(kernel, fv_ndc, {
+        "fv_ndc": (fv_ndc, (n, f, 9), torch.float32),
+        "fv_world": (fv_world, (n, f, 9), torch.float32),
+        "fn": (fn, (n, f, 9), torch.float32),
+        "tex": (tex, (n, f, cfg.tex_d), torch.float32),
+        "valid": (valid, (n, f), torch.float32),
+        "scal": (scal, (n, _NS), torch.float32),
+        "seeds": (seeds, (n, 4), torch.int32)})
     if f > MAX_SLOTS or f % 8 or cfg.f_real > f:
-        raise ValueError(f"fused_forward: f_pad={f}, f_real={cfg.f_real}")
+        raise ValueError(f"{kernel}: f_pad={f}, f_real={cfg.f_real}")
     if cfg.tex_mode == "atlas" and not 1 <= cfg.atlas_r <= 8:
-        raise ValueError(f"fused_forward: atlas_r={cfg.atlas_r}")
+        raise ValueError(f"{kernel}: atlas_r={cfg.atlas_r}")
+    dev = fv_ndc.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    return dev
+
+
+def _cfg_args(cfg: FusedConfig):
+    """The static configuration as every kernel's C arguments (the order
+    of ``set_config`` in csrc/fused_common.cuh)."""
+    return (cfg.image_size, cfg.f_pad, cfg.bg_row, cfg.c_zpad, cfg.tex_d,
+            cfg.atlas_r if cfg.tex_mode == "atlas" else 0,
+            _RAST_IDS[cfg.rast_kind], _NOISE_IDS[cfg.rast_noise],
+            int(cfg.rast_vr), cfg.s_rast, _AGG_IDS[cfg.agg_kind],
+            _NOISE_IDS[cfg.agg_noise], int(cfg.agg_vr), cfg.s_agg, cfg.k,
+            ctypes.c_float(cfg.eps_bg), int(cfg.shade == "phong"),
+            int(cfg.light_kind == "point"), int(cfg.clip_bary),
+            int(cfg.perspective_correct))
 
 
 def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
@@ -450,13 +622,10 @@ def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     """K3: the flat fused forward (replaces ``_forward_kernel`` of
     ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
     :func:`forward_plain`; returns (N, H, W, 4) float32 RGBA."""
-    _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds)
-    dev = fv_ndc.device
+    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds)
     if dev.type == "cpu":
         return forward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
                              seeds)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_forward: unsupported device {dev}")
     from pertrenderer_tpu_torch import _build
 
     lib = _build.library()
@@ -467,57 +636,144 @@ def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
         err = lib.pt_fused_forward(
             fv_ndc.data_ptr(), fv_world.data_ptr(), fn.data_ptr(),
             tex.data_ptr(), valid.data_ptr(), scal.data_ptr(),
-            seeds.data_ptr(), out.data_ptr(),
-            n, s, cfg.f_pad, cfg.bg_row, cfg.c_zpad, cfg.tex_d,
-            cfg.atlas_r if cfg.tex_mode == "atlas" else 0,
-            _RAST_IDS[cfg.rast_kind], _NOISE_IDS[cfg.rast_noise],
-            cfg.s_rast, _AGG_IDS[cfg.agg_kind], _NOISE_IDS[cfg.agg_noise],
-            cfg.s_agg, ctypes.c_float(cfg.eps_bg),
-            int(cfg.shade == "phong"), int(cfg.light_kind == "point"),
-            int(cfg.clip_bary), int(cfg.perspective_correct), stream)
+            seeds.data_ptr(), out.data_ptr(), n, *_cfg_args(cfg), stream)
     _build.check(err, "fused_forward")
     launch_counts["fused_forward"] += 1
     return out
 
 
+def _launch_grads(kernel: str, cfg: FusedConfig, tables, extra,
+                  loss_id: int, lscale: float):
+    """Launch K4 (``extra`` = g_out) or K2 (``extra`` = target, loss kind
+    ``LOSS_KINDS[loss_id]``) and return (loss (N,), g_ndc, g_world, g_fn,
+    g_tex, g_scal).  Each warp of the kernel sums its pixels into its own
+    row of ``partial``; a second pass adds the rows in a fixed order, so
+    the gradients are the same bits from run to run."""
+    from pertrenderer_tpu_torch import _build
+
+    fv_ndc = tables[0]
+    dev, n, f = fv_ndc.device, fv_ndc.shape[0], cfg.f_pad
+    lib = _build.library()
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    g_ndc, g_world, g_fn = new(n, f, 9), new(n, f, 9), new(n, f, 9)
+    g_tex, g_scal, loss = new(n, f, cfg.tex_d), new(n, _NS), new(n)
+    warps = lib.pt_grad_partial_warps(n, cfg.image_size, f, cfg.tex_d)
+    partial = new(n, warps, lib.pt_grad_partial_width(f, cfg.tex_d))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn_c = (lib.pt_fused_backward if kernel == "fused_backward"
+            else lib.pt_fused_loss_grad)
+    with torch.cuda.device(dev):
+        err = fn_c(*(t.data_ptr() for t in tables), extra.data_ptr(),
+                   partial.data_ptr(), warps, g_ndc.data_ptr(),
+                   g_world.data_ptr(), g_fn.data_ptr(), g_tex.data_ptr(),
+                   g_scal.data_ptr(), loss.data_ptr(), n, *_cfg_args(cfg),
+                   loss_id, ctypes.c_float(lscale), stream)
+    _build.check(err, kernel)
+    launch_counts[kernel] += 1
+    return loss, g_ndc, g_world, g_fn, g_tex, g_scal
+
+
+def fused_backward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
+                   scal, seeds, g_out):
+    """K4: the flat fused backward (replaces ``_backward_kernel`` of
+    ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
+    :func:`backward_plain`; returns (g_ndc, g_world, g_fn, g_tex,
+    g_scal)."""
+    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                        "fused_backward")
+    s = cfg.image_size
+    _check("fused_backward", fv_ndc, {
+        "g_out": (g_out, (fv_ndc.shape[0], s, s, 4), torch.float32)})
+    if dev.type == "cpu":
+        return backward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
+                              seeds, g_out)
+    tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
+    return _launch_grads("fused_backward", cfg, tables, g_out, 0, 0.0)[1:]
+
+
+def fused_loss_grad(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
+                    scal, seeds, target, loss_kind: str, lscale: float):
+    """K2: image loss and every gradient in one launch (replaces
+    ``_loss_grad_kernel`` of ``pertrenderer_tpu/ops/fused_render.py``).
+    ``target``: (N, 3, H*W) channel-major RGB.  Returns (loss (N,), g_ndc,
+    g_world, g_fn, g_tex, g_scal) as :func:`loss_grad_plain`."""
+    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                        "fused_loss_grad")
+    hw = cfg.image_size * cfg.image_size
+    _check("fused_loss_grad", fv_ndc, {
+        "target": (target, (fv_ndc.shape[0], 3, hw), torch.float32)})
+    if loss_kind not in LOSS_KINDS:
+        raise ValueError(f"fused_loss_grad: loss_kind {loss_kind!r}, "
+                         f"expected one of {LOSS_KINDS}")
+    if dev.type == "cpu":
+        return loss_grad_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
+                               seeds, target, loss_kind, lscale)
+    tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
+    return _launch_grads("fused_loss_grad", cfg, tables, target,
+                         LOSS_KINDS.index(loss_kind), lscale)
+
+
 class _FusedForward(torch.autograd.Function):
-    """Autograd boundary of the fused forward.  The backward kernels are
-    not ported yet, so a render that needs gradients fails loudly at
-    ``backward`` instead of silently returning a constant image."""
+    """Autograd boundary of the fused render: K3 forward, K4 backward."""
 
     @staticmethod
     def forward(ctx, cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds):
+        ctx.cfg = cfg
+        ctx.save_for_backward(fv_ndc, fv_world, fn, tex, valid, scal, seeds)
         return fused_forward(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
                              seeds)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "fused render backward: the backward kernels are not ported to "
-            "PyTorch yet")
+        fv_ndc, fv_world, fn, tex, valid, scal, seeds = ctx.saved_tensors
+        g_ndc, g_world, g_fn, g_tex, g_scal = fused_backward(
+            ctx.cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+            g.contiguous())
+        return None, g_ndc, g_world, g_fn, g_tex, None, g_scal, None
+
+
+class _FusedLoss(torch.autograd.Function):
+    """Autograd boundary of K2 (JAX ``_fused_loss_core``): the forward
+    returns the summed loss and keeps K2's gradients; the backward only
+    scales them by the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, cfg, loss_kind, lscale, fv_ndc, fv_world, fn, tex,
+                valid, scal, seeds, target):
+        loss, *grads = fused_loss_grad(cfg, fv_ndc, fv_world, fn, tex,
+                                       valid, scal, seeds, target,
+                                       loss_kind, lscale)
+        ctx.save_for_backward(*grads)
+        return loss.sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        g_ndc, g_world, g_fn, g_tex, g_scal = ctx.saved_tensors
+        return (None, None, None, g * g_ndc, g * g_world, g * g_fn,
+                g * g_tex, None, g * g_scal, None, None)
 
 
 # ---------------------------------------------------------------------------
 # Routing + inputs
 # ---------------------------------------------------------------------------
 
-# Estimator class -> (kind, noise).  Variance reduction changes only the
-# backward, so the VR and no-VR members share a forward.
+# Estimator class -> (kind, noise, variance reduction).  VR changes only
+# the backward, so the VR and no-VR members share a forward.
 _RAST_MAP = {
-    "SoftRast": ("soft", "gaussian"),
-    "GaussianRast": ("mc", "gaussian"),
-    "GaussianRast_wovr": ("mc", "gaussian"),
-    "ArctanRast": ("mc", "cauchy"),
-    "AffineRast": ("affine", "gaussian"),
-    "HardRast": ("hard", "gaussian"),
+    "SoftRast": ("soft", "gaussian", True),
+    "GaussianRast": ("mc", "gaussian", True),
+    "GaussianRast_wovr": ("mc", "gaussian", False),
+    "ArctanRast": ("mc", "cauchy", True),
+    "AffineRast": ("affine", "gaussian", True),
+    "HardRast": ("hard", "gaussian", True),
 }
 
 _AGG_MAP = {
-    "SoftAgg": ("soft", "gaussian"),
-    "GaussianAgg": ("mc", "gaussian"),
-    "GaussianAgg_wovr": ("mc", "gaussian"),
-    "CauchyAgg": ("mc", "cauchy"),
-    "HardAgg": ("hard", "gaussian"),
+    "SoftAgg": ("soft", "gaussian", True),
+    "GaussianAgg": ("mc", "gaussian", True),
+    "GaussianAgg_wovr": ("mc", "gaussian", False),
+    "CauchyAgg": ("mc", "cauchy", True),
+    "HardAgg": ("hard", "gaussian", True),
 }
 
 
@@ -577,12 +833,13 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings,
     else:
         _unsupported("staged", "light type %s" % type(lights).__name__)
 
-    (rast_kind, rast_noise), (agg_kind, agg_noise) = rast_entry, agg_entry
+    (rast_kind, rast_noise, rast_vr), (agg_kind, agg_noise, agg_vr) = \
+        rast_entry, agg_entry
     return FusedConfig(
         image_size=settings.image_size, f_pad=f_pad, f_real=f, k=k,
-        rast_kind=rast_kind, rast_noise=rast_noise,
+        rast_kind=rast_kind, rast_noise=rast_noise, rast_vr=rast_vr,
         s_rast=int(getattr(smoothrast, "nb_samples", 1)),
-        agg_kind=agg_kind, agg_noise=agg_noise,
+        agg_kind=agg_kind, agg_noise=agg_noise, agg_vr=agg_vr,
         s_agg=int(getattr(smoothagg, "nb_samples", 1)),
         eps_bg=float(smoothagg.eps), shade=shade, light_kind=light_kind,
         tex_mode=tex_mode, tex_d=tex_d, atlas_r=atlas_r,
@@ -646,7 +903,7 @@ def _pack_scal(cfg, n, cameras, lights, materials, smoothrast, smoothagg,
 
 
 def draw_seeds(n: int, generator: Optional[torch.Generator] = None,
-               fixed_noise: bool = False, device="cpu") -> torch.Tensor:
+               fixed_noise: bool = False, device="cuda") -> torch.Tensor:
     """(N, 4) int32 seed words [rast0, rast1, agg0, agg1] drawn from a CPU
     ``generator`` (seed 0 if None).  ``fixed_noise`` draws the aggregation
     words from a generator seeded 1, so every render sees the same
@@ -715,21 +972,57 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
             valid.contiguous(), scal, seeds)
 
 
+def _inputs_for(meshes, cameras, lights, materials, smoothrast, smoothagg,
+                blend_params, settings, shade, seeds, generator,
+                blur_override):
+    cfg = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
+    if seeds is None:
+        seeds = draw_seeds(meshes.batch_size, generator,
+                           getattr(smoothagg, "fixed_noise", False),
+                           device=meshes.device)
+    return cfg, _prepare_inputs(cfg, meshes, cameras, lights, materials,
+                                smoothrast, smoothagg, blend_params,
+                                settings, seeds, shade,
+                                blur_override=blur_override)
+
+
 def try_render(meshes, cameras, lights, materials, smoothrast, smoothagg,
                blend_params, settings, shade: str, seeds=None,
                generator: Optional[torch.Generator] = None,
                blur_override=None) -> torch.Tensor:
-    """Render (N, H, W, 4) RGBA through the flat fused forward (K3).
+    """Render (N, H, W, 4) RGBA through the flat fused forward (K3); its
+    gradients come from K4.
 
     ``seeds``: (N, 4) int32 seed words, or JAX-layout (N, 1, 8) seed rows
-    whose first four columns are used; drawn from ``generator`` when None.
-    A render whose inputs require grad returns an image whose backward
-    raises NotImplementedError (the backward kernels are not ported)."""
-    cfg = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
-    if seeds is None:
-        seeds = draw_seeds(meshes.batch_size, generator,
-                           getattr(smoothagg, "fixed_noise", False))
-    inputs = _prepare_inputs(cfg, meshes, cameras, lights, materials,
-                             smoothrast, smoothagg, blend_params, settings,
-                             seeds, shade, blur_override=blur_override)
+    whose first four columns are used; drawn from ``generator`` when
+    None."""
+    cfg, inputs = _inputs_for(meshes, cameras, lights, materials,
+                              smoothrast, smoothagg, blend_params, settings,
+                              shade, seeds, generator, blur_override)
     return _FusedForward.apply(cfg, *inputs)
+
+
+def try_render_loss(meshes, cameras, lights, materials, smoothrast,
+                    smoothagg, blend_params, settings, shade: str, target,
+                    loss_kind: str = "l2_rgb", seeds=None,
+                    generator: Optional[torch.Generator] = None,
+                    blur_override=None) -> torch.Tensor:
+    """Mean image loss (``l2_rgb``: squared, ``l1_rgb``: absolute error
+    over the RGB channels of every pixel and batch element) against
+    ``target``, with the loss and every gradient from one K2 launch.
+
+    ``target`` broadcasts to (N, H, W, 3) and is a constant: it gets no
+    gradient.  Seeds as for :func:`try_render`."""
+    if loss_kind not in LOSS_KINDS:
+        raise ValueError(f"unknown loss_kind {loss_kind!r} (expected "
+                         "'l2_rgb' or 'l1_rgb')")
+    cfg, inputs = _inputs_for(meshes, cameras, lights, materials,
+                              smoothrast, smoothagg, blend_params, settings,
+                              shade, seeds, generator, blur_override)
+    n, s = meshes.batch_size, cfg.image_size
+    target = torch.as_tensor(target, dtype=torch.float32,
+                             device=meshes.device).detach()
+    target_cm = target.broadcast_to((n, s, s, 3)).permute(0, 3, 1, 2)
+    target_cm = target_cm.reshape(n, 3, s * s).contiguous()
+    lscale = 1.0 / (n * s * s * 3)
+    return _FusedLoss.apply(cfg, loss_kind, lscale, *inputs, target_cm)

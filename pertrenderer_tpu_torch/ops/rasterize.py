@@ -36,14 +36,23 @@ class RasterizationSettings:
         return self.clip_barycentric_coords
 
 
+def _max(x, c: float):
+    """jnp.maximum(x, c): half the gradient to x at a tie."""
+    return torch.maximum(x, x.new_tensor(c))
+
+
+def _min(x, c: float):
+    return torch.minimum(x, x.new_tensor(c))
+
+
 def _edge_dist_sq(px, py, ax, ay, bx, by):
     """Squared distance from pixel (px, py) to segment (a, b); broadcasting.
     The per-edge constants have the face shape only."""
     ex, ey = bx - ax, by - ay
-    inv_denom = 1.0 / torch.clamp(ex * ex + ey * ey, min=1e-12)
+    inv_denom = 1.0 / _max(ex * ex + ey * ey, 1e-12)
     exs, eys = ex * inv_denom, ey * inv_denom
     dx, dy = px - ax, py - ay
-    t = torch.clamp(dx * exs + dy * eys, 0.0, 1.0)
+    t = _min(_max(dx * exs + dy * eys, 0.0), 1.0)
     rx = dx - t * ex
     ry = dy - t * ey
     return rx * rx + ry * ry
@@ -75,16 +84,16 @@ def _face_pixel_geometry(px, py, ax, ay, az, bx, by, bz, cx, cy, cz,
     dist = torch.where(inside, -min_d, min_d)
 
     if perspective_correct:
-        s0 = w0 / torch.clamp(az, min=1e-8)
-        s1 = w1 / torch.clamp(bz, min=1e-8)
-        s2 = w2 / torch.clamp(cz, min=1e-8)
-        denom = torch.clamp(s0 + s1 + s2, min=1e-12)
+        s0 = w0 / _max(az, 1e-8)
+        s1 = w1 / _max(bz, 1e-8)
+        s2 = w2 / _max(cz, 1e-8)
+        denom = _max(s0 + s1 + s2, 1e-12)
         w0, w1, w2 = s0 / denom, s1 / denom, s2 / denom
     if clip:
-        c0 = torch.clamp(w0, min=0.0)
-        c1 = torch.clamp(w1, min=0.0)
-        c2 = torch.clamp(w2, min=0.0)
-        denom = torch.clamp(c0 + c1 + c2, min=1e-12)
+        c0 = _max(w0, 0.0)
+        c1 = _max(w1, 0.0)
+        c2 = _max(w2, 0.0)
+        denom = _max(c0 + c1 + c2, 1e-12)
         w0, w1, w2 = c0 / denom, c1 / denom, c2 / denom
     z = w0 * az + w1 * bz + w2 * cz
     return w0, w1, w2, z, dist, inside, degenerate

@@ -27,7 +27,7 @@ class Meshes:
     textures: Optional[Any] = None
 
     @classmethod
-    def create(cls, verts, faces, textures=None, device="cpu") -> "Meshes":
+    def create(cls, verts, faces, textures=None, device="cuda") -> "Meshes":
         """From unbatched (V, 3) + (F, 3) or batched (N, V, 3) + (N, F, 3)."""
         verts = torch.as_tensor(verts, dtype=torch.float32, device=device)
         faces = torch.as_tensor(faces, dtype=torch.int64, device=device)

@@ -11,7 +11,7 @@ import torch
 
 __all__ = ["hat", "hat_inv", "so3_exp_map", "so3_exponential_map",
            "so3_log_map", "so3_relative_angle", "so3_rotation_angle",
-           "Rotate"]
+           "quaternion_to_matrix", "random_rotations", "Rotate"]
 
 _EPS = 1e-8
 
@@ -69,6 +69,25 @@ def so3_relative_angle(r1: torch.Tensor, r2: torch.Tensor,
     """Angle of the relative rotation r1^T r2 (radians)."""
     return so3_rotation_angle(torch.matmul(r1.transpose(-1, -2), r2),
                               eps=eps)
+
+
+def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions (..., 4) [w, x, y, z] -> rotations (..., 3, 3)."""
+    w, x, y, z = quat[..., 0], quat[..., 1], quat[..., 2], quat[..., 3]
+    m = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+        2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+        2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+    ], dim=-1)
+    return m.reshape(quat.shape[:-1] + (3, 3))
+
+
+def random_rotations(n: int, generator=None, device="cuda") -> torch.Tensor:
+    """Uniformly distributed rotations (n, 3, 3) from normalised gaussian
+    quaternions drawn from a CPU ``generator``."""
+    quat = torch.randn(n, 4, generator=generator)
+    quat = quat / torch.sqrt(torch.sum(quat * quat, dim=-1, keepdim=True))
+    return quaternion_to_matrix(quat).to(device)
 
 
 class Rotate:

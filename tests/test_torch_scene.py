@@ -52,11 +52,12 @@ def test_so3_exp_log_and_rotate():
 def test_look_at_view_transform_and_ndc_projection():
     elev, azim = [20.0, 30.0, 89.0], [100.0, 120.0, -45.0]
     rj, tj = pt.look_at_view_transform(dist=6.7, elev=elev, azim=azim)
-    rt, tt = ptt.look_at_view_transform(dist=6.7, elev=elev, azim=azim)
+    rt, tt = ptt.look_at_view_transform(dist=6.7, elev=elev, azim=azim,
+                                        device="cpu")
     _close(rt, rj)
     _close(tt, tj, atol=4e-6)              # |T| ~ 6.7: a few ulp
     cam_j = pt.PerspectiveCameras.create(R=rj, T=tj, fov=60.0)
-    cam_t = convert.from_reference(cam_j)
+    cam_t = convert.from_reference(cam_j, device="cpu")
     pts = np.random.default_rng(1).normal(size=(3, 10, 3)).astype(np.float32)
     _close(cam_t.transform_points_ndc(torch.from_numpy(pts)),
            cam_j.transform_points_ndc(jnp.asarray(pts)))
@@ -65,12 +66,12 @@ def test_look_at_view_transform_and_ndc_projection():
 
 def test_verts_normals_and_load_cube():
     mj = pt.load_cube().scale_verts(2.0)
-    mt = ptt.load_cube().scale_verts(2.0)
+    mt = ptt.load_cube(device="cpu").scale_verts(2.0)
     _close(mt.verts, mj.verts)
     np.testing.assert_array_equal(mt.faces.numpy(), np.asarray(mj.faces))
     rot = j_exp(jnp.asarray([[0.3, -0.2, 0.5]]))
     mj = mj.update_padded(JRotate(rot).transform_points(mj.verts))
-    mt = convert.from_reference(mj)
+    mt = convert.from_reference(mj, device="cpu")
     _close(mt.verts_normals(), mj.verts_normals())
     _close(mt.face_normals(), mj.face_normals())
 
@@ -82,7 +83,7 @@ def test_bake_atlas(atlas_size):
     tex_j = cube.textures.replace(
         maps=jnp.asarray(rng.uniform(size=(1, 8, 96, 3)), jnp.float32),
         atlas_size=atlas_size)
-    tex_t = convert.from_reference(tex_j)
+    tex_t = convert.from_reference(tex_j, device="cpu")
     assert tex_t.atlas_size == atlas_size
     _close(tex_t._bake_atlas(), tex_j._bake_atlas())
 
@@ -96,8 +97,8 @@ def test_prepare_inputs_tables(kw):
     mesh, _cams, _lights, renderer = build("gaussian", **kw)
     jcfg, jin = jax_inputs(mesh, renderer)
     cfg = port_config(jcfg)
-    tr = convert.from_reference(renderer)
-    tm = convert.from_reference(mesh)
+    tr = convert.from_reference(renderer, device="cpu")
+    tm = convert.from_reference(mesh, device="cpu")
     sh = tr.shader
     seeds = np.asarray(jin[-1])[:, 0, :4]
     tin = tfr._prepare_inputs(cfg, tm, sh.cameras, sh.lights, sh.materials,
@@ -137,3 +138,29 @@ def test_port_never_imports_jax():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax",
                                "pertrenderer_tpu"), (path, mod)
+
+
+@pytest.mark.parametrize("noise", ["gaussian_wovr", "hard"])
+def test_from_reference_carries_the_pose_state(noise):
+    """A JAX renderer mid-optimisation (annealed blur, doubled samples)
+    comes across with its estimator classes, smoothing tensors, sample
+    counts and blur override, so both packages' pose steps start alike."""
+    mesh, _cams, _lights, jrend = build(noise, s=4)
+    jrend = jrend.replace(
+        rasterizer=jrend.rasterizer.update_blur(0.02),
+        shader=jrend.shader.update_smoothing(sigma=3e-3, gamma=4e-2)
+        .update_nb_samples(8))
+    tr = convert.from_reference(jrend, device="cpu")
+    sh, jsh = tr.shader, jrend.shader
+    assert type(sh.smoothrast).__name__ == type(jsh.smoothrast).__name__
+    assert type(sh.smoothagg).__name__ == type(jsh.smoothagg).__name__
+    assert sh.get_nb_samples() == jsh.get_nb_samples()
+    for got, want in zip(sh.get_smoothing(), jsh.get_smoothing()):
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        _close(got, want)
+    _close(tr.rasterizer.blur, 0.02)
+    cfg = tfr._plan(convert.from_reference(mesh, device="cpu"), sh.lights,
+                    sh.smoothrast, sh.smoothagg,
+                    tr.rasterizer.raster_settings, "phong")
+    assert (cfg.rast_vr, cfg.agg_vr) == ((False, False) if noise ==
+                                         "gaussian_wovr" else (True, True))

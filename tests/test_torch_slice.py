@@ -1,8 +1,8 @@
 """The port's public entry end to end against the JAX package:
 ``MeshRenderer(meshes, seeds=...)`` on the cube at 32^2, K=50, S=4, two
 rotated poses, with the JAX renderer's own seed rows.  Plus the routing,
-the refusal to differentiate without backward kernels, and the rule that
-the CPU path launches no kernel."""
+gradients of a render reaching the pose and the smoothing parameters, and
+the rule that the CPU path launches no kernel."""
 
 import dataclasses
 
@@ -35,8 +35,8 @@ def _scene(noise):
                                            n_views=2, sigma=1e-2, gamma=5e-2)
     posed = mesh.update_padded(JRotate(j_exp(jnp.asarray(LOG_ROT)))
                                .transform_points(mesh.verts_padded()))
-    return posed, renderer, convert.from_reference(mesh), \
-        convert.from_reference(renderer)
+    return posed, renderer, convert.from_reference(mesh, device="cpu"), \
+        convert.from_reference(renderer, device="cpu")
 
 
 def _pose(tmesh, log_rot):
@@ -83,17 +83,39 @@ def test_unported_routes_raise():
                                                        atlas_size=0))
     with pytest.raises(NotImplementedError, match="staged"):
         trend(no_atlas)
-    with pytest.raises(NotImplementedError):
-        trend.render_loss(tmesh, torch.zeros(2, 32, 32, 3))
+    with pytest.raises(NotImplementedError, match="stream"):
+        few_slots.render_loss(tmesh, torch.zeros(2, 32, 32, 3))
+    with pytest.raises(ValueError, match="loss_kind"):
+        trend.render_loss(tmesh, torch.zeros(2, 32, 32, 3), loss_kind="l3")
 
 
-def test_grad_requiring_input_raises_at_backward():
-    _posed, _jrend, tmesh, trend = _scene("gaussian")
+def test_render_gradient_reaches_pose_and_smoothing():
+    """A render's gradient (through K4's plain version here) reaches the
+    pose and the sigma / gamma / alpha tensors through the packed
+    scalars, finite and nonzero, and equals finite differences of the
+    pose along one axis."""
+    _posed, _jrend, tmesh, trend = _scene("softras")
+    seeds = tfr.draw_seeds(2, torch.Generator().manual_seed(4), device="cpu")
     log_rot = torch.from_numpy(LOG_ROT).requires_grad_()
-    img = trend(_pose(tmesh, log_rot))
-    assert img.requires_grad
-    with pytest.raises(NotImplementedError, match="backward"):
-        img.sum().backward()
+    smoothing = [torch.tensor(v, requires_grad=True)
+                 for v in (1e-2, 5e-2, 1.0)]
+    shader = trend.shader.update_smoothing(*smoothing)
+    weights = torch.linspace(0.0, 1.0, 4)
+
+    def objective(rot):
+        img = trend.replace(shader=shader)(_pose(tmesh, rot), seeds=seeds)
+        return torch.sum(img * weights)
+
+    value = objective(log_rot)
+    grads = torch.autograd.grad(value, [log_rot, *smoothing])
+    for g in grads:
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+    h = 1e-3
+    step = torch.zeros_like(log_rot)
+    step[0, 1] = h
+    with torch.no_grad():
+        fd = (objective(log_rot + step) - objective(log_rot - step)) / (2 * h)
+    assert abs(fd.item() - grads[0][0, 1].item()) <= 0.05 * abs(fd.item())
 
 
 def test_generator_seeds_the_noise():
@@ -103,7 +125,8 @@ def test_generator_seeds_the_noise():
     c = trend(tmesh, generator=torch.Generator().manual_seed(2))
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
-    seeds = tfr.draw_seeds(2, torch.Generator().manual_seed(1))
+    seeds = tfr.draw_seeds(2, torch.Generator().manual_seed(1),
+                           device="cpu")
     assert seeds.shape == (2, 4) and seeds.dtype == torch.int32
     assert torch.equal(trend(tmesh, seeds=seeds), a)
 
@@ -116,7 +139,8 @@ def test_fused_forward_checks_its_inputs():
                     "phong")
     inputs = list(tfr._prepare_inputs(
         cfg, tmesh, sh.cameras, sh.lights, sh.materials, sh.smoothrast,
-        sh.smoothagg, sh.blend_params, settings, tfr.draw_seeds(2), "phong"))
+        sh.smoothagg, sh.blend_params, settings,
+        tfr.draw_seeds(2, device="cpu"), "phong"))
     assert tfr.fused_forward(cfg, *inputs).shape == (2, 32, 32, 4)
     bad_dtype = list(inputs)
     bad_dtype[5] = inputs[5].double()
