@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-The headline configuration throughout: the cube x2, 256^2, K=50, S=8,
-GaussianRast + GaussianAgg (sigma 1e-3, gamma 1e-2), point light
-(0, 2, -2), camera dist 6.7 elev 30 azim 120.  Phases (each prints one
+The headline configuration throughout: the cube x2 (flat route) or the
+cow (stream route), 256^2, K=50, S=8, GaussianRast + GaussianAgg (sigma
+1e-3, gamma 1e-2), point light (0, 2, -2), camera dist 6.7 elev 30 azim
+120.  Phases (each prints one
 line; any failure exits non-zero before a result is printed):
 
 1. device — the card must be CUDA capability 9.0 (Hopper); builds the
@@ -33,12 +34,35 @@ line; any failure exits non-zero before a result is printed):
    step on the CPU through the plain versions (loss rtol 1e-4, pose
    gradient within 1e-3 of its max).
 
-Phases 6-8 are the main paths: the launch counts are reset just before
-each and read just after, and each must have launched its kernels (serve:
-K1 and K3; render-grad: K3 and K4; train: K2 once per step).  Times are
-CUDA events except the per-request and per-step times (host clock ending
-in a device synchronisation).  Kernel and plain version are timed in
-turns (plain, kernel, kernel, plain) after a warm-up call.
+9. K5 — the stream forward on the config-3 cow (5120 faces, centred and
+   scaled to 3 / max |v|) at 256^2, N=4, against its plain version at
+   full width (tolerances as K3), repeated launches bit-equal;
+10. K6 / K7 — the stream backward (N=4) and loss-and-grad (N=1) of the
+   gaussian pair against their plain versions on the cow at 256^2 (1e-3
+   of each table's max on every row but those of faces too thin for
+   float32 to resolve it, height under 2e-3 of their longest edge:
+   finite, their difference printed; each scalar within 1e-3 of its
+   own max), repeated launches bit-equal, and K7 = K5 + K6 at N=4 (1e-5
+   of each table's max);
+11. serve-stream — 8 render requests of N=4 cow poses through
+   MeshRenderer;
+12. render-grad-stream — 4 requests that render N=4 cow poses and take
+   the pose gradient of an image objective;
+13. train-stream — optimize_pose on the cow for 30 steps at N=1 from 20
+   degrees off, against the port's render of the true pose through the
+   stream HardRast + HardAgg pair (K5); its first step must equal the same
+   step through K7's plain version on the card (loss rtol 1e-5, pose
+   gradient within 1e-3 of its max, the thin faces' rows taken from K7 as
+   in phase 10).
+
+Phases 6-8 and 11-13 are the main paths: the launch counts are reset just
+before each and read just after, and each must have launched its kernels
+(serve: K1 and K3; render-grad: K3 and K4; train: K2 once per step;
+serve-stream: K5; render-grad-stream: K5 and K6; train-stream: K7 once
+per step).  Times are CUDA events except the per-request and per-step
+times (host clock ending in a device synchronisation).  Kernel and plain
+version are timed in turns (plain, kernel, kernel, plain) after a warm-up
+call.
 
 The last lines are the per-kernel report (one JSON object), the card's
 nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
@@ -127,15 +151,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def timed_pair(kernel, plain, reps):
+def timed_pair(kernel, plain, reps, plain_reps=None):
     """(kernel ms, plain ms), measured in turns: plain, kernel, kernel,
-    plain, after one warm-up call each."""
+    plain, after one warm-up call each (``plain_reps`` calls per plain
+    turn, ``reps`` by default)."""
+    plain_reps = plain_reps or reps
     kernel(), plain()
     torch.cuda.synchronize()
-    p1 = cuda_ms(plain, reps)
+    p1 = cuda_ms(plain, plain_reps)
     k1 = cuda_ms(kernel, reps)
     k2 = cuda_ms(kernel, reps)
-    p2 = cuda_ms(plain, reps)
+    p2 = cuda_ms(plain, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -153,15 +179,16 @@ def mc_close(got, want):
     return ok, d.max().item(), d.mean().item(), flips
 
 
-def tables_close(got, want, tol):
-    """(ok, worst error, where): each gradient table's max |d| over its max
-    |want|; the scalar table (N, 34) column by column, each scalar against
-    its own max |want| over N, floored at 1e-6 of the table's max for
-    columns that are 0 in the reference."""
-    worst, where = 0.0, ""
+def table_errors(got, want):
+    """[(where, error)]: each gradient table's max |d| over its max |want|;
+    the scalar table (N, 34) column by column, each scalar against its own
+    max |want| over N, floored at 1e-6 of the table's max for columns that
+    are 0 in the reference."""
+    out = []
     for i, (g, w) in enumerate(zip(got, want)):
         if not bool(torch.isfinite(g).all()):
-            return False, math.inf, f"table {i} not finite"
+            out.append((f"table {i} not finite", math.inf))
+            continue
         d = (g - w).abs()
         if i == 4:
             scale = w.abs().amax(dim=0)
@@ -169,12 +196,16 @@ def tables_close(got, want, tol):
                                 min=1e-30)
             col = d.amax(dim=0) / scale
             j = int(col.argmax())
-            err, name = col[j].item(), f"scalar {j}"
+            out.append((f"scalar {j}", col[j].item()))
         else:
-            err = d.max().item() / max(w.abs().max().item(), 1e-30)
-            name = f"table {i}"
-        if err >= worst:
-            worst, where = err, name
+            out.append((f"table {i}",
+                        d.max().item() / max(w.abs().max().item(), 1e-30)))
+    return out
+
+
+def tables_close(got, want, tol):
+    """(ok, worst error, where) of ``table_errors``."""
+    where, worst = max(table_errors(got, want), key=lambda e: e[1])
     return worst <= tol, worst, where
 
 
@@ -260,6 +291,91 @@ def grad_ops(cfg, w, loss):
     return ops + (w["pixels"] * OPS_LOSS if loss else 0)
 
 
+def _draw_ops(rows, noise):
+    """Operations of the noise draws that feed the rows marked in ``rows``
+    (N, 64, Q): Box-Muller pairs (row h with row h + 32) or Cauchy
+    draws."""
+    if noise == "gaussian":
+        return int((rows[:, :32] | rows[:, 32:]).sum().item()) * OPS_PAIR
+    return int(rows.sum().item()) * OPS_CAUCHY
+
+
+def stream_work(cfg, args):
+    """What the stream route needs on these inputs: pixels, visited (row,
+    pixel) pairs (each pixel's tile list: 64 rows per listed chunk of an
+    active tile), candidate (row, pixel) pairs, and the noise operations
+    per sample for the candidate rows and for every visited row (the MC
+    gamma gradient sums n^2 over all of them)."""
+    tab, rows, count, active, scal, _seeds = args
+    n, td = tab.shape[0], cfg.tex_d
+    sc = lambda i: scal[:, i].view(n, 1, 1)
+    w = dict(pixels=n * cfg.image_size ** 2, visited=0, cand=0,
+             rast_draw_ops=0, agg_draw_ops=0, agg_draw_ops_all=0)
+    with torch.no_grad():
+        for c, _sel, vis, _pos, px, py in fr._StreamPass(
+                cfg, rows, count, active).chunks():
+            blk = tab[:, c * 64:(c + 1) * 64]
+            valid = (blk[..., 27 + td] < 1e30).float()
+            cand = fr._det1(cfg, px, py, blk[..., :9], blk[..., 9:18],
+                            blk[..., 18:27], blk[..., 27:27 + td], valid,
+                            sc)[-1] > 0
+            cand = cand & vis
+            allv = vis.expand_as(cand)
+            w["visited"] += int(allv.sum().item())
+            w["cand"] += int(cand.sum().item())
+            w["rast_draw_ops"] += _draw_ops(cand, cfg.rast_noise)
+            w["agg_draw_ops"] += _draw_ops(cand, cfg.agg_noise)
+            w["agg_draw_ops_all"] += _draw_ops(allv, cfg.agg_noise)
+    return w
+
+
+def stream_forward_ops(cfg, w):
+    """Float32 operations of the stream forward on the ``stream_work``
+    counts: geometry per visited pair; texel, shading, z_map, blend and
+    coverage per candidate; the aggregation over the candidates and the
+    background row (one draw per pixel and sample)."""
+    geom = OPS_GEOM + OPS_CLIP * cfg.clip_bary + (
+        OPS_PERSP * cfg.perspective_correct)
+    shade = OPS_TEXEL[cfg.tex_mode] + (
+        OPS_PHONG if cfg.shade == "phong" else 0)
+    live = w["cand"] + w["pixels"]
+    ops = (w["visited"] * geom + w["pixels"] * OPS_BG
+           + w["cand"] * (shade + OPS_ZMAP + OPS_BLEND))
+    if cfg.rast_kind == "mc":
+        ops += cfg.s_rast * (w["rast_draw_ops"] + w["cand"] * OPS_COVER)
+    else:
+        ops += w["cand"] * OPS_SOFT_COVER
+    if cfg.agg_kind == "mc":
+        ops += cfg.s_agg * (w["agg_draw_ops"] + w["pixels"] * OPS_PAIR
+                            + live * OPS_AGG)
+    elif cfg.agg_kind == "soft":
+        ops += live * OPS_SOFTMAX
+    return ops
+
+
+def stream_grad_ops(cfg, w, loss):
+    """Float32 operations of K6 (loss=False) or K7: the forward, every
+    visited row's draw for phi (MC aggregation), then the adjoints per
+    candidate; each draw counted once."""
+    ops = stream_forward_ops(cfg, w) + w["cand"] * (
+        OPS_SLOT_BWD + OPS_CLIP_BWD * cfg.clip_bary
+        + OPS_PERSP_BWD * cfg.perspective_correct)
+    if cfg.rast_kind == "mc":
+        ops += cfg.s_rast * w["cand"] * OPS_COVER_BWD
+    if cfg.agg_kind == "mc":
+        ops += cfg.s_agg * (w["agg_draw_ops_all"] - w["agg_draw_ops"]
+                            + w["cand"] * OPS_AGG_BWD)
+    elif cfg.agg_kind == "soft":
+        ops += (w["cand"] + w["pixels"]) * OPS_SOFTMAX
+    return ops + (w["pixels"] * OPS_LOSS if loss else 0)
+
+
+def stream_bytes(args):
+    """Bytes of the sorted table, the chunk lists, counts, activity bits,
+    scalars and seeds."""
+    return sum(t.numel() * t.element_size() for t in args)
+
+
 def table_bytes(cfg, n):
     """Bytes of the face tables, validity, scalars and seeds."""
     return 4 * n * (cfg.f_pad * (27 + cfg.tex_d + 1) + 34 + 4)
@@ -272,8 +388,9 @@ def scene(device):
     return r, t, lights
 
 
-def headline_renderer(noise, device, n=N_POSES):
-    """The headline scene's renderer (cameras, light, estimators)."""
+def headline_renderer(noise, device, n=N_POSES, size=None):
+    """The headline scene's renderer (cameras, light, estimators), at
+    ``size``^2 (IMAGE by default)."""
     r, t, lights = scene(device)
     cams = ptt.PerspectiveCameras.create(
         R=r.expand(n, 3, 3), T=t.expand(n, 3), fov=60.0, device=device)
@@ -284,13 +401,46 @@ def headline_renderer(noise, device, n=N_POSES):
         sr, sa = ptt.SoftRast.create(sigma=SIGMA), ptt.SoftAgg.create(
             gamma=GAMMA)
     settings = ptt.RasterizationSettings(
-        image_size=IMAGE, blur_radius=float(np.log(1.0 / 1e-4 - 1.0) * SIGMA),
+        image_size=size or IMAGE,
+        blur_radius=float(np.log(1.0 / 1e-4 - 1.0) * SIGMA),
         faces_per_pixel=K)
     shader = ptt.RandomPhongShader.create(
         cameras=cams, lights=lights, smoothrast=sr, smoothagg=sa,
         blend_params=ptt.BlendParams(SIGMA, GAMMA, (0.0, 0.0, 0.0)),
         device=device)
     return ptt.MeshRenderer(ptt.MeshRasterizer(cams, settings), shader)
+
+
+def cow_mesh(device):
+    """The config-3 cow (``make_cow``: 2562 verts, 5120 faces, UV atlas
+    4), centred and scaled to 3 / max |v| as tools/run_config3.py does."""
+    cow = ptt.make_cow(device=device)
+    verts = cow.verts[0]
+    center = verts.mean(0)
+    scale = torch.max(torch.abs(verts - center))
+    return cow.offset_verts(-center.expand_as(verts)).scale_verts(
+        3.0 / scale)
+
+
+def posed_cow(generator, device, n=N_POSES, log_rot=None):
+    """The cow at n random rotations drawn from ``generator``."""
+    cow = cow_mesh(device).extend(n)
+    if log_rot is None:
+        log_rot = torch.randn(n, 3, generator=generator).to(device)
+    rot = ptt.so3_exp_map(log_rot)
+    return cow.update_padded(ptt.Rotate(rot).transform_points(cow.verts))
+
+
+def stream_inputs(noise, dev, n, size=None):
+    """(cfg, K5-K7 arguments) of the cow at n random poses."""
+    renderer = headline_renderer(noise, dev, n, size)
+    mesh = posed_cow(torch.Generator().manual_seed(0), dev, n)
+    seeds = fr.draw_seeds(n, torch.Generator().manual_seed(1), device=dev)
+    cfg, (tab, scal, rows, count, active, seeds) = kernel_inputs(
+        renderer, mesh, seeds)
+    if not cfg.stream:
+        fail(f"the cow did not take the stream route: {cfg}")
+    return cfg, (tab, rows, count, active, scal, seeds)
 
 
 def posed_cube(generator, device, log_rot=None):
@@ -354,11 +504,19 @@ def phase_k1(dev, smi, report):
           f"({b_by}) | {smi}", flush=True)
 
 
+def flat_active(cfg, ins):
+    """The flat route's activity bits, computed once outside the timed
+    calls (the wrappers compute them when not given)."""
+    return fr._active_tiles(cfg, ins[0], ins[4],
+                            ins[5][:, fr._S_BLUR]).contiguous()
+
+
 def phase_k3(dev, smi, report):
     for noise in ("gaussian", "softras"):
         cfg, ins = headline_inputs(noise, dev)
-        got = fr.fused_forward(cfg, *ins)
-        want = fr.forward_plain(cfg, *ins)
+        act = flat_active(cfg, ins)
+        got = fr.fused_forward(cfg, *ins, active=act)
+        want = fr.forward_plain(cfg, *ins, active=act)
         torch.cuda.synchronize()
         if noise == "gaussian":
             ok, dmax, dmean, flips = mc_close(got, want)
@@ -368,8 +526,9 @@ def phase_k3(dev, smi, report):
             ok = bool(torch.isfinite(got).all()) and dmax <= 2e-5
         if not ok:
             fail(f"K3 {noise}: max {dmax} mean {dmean} flips {flips}")
-        k_ms, p_ms = timed_pair(lambda: fr.fused_forward(cfg, *ins),
-                                lambda: fr.forward_plain(cfg, *ins), 20)
+        k_ms, p_ms = timed_pair(
+            lambda: fr.fused_forward(cfg, *ins, active=act),
+            lambda: fr.forward_plain(cfg, *ins, active=act), 20)
         w = work(cfg, ins)
         b_ms, b_by = bound(table_bytes(cfg, N_POSES) + 16 * w["pixels"],
                            forward_ops(cfg, w))
@@ -387,11 +546,12 @@ def phase_k3(dev, smi, report):
 def phase_k4(dev, smi, report):
     for noise in ("gaussian", "softras"):
         cfg, ins = headline_inputs(noise, dev)
+        act = flat_active(cfg, ins)
         g_out = torch.randn(N_POSES, IMAGE, IMAGE, 4,
                             generator=torch.Generator().manual_seed(2)).to(dev)
-        got = fr.fused_backward(cfg, *ins, g_out)
-        again = fr.fused_backward(cfg, *ins, g_out)
-        want = fr.backward_plain(cfg, *ins, g_out)
+        got = fr.fused_backward(cfg, *ins, g_out, act)
+        again = fr.fused_backward(cfg, *ins, g_out, act)
+        want = fr.backward_plain(cfg, *ins, g_out, act)
         torch.cuda.synchronize()
         tol = 1e-3 if noise == "gaussian" else 1e-4
         ok, err, where = tables_close(got, want, tol)
@@ -400,8 +560,8 @@ def phase_k4(dev, smi, report):
             fail(f"K4 {noise}: worst table error {err} at {where} "
                  f"(tolerance {tol}), repeat bit-equal {same}")
         k_ms, p_ms = timed_pair(
-            lambda: fr.fused_backward(cfg, *ins, g_out),
-            lambda: fr.backward_plain(cfg, *ins, g_out), 5)
+            lambda: fr.fused_backward(cfg, *ins, g_out, act),
+            lambda: fr.backward_plain(cfg, *ins, g_out, act), 5)
         w = work(cfg, ins)
         nbytes = 2 * table_bytes(cfg, N_POSES) + 16 * w["pixels"]
         b_ms, b_by = bound(nbytes, grad_ops(cfg, w, False))
@@ -420,13 +580,15 @@ def phase_k4(dev, smi, report):
 def phase_k2(dev, smi, report):
     for noise in ("gaussian", "softras"):
         cfg, ins = headline_inputs(noise, dev)
+        act = flat_active(cfg, ins)
         n, hw = N_POSES, IMAGE * IMAGE
         target = torch.rand(n, 3, hw,
                             generator=torch.Generator().manual_seed(3)).to(dev)
         lscale = 1.0 / (n * hw * 3)
-        loss, *got = fr.fused_loss_grad(cfg, *ins, target, "l2_rgb", lscale)
+        loss, *got = fr.fused_loss_grad(cfg, *ins, target, "l2_rgb", lscale,
+                                        act)
         want_loss, *want = fr.loss_grad_plain(cfg, *ins, target, "l2_rgb",
-                                              lscale)
+                                              lscale, act)
         torch.cuda.synchronize()
         tol = 1e-3 if noise == "gaussian" else 1e-4
         ok, err, where = tables_close(got, want, tol)
@@ -435,12 +597,12 @@ def phase_k2(dev, smi, report):
             fail(f"K2 {noise}: worst table error {err} at {where} "
                  f"(tolerance {tol}), loss rel error {lerr}")
         # Dual path: K3's image, the L2 cotangent, K4.
-        img = fr.fused_forward(cfg, *ins)
+        img = fr.fused_forward(cfg, *ins, active=act)
         d = img[..., :3].reshape(n, hw, 3).transpose(1, 2) - target
         g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(n, IMAGE, IMAGE,
                                                             3)
         g_out = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1])], dim=-1)
-        dual = fr.fused_backward(cfg, *ins, g_out.contiguous())
+        dual = fr.fused_backward(cfg, *ins, g_out.contiguous(), act)
         dual_loss = torch.sum(d * d, dim=(1, 2)) * lscale
         ok, derr, dwhere = tables_close(got, dual, 1e-5)
         dlerr = ((loss - dual_loss).abs() / dual_loss.abs()).max().item()
@@ -448,9 +610,10 @@ def phase_k2(dev, smi, report):
             fail(f"K2 {noise} vs K3 + K4: worst table error {derr} at "
                  f"{dwhere}, loss rel error {dlerr}")
         k_ms, p_ms = timed_pair(
-            lambda: fr.fused_loss_grad(cfg, *ins, target, "l2_rgb", lscale),
-            lambda: fr.loss_grad_plain(cfg, *ins, target, "l2_rgb", lscale),
-            5)
+            lambda: fr.fused_loss_grad(cfg, *ins, target, "l2_rgb", lscale,
+                                       act),
+            lambda: fr.loss_grad_plain(cfg, *ins, target, "l2_rgb", lscale,
+                                       act), 5)
         w = work(cfg, ins)
         nbytes = 2 * table_bytes(cfg, n) + 12 * w["pixels"] + 4 * n
         b_ms, b_by = bound(nbytes, grad_ops(cfg, w, True))
@@ -548,12 +711,16 @@ def phase_render_grad(dev, smi, report):
           flush=True)
 
 
-def train_setup(device, r_true, gen_seed):
+def cube_mesh(device):
+    return ptt.load_cube(device=device).scale_verts(2.0)
+
+
+def train_setup(device, r_true, gen_seed, make_mesh=cube_mesh):
     """(mesh, cameras, lights, renderer, log_rot_init, target) of the pose
-    loop on ``device``: the headline scene at N=1."""
+    loop on ``device``: the headline scene (or ``make_mesh``'s) at N=1."""
     r, t, lights = scene(device)
     cams = ptt.PerspectiveCameras.create(R=r, T=t, fov=60.0, device=device)
-    mesh = ptt.load_cube(device=device).scale_verts(2.0)
+    mesh = make_mesh(device)
     hard = ptt.MeshRenderer(
         ptt.MeshRasterizer(cams, ptt.RasterizationSettings(
             image_size=IMAGE, blur_radius=0.0, faces_per_pixel=K)),
@@ -655,9 +822,10 @@ def phase_train(dev, smi, report):
         torch.cuda.synchronize()
         prep_ms.append((time.perf_counter() - t0) * 1e3)
     ins = [t.detach() for t in ins]
+    act = flat_active(cfg, ins)
     tcm = target.permute(2, 0, 1).reshape(1, 3, -1).contiguous()
     k2_ms = cuda_ms(lambda: fr.fused_loss_grad(
-        cfg, *ins, tcm, "l2_rgb", 1.0 / (3 * IMAGE * IMAGE)), 10)
+        cfg, *ins, tcm, "l2_rgb", 1.0 / (3 * IMAGE * IMAGE), act), 10)
     st.log_rot.grad = torch.ones_like(st.log_rot)
     adam_ms = cuda_ms(opt.step, 20)
     med = statistics.median(step_ms[1:])
@@ -675,12 +843,368 @@ def phase_train(dev, smi, report):
           f"gradient {gerr:.3g} of max | {smi}", flush=True)
 
 
+def phase_k5(dev, smi, report):
+    for noise in ("gaussian", "softras"):
+        cfg, args = stream_inputs(noise, dev, N_POSES)
+        count, active = args[2], args[3]
+        got = fr.fused_stream_forward(cfg, *args)
+        again = fr.fused_stream_forward(cfg, *args)
+        want = fr.stream_forward_plain(cfg, *args)
+        torch.cuda.synchronize()
+        if noise == "gaussian":
+            ok, dmax, dmean, flips = mc_close(got, want)
+        else:
+            d = (got - want).abs()
+            dmax, dmean, flips = d.max().item(), d.mean().item(), 0.0
+            ok = bool(torch.isfinite(got).all()) and dmax <= 2e-5
+        if not ok or not torch.equal(got, again):
+            fail(f"K5 {noise}: max {dmax} mean {dmean} flips {flips}, "
+                 f"repeat bit-equal {torch.equal(got, again)}")
+        k_ms, p_ms = timed_pair(lambda: fr.fused_stream_forward(cfg, *args),
+                                lambda: fr.stream_forward_plain(cfg, *args),
+                                10, 1)
+        w = stream_work(cfg, args)
+        b_ms, b_by = bound(stream_bytes(args) + 16 * w["pixels"],
+                           stream_forward_ops(cfg, w))
+        if noise == "gaussian":
+            report["fused_stream_forward"] = dict(
+                max_abs_err=dmax, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by)
+        visits = int((count * active).sum())
+        idle = int(((active == 0) & (count > 0)).sum())
+        print(f"[K5] fused_stream_forward {noise} cow 5120 faces 256^2 K=50 "
+              f"S=8 N=4 (rw {cfg.rw}, {fr._n_tiles(cfg)} tiles of "
+              f"{cfg.p_tile} px, {visits} chunk visits, {idle} inactive "
+              f"tiles with chunks; {w['visited']} visited and {w['cand']} "
+              f"candidate (row, pixel) pairs): max |d| {dmax:.3g}, mean |d| "
+              f"{dmean:.3g}, pixels beyond 1e-4 {flips:.3g}, repeat "
+              f"bit-equal; {k_ms:.4f} ms vs plain {p_ms:.2f} ms per render, "
+              f"bound {b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+
+
+def stream_split(cfg, g_tab, g_scal):
+    """The sorted gradient table as the ndc, world, normal and texel
+    tables, plus the scalars (``tables_close``'s layout)."""
+    return (g_tab[..., :9], g_tab[..., 9:18], g_tab[..., 18:27],
+            g_tab[..., 27:27 + cfg.tex_d], g_scal)
+
+
+def stream_grad_calls(cfg, args, size, seed=2):
+    """{kernel name: (kernel call, plain call)} of K6 and K7 on a seeded
+    cotangent / target; each call returns (loss or None, g_tab, g_scal)."""
+    n, hw = args[0].shape[0], size * size
+    g_out = torch.randn(n, size, size, 4, generator=torch.Generator()
+                        .manual_seed(seed)).to(args[0])
+    target = torch.rand(n, 3, hw, generator=torch.Generator()
+                        .manual_seed(seed + 1)).to(args[0])
+    lscale = 1.0 / (n * hw * 3)
+    return {
+        "fused_stream_backward": (
+            lambda: (None,) + fr.fused_stream_backward(cfg, *args, g_out),
+            lambda: (None,) + fr.stream_backward_plain(cfg, *args, g_out)),
+        "fused_stream_loss_grad": (
+            lambda: fr.fused_stream_loss_grad(cfg, *args, target, "l2_rgb",
+                                              lscale),
+            lambda: fr.stream_loss_grad_plain(cfg, *args, target, "l2_rgb",
+                                              lscale))}
+
+
+def sliver_rows(tab, tol):
+    """(N, rw) bool: rows of faces too thin for float32 to resolve a
+    gradient to ``tol`` of the table max: height below 2e-6 / tol of the
+    longest edge (2e-3 at the MC tolerance 1e-3, 2e-2 at the
+    deterministic 1e-4; faces seen nearly edge-on at the silhouette).
+    Their edge functions divide by the area and the barycentric adjoints
+    cancel terms that large, so the float32 gradient of such a face is
+    accurate only to about 2e-7 / (height / edge) of the table max
+    (measured on the card, PR 4: 5.5e-3 at 4e-5, 1e-4 at 1e-3); two
+    correct float32 implementations, or float32 and float64, differ
+    there by that much."""
+    v = tab[..., :9].double()
+    ex = [v[..., 3] - v[..., 0], v[..., 6] - v[..., 3], v[..., 0] - v[..., 6]]
+    ey = [v[..., 4] - v[..., 1], v[..., 7] - v[..., 4], v[..., 1] - v[..., 7]]
+    area = (ex[0] * (v[..., 7] - v[..., 1]) - ey[0] * (v[..., 6] - v[..., 0]))
+    longest = torch.stack([a * a + b * b for a, b in zip(ex, ey)]).amax(0)
+    return area.abs() < (2e-6 / tol) * longest
+
+
+def held_tables(cfg, g_tab, g_scal, keep):
+    """``stream_split`` with the rows outside ``keep`` (N, rw) zeroed."""
+    return stream_split(cfg, g_tab * keep[..., None], g_scal)
+
+
+def phase_k6_k7(dev, smi, report):
+    """K6 and K7 against their plain versions at the main paths' shapes:
+    the gaussian pair on the cow, 256^2, K6 at N=4 (render-grad-stream),
+    K7 at N=1 (train-stream).  Tolerance 1e-3 of each table's max (MC:
+    shared noise) on every row except those of faces too thin for float32
+    to resolve it (``sliver_rows``), which must be finite and whose
+    difference is printed; each scalar within 1e-3 of its own max;
+    repeated launches bit-equal.  (The softras pair's K6 / K7 are held at
+    1e-4 in tests/test_torch_cuda.py at 64^2 and 128^2; at 256^2 its
+    float32 gradient, the kernel's and the plain version's alike, is
+    about 1e-4 from the float64 evaluation, so 1e-4 is not resolvable
+    there.)  Then K7 = K5 + K6 at N=4, every row within 1e-5 of each
+    table's max."""
+    tol = 1e-3
+    for kname, n in (("fused_stream_backward", N_POSES),
+                     ("fused_stream_loss_grad", 1)):
+        cfg, args = stream_inputs("gaussian", dev, n)
+        kern, plain = stream_grad_calls(cfg, args, IMAGE)[kname]
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        sliver = sliver_rows(args[0], tol)
+        ok, err, where = tables_close(held_tables(cfg, *got[1:], ~sliver),
+                                      held_tables(cfg, *want[1:], ~sliver),
+                                      tol)
+        _ok, err_s, _w = tables_close(held_tables(cfg, *got[1:], sliver),
+                                      held_tables(cfg, *want[1:], sliver),
+                                      math.inf)
+        finite = all(bool(torch.isfinite(t).all()) for t in got[1:])
+        same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+        lerr = 0.0
+        if got[0] is not None:
+            lerr = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
+        if not ok or not same or not finite or lerr > 1e-5:
+            fail(f"{kname}: worst table error {err} at {where} (tolerance "
+                 f"{tol}), finite {finite}, repeat bit-equal {same}, loss "
+                 f"rel {lerr}")
+        k_ms, p_ms = timed_pair(kern, plain, 5, 1)
+        w = stream_work(cfg, args)
+        loss = kname == "fused_stream_loss_grad"
+        nbytes = (2 * stream_bytes(args) + 34 * 4 * n
+                  + (12 if loss else 16) * w["pixels"])
+        b_ms, b_by = bound(nbytes, stream_grad_ops(cfg, w, loss))
+        report[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+        print(f"[{'K7' if loss else 'K6'}] {kname} gaussian cow {IMAGE}^2 "
+              f"K=50 S=8 N={n}: worst table error {err:.3g} of max |grad| "
+              f"at {where} (tolerance {tol}) outside the "
+              f"{int(sliver.sum())} rows of thin faces (there {err_s:.3g}, "
+              f"finite), loss rel {lerr:.3g}, repeat bit-equal; "
+              f"{w['visited']} visited, {w['cand']} candidate (row, pixel) "
+              f"pairs; {k_ms:.4f} ms vs plain {p_ms:.2f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+
+    cfg, args = stream_inputs("gaussian", dev, N_POSES)
+    n, hw = N_POSES, IMAGE * IMAGE
+    target = torch.rand(n, 3, hw,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    lscale = 1.0 / (n * hw * 3)
+    loss, *got = fr.fused_stream_loss_grad(cfg, *args, target, "l2_rgb",
+                                           lscale)
+    img = fr.fused_stream_forward(cfg, *args)
+    d = img[..., :3].reshape(n, hw, 3).transpose(1, 2) - target
+    g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(n, IMAGE, IMAGE, 3)
+    g_out = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1])], dim=-1)
+    dual = fr.fused_stream_backward(cfg, *args, g_out.contiguous())
+    dual_loss = torch.sum(d * d, dim=(1, 2)) * lscale
+    ok, derr, dwhere = tables_close(stream_split(cfg, *got),
+                                    stream_split(cfg, *dual), 1e-5)
+    dlerr = ((loss - dual_loss).abs() / dual_loss.abs()).max().item()
+    if not ok or dlerr > 1e-5:
+        fail(f"K7 vs K5 + K6: worst table error {derr} at {dwhere}, loss "
+             f"rel error {dlerr}")
+    print(f"[K7 = K5 + K6] gaussian cow {IMAGE}^2 N=4: worst table error "
+          f"{derr:.3g} at {dwhere}, loss rel error {dlerr:.3g} | {smi}",
+          flush=True)
+
+
+def phase_serve_stream(dev, smi, report):
+    gen = torch.Generator().manual_seed(2030)
+    renderer = headline_renderer("gaussian", dev)
+    renderer(posed_cow(gen, dev), generator=gen)          # warm
+    torch.cuda.synchronize()
+    lat_ms, alphas = [], []
+    reset_counts()
+    t_all = time.perf_counter()
+    for _ in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        img = renderer(posed_cow(gen, dev), generator=gen)
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        if tuple(img.shape) != (N_POSES, IMAGE, IMAGE, 4):
+            fail(f"serve-stream: image shape {tuple(img.shape)}")
+        if not bool(torch.isfinite(img).all()):
+            fail("serve-stream: non-finite pixels")
+        alphas.append((img[..., 3] > 0.5).float().mean().item())
+    total_s = time.perf_counter() - t_all
+    counts = dict(fr.launch_counts)
+    if (counts["fused_stream_forward"] != N_REQUESTS
+            or counts["fused_forward"] != 0):
+        fail(f"serve-stream: launch counts {counts}")
+    if not all(0.02 < a < 0.6 for a in alphas):
+        fail(f"serve-stream: coverage shares {alphas}")
+    report["fused_stream_forward"]["launches"] = counts[
+        "fused_stream_forward"]
+    med = statistics.median(lat_ms[1:])
+    print(f"[serve-stream] {N_REQUESTS} requests x {N_POSES} poses of the "
+          f"cow through MeshRenderer: launches {counts}; coverage share "
+          f"alpha>0.5 {min(alphas):.3f}-{max(alphas):.3f}; request latency "
+          f"median {med:.3f} ms (after the first), "
+          f"{N_REQUESTS * N_POSES / total_s:.1f} renders/s | {smi}",
+          flush=True)
+
+
+def phase_render_grad_stream(dev, smi, report):
+    """Gradients of an image objective through MeshRenderer on the cow: K5
+    forward, K6 backward."""
+    gen = torch.Generator().manual_seed(2032)
+    renderer = headline_renderer("gaussian", dev)
+    weights = torch.linspace(0.0, 1.0, 4, device=dev)
+    reset_counts()
+    lat_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        log_rot = torch.randn(N_POSES, 3, generator=gen).to(dev)
+        log_rot.requires_grad_()
+        img = renderer(posed_cow(gen, dev, log_rot=log_rot), generator=gen)
+        (g,) = torch.autograd.grad(torch.mean(img * weights), [log_rot])
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (bool(torch.isfinite(g).all()) and g.abs().max() > 0):
+            fail(f"render-grad-stream: pose gradient {g}")
+    counts = dict(fr.launch_counts)
+    if (counts["fused_stream_forward"] != 4
+            or counts["fused_stream_backward"] != 4):
+        fail(f"render-grad-stream: launch counts {counts}")
+    report["fused_stream_backward"]["launches"] = counts[
+        "fused_stream_backward"]
+    print(f"[render-grad-stream] 4 requests x {N_POSES} poses of the cow, "
+          f"render + pose gradient through MeshRenderer: launches {counts}; "
+          f"request latency median {statistics.median(lat_ms[1:]):.3f} ms "
+          f"| {smi}", flush=True)
+
+
+def phase_train_stream(dev, smi, report):
+    """optimize_pose on the cow (stream route, K7 per step), and its first
+    step against the same step through the plain versions on the card."""
+    r_true = ptt.random_rotations(1, torch.Generator().manual_seed(2031),
+                                  device="cpu").to(dev)
+    mesh, cams, lights, renderer, log_rot, target = train_setup(
+        dev, r_true, 6, cow_mesh)
+    if renderer.plan(mesh).mode != "stream":
+        fail("train-stream: the cow does not stream")
+
+    # The first step: K7 through pose_step, against K7's plain version on
+    # the card fed back through the same input preparation.  The pose
+    # gradient of the plain table gradient takes the kernel's rows of thin
+    # faces (``sliver_rows``), as the K6 / K7 phase holds every other row.
+    seeds = fr.draw_seeds(1, torch.Generator().manual_seed(7), device=dev)
+    st = harness.PoseState.start(log_rot)
+    opt = torch.optim.Adam([st.log_rot], lr=TRAIN_LR)
+    out = harness.pose_step(mesh, target, st, renderer, cams, lights, opt,
+                            seeds, torch.zeros(1, 3))[1]
+    tcm = target.permute(2, 0, 1).reshape(1, 3, -1).contiguous()
+    lscale = 1.0 / (3 * IMAGE * IMAGE)
+
+    def pose_grad(table_grad):
+        lr0 = log_rot.detach().clone().requires_grad_()
+        posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(lr0))
+                                   .transform_points(mesh.verts))
+        cfg, (tab, scal, rows, count, active, sd) = kernel_inputs(
+            renderer, posed, seeds)
+        res = table_grad(cfg, (tab.detach(), rows, count, active,
+                               scal.detach(), sd))
+        (g,) = torch.autograd.grad(tab, [lr0], res[1])
+        return res[0], g
+
+    k_loss, g_kernel = pose_grad(lambda cfg, a: fr.fused_stream_loss_grad(
+        cfg, *a, tcm, "l2_rgb", lscale))
+
+    def plain_rows(cfg, a):
+        p_loss, g_tab, _g_scal = fr.stream_loss_grad_plain(
+            cfg, *a, tcm, "l2_rgb", lscale)
+        k_tab = fr.fused_stream_loss_grad(cfg, *a, tcm, "l2_rgb", lscale)[1]
+        thin = sliver_rows(a[0], 1e-3)[..., None]
+        return p_loss, torch.where(thin, k_tab, g_tab)
+
+    p_loss, g_plain = pose_grad(plain_rows)
+    lerr = abs(out.loss.item() - p_loss.item()) / abs(p_loss.item())
+    gerr = ((g_kernel - g_plain).abs().max() / g_plain.abs().max()).item()
+    serr = ((out.g_pose - g_kernel).abs().max()
+            / g_kernel.abs().max()).item()
+    if lerr > 1e-5 or gerr > 1e-3 or serr > 1e-5:
+        fail(f"train-stream: first step: loss rel {lerr} vs plain, pose "
+             f"gradient {gerr} of its max vs plain, pose_step vs K7 "
+             f"{serr}")
+
+    start_deg = degrees_off(log_rot, r_true)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = harness.optimize_pose(
+        mesh, cams, lights, log_rot, renderer, [target],
+        generator=torch.Generator().manual_seed(8), lr_init=TRAIN_LR,
+        Niter=TRAIN_STEPS, segment_size=TRAIN_STEPS)
+    counts = dict(fr.launch_counts)
+    if (counts["fused_stream_loss_grad"] != TRAIN_STEPS
+            or counts["fused_loss_grad"] != 0):
+        fail(f"train-stream: launch counts {counts}")
+    if not (np.all(np.isfinite(res.losses))
+            and np.all(np.isfinite(res.grad_norms))):
+        fail(f"train-stream: losses {res.losses} grad norms "
+             f"{res.grad_norms}")
+    best = float(np.min(res.losses))
+    if not best < res.losses[0]:
+        fail(f"train-stream: best loss {best} not below the first "
+             f"{res.losses[0]}")
+    report["fused_stream_loss_grad"]["launches"] = counts[
+        "fused_stream_loss_grad"]
+    steps_s = TRAIN_STEPS / res.runtimes["total"][0]
+    end_deg = degrees_off(res.best_log_rot, r_true)
+
+    gen = torch.Generator().manual_seed(9)
+    st = harness.PoseState.start(res.log_rot)
+    opt = torch.optim.Adam([st.log_rot], lr=TRAIN_LR)
+    step_ms, prep_ms = [], []
+    for _ in range(11):
+        sd = fr.draw_seeds(1, gen, device=dev)
+        t0 = time.perf_counter()
+        st, _out = harness.pose_step(mesh, target, st, renderer, cams,
+                                     lights, opt, sd, torch.zeros(1, 3))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    sd = fr.draw_seeds(1, gen, device=dev)
+    for _ in range(11):
+        t0 = time.perf_counter()
+        posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(
+            st.log_rot)).transform_points(mesh.verts))
+        cfg, ins = kernel_inputs(renderer, posed, sd)
+        torch.cuda.synchronize()
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    tab, scal, rows, count, active, sd = [t.detach() for t in ins]
+    k7_ms = cuda_ms(lambda: fr.fused_stream_loss_grad(
+        cfg, tab, rows, count, active, scal, sd, tcm, "l2_rgb", lscale), 10)
+    st.log_rot.grad = torch.ones_like(st.log_rot)
+    adam_ms = cuda_ms(opt.step, 20)
+    med = statistics.median(step_ms[1:])
+    prep_med = statistics.median(prep_ms[1:])
+    print(f"[train-stream] optimize_pose {TRAIN_STEPS} steps, N=1, the cow "
+          f"(5120 faces, stream route), lr {TRAIN_LR}: launches {counts}; "
+          f"loss {res.losses[0]:.5g} -> best {best:.5g}; pose error "
+          f"{start_deg:.2f} -> {end_deg:.2f} deg; {steps_s:.1f} steps/s "
+          f"({res.runtimes['total'][0] * 1e3:.1f} ms for {TRAIN_STEPS} "
+          f"steps); synchronised step median {med:.3f} ms: input prep "
+          f"{prep_med:.3f} ms (host clock), K7 {k7_ms:.4f} ms, Adam "
+          f"{adam_ms:.4f} ms (CUDA events), the rest "
+          f"{med - prep_med - k7_ms - adam_ms:.3f} ms; first step K7 vs "
+          f"plain on the card: loss rel {lerr:.3g}, pose gradient "
+          f"{gerr:.3g} of max (the thin faces' rows from K7) | {smi}",
+          flush=True)
+
+
 SOURCES = {
     "prng_probe": ("csrc/prng_probe.cu", "ops/fused_render.py:263"),
     "fused_forward": ("csrc/fused_forward.cu", "ops/fused_render.py:799"),
     "fused_backward": ("csrc/fused_backward.cu", "ops/fused_render.py:873"),
     "fused_loss_grad": ("csrc/fused_loss_grad.cu",
                         "ops/fused_render.py:2962"),
+    "fused_stream_forward": ("csrc/stream_forward.cu",
+                             "ops/fused_render.py:2155"),
+    "fused_stream_backward": ("csrc/stream_backward.cu",
+                              "ops/fused_render.py:2256"),
+    "fused_stream_loss_grad": ("csrc/stream_loss_grad.cu",
+                               "ops/fused_render.py:2266"),
 }
 
 
@@ -708,6 +1232,11 @@ def main():
     phase_serve(dev, smi, report)
     phase_render_grad(dev, smi, report)
     phase_train(dev, smi, report)
+    phase_k5(dev, smi, report)
+    phase_k6_k7(dev, smi, report)
+    phase_serve_stream(dev, smi, report)
+    phase_render_grad_stream(dev, smi, report)
+    phase_train_stream(dev, smi, report)
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():

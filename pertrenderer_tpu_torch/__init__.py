@@ -29,7 +29,8 @@ from pertrenderer_tpu_torch.cameras import (  # noqa: E402
     look_at_rotation,
     look_at_view_transform,
 )
-from pertrenderer_tpu_torch.io import load_cube  # noqa: E402
+from pertrenderer_tpu_torch.io import (load_cube, make_cow,  # noqa: E402
+                                       make_icosphere)
 from pertrenderer_tpu_torch.lights import (  # noqa: E402
     DirectionalLights,
     Materials,

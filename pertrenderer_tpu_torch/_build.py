@@ -26,8 +26,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
-           "fused_loss_grad.cu")
-HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh")
+           "fused_loss_grad.cu", "stream_forward.cu", "stream_backward.cu",
+           "stream_loss_grad.cu")
+HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh",
+           "stream_grad.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v")
@@ -104,14 +106,26 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pt_prng_probe.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.pt_prng_probe.restype = i32
-    # n and the static configuration (fused_render._cfg_args).
+    # n and the static configuration (fused_render._cfg_args), then the
+    # activity bits and the tiling (nt, p_tile, tile_w).
     config = [i32] * 16 + [ctypes.c_float] + [i32] * 4
-    lib.pt_fused_forward.argtypes = [ptr] * 8 + config + [ptr]
+    tiling = [ptr] + [i32] * 3
+    lib.pt_fused_forward.argtypes = [ptr] * 8 + config + tiling + [ptr]
     lib.pt_fused_forward.restype = i32
     grads = ([ptr] * 9 + [i32] + [ptr] * 6 + config
-             + [i32, ctypes.c_float, ptr])
+             + [i32, ctypes.c_float] + tiling + [ptr])
     for fn in (lib.pt_fused_backward, lib.pt_fused_loss_grad):
         fn.argtypes = grads
+        fn.restype = i32
+    # The stream kernels: tables, n, the stream geometry (nt, nch, p_tile,
+    # tile_w, rw, dt; fused_render._stream_args) and the configuration
+    # (`config` counts n among its leading ints).
+    geometry = [i32] * 6
+    lib.pt_stream_forward.argtypes = [ptr] * 7 + geometry + config + [ptr]
+    lib.pt_stream_forward.restype = i32
+    for fn in (lib.pt_stream_backward, lib.pt_stream_loss_grad):
+        fn.argtypes = ([ptr] * 15 + geometry + config
+                       + [i32, ctypes.c_float, ptr])
         fn.restype = i32
     lib.pt_grad_partial_warps.argtypes = [i32] * 4
     lib.pt_grad_partial_warps.restype = i32

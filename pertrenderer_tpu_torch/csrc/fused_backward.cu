@@ -5,7 +5,10 @@
 // mode: the vector-Jacobian product of K3 for an output cotangent g_out
 // (N, H, W, 4), alpha included, giving the face-table gradients
 // (N, F, 9) x 3 and (N, F, tex_d) and the 34 scalar gradients of each
-// batch element.  The pipeline is fused_grad.cuh, shared with K2.
+// batch element.  A pixel of a tile that the activity prepass
+// (fused_render._active_tiles) proves empty takes only the background
+// colour's gradient, as the JAX kernel's bg_only branch.  The pipeline is
+// fused_grad.cuh, shared with K2.
 //
 // Bound on the H100: compute, like K3 — per pixel the forward's
 // S_rast * f_pad / 2 + S_agg * c_zpad / 2 Box-Muller pairs (the MC
@@ -30,13 +33,14 @@ extern "C" int pt_fused_backward(
     int bg_row, int c_zpad, int tex_d, int atlas_r, int rast_kind,
     int rast_noise, int rast_vr, int s_rast, int agg_kind, int agg_noise,
     int agg_vr, int s_agg, int k, float eps_bg, int phong, int point_light,
-    int clip, int persp, int loss_kind, float lscale, void* stream) {
+    int clip, int persp, int loss_kind, float lscale, const void* active,
+    int nt, int p_tile, int tile_w, void* stream) {
   return ptf::grads_entry<false>(
       fv_ndc, fv_world, fn, tex, valid, scal, seeds, g_out, partial, warps,
       g_ndc, g_world, g_fn, g_tex, g_scal, loss, n, image_size, f_pad, bg_row,
       c_zpad, tex_d, atlas_r, rast_kind, rast_noise, rast_vr, s_rast,
       agg_kind, agg_noise, agg_vr, s_agg, k, eps_bg, phong, point_light, clip,
-      persp, loss_kind, lscale, stream);
+      persp, loss_kind, lscale, active, nt, p_tile, tile_w, stream);
 }
 
 // Sizes of the partial buffer the wrappers allocate for K4 and K2.

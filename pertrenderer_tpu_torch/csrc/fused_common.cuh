@@ -1,10 +1,11 @@
-// Pieces shared by the flat fused kernels: K3 (fused_forward.cu), K4
-// (fused_backward.cu) and K2 (fused_loss_grad.cu).
+// Pieces shared by the fused kernels: the flat route's K3
+// (fused_forward.cu), K4 (fused_backward.cu) and K2 (fused_loss_grad.cu),
+// and the stream route's K5-K7 (stream_grad.cuh).
 //
-// The packed scalar layout, the launch parameters, the shared-memory face
-// tables, the noise draws and det1 — the per-(slot, pixel) geometry,
-// texel select and Phong shading of _make_det1
-// (pertrenderer_tpu/ops/fused_render.py:324).  The functions outside the
+// The packed scalar layout, the launch parameters, the tiling and its
+// activity bits, the shared-memory face tables, the noise draws and det1 —
+// the per-(slot, pixel) geometry, texel select and Phong shading of
+// _make_det1 (pertrenderer_tpu/ops/fused_render.py:324).  The functions outside the
 // __CUDACC__ block use no CUDA intrinsics, so with the CUDA keywords
 // defined away the gradient kernels' per-pixel arithmetic also compiles
 // with a host compiler and can be held against the plain PyTorch version
@@ -54,6 +55,18 @@ struct Params {
   int phong, point_light, clip, persp;
   int loss_kind;
   float lscale;
+  // Tiling, both routes: JAX's tiles of p_tile pixels, 2-D of
+  // (p_tile / tile_w, tile_w) or row-major strips (tile_w 0), and their
+  // activity bits (N, nt); a null `active` marks every tile active.
+  const int* active;
+  int nt, p_tile, tile_w;
+  // The stream route: the sorted table (N, rw, dt), each tile's chunk list
+  // (N, nt, nch) and count (N, nt); the gradient kernels' visits (voff,
+  // vstart, vidx: fused_render._stream_visit_index) and scalar partials.
+  const float* tab;
+  const int *rows, *count, *voff, *vstart, *vidx;
+  float *pscal, *g_tab;
+  int nch, rw, dt;
 };
 
 // The static configuration, in the order every C entry takes it (the
@@ -86,9 +99,23 @@ inline void set_config(Params& p, int image_size, int f_pad, int bg_row,
   p.persp = persp;
 }
 
-// One batch element's face tables (shared memory on the card).
+// The tiling and activity bits, as the C entries take them.
+inline void set_tiling(Params& p, const void* active, int nt, int p_tile,
+                       int tile_w) {
+  p.active = (const int*)active;
+  p.nt = nt;
+  p.p_tile = p_tile;
+  p.tile_w = tile_w;
+}
+
+// One batch element's face tables (shared memory on the card).  Row i of
+// a table starts at i * its row stride: flat tables are separate arrays
+// (strides 9, tex_d and 1); a stream chunk is one row-major block whose
+// validity column is the sort key (valid below 1e30, key_valid).
 struct Tables {
   const float *ndc, *world, *fn, *valid, *sc, *tex;
+  int rs_geo, rs_tex, rs_valid;
+  bool key_valid;
 };
 
 PT_HOST_HD size_t table_floats(const Params& p) {
@@ -104,7 +131,40 @@ PT_HOST_HD Tables tables_at(const Params& p, float* base) {
   t.valid = base + F * 27;
   t.sc = base + F * 28;
   t.tex = base + F * 28 + kNS;
+  t.rs_geo = 9;
+  t.rs_tex = p.tex_d;
+  t.rs_valid = 1;
+  t.key_valid = false;
   return t;
+}
+
+// Tile of row-major pixel `pix`.
+PT_HD int pixel_tile(const Params& p, int pix) {
+  if (p.tile_w) {
+    const int th = p.p_tile / p.tile_w, ntx = p.image_size / p.tile_w;
+    return (pix / p.image_size / th) * ntx + (pix % p.image_size) / p.tile_w;
+  }
+  return pix / p.p_tile;
+}
+
+// Whether the tile of pixel `pix` of batch element b may have a candidate.
+PT_HD bool pixel_active(const Params& p, int b, int pix) {
+  return p.active == nullptr || p.active[b * p.nt + pixel_tile(p, pix)] > 0;
+}
+
+// Row-major pixel of the i-th pixel of tile t; *inside is false for the
+// padding pixels of the last strip.
+PT_HD int tile_pixel(const Params& p, int t, int i, bool* inside) {
+  const int w = p.image_size;
+  if (p.tile_w) {
+    const int th = p.p_tile / p.tile_w, ntx = w / p.tile_w;
+    *inside = true;
+    return ((t / ntx) * th + i / p.tile_w) * w + (t % ntx) * p.tile_w +
+           i % p.tile_w;
+  }
+  const int pix = t * p.p_tile + i;
+  *inside = pix < w * w;
+  return *inside ? pix : 0;
 }
 
 PT_HD float edge_dist_sq(float px, float py, float ax, float ay, float bx,
@@ -150,7 +210,7 @@ PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
                         float py, bool live, float* d_out, float* z_out,
                         float* m_out, float col[3]) {
   const float* sc = T.sc;
-  const float* v = T.ndc + i * 9;
+  const float* v = T.ndc + i * T.rs_geo;
   const float ax = v[0], ay = v[1], az = v[2], bx = v[3], by = v[4],
               bz = v[5], cx = v[6], cy = v[7], cz = v[8];
   const float area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
@@ -185,14 +245,17 @@ PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
     w2 = c2 / den;
   }
   const float z = w0 * az + w1 * bz + w2 * cz;
-  // Face validity plus the behind-camera cull.
-  const bool validb = T.valid[i] > 0.5f && fmaxf(fmaxf(az, bz), cz) > 0.0f;
+  // Face validity plus the behind-camera cull (a stream key below 1e30
+  // already includes the cull).
+  const bool validb =
+      T.key_valid ? T.valid[i * T.rs_valid] < 1e30f
+                  : T.valid[i] > 0.5f && fmaxf(fmaxf(az, bz), cz) > 0.0f;
   const bool cand = live && (inside || d <= sc[kBlur]) && !degen && validb &&
                     z > 0.0f;
   const float m = cand ? 1.0f : 0.0f;
 
   float texel[3];
-  const float* t = T.tex + i * p.tex_d;
+  const float* t = T.tex + i * T.rs_tex;
   if (p.atlas_r == 0) {            // per-corner colors
     for (int c = 0; c < 3; ++c)
       texel[c] = (w0 * t[c] + w1 * t[3 + c] + w2 * t[6 + c]) * m;
@@ -206,8 +269,8 @@ PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
     for (int c = 0; c < 3; ++c) texel[c] = m * t[cell * 3 + c];
   }
   if (p.phong) {
-    const float* fw = T.world + i * 9;
-    const float* fnn = T.fn + i * 9;
+    const float* fw = T.world + i * T.rs_geo;
+    const float* fnn = T.fn + i * T.rs_geo;
     float pnt[3], nrm[3], tl[3], vd[3];
     for (int c = 0; c < 3; ++c) {
       pnt[c] = (w0 * fw[c] + w1 * fw[3 + c] + w2 * fw[6 + c]) * m;

@@ -14,10 +14,11 @@
 // element and writes 16 bytes per pixel.  The design keeps everything
 // per-pixel in registers / local memory and the face tables in shared
 // memory (under 3 KB for the cube), so device memory sees only the tables
-// once per block and the image once.  The TPU kernel's tile activity
-// prepass and face packing are not needed for exactness: a zero-coverage
-// pixel comes out as background / alpha 0 through the full pipeline.
-// Making it fast (skipping dead slots' draws, tile culling) is later work.
+// once per block and the image once.  A pixel of a tile that the activity
+// prepass (fused_render._active_tiles) proves empty writes the background
+// and stops, as the TPU kernel's bg_only branch does; the TPU kernel's
+// face packing is not ported (exact either way).  Making it fast
+// (skipping dead slots' draws) is later work.
 //
 // Numerics: built with -fmad=false and without fast math, so every
 // Heaviside and >=max threshold sees the same rounding as the plain
@@ -46,6 +47,11 @@ fused_forward_kernel(const Params p) {
   float px, py;
   pixel_center(w, pix, &px, &py);
   const uint32_t pos = (uint32_t)pix;
+  float4* out = reinterpret_cast<float4*>(p.out) + (size_t)b * w * hgt + pix;
+  if (!pixel_active(p, b, pix)) {
+    *out = make_float4(sc[kBg], sc[kBg + 1], sc[kBg + 2], 0.0f);
+    return;
+  }
 
   // ---- det1: geometry, texel, shading per slot --------------------------
   float dist[MAXF], zz[MAXF], maskf[MAXF];
@@ -158,7 +164,7 @@ fused_forward_kernel(const Params p) {
   o.y = rgb1 + wb * sc[kBg + 1];
   o.z = rgb2 + wb * sc[kBg + 2];
   o.w = 1.0f - ap;
-  reinterpret_cast<float4*>(p.out)[(size_t)b * w * hgt + pix] = o;
+  *out = o;
 }
 
 template <int MAXF>
@@ -180,7 +186,8 @@ extern "C" int pt_fused_forward(
     int image_size, int f_pad, int bg_row, int c_zpad, int tex_d, int atlas_r,
     int rast_kind, int rast_noise, int rast_vr, int s_rast, int agg_kind,
     int agg_noise, int agg_vr, int s_agg, int k, float eps_bg, int phong,
-    int point_light, int clip, int persp, void* stream) {
+    int point_light, int clip, int persp, const void* active, int nt,
+    int p_tile, int tile_w, void* stream) {
   Params p = {};
   p.fv_ndc = (const float*)fv_ndc;
   p.fv_world = (const float*)fv_world;
@@ -193,6 +200,7 @@ extern "C" int pt_fused_forward(
   set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
              rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
              agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
+  set_tiling(p, active, nt, p_tile, tile_w);
   cudaStream_t st = (cudaStream_t)stream;
   if (f_pad <= 16) return (int)launch<16>(p, n, st);
   if (f_pad <= 32) return (int)launch<32>(p, n, st);

@@ -107,7 +107,7 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
                          const float g_col[3], float* gslot, int* cell_out,
                          float gcell[3], float* gsc) {
   const float* sc = T.sc;
-  const float* v = T.ndc + i * 9;
+  const float* v = T.ndc + i * T.rs_geo;
   const float ax = v[0], ay = v[1], az = v[2], bx = v[3], by = v[4],
               bz = v[5], cx = v[6], cy = v[7], cz = v[8];
   const float vz[3] = {az, bz, cz};
@@ -147,7 +147,7 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
 
   // ---- texel + shading adjoint -> g_w (final barycentrics) ----------------
   float g_w[3] = {0.0f, 0.0f, 0.0f};
-  const float* t = T.tex + i * p.tex_d;
+  const float* t = T.tex + i * T.rs_tex;
   float texel[3];
   int cell = -1;
   if (p.atlas_r == 0) {
@@ -164,8 +164,8 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
   }
   float g_texel[3];
   if (p.phong) {
-    const float* fw = T.world + i * 9;
-    const float* fnn = T.fn + i * 9;
+    const float* fw = T.world + i * T.rs_geo;
+    const float* fnn = T.fn + i * T.rs_geo;
     float pnt[3], nrm[3], tl[3], vd[3];
     for (int c = 0; c < 3; ++c) {
       pnt[c] = w[0] * fw[c] + w[1] * fw[3 + c] + w[2] * fw[6 + c];
@@ -432,11 +432,24 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   zmap[bg] = p.eps_bg - zmax;
 
   // ---- output cotangent (K4) -----------------------------------------------
+  // A pixel of an inactive tile has no candidate, so its image is the
+  // background; it takes only the background colour's gradient (the JAX
+  // kernels' bg_only): bg_only() books it and zeroes the cotangent the
+  // pipeline sees.
+  const bool act = live && pixel_active(p, b, pix);
   float g_rgb[3] = {0.0f, 0.0f, 0.0f}, g_alpha = 0.0f;
+  auto bg_only = [&]() {
+    for (int c = 0; c < 3; ++c) {
+      acc.gsc[kBg + c] += g_rgb[c];
+      g_rgb[c] = 0.0f;
+    }
+    g_alpha = 0.0f;
+  };
   if (!LOSS && live) {
     const float* go = p.extra + ((size_t)b * npix + pix) * 4;
     for (int c = 0; c < 3; ++c) g_rgb[c] = go[c];
     g_alpha = go[3];
+    if (!act) bg_only();
   }
   // Weight cotangent of the (linear) blend, laid out like z_map.
   float gw[MAXC];
@@ -549,6 +562,7 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
           g_rgb[c] = (d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f)) * p.lscale;
         }
       }
+      if (!act) bg_only();
     }
     build_gw();
     if (p.agg_kind == kAggMC) mc_agg(false, true);   // replay for g_zmap
@@ -795,7 +809,8 @@ int grads_entry(const void* fv_ndc, const void* fv_world, const void* fn,
                 int rast_kind, int rast_noise, int rast_vr, int s_rast,
                 int agg_kind, int agg_noise, int agg_vr, int s_agg, int k,
                 float eps_bg, int phong, int point_light, int clip, int persp,
-                int loss_kind, float lscale, void* stream) {
+                int loss_kind, float lscale, const void* active, int nt,
+                int p_tile, int tile_w, void* stream) {
   Params p = {};
   p.fv_ndc = (const float*)fv_ndc;
   p.fv_world = (const float*)fv_world;
@@ -819,6 +834,7 @@ int grads_entry(const void* fv_ndc, const void* fv_world, const void* fn,
              agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
   p.loss_kind = loss_kind;
   p.lscale = LOSS ? lscale : 0.0f;
+  set_tiling(p, active, nt, p_tile, tile_w);
   cudaStream_t st = (cudaStream_t)stream;
   if (f_pad <= 16) return (int)launch_grads<16, LOSS>(p, n, st);
   if (f_pad <= 32) return (int)launch_grads<32, LOSS>(p, n, st);

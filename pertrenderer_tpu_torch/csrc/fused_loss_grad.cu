@@ -26,11 +26,12 @@ extern "C" int pt_fused_loss_grad(
     int f_pad, int bg_row, int c_zpad, int tex_d, int atlas_r, int rast_kind,
     int rast_noise, int rast_vr, int s_rast, int agg_kind, int agg_noise,
     int agg_vr, int s_agg, int k, float eps_bg, int phong, int point_light,
-    int clip, int persp, int loss_kind, float lscale, void* stream) {
+    int clip, int persp, int loss_kind, float lscale, const void* active,
+    int nt, int p_tile, int tile_w, void* stream) {
   return ptf::grads_entry<true>(
       fv_ndc, fv_world, fn, tex, valid, scal, seeds, target, partial, warps,
       g_ndc, g_world, g_fn, g_tex, g_scal, loss, n, image_size, f_pad, bg_row,
       c_zpad, tex_d, atlas_r, rast_kind, rast_noise, rast_vr, s_rast,
       agg_kind, agg_noise, agg_vr, s_agg, k, eps_bg, phong, point_light, clip,
-      persp, loss_kind, lscale, stream);
+      persp, loss_kind, lscale, active, nt, p_tile, tile_w, stream);
 }

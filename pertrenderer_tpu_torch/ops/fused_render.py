@@ -1,42 +1,48 @@
-"""Fused flat-route render with its gradients (PyTorch port of the flat
-route of ``pertrenderer_tpu/ops/fused_render.py``).
+"""Fused render with its gradients (PyTorch port of the flat and stream
+routes of ``pertrenderer_tpu/ops/fused_render.py``).
 
-Four kernels, each with a plain PyTorch version beside it:
+Seven kernels, each with a plain PyTorch version beside it:
 
 * K1 ``prng_probe`` (csrc/prng_probe.cu) — the counter-hash PRNG probe,
   pinned against ``tests/goldens/prng_goldens.npz``;
-* K3 ``fused_forward`` (csrc/fused_forward.cu) — rasterize, shade, texture,
-  both perturbed estimators and the blend for one pixel per thread;
-* K4 ``fused_backward`` (csrc/fused_backward.cu) — K3's vector-Jacobian
-  product: every face-table gradient and the 34 scalar gradients;
-* K2 ``fused_loss_grad`` (csrc/fused_loss_grad.cu) — K4 with the image-loss
-  cotangent derived in place from a target: loss and every gradient in one
-  launch (the pose step's kernel).
+* flat route (every face holds a slot, F <= faces_per_pixel): K3
+  ``fused_forward`` (csrc/fused_forward.cu) — rasterize, shade, texture,
+  both perturbed estimators and the blend for one pixel per thread; K4
+  ``fused_backward`` (csrc/fused_backward.cu) — K3's vector-Jacobian
+  product: every face-table gradient and the 34 scalar gradients; K2
+  ``fused_loss_grad`` (csrc/fused_loss_grad.cu) — K4 with the image-loss
+  cotangent derived in place from a target (the pose step's kernel);
+* stream route (F > faces_per_pixel): the faces sorted into 64-row chunks,
+  each tile walking the chunks its list names — K5 ``fused_stream_forward``
+  (csrc/stream_forward.cu), K6 ``fused_stream_backward``
+  (csrc/stream_backward.cu) and K7 ``fused_stream_loss_grad``
+  (csrc/stream_loss_grad.cu), sharing csrc/stream_grad.cuh.
 
 A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches its kernel or raises; there is no fallback.
 
-The plain versions are the reference of the kernels: ``forward_plain`` with
-the score-function estimators as ``autograd.Function``s, and
-``backward_plain`` / ``loss_grad_plain`` as torch autograd through it.
-Where autograd's tie rules differ from JAX's, the plain pipeline is written
-so that they agree with JAX (``torch.maximum`` / ``torch.amax`` instead of
+The plain versions are the reference of the kernels: ``forward_plain``
+with the score-function estimators as ``autograd.Function``s,
+``backward_plain`` / ``loss_grad_plain`` as torch autograd through it, and
+the stream route's chunk sweeps (``stream_forward_plain``, and the two
+sweeps of ``stream_backward_plain`` / ``stream_loss_grad_plain``).  Where
+autograd's tie rules differ from JAX's, the plain pipeline is written so
+that they agree with JAX (``torch.maximum`` / ``torch.amax`` instead of
 ``torch.clamp``; see ``ops/rasterize.py``).
 
-Layout: the plain versions work on channel-major ``(N, rows, P)`` blocks,
-rows being face slots (or z_map channels) and P the row-major pixel id of
-the whole image.  The JAX package cuts P into tiles and may pack a tile's
-faces into fewer rows; neither changes a pixel's value except packing,
-which keys the MC noise on packed slot positions.  The port keys noise on
-the unpacked slot row and the absolute pixel id, which is what the JAX
-flat route draws with ``PERTRENDERER_PACK=off``.  The JAX backward also
-skips tiles with no candidate face and gives them only the background
-gradient; the port runs every pixel through the full pipeline, which
-agrees except for the ``_wovr`` aggregation (ROADMAP Queue 3).
+Layout: the flat plain versions work on channel-major ``(N, rows, P)``
+blocks, rows being face slots (or z_map channels) and P the row-major
+pixel id of the whole image.  The JAX package cuts P into tiles and may
+pack a tile's faces into fewer rows; neither changes a pixel's value
+except packing, which keys the MC noise on packed slot positions.  The
+port keys noise on the unpacked slot row and the absolute pixel id, which
+is what the JAX flat route draws with ``PERTRENDERER_PACK=off``.  Both
+routes take JAX's tiles' activity bits (``_active_tiles``): a tile that
+no face's blur band reaches gives the background image and only the
+background gradient, as the JAX kernels' ``bg_only`` branch does.
 
-Only the flat route is ported: every face holds a slot (F <= K and
-F_pad <= MAX_SLOTS).  The stream, binned, sharded and staged routes raise
-``NotImplementedError`` naming the route.
+The binned, sharded and staged routes raise ``NotImplementedError``
+naming the route.
 """
 
 from __future__ import annotations
@@ -56,10 +62,20 @@ __all__ = ["FusedConfig", "RenderPlan", "render_plan", "try_render",
            "try_render_loss", "prng_probe", "prng_probe_plain",
            "fused_forward", "forward_plain", "fused_backward",
            "backward_plain", "fused_loss_grad", "loss_grad_plain",
+           "fused_stream_forward", "stream_forward_plain",
+           "fused_stream_backward", "stream_backward_plain",
+           "fused_stream_loss_grad", "stream_loss_grad_plain",
            "draw_seeds", "launch_counts", "MAX_SLOTS", "LOSS_KINDS"]
 
 MAX_SLOTS = 256          # flat-mode face budget (F_pad <= MAX_SLOTS)
 _CAUCHY_CLAMP = 1e7
+MAX_BIN_SLOTS = 160      # the JAX binned route's per-tile slot budget
+_BIN_P_TILE = 128        # its tile width, also the stream strip width
+_COARSE_THRESHOLD = 8192  # F above which an opted-in mesh bins
+STREAM_CHUNK = 64        # stream: sorted-table rows per chunk
+_STREAM_BUCKET_ROWS = 16  # stream: y-bucket height (px) of the sort key
+_STREAM_TILE = (8, 32)   # stream: 2-D tile (rows, columns)
+_BIG_LO = 1e30           # stream: sort key of invalid and padding rows
 
 # --- packed scalar-parameter layout (one (N, NS) f32 row per batch) -------
 _S_LIGHT = 0      # light location (point) or direction (directional)
@@ -83,7 +99,8 @@ _NS = 34
 # Launches of each kernel since the last reset: a wrapper adds one where it
 # launches its kernel and nowhere else (plain CPU calls do not count).
 launch_counts = {"prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
-                 "fused_loss_grad": 0}
+                 "fused_loss_grad": 0, "fused_stream_forward": 0,
+                 "fused_stream_backward": 0, "fused_stream_loss_grad": 0}
 LOSS_KINDS = ("l2_rgb", "l1_rgb")
 
 
@@ -117,6 +134,12 @@ class FusedConfig:
     atlas_r: int
     clip_bary: bool
     perspective_correct: bool
+    p_tile: int = 0            # pixels per JAX tile
+    tile_w: int = 0            # 2-D tiles of (p_tile // tile_w, tile_w)
+                               # pixels; 0 = row-major strips of p_tile
+    stream: bool = False       # the stream route (F > faces_per_pixel)
+    rw: int = 0                # stream: sorted-table rows, F rounded up to
+                               # the chunk; also the background noise row
 
     @property
     def bg_row(self) -> int:
@@ -173,23 +196,26 @@ def _hash_words(seed0, seed1, s: int, rows, pos):
     return _mix(x ^ word) ^ seed1
 
 
-def _draw_block(noise_type: str, seed0, seed1, s: int, c: int, pos):
+def _draw_block(noise_type: str, seed0, seed1, s: int, c: int, pos,
+                row_base: int = 0):
     """(..., c, P) block of iid standard noise for sample ``s``.
 
     Gaussian draws hash rows 0..c/2-1 and use both Box-Muller halves: row
     r < c/2 is the cos half of hash(r), row r >= c/2 the sin half of
     hash(r - c/2) — so the noise of a row depends on the block's row count.
-    ``seed0``/``seed1``: (N, 1, 1) int64; ``pos``: (1, 1, P) int64."""
+    ``row_base`` offsets the hashed row ids: the stream route keys a chunk's
+    rows on their absolute sorted-table rows.  ``seed0``/``seed1``:
+    (N, 1, 1) int64; ``pos``: (1, 1, P) int64."""
     dev = pos.device
     if noise_type == "gaussian":
-        rows = torch.arange(c // 2, device=dev).view(1, -1, 1)
+        rows = torch.arange(c // 2, device=dev).view(1, -1, 1) + row_base
         x = _hash_words(seed0, seed1, s, rows, pos)
         u1 = _uniform01(x)
         u2 = _uniform01(_mix((x + _C_BM) & _M32))
         r = torch.sqrt(-2.0 * torch.log(u1))
         th = (2.0 * math.pi) * u2
         return torch.cat([r * torch.cos(th), r * torch.sin(th)], dim=-2)
-    rows = torch.arange(c, device=dev).view(1, -1, 1)
+    rows = torch.arange(c, device=dev).view(1, -1, 1) + row_base
     x = _hash_words(seed0, seed1, s, rows, pos)
     u = _uniform01(_mix((x + _C_CAUCHY) & _M32))
     if noise_type == "cauchy":
@@ -255,6 +281,176 @@ def check_prng_stream(device) -> None:
     if not torch.equal(got, want):
         raise RuntimeError(f"hash PRNG stream on {device} differs from the "
                            "reference bits: the kernel library is broken")
+
+
+# ---------------------------------------------------------------------------
+# Tile geometry and the activity prepass (``_tile_rects``, ``_active_tiles``
+# and their helpers in the JAX package).  A tile whose pixel-centre
+# rectangle no face's blur band reaches has no candidate face at any pixel:
+# the kernels give it the background image and only the background
+# gradient, as the JAX kernels' ``bg_only`` branch does.  The arithmetic is
+# float32 in the JAX package's operation order, so the bits agree.
+# ---------------------------------------------------------------------------
+
+def _n_tiles(cfg: FusedConfig) -> int:
+    return -(-cfg.image_size * cfg.image_size // cfg.p_tile)
+
+
+def _tile_rects(cfg: FusedConfig):
+    """Per-tile NDC rectangle of pixel centres (y_hi, y_lo, x_hi, x_lo),
+    each (nt,) float32 numpy, for strip and 2-D tilings."""
+    h = w = cfg.image_size
+    p, nt = cfg.p_tile, _n_tiles(cfg)
+    if cfg.tile_w:
+        tw = cfg.tile_w
+        th, ntx = p // tw, w // tw
+        tids = np.arange(nt)
+        r0 = (tids // ntx) * th
+        c0 = (tids % ntx) * tw
+        y_hi = (h - 1.0 - 2.0 * r0) / h
+        y_lo = (h - 1.0 - 2.0 * (r0 + th - 1)) / h
+        x_hi = (w - 1.0 - 2.0 * c0) / w
+        x_lo = (w - 1.0 - 2.0 * (c0 + tw - 1)) / w
+    else:
+        starts = np.arange(nt) * p
+        ends = np.minimum(starts + p, h * w) - 1
+        r0, r1 = starts // w, ends // w
+        y_hi = (h - 1.0 - 2.0 * r0) / h
+        y_lo = (h - 1.0 - 2.0 * r1) / h
+        if p < w and w % p == 0:
+            c0 = starts % w
+            x_hi = (w - 1.0 - 2.0 * c0) / w
+            x_lo = (w - 1.0 - 2.0 * (c0 + p - 1)) / w
+        else:
+            x_hi = np.full(nt, (w - 1.0) / w)
+            x_lo = np.full(nt, -(w - 1.0) / w)
+    return (y_hi.astype(np.float32), y_lo.astype(np.float32),
+            x_hi.astype(np.float32), x_lo.astype(np.float32))
+
+
+def _pixel_tiles(cfg: FusedConfig, device) -> torch.Tensor:
+    """(P,) tile id of every row-major pixel."""
+    w = cfg.image_size
+    pix = torch.arange(w * w, device=device)
+    if cfg.tile_w:
+        th, ntx = cfg.p_tile // cfg.tile_w, w // cfg.tile_w
+        return (pix // w // th) * ntx + (pix % w) // cfg.tile_w
+    return pix // cfg.p_tile
+
+
+_SAT_MAX_F = 128     # the separating-axis refinement runs for F <= 128
+
+
+def _f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _tile_face_overlap_sat(fv_ndc, band, y_hi, y_lo, x_hi, x_lo):
+    """Exact separating-axis overlap of each band-dilated triangle with
+    each tile's pixel-centre rectangle: (N, nt, F) bool.  fv_ndc (N, F, 9),
+    band (N, 1); the rectangle bounds (nt,).  The bbox axes are the
+    caller's test; this adds the three edge normals (a degenerate edge
+    skips its axis)."""
+    tri_x, tri_y = fv_ndc[..., 0::3], fv_ndc[..., 1::3]       # (N, F, 3)
+    x_lo, x_hi = x_lo[None, :, None], x_hi[None, :, None]      # (1, nt, 1)
+    y_lo, y_hi = y_lo[None, :, None], y_hi[None, :, None]
+    ok = None
+    for e in range(3):
+        j = (e + 1) % 3
+        ex = tri_x[..., j] - tri_x[..., e]                      # (N, F)
+        ey = tri_y[..., j] - tri_y[..., e]
+        ln = torch.sqrt(ex * ex + ey * ey)
+        good = ln > 1e-12
+        lnc = torch.clamp(ln, min=1e-12)
+        nx = torch.where(good, -ey / lnc, torch.zeros_like(ln))
+        ny = torch.where(good, ex / lnc, torch.zeros_like(ln))
+        tproj = tri_x * nx[..., None] + tri_y * ny[..., None]
+        tmin = (torch.amin(tproj, dim=-1) - band)[:, None, :]   # (N, 1, F)
+        tmax = (torch.amax(tproj, dim=-1) + band)[:, None, :]
+        nx, ny = nx[:, None, :], ny[:, None, :]
+        rx_min = torch.minimum(nx * x_lo, nx * x_hi)            # (N, nt, F)
+        rx_max = torch.maximum(nx * x_lo, nx * x_hi)
+        ry_min = torch.minimum(ny * y_lo, ny * y_hi)
+        ry_max = torch.maximum(ny * y_lo, ny * y_hi)
+        ax_ok = (((rx_min + ry_min) <= tmax) & ((rx_max + ry_max) >= tmin)
+                 | ~good[:, None, :])
+        ok = ax_ok if ok is None else (ok & ax_ok)
+    return ok
+
+
+def _face_validb(fv_ndc, valid) -> torch.Tensor:
+    """(N, F) declared validity plus the behind-camera cull."""
+    zs = fv_ndc.detach()[..., 2::3]
+    return (valid > 0.5) & (torch.amax(zs, dim=-1) > 0)
+
+
+def _tile_face_overlap(cfg: FusedConfig, fv_ndc, validb, blur):
+    """(N, nt, F) conservative face/tile overlap: bboxes grown by the blur
+    band sqrt(blur) against each tile's pixel-centre rectangle (y only for
+    tiles of whole rows), refined by the separating-axis test for
+    F <= 128.  fv_ndc (N, F, 9), validb (N, F), blur (N,)."""
+    h = w = cfg.image_size
+    p, nt = cfg.p_tile, _n_tiles(cfg)
+    dev = fv_ndc.device
+    fv = fv_ndc.detach()
+    band = torch.sqrt(torch.clamp(blur, min=0.0)).view(-1, 1)    # (N, 1)
+    ys, xs = fv[..., 1::3], fv[..., 0::3]
+    fy_min = (torch.amin(ys, dim=-1) - band)[:, None, :]         # (N, 1, F)
+    fy_max = (torch.amax(ys, dim=-1) + band)[:, None, :]
+
+    def x_test(c0, ncols):
+        fx_min = (torch.amin(xs, dim=-1) - band)[:, None, :]
+        fx_max = (torch.amax(xs, dim=-1) + band)[:, None, :]
+        x_hi = _f32((w - 1.0 - 2.0 * c0) / w, dev).view(1, -1, 1)
+        x_lo = _f32((w - 1.0 - 2.0 * (c0 + ncols - 1)) / w, dev).view(
+            1, -1, 1)
+        return (fx_min <= x_hi) & (fx_max >= x_lo)
+
+    if cfg.tile_w:
+        tw = cfg.tile_w
+        th, ntx = p // tw, w // tw
+        tids = np.arange(nt)
+        r0 = (tids // ntx) * th
+        y_hi = _f32((h - 1.0 - 2.0 * r0) / h, dev).view(1, -1, 1)
+        y_lo = _f32((h - 1.0 - 2.0 * (r0 + th - 1)) / h, dev).view(1, -1, 1)
+        overlap = ((fy_min <= y_hi) & (fy_max >= y_lo)
+                   & validb[:, None, :] & x_test((tids % ntx) * tw, tw))
+    else:
+        starts = np.arange(nt) * p
+        ends = np.minimum(starts + p, h * w) - 1
+        y_hi = _f32((h - 1.0 - 2.0 * (starts // w)) / h, dev).view(1, -1, 1)
+        y_lo = _f32((h - 1.0 - 2.0 * (ends // w)) / h, dev).view(1, -1, 1)
+        overlap = (fy_min <= y_hi) & (fy_max >= y_lo) & validb[:, None, :]
+        if p < w and w % p == 0:
+            overlap = overlap & x_test(starts % w, p)
+    if fv.shape[1] > _SAT_MAX_F:
+        return overlap
+    rects = [_f32(a, dev) for a in _tile_rects(cfg)]
+    return overlap & _tile_face_overlap_sat(fv, band, *rects)
+
+
+def _active_tiles(cfg: FusedConfig, fv_ndc, valid, blur) -> torch.Tensor:
+    """(N, nt) int32 activity bits: 0 proves that no pixel of the tile has
+    a candidate face.  fv_ndc (N, F, 9), valid (N, F), blur (N,)."""
+    overlap = _tile_face_overlap(cfg, fv_ndc, _face_validb(fv_ndc, valid),
+                                 blur)
+    return torch.any(overlap, dim=-1).to(torch.int32)
+
+
+def _flat_active(cfg: FusedConfig, fv_ndc, valid, scal, active=None):
+    """The flat route's (N, nt) int32 activity bits: ``active`` if given,
+    else computed from the tables."""
+    if active is None:
+        active = _active_tiles(cfg, fv_ndc, valid, scal[:, _S_BLUR])
+    return active
+
+
+def _pixel_active(cfg: FusedConfig, fv_ndc, valid, scal,
+                  active=None) -> torch.Tensor:
+    """(N, 1, P) bool: the flat route's activity bit of each pixel's
+    tile."""
+    act = _flat_active(cfg, fv_ndc, valid, scal, active) > 0
+    return act[:, _pixel_tiles(cfg, fv_ndc.device)][:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -348,21 +544,23 @@ def _score(noise, noise_type: str):
 
 
 class _MCRast(torch.autograd.Function):
-    """MC coverage: mean over samples of H(d + sigma * Z), Z over an
-    f_pad-row noise block.  Backward (``_mc_rast_fwd_coeff`` of the JAX
+    """MC coverage: mean over samples of H(d + sigma * Z), Z over a noise
+    block of d's rows (f_pad slots, or a stream chunk keyed from
+    ``row_base``).  Backward (``_mc_rast_fwd_coeff`` of the JAX
     package): grad wrt d is coeff * g, and the sigma grad is sum(coeff * g)
     over slots and pixels — the reference's overwrite quirk, not the true
     derivative.  The coefficient shares the forward's noise pass."""
 
     @staticmethod
-    def forward(ctx, cfg, d, sigma, seeds, pos):
+    def forward(ctx, cfg, d, sigma, seeds, pos, row_base=0):
         s0, s1 = _seed_words(seeds, 0), _seed_words(seeds, 1)
         want = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
         h0 = _heaviside(d) if cfg.rast_vr else torch.zeros_like(d)
         acc = torch.zeros_like(d)
         acc_c = torch.zeros_like(d)
         for s in range(cfg.s_rast):
-            z = _draw_block(cfg.rast_noise, s0, s1, s, cfg.f_pad, pos)
+            z = _draw_block(cfg.rast_noise, s0, s1, s, d.shape[1], pos,
+                            row_base)
             h = _heaviside(d + sigma * z)
             acc = acc + h
             if want:
@@ -374,10 +572,11 @@ class _MCRast(torch.autograd.Function):
     def backward(ctx, g):
         (coeff,) = ctx.saved_tensors
         g_d = coeff * g
-        return None, g_d, g_d.sum(dim=(1, 2), keepdim=True), None, None
+        return (None, g_d, g_d.sum(dim=(1, 2), keepdim=True), None, None,
+                None)
 
 
-def _coverage(cfg: FusedConfig, dist, sc, seeds, pos):
+def _coverage(cfg: FusedConfig, dist, sc, seeds, pos, row_base: int = 0):
     """Per-slot coverage probability before masking, (N, F_pad, P)."""
     sigma = sc(_S_SIGMA)
     if cfg.rast_kind == "soft":
@@ -388,7 +587,7 @@ def _coverage(cfg: FusedConfig, dist, sc, seeds, pos):
         return _max(p, 0.0)
     if cfg.rast_kind == "hard":
         return _heaviside(-dist)
-    return _MCRast.apply(cfg, -dist, sigma, seeds, pos)
+    return _MCRast.apply(cfg, -dist, sigma, seeds, pos, row_base)
 
 
 def _zmap(cfg: FusedConfig, prob, z, maskf, sc):
@@ -483,11 +682,14 @@ def _weights(cfg: FusedConfig, zmap, sc, seeds, pos):
 
 
 def _render_cm(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-               seeds) -> torch.Tensor:
-    """The plain pipeline: (N, 4, P) channel-major RGBA."""
+               seeds, active=None) -> torch.Tensor:
+    """The plain pipeline: (N, 4, P) channel-major RGBA.  Pixels of
+    inactive tiles give the background image, so their only gradient is
+    the background colour's (the JAX kernels' ``bg_only``)."""
     n = fv_ndc.shape[0]
     pos, px, py = _pixel_coords(cfg.image_size, fv_ndc.device)
     sc = lambda i: scal[:, i].view(n, 1, 1)
+    act = _pixel_active(cfg, fv_ndc, valid, scal, active)
     dist, z, c0, c1, c2, maskf = _det1(cfg, px, py, fv_ndc, fv_world, fn,
                                        tex, valid, sc)
     prob = _coverage(cfg, dist, sc, seeds, pos) * maskf
@@ -501,17 +703,28 @@ def _render_cm(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     ap = torch.ones_like(wb)
     for i in range(cfg.f_pad):
         ap = ap * (1.0 - prob[:, i:i + 1])
-    return torch.cat(rgb + [1.0 - ap], dim=1)
+    out = torch.cat(rgb + [1.0 - ap], dim=1)
+    return torch.where(act, out, _bg_image(scal, out.shape[-1]))
+
+
+def _bg_image(scal, p: int) -> torch.Tensor:
+    """(N, 4, P) background colour, alpha 0: the image of a tile with no
+    candidate face."""
+    bg = torch.cat([scal[:, _S_BG:_S_BG + 3],
+                    torch.zeros_like(scal[:, :1])], dim=1)
+    return bg[:, :, None].expand(-1, -1, p)
 
 
 def forward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds) -> torch.Tensor:
+                  seeds, active=None) -> torch.Tensor:
     """Plain version of K3 on any device: (N, H, W, 4) RGBA.
 
     fv_ndc / fv_world / fn: (N, F_pad, 9); tex: (N, F_pad, tex_d); valid:
     (N, F_pad); scal: (N, 34); seeds: (N, 4) int32 [rast0, rast1, agg0,
-    agg1]."""
-    out = _render_cm(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds)
+    agg1]; active: the tiles' (N, nt) int32 activity bits
+    (``_active_tiles``), computed from the tables when None."""
+    out = _render_cm(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                     active)
     s = cfg.image_size
     return out.transpose(1, 2).reshape(out.shape[0], s, s, 4)
 
@@ -530,14 +743,15 @@ def _grads(value, leaves, g_value=None):
 
 
 def backward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                   seeds, g_out):
+                   seeds, g_out, active=None):
     """Plain version of K4: the vector-Jacobian product of
     :func:`forward_plain` with ``g_out`` (N, H, W, 4), alpha included.
     Returns (g_ndc, g_world, g_fn, g_tex, g_scal) shaped like the inputs;
     ``valid`` and ``seeds`` get no gradient."""
     with torch.enable_grad():
         leaves = _grad_leaves(fv_ndc, fv_world, fn, tex, scal)
-        out = forward_plain(cfg, *leaves[:4], valid, leaves[4], seeds)
+        out = forward_plain(cfg, *leaves[:4], valid, leaves[4], seeds,
+                            active)
         return _grads(out, leaves, g_out)
 
 
@@ -550,15 +764,447 @@ def _image_loss(loss_kind: str, rgb_cm, target_cm, lscale: float):
 
 
 def loss_grad_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
-                    scal, seeds, target, loss_kind: str, lscale: float):
+                    scal, seeds, target, loss_kind: str, lscale: float,
+                    active=None):
     """Plain version of K2: the image loss against ``target`` (N, 3, H*W)
     and its gradients, as ``_loss_cotangent`` of the JAX package defines
     them.  Returns (loss (N,), g_ndc, g_world, g_fn, g_tex, g_scal)."""
     with torch.enable_grad():
         leaves = _grad_leaves(fv_ndc, fv_world, fn, tex, scal)
-        out = _render_cm(cfg, *leaves[:4], valid, leaves[4], seeds)
+        out = _render_cm(cfg, *leaves[:4], valid, leaves[4], seeds, active)
         loss = _image_loss(loss_kind, out[:, :3], target, lscale)
         return (loss.detach(), *_grads(loss.sum(), leaves))
+
+
+# ---------------------------------------------------------------------------
+# Stream route, plain versions (the reference of K5, K6 and K7).  The faces
+# are sorted by a two-level (y-bucket, x) key into a table of 64-row chunks;
+# each tile walks the ascending list of chunks whose blur-grown bbox meets
+# its rectangle (``_stream_tables``).  Per pixel the state carries across
+# chunks: the alpha product, and per aggregation sample a running
+# first-wins argmax (strictly greater wins across chunks, the background
+# wins ties) or an online softmax.  The plain versions loop over the
+# chunks in ascending id over (N, 64, Q) blocks, Q the pixels whose tile
+# lists the chunk, and update a pixel's state only where its own tile
+# visits the chunk, so each pixel sees the chunks its tile sees, in order.
+# ---------------------------------------------------------------------------
+
+class _PermuteRows(torch.autograd.Function):
+    """x[b, perm[b]] whose backward is the gather g[b, inv_perm[b]] (the
+    JAX ``_permute_rows``), not an accumulating scatter."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return torch.gather(x, 1, perm[..., None].expand(-1, -1, x.shape[2]))
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_perm,) = ctx.saved_tensors
+        idx = inv_perm[..., None].expand(-1, -1, g.shape[2])
+        return torch.gather(g, 1, idx), None, None
+
+
+def _stream_tables(cfg: FusedConfig, merged, fv_ndc, valid, blur):
+    """The stream prepass (``_stream_tables`` of the JAX package), batched.
+
+    merged (N, F, d) = [fv_ndc | fv_world | fn | tex], fv_ndc (N, F, 9),
+    valid (N, F), blur (N,).  Returns (tab (N, rw, Dt), rows (N, nt, nch)
+    int32, n (N, nt) int32, perm (N, F)): the table sorted by the key
+    ``y_bucket * 8 + x_min * 4`` (float32, stable argsort) and padded to
+    rw rows, with the key in column d (1e30 marks invalid and padding rows)
+    and Dt = d + 1 rounded up to 4; per tile the ascending ids of the chunks
+    whose bbox meets the tile, listed first, and their count.  Differentiable
+    in ``merged`` through the permutation gather."""
+    n, f, d = merged.shape
+    ch, rw = STREAM_CHUNK, cfg.rw
+    nch, h, dev = rw // ch, cfg.image_size, merged.device
+    fv = fv_ndc.detach()
+    band = torch.sqrt(torch.clamp(blur, min=0.0)).view(n, 1)
+    validb = _face_validb(fv, valid)
+    ys, xs = fv[..., 1::3], fv[..., 0::3]
+    lo = torch.amin(ys, dim=-1) - band
+    hi = torch.amax(ys, dim=-1) + band
+    xlo = torch.amin(xs, dim=-1) - band
+    xhi = torch.amax(xs, dim=-1) + band
+    nb = max(1, -(-h // _STREAM_BUCKET_ROWS))
+    b = torch.clamp(torch.floor((1.0 - lo) * (h * 0.5 / _STREAM_BUCKET_ROWS)),
+                    0.0, nb - 1.0)
+    xn = torch.clamp((xlo + 2.0) * 0.25, 0.0, 1.0)
+    key = torch.where(validb, b * 8.0 + xn * 4.0, _f32(_BIG_LO, dev))
+    perm = torch.argsort(key, dim=1, stable=True)
+    inv_perm = torch.argsort(perm, dim=1)
+
+    def chunk_reduce(col, sentinel, red):
+        pad = torch.full((n, rw - f), sentinel, dtype=col.dtype, device=dev)
+        colp = torch.cat([torch.gather(col, 1, perm), pad], dim=1)
+        return red(colp.view(n, nch, ch), dim=2)             # (N, nch)
+
+    big = _f32(_BIG_LO, dev)
+    anyv = chunk_reduce(validb, False, torch.any)
+    clo = torch.where(anyv, chunk_reduce(lo, _BIG_LO, torch.amin), big)
+    chi = torch.where(anyv, chunk_reduce(hi, -_BIG_LO, torch.amax), -big)
+    cxlo = chunk_reduce(xlo, _BIG_LO, torch.amin)[:, None, :]
+    cxhi = chunk_reduce(xhi, -_BIG_LO, torch.amax)[:, None, :]
+    ty_hi, ty_lo, tx_hi, tx_lo = (_f32(a, dev).view(1, -1, 1)
+                                  for a in _tile_rects(cfg))
+    ov = ((clo[:, None, :] <= ty_hi) & (chi[:, None, :] >= ty_lo)
+          & (cxlo <= tx_hi) & (cxhi >= tx_lo))               # (N, nt, nch)
+    count = torch.sum(ov.to(torch.int32), dim=2).to(torch.int32)
+    rows = torch.argsort((~ov).to(torch.uint8), dim=2, stable=True)
+
+    dt = _round_up(d + 1, 4)
+    merged_s = _PermuteRows.apply(merged, perm, inv_perm)
+    tab = torch.cat([
+        torch.cat([merged_s, merged.new_zeros(n, rw - f, d)], dim=1),
+        torch.cat([torch.gather(key, 1, perm),
+                   torch.full((n, rw - f), _BIG_LO, device=dev)],
+                  dim=1)[..., None],
+        merged.new_zeros(n, rw, dt - d - 1)], dim=2)
+    return tab.contiguous(), rows.to(torch.int32), count, perm
+
+
+def _stream_visits(cfg: FusedConfig, rows, count, active):
+    """(N, nt, nch) bool: tile t of batch element b is active and lists
+    chunk c."""
+    nch = cfg.rw // STREAM_CHUNK
+    pos = torch.arange(nch, device=rows.device).view(1, 1, -1)
+    listed = (pos < count[..., None].to(torch.int64)).to(torch.uint8)
+    vis = torch.zeros_like(listed).scatter_(2, rows.to(torch.int64), listed)
+    return (vis > 0) & (active[..., None] > 0)
+
+
+def _prod_rows(x):
+    """Product over dim 1 by successive halving (the JAX ``_prod_rows``
+    order), keepdim."""
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        lo = x[:, :half] * x[:, half:2 * half]
+        x = torch.cat([lo, x[:, 2 * half:]], dim=1) if x.shape[1] % 2 else lo
+    return x
+
+
+def _first_hot(val):
+    """(max (N, 1, Q), first row reaching it (N, 1, Q)) over dim 1."""
+    m = torch.amax(val, dim=1, keepdim=True)
+    ridx = torch.arange(val.shape[1], device=val.device).view(1, -1, 1)
+    first = torch.amin(torch.where(val >= m, ridx, 1 << 30), dim=1,
+                       keepdim=True)
+    return m, first
+
+
+def _stream_zmap(cfg: FusedConfig, prob, z, maskf, sc):
+    """A chunk's z_map: no stabilising shift, no z_inv_max clamp (the JAX
+    ``_stream_zmap``).  Dead rows (prob 0) give -inf."""
+    z_inv = (sc(_S_ZFAR) - z) / (sc(_S_ZFAR) - sc(_S_ZNEAR)) * maskf
+    lp = log_corrected(prob)
+    if cfg.agg_kind == "hard":
+        return (1.0 / 1e6) * lp + z_inv
+    return prod_corrected(sc(_S_GAMMA) / sc(_S_ALPHA), lp) + z_inv
+
+
+def _stream_chunk(cfg: FusedConfig, blk, c: int, px, py, pos, sc, seeds):
+    """det1, coverage and z_map of chunk c (blk (N, 64, Dt)) at the pixels
+    (px, py, pos) (1, 1, Q): (prob, zmap, c0, c1, c2, z, maskf)."""
+    td = cfg.tex_d
+    valid = (blk[..., 27 + td] < _BIG_LO).to(torch.float32)
+    dist, z, c0, c1, c2, maskf = _det1(
+        cfg, px, py, blk[..., :9], blk[..., 9:18], blk[..., 18:27],
+        blk[..., 27:27 + td], valid, sc)
+    prob = _coverage(cfg, dist, sc, seeds, pos, c * STREAM_CHUNK) * maskf
+    return prob, _stream_zmap(cfg, prob, z, maskf, sc), c0, c1, c2
+
+
+class _StreamPass:
+    """The pixel set of one stream sweep: for each chunk the pixels Q whose
+    tile visits it (in any batch element), their coordinates and the
+    (N, 1, Q) mask of the batch elements whose tile does."""
+
+    def __init__(self, cfg: FusedConfig, rows, count, active):
+        self.cfg = cfg
+        dev = rows.device
+        self.pos, self.px, self.py = _pixel_coords(cfg.image_size, dev)
+        vis = _stream_visits(cfg, rows, count, active)
+        self.vis_px = vis[:, _pixel_tiles(cfg, dev)]          # (N, P, nch)
+
+    def chunks(self):
+        for c in range(self.vis_px.shape[2]):
+            mask = self.vis_px[:, :, c]
+            sel = torch.nonzero(mask.any(dim=0))[:, 0]
+            if len(sel):
+                yield (c, sel, mask[:, sel][:, None, :], self.pos[..., sel],
+                       self.px[..., sel], self.py[..., sel])
+
+
+def _bg_rows(cfg: FusedConfig, scal, seeds, pos):
+    """Per aggregation sample s: the background row's value eps (+ gamma *
+    its noise, drawn at row rw and keeping row 0 of a 2-row block) and the
+    noise, each (N, 1, P)."""
+    n = scal.shape[0]
+    gamma = scal[:, _S_GAMMA].view(n, 1, 1)
+    if cfg.agg_kind == "hard":
+        z = torch.zeros(n, 1, pos.shape[-1], device=pos.device,
+                        dtype=scal.dtype)
+        return [(z + cfg.eps_bg, z)]
+    s0, s1 = _seed_words(seeds, 2), _seed_words(seeds, 3)
+    out = []
+    for s in range(cfg.s_agg):
+        nz = _draw_block(cfg.agg_noise, s0, s1, s, 2, pos, cfg.rw)[:, 0:1]
+        out.append((cfg.eps_bg + gamma * nz, nz))
+    return out
+
+
+def _set(t, sel, mask, new):
+    """t[..., sel] = where(mask, new, t[..., sel]), in place."""
+    t[..., sel] = torch.where(mask, new, t[..., sel])
+
+
+def _stream_sweep(cfg: FusedConfig, tab, rows, count, active, scal, seeds,
+                  track_alpha: bool, replay: bool):
+    """The forward sweep over every chunk (no gradient).  Returns the final
+    per-pixel state: dict of (N, k, P) tensors.  ``replay`` adds what the
+    backward needs (winner rows, phi, the hard-argmax control variate and
+    nreal, the JAX kernel's pass B1)."""
+    n, dev = tab.shape[0], tab.device
+    ps = _StreamPass(cfg, rows, count, active)
+    p = ps.pos.shape[-1]
+    sc = lambda i: scal[:, i].view(n, 1, 1)
+    gamma = sc(_S_GAMMA)
+    bgc = [sc(_S_BG + c).expand(n, 1, p) for c in range(3)]
+    one = lambda: torch.ones(n, 1, p, device=dev, dtype=tab.dtype)
+    st = {"alpha": one(), "zcnt": 0.0 * one(), "pnz": one()}
+    if cfg.agg_kind == "soft":
+        st.update(m=cfg.eps_bg * (1.0 / gamma) * one(), den=one(),
+                  num=torch.cat(bgc, dim=1))
+    else:
+        bg = _bg_rows(cfg, scal, seeds, ps.pos)
+        s_agg = len(bg)
+        st.update(runmax=torch.cat([r for r, _ in bg], dim=1),
+                  winc=torch.stack([torch.cat(bgc, dim=1)] * s_agg, dim=1),
+                  winid=torch.full((n, s_agg, p), cfg.rw, device=dev,
+                                   dtype=torch.int64),
+                  phi=torch.cat([nz * nz if cfg.agg_noise == "gaussian"
+                                 or cfg.agg_kind == "hard"
+                                 else _score(nz, cfg.agg_noise) * nz
+                                 for _, nz in bg], dim=1),
+                  rm0=cfg.eps_bg * one(), w0c=torch.cat(bgc, dim=1),
+                  nreal=0.0 * one())
+    a0, a1 = _seed_words(seeds, 2), _seed_words(seeds, 3)
+    with torch.no_grad():
+        for c, sel, vis, pos, px, py in ps.chunks():
+            blk = tab[:, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK]
+            prob, zmap, c0, c1, c2 = _stream_chunk(cfg, blk, c, px, py, pos,
+                                                   sc, seeds)
+            at = lambda k: st[k][..., sel]
+            _set(st["alpha"], sel, vis, at("alpha") * _prod_rows(1.0 - prob))
+            if track_alpha:
+                ones = prob >= 1.0
+                _set(st["zcnt"], sel, vis, at("zcnt") + torch.sum(
+                    ones.float(), 1, keepdim=True))
+                _set(st["pnz"], sel, vis, at("pnz") * _prod_rows(
+                    torch.where(ones, 1.0, 1.0 - prob)))
+            if cfg.agg_kind == "soft":
+                x = zmap * (1.0 / gamma)
+                m_old = at("m")
+                m_new = torch.maximum(m_old, torch.amax(x, 1, keepdim=True))
+                scale = torch.exp(m_old - m_new)
+                e = torch.exp(x - m_new)
+                num = torch.cat([at("num")[:, i:i + 1] * scale
+                                 + torch.sum(e * ci, 1, keepdim=True)
+                                 for i, ci in enumerate((c0, c1, c2))], 1)
+                _set(st["den"], sel, vis,
+                     at("den") * scale + torch.sum(e, 1, keepdim=True))
+                _set(st["m"], sel, vis, m_new)
+                _set(st["num"], sel, vis, num)
+                continue
+            win_cols = lambda first: torch.cat(
+                [torch.gather(ci, 1, first) for ci in (c0, c1, c2)], dim=1)
+            if replay:      # the hard-argmax control variate (no noise)
+                m0, f0 = _first_hot(zmap)
+                b0 = (m0 > at("rm0")) & vis
+                _set(st["rm0"], sel, b0, m0)
+                _set(st["w0c"], sel, b0, win_cols(f0))
+                _set(st["nreal"], sel, vis, at("nreal") + STREAM_CHUNK)
+            for s in range(st["runmax"].shape[1]):
+                one_s = lambda k: st[k][:, s:s + 1]
+                if cfg.agg_kind == "hard":
+                    val = zmap
+                else:
+                    nz = _draw_block(cfg.agg_noise, a0, a1, s, STREAM_CHUNK,
+                                     pos, c * STREAM_CHUNK)
+                    val = zmap + gamma * nz
+                    if replay:
+                        ph = (nz * nz if cfg.agg_noise == "gaussian"
+                              else _score(nz, cfg.agg_noise) * nz)
+                        _set(one_s("phi"), sel, vis, one_s("phi")[..., sel]
+                             + torch.sum(ph, 1, keepdim=True))
+                m, first = _first_hot(val)
+                better = (m > one_s("runmax")[..., sel]) & vis
+                _set(one_s("runmax"), sel, better, m)
+                _set(st["winc"][:, s], sel, better, win_cols(first))
+                _set(one_s("winid"), sel, better, first + c * STREAM_CHUNK)
+    return st
+
+
+def _stream_rgb(cfg: FusedConfig, st):
+    """(N, 3, P) colour of the swept state."""
+    if cfg.agg_kind == "soft":
+        return st["num"] / st["den"]
+    return torch.mean(st["winc"], dim=1)
+
+
+def stream_forward_plain(cfg: FusedConfig, tab, rows, count, active, scal,
+                         seeds) -> torch.Tensor:
+    """Plain version of K5 on any device: (N, H, W, 4) RGBA.
+
+    tab (N, rw, Dt), rows (N, nt, nch) int32, count (N, nt) int32, active
+    (N, nt) int32 (``_stream_tables``, ``_active_tiles``); scal (N, 34);
+    seeds (N, 4) int32.  An inactive tile keeps its initial state, the
+    background with alpha 0."""
+    st = _stream_sweep(cfg, tab, rows, count, active, scal, seeds,
+                       track_alpha=False, replay=False)
+    out = torch.cat([_stream_rgb(cfg, st), 1.0 - st["alpha"]], dim=1)
+    s = cfg.image_size
+    return out.transpose(1, 2).reshape(out.shape[0], s, s, 4)
+
+
+def _stream_grad_plain(cfg: FusedConfig, tab, rows, count, active, scal,
+                       seeds, g_out=None, target=None, loss_kind=None,
+                       lscale=0.0):
+    """The two sweeps of the JAX ``_stream_grad_impl``: B1 replays the
+    forward (``_stream_sweep``); B2 takes, per chunk, torch autograd through
+    that chunk's det1, coverage and z_map with the aggregation cotangents
+    built as the JAX kernel builds them.  Returns (loss (N,), g_tab
+    (N, rw, Dt), g_scal (N, 34))."""
+    n, dev = tab.shape[0], tab.device
+    track_alpha = target is None
+    st = _stream_sweep(cfg, tab, rows, count, active, scal, seeds,
+                       track_alpha=track_alpha, replay=True)
+    sc0 = lambda i: scal[:, i].view(n, 1, 1)
+    gamma = sc0(_S_GAMMA)
+    rgb = _stream_rgb(cfg, st)                                # (N, 3, P)
+    p = rgb.shape[-1]
+    if track_alpha:
+        g_cm = g_out.reshape(n, p, 4).transpose(1, 2)
+        g_rgb, g_alpha = g_cm[:, :3], g_cm[:, 3:4]
+        loss = torch.zeros(n, device=dev)
+    else:
+        d = rgb - target
+        if loss_kind == "l2_rgb":
+            loss = torch.sum(d * d, dim=(1, 2)) * lscale
+            g_rgb = 2.0 * d * lscale
+        else:
+            loss = torch.sum(torch.abs(d), dim=(1, 2)) * lscale
+            g_rgb = torch.sign(d) * lscale
+        g_alpha = None
+    # The scalar gradients sum over every visited row and pixel and cancel
+    # (the softmax's 1 / gamma term): accumulated in float64, as the
+    # kernels do, then rounded once.
+    g_scal = torch.zeros(n, _NS, device=dev, dtype=torch.float64)
+    bgc = scal[:, _S_BG:_S_BG + 3, None]
+    if cfg.agg_kind == "soft":
+        dot_w = torch.sum(rgb * g_rgb, dim=1, keepdim=True)
+        x_bg = cfg.eps_bg * (1.0 / gamma)
+        w_bg = torch.exp(x_bg - st["m"]) / st["den"]
+        g_scal[:, _S_BG:_S_BG + 3] += torch.sum(w_bg * g_rgb, dim=2)
+        gb_x = w_bg * (torch.sum(bgc * g_rgb, 1, keepdim=True) - dot_w)
+        g_scal[:, _S_GAMMA] += (-torch.sum(cfg.eps_bg * gb_x, dim=(1, 2))
+                                / (gamma * gamma).view(n))
+    else:
+        s_agg = st["runmax"].shape[1]
+        dot = torch.sum((st["winc"] - st["w0c"][:, None]) * g_rgb[:, None],
+                        dim=2)                                # (N, S, P)
+        if cfg.agg_kind == "mc":
+            comp = float(cfg.k) - st["nreal"]
+            g_scal[:, _S_GAMMA] += (torch.sum(dot * (st["phi"] + comp - 1.0),
+                                              dim=(1, 2))
+                                    / (s_agg * gamma).view(n))
+        wbg = torch.mean((st["winid"] >= cfg.rw).to(torch.float32), dim=1,
+                         keepdim=True)
+        g_scal[:, _S_BG:_S_BG + 3] += torch.sum(wbg * g_rgb, dim=2)
+
+    g_tab = torch.zeros_like(tab)
+    a0, a1 = _seed_words(seeds, 2), _seed_words(seeds, 3)
+    ps = _StreamPass(cfg, rows, count, active)
+    for c, sel, vis, pos, px, py in ps.chunks():
+        rows_sl = slice(c * STREAM_CHUNK, (c + 1) * STREAM_CHUNK)
+        g_sel = g_rgb[..., sel] * vis
+        with torch.enable_grad():
+            blk = tab[:, rows_sl].detach().requires_grad_()
+            scal_l = scal.detach().requires_grad_()
+            sc = lambda i: scal_l[:, i].view(n, 1, 1)
+            prob, zmap, c0, c1, c2 = _stream_chunk(cfg, blk, c, px, py, pos,
+                                                   sc, seeds)
+        with torch.no_grad():
+            cols = (c0, c1, c2)
+            if cfg.agg_kind == "soft":
+                x = zmap * (1.0 / gamma)
+                wgt = torch.exp(x - st["m"][..., sel]) / st["den"][..., sel]
+                gwr = sum(ci * g_sel[:, i:i + 1] for i, ci in enumerate(cols))
+                g_x = wgt * (gwr - dot_w[..., sel] * vis)
+                g_zmap = g_x * (1.0 / gamma)
+                zsafe = torch.where(torch.isinf(zmap), 0.0, zmap)
+                g_scal[:, _S_GAMMA] -= (
+                    torch.sum((zsafe * g_x).double(), dim=(1, 2))
+                    / (gamma * gamma).view(n).double())
+                g_c = [wgt * g_sel[:, i:i + 1] for i in range(3)]
+            else:
+                rows_abs = (torch.arange(STREAM_CHUNK, device=dev)
+                            .view(1, -1, 1) + c * STREAM_CHUNK)
+                g_zmap = torch.zeros_like(zmap)
+                g_c = [torch.zeros_like(zmap) for _ in range(3)]
+                for s in range(st["winid"].shape[1]):
+                    hit = (st["winid"][:, s:s + 1, sel] == rows_abs).float()
+                    for i in range(3):
+                        g_c[i] = g_c[i] + hit * g_sel[:, i:i + 1]
+                    if cfg.agg_kind == "mc":
+                        nz = _draw_block(cfg.agg_noise, a0, a1, s,
+                                         STREAM_CHUNK, pos, c * STREAM_CHUNK)
+                        g_zmap = g_zmap + (dot[:, s:s + 1, sel] * vis
+                                           * _score(nz, cfg.agg_noise))
+                s_agg = st["winid"].shape[1]
+                g_zmap = g_zmap / (s_agg * gamma)
+                g_c = [g / s_agg for g in g_c]
+            outs, cots = [zmap] + list(cols), [g_zmap] + g_c
+            if track_alpha:
+                ones = prob >= 1.0
+                zc, pz = st["zcnt"][..., sel], st["pnz"][..., sel]
+                excl = torch.where(
+                    ones, torch.where(zc == 1.0, pz, 0.0),
+                    torch.where(zc == 0.0,
+                                pz / torch.where(ones, 1.0, 1.0 - prob),
+                                0.0))
+                outs.append(prob)
+                cots.append(g_alpha[..., sel] * vis * excl)
+        keep = [i for i, o in enumerate(outs) if o.requires_grad]
+        g_blk, g_sc = torch.autograd.grad(
+            [outs[i] for i in keep], [blk, scal_l], [cots[i] for i in keep],
+            allow_unused=True)
+        if g_blk is not None:
+            g_tab[:, rows_sl] += g_blk
+        if g_sc is not None:
+            g_scal += g_sc.double()
+    return loss, g_tab, g_scal.to(tab.dtype)
+
+
+def stream_backward_plain(cfg: FusedConfig, tab, rows, count, active, scal,
+                          seeds, g_out):
+    """Plain version of K6: the vector-Jacobian product of
+    :func:`stream_forward_plain` with ``g_out`` (N, H, W, 4), alpha
+    included.  Returns (g_tab (N, rw, Dt) in sorted order, g_scal
+    (N, 34))."""
+    return _stream_grad_plain(cfg, tab, rows, count, active, scal, seeds,
+                              g_out=g_out)[1:]
+
+
+def stream_loss_grad_plain(cfg: FusedConfig, tab, rows, count, active, scal,
+                           seeds, target, loss_kind: str, lscale: float):
+    """Plain version of K7: the image loss against ``target`` (N, 3, H*W)
+    and its gradients, with no alpha track.  Returns (loss (N,), g_tab,
+    g_scal)."""
+    return _stream_grad_plain(cfg, tab, rows, count, active, scal, seeds,
+                              target=target, loss_kind=loss_kind,
+                              lscale=lscale)
 
 
 # ---------------------------------------------------------------------------
@@ -584,8 +1230,11 @@ def _check(kernel: str, ref: torch.Tensor, tensors: dict):
 
 
 def _check_inputs(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds, kernel: str = "fused_forward"):
+                  seeds, kernel: str = "fused_forward", active=None):
     n, f = fv_ndc.shape[0], cfg.f_pad
+    if active is not None:
+        _check(kernel, fv_ndc, {
+            "active": (active, (n, _n_tiles(cfg)), torch.int32)})
     _check(kernel, fv_ndc, {
         "fv_ndc": (fv_ndc, (n, f, 9), torch.float32),
         "fv_world": (fv_world, (n, f, 9), torch.float32),
@@ -617,33 +1266,41 @@ def _cfg_args(cfg: FusedConfig):
             int(cfg.perspective_correct))
 
 
+def _tiling_args(cfg: FusedConfig):
+    """The tiling as C arguments: nt, p_tile, tile_w."""
+    return (_n_tiles(cfg), cfg.p_tile, cfg.tile_w)
+
+
 def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds) -> torch.Tensor:
+                  seeds, active=None) -> torch.Tensor:
     """K3: the flat fused forward (replaces ``_forward_kernel`` of
     ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
     :func:`forward_plain`; returns (N, H, W, 4) float32 RGBA."""
-    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds)
+    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                        active=active)
     if dev.type == "cpu":
         return forward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                             seeds)
+                             seeds, active)
     from pertrenderer_tpu_torch import _build
 
     lib = _build.library()
     n, s = fv_ndc.shape[0], cfg.image_size
     out = torch.empty((n, s, s, 4), dtype=torch.float32, device=dev)
+    active = _flat_active(cfg, fv_ndc, valid, scal, active).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.pt_fused_forward(
             fv_ndc.data_ptr(), fv_world.data_ptr(), fn.data_ptr(),
             tex.data_ptr(), valid.data_ptr(), scal.data_ptr(),
-            seeds.data_ptr(), out.data_ptr(), n, *_cfg_args(cfg), stream)
+            seeds.data_ptr(), out.data_ptr(), n, *_cfg_args(cfg),
+            active.data_ptr(), *_tiling_args(cfg), stream)
     _build.check(err, "fused_forward")
     launch_counts["fused_forward"] += 1
     return out
 
 
 def _launch_grads(kernel: str, cfg: FusedConfig, tables, extra,
-                  loss_id: int, lscale: float):
+                  loss_id: int, lscale: float, active=None):
     """Launch K4 (``extra`` = g_out) or K2 (``extra`` = target, loss kind
     ``LOSS_KINDS[loss_id]``) and return (loss (N,), g_ndc, g_world, g_fn,
     g_tex, g_scal).  Each warp of the kernel sums its pixels into its own
@@ -659,6 +1316,8 @@ def _launch_grads(kernel: str, cfg: FusedConfig, tables, extra,
     g_tex, g_scal, loss = new(n, f, cfg.tex_d), new(n, _NS), new(n)
     warps = lib.pt_grad_partial_warps(n, cfg.image_size, f, cfg.tex_d)
     partial = new(n, warps, lib.pt_grad_partial_width(f, cfg.tex_d))
+    active = _flat_active(cfg, fv_ndc, tables[4], tables[5],
+                          active).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn_c = (lib.pt_fused_backward if kernel == "fused_backward"
             else lib.pt_fused_loss_grad)
@@ -667,38 +1326,41 @@ def _launch_grads(kernel: str, cfg: FusedConfig, tables, extra,
                    partial.data_ptr(), warps, g_ndc.data_ptr(),
                    g_world.data_ptr(), g_fn.data_ptr(), g_tex.data_ptr(),
                    g_scal.data_ptr(), loss.data_ptr(), n, *_cfg_args(cfg),
-                   loss_id, ctypes.c_float(lscale), stream)
+                   loss_id, ctypes.c_float(lscale), active.data_ptr(),
+                   *_tiling_args(cfg), stream)
     _build.check(err, kernel)
     launch_counts[kernel] += 1
     return loss, g_ndc, g_world, g_fn, g_tex, g_scal
 
 
 def fused_backward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
-                   scal, seeds, g_out):
+                   scal, seeds, g_out, active=None):
     """K4: the flat fused backward (replaces ``_backward_kernel`` of
     ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
     :func:`backward_plain`; returns (g_ndc, g_world, g_fn, g_tex,
     g_scal)."""
     dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                        "fused_backward")
+                        "fused_backward", active)
     s = cfg.image_size
     _check("fused_backward", fv_ndc, {
         "g_out": (g_out, (fv_ndc.shape[0], s, s, 4), torch.float32)})
     if dev.type == "cpu":
         return backward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                              seeds, g_out)
+                              seeds, g_out, active)
     tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
-    return _launch_grads("fused_backward", cfg, tables, g_out, 0, 0.0)[1:]
+    return _launch_grads("fused_backward", cfg, tables, g_out, 0, 0.0,
+                         active)[1:]
 
 
 def fused_loss_grad(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
-                    scal, seeds, target, loss_kind: str, lscale: float):
+                    scal, seeds, target, loss_kind: str, lscale: float,
+                    active=None):
     """K2: image loss and every gradient in one launch (replaces
     ``_loss_grad_kernel`` of ``pertrenderer_tpu/ops/fused_render.py``).
     ``target``: (N, 3, H*W) channel-major RGB.  Returns (loss (N,), g_ndc,
     g_world, g_fn, g_tex, g_scal) as :func:`loss_grad_plain`."""
     dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                        "fused_loss_grad")
+                        "fused_loss_grad", active)
     hw = cfg.image_size * cfg.image_size
     _check("fused_loss_grad", fv_ndc, {
         "target": (target, (fv_ndc.shape[0], 3, hw), torch.float32)})
@@ -707,28 +1369,32 @@ def fused_loss_grad(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
                          f"expected one of {LOSS_KINDS}")
     if dev.type == "cpu":
         return loss_grad_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                               seeds, target, loss_kind, lscale)
+                               seeds, target, loss_kind, lscale, active)
     tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
     return _launch_grads("fused_loss_grad", cfg, tables, target,
-                         LOSS_KINDS.index(loss_kind), lscale)
+                         LOSS_KINDS.index(loss_kind), lscale, active)
 
 
 class _FusedForward(torch.autograd.Function):
-    """Autograd boundary of the fused render: K3 forward, K4 backward."""
+    """Autograd boundary of the fused render: K3 forward, K4 backward; the
+    activity prepass runs once for both."""
 
     @staticmethod
     def forward(ctx, cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds):
         ctx.cfg = cfg
-        ctx.save_for_backward(fv_ndc, fv_world, fn, tex, valid, scal, seeds)
+        active = _flat_active(cfg, fv_ndc, valid, scal)
+        ctx.save_for_backward(fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                              active)
         return fused_forward(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                             seeds)
+                             seeds, active)
 
     @staticmethod
     def backward(ctx, g):
-        fv_ndc, fv_world, fn, tex, valid, scal, seeds = ctx.saved_tensors
+        fv_ndc, fv_world, fn, tex, valid, scal, seeds, active = \
+            ctx.saved_tensors
         g_ndc, g_world, g_fn, g_tex, g_scal = fused_backward(
             ctx.cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-            g.contiguous())
+            g.contiguous(), active)
         return None, g_ndc, g_world, g_fn, g_tex, None, g_scal, None
 
 
@@ -751,6 +1417,210 @@ class _FusedLoss(torch.autograd.Function):
         g_ndc, g_world, g_fn, g_tex, g_scal = ctx.saved_tensors
         return (None, None, None, g * g_ndc, g * g_world, g * g_fn,
                 g * g_tex, None, g * g_scal, None, None)
+
+
+# ---------------------------------------------------------------------------
+# Stream route, kernel wrappers (K5, K6, K7) and autograd
+# ---------------------------------------------------------------------------
+
+MAX_STREAM_SAMPLES = 64       # the stream kernels' per-pixel sample state
+
+
+def _check_stream(cfg: FusedConfig, tab, rows, count, active, scal, seeds,
+                  kernel: str):
+    n, nt, nch = tab.shape[0], _n_tiles(cfg), cfg.rw // STREAM_CHUNK
+    dt = tab.shape[2] if tab.dim() == 3 else 0
+    _check(kernel, tab, {
+        "tab": (tab, (n, cfg.rw, dt), torch.float32),
+        "rows": (rows, (n, nt, nch), torch.int32),
+        "count": (count, (n, nt), torch.int32),
+        "active": (active, (n, nt), torch.int32),
+        "scal": (scal, (n, _NS), torch.float32),
+        "seeds": (seeds, (n, 4), torch.int32)})
+    if (not cfg.stream or cfg.rw % STREAM_CHUNK or dt < 28 + cfg.tex_d
+            or dt % 4):
+        raise ValueError(f"{kernel}: not a stream table (rw={cfg.rw}, "
+                         f"Dt={dt}, tex_d={cfg.tex_d})")
+    if cfg.tex_mode == "atlas" and not 1 <= cfg.atlas_r <= 8:
+        raise ValueError(f"{kernel}: atlas_r={cfg.atlas_r}")
+    if cfg.agg_kind == "mc" and cfg.s_agg > MAX_STREAM_SAMPLES:
+        raise ValueError(f"{kernel}: s_agg={cfg.s_agg} above "
+                         f"{MAX_STREAM_SAMPLES}")
+    if cfg.p_tile % 32 or cfg.p_tile > 256:
+        raise ValueError(f"{kernel}: p_tile={cfg.p_tile}")
+    dev = tab.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    return dev
+
+
+def _stream_args(cfg: FusedConfig, tab):
+    """The stream geometry as C arguments: nt, nch, p_tile, tile_w, rw,
+    Dt."""
+    return (_n_tiles(cfg), cfg.rw // STREAM_CHUNK, cfg.p_tile, cfg.tile_w,
+            cfg.rw, tab.shape[2])
+
+
+def fused_stream_forward(cfg: FusedConfig, tab, rows, count, active, scal,
+                         seeds) -> torch.Tensor:
+    """K5: the stream forward (replaces ``_stream_forward_kernel`` of
+    ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
+    :func:`stream_forward_plain`; returns (N, H, W, 4) float32 RGBA."""
+    dev = _check_stream(cfg, tab, rows, count, active, scal, seeds,
+                        "fused_stream_forward")
+    if dev.type == "cpu":
+        return stream_forward_plain(cfg, tab, rows, count, active, scal,
+                                    seeds)
+    from pertrenderer_tpu_torch import _build
+
+    lib = _build.library()
+    n, s = tab.shape[0], cfg.image_size
+    out = torch.empty((n, s, s, 4), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.pt_stream_forward(
+            tab.data_ptr(), rows.data_ptr(), count.data_ptr(),
+            active.data_ptr(), scal.data_ptr(), seeds.data_ptr(),
+            out.data_ptr(), n, *_stream_args(cfg, tab), *_cfg_args(cfg),
+            stream)
+    _build.check(err, "fused_stream_forward")
+    launch_counts["fused_stream_forward"] += 1
+    return out
+
+
+def _stream_visit_index(rows, count, active):
+    """The visits of the stream gradient kernels: (voff (N, nt) int32, the
+    first visit of each tile; vstart (N * nch + 1) int32 and vidx (V,)
+    int32, for each (batch element, chunk) its visits in ascending tile
+    order; V).  Visits are numbered by (batch element, tile, list position)
+    over the active tiles."""
+    n, nt, nch = rows.shape
+    cnt = (count * (active > 0)).to(torch.int64)
+    flat = cnt.reshape(-1)
+    voff = (torch.cumsum(flat, 0) - flat).view(n, nt)
+    q = torch.arange(nch, device=rows.device).view(1, 1, -1)
+    b, t, pos = torch.nonzero(q < cnt[..., None], as_tuple=True)
+    chunk = rows[b, t, pos].to(torch.int64)
+    vidx = torch.argsort((b * nch + chunk) * nt + t)
+    per = torch.bincount(b * nch + chunk, minlength=n * nch)
+    vstart = torch.cat([per.new_zeros(1), torch.cumsum(per, 0)])
+    return (voff.to(torch.int32).contiguous(),
+            vstart.to(torch.int32).contiguous(),
+            vidx.to(torch.int32).contiguous(), len(b))
+
+
+def _launch_stream_grads(kernel: str, cfg: FusedConfig, tab, rows, count,
+                         active, scal, seeds, extra, loss_id: int,
+                         lscale: float):
+    """Launch K6 (``extra`` = g_out) or K7 (``extra`` = target) and return
+    (loss (N,), g_tab, g_scal).  Each block writes its visits' per-row sums
+    and its scalar sums to partial buffers (no atomics); two small kernels
+    add them in ascending tile order, so the gradients are the same bits
+    from run to run."""
+    from pertrenderer_tpu_torch import _build
+
+    dev, n = tab.device, tab.shape[0]
+    lib = _build.library()
+    voff, vstart, vidx, visits = _stream_visit_index(rows, count, active)
+    d = 27 + cfg.tex_d
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    partial = new(max(visits, 1), STREAM_CHUNK, d)
+    pscal = new(n, _n_tiles(cfg), _NS + 1)
+    g_tab, g_scal, loss = torch.zeros_like(tab), new(n, _NS), new(n)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn_c = (lib.pt_stream_backward if kernel == "fused_stream_backward"
+            else lib.pt_stream_loss_grad)
+    with torch.cuda.device(dev):
+        err = fn_c(tab.data_ptr(), rows.data_ptr(), count.data_ptr(),
+                   active.data_ptr(), voff.data_ptr(), vstart.data_ptr(),
+                   vidx.data_ptr(), scal.data_ptr(), seeds.data_ptr(),
+                   extra.data_ptr(), partial.data_ptr(), pscal.data_ptr(),
+                   g_tab.data_ptr(), g_scal.data_ptr(), loss.data_ptr(), n,
+                   *_stream_args(cfg, tab), *_cfg_args(cfg), loss_id,
+                   ctypes.c_float(lscale), stream)
+    _build.check(err, kernel)
+    launch_counts[kernel] += 1
+    return loss, g_tab, g_scal
+
+
+def fused_stream_backward(cfg: FusedConfig, tab, rows, count, active, scal,
+                          seeds, g_out):
+    """K6: the stream backward (replaces ``_stream_backward_kernel`` of
+    ``pertrenderer_tpu/ops/fused_render.py``).  Returns (g_tab (N, rw, Dt)
+    in sorted order, g_scal (N, 34)), as :func:`stream_backward_plain`."""
+    dev = _check_stream(cfg, tab, rows, count, active, scal, seeds,
+                        "fused_stream_backward")
+    s = cfg.image_size
+    _check("fused_stream_backward", tab, {
+        "g_out": (g_out, (tab.shape[0], s, s, 4), torch.float32)})
+    if dev.type == "cpu":
+        return stream_backward_plain(cfg, tab, rows, count, active, scal,
+                                     seeds, g_out)
+    return _launch_stream_grads("fused_stream_backward", cfg, tab, rows,
+                                count, active, scal, seeds, g_out, 0,
+                                0.0)[1:]
+
+
+def fused_stream_loss_grad(cfg: FusedConfig, tab, rows, count, active, scal,
+                           seeds, target, loss_kind: str, lscale: float):
+    """K7: image loss and every gradient of the stream route in one launch
+    (replaces ``_stream_loss_grad_kernel`` of
+    ``pertrenderer_tpu/ops/fused_render.py``).  ``target``: (N, 3, H*W).
+    Returns (loss (N,), g_tab, g_scal) as :func:`stream_loss_grad_plain`."""
+    dev = _check_stream(cfg, tab, rows, count, active, scal, seeds,
+                        "fused_stream_loss_grad")
+    hw = cfg.image_size * cfg.image_size
+    _check("fused_stream_loss_grad", tab, {
+        "target": (target, (tab.shape[0], 3, hw), torch.float32)})
+    if loss_kind not in LOSS_KINDS:
+        raise ValueError(f"fused_stream_loss_grad: loss_kind {loss_kind!r}, "
+                         f"expected one of {LOSS_KINDS}")
+    if dev.type == "cpu":
+        return stream_loss_grad_plain(cfg, tab, rows, count, active, scal,
+                                      seeds, target, loss_kind, lscale)
+    return _launch_stream_grads("fused_stream_loss_grad", cfg, tab, rows,
+                                count, active, scal, seeds, target,
+                                LOSS_KINDS.index(loss_kind), lscale)
+
+
+class _FusedStream(torch.autograd.Function):
+    """Autograd boundary of the stream render: K5 forward, K6 backward.
+    rows, count, active and seeds get no gradient."""
+
+    @staticmethod
+    def forward(ctx, cfg, tab, scal, rows, count, active, seeds):
+        ctx.cfg = cfg
+        ctx.save_for_backward(tab, scal, rows, count, active, seeds)
+        return fused_stream_forward(cfg, tab, rows, count, active, scal,
+                                    seeds)
+
+    @staticmethod
+    def backward(ctx, g):
+        tab, scal, rows, count, active, seeds = ctx.saved_tensors
+        g_tab, g_scal = fused_stream_backward(ctx.cfg, tab, rows, count,
+                                              active, scal, seeds,
+                                              g.contiguous())
+        return None, g_tab, g_scal, None, None, None, None
+
+
+class _FusedStreamLoss(torch.autograd.Function):
+    """Autograd boundary of K7: the forward returns the summed loss and
+    keeps K7's gradients; the backward only scales them."""
+
+    @staticmethod
+    def forward(ctx, cfg, loss_kind, lscale, tab, scal, rows, count, active,
+                seeds, target):
+        loss, g_tab, g_scal = fused_stream_loss_grad(
+            cfg, tab, rows, count, active, scal, seeds, target, loss_kind,
+            lscale)
+        ctx.save_for_backward(g_tab, g_scal)
+        return loss.sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        g_tab, g_scal = ctx.saved_tensors
+        return (None, None, None, g * g_tab, g * g_scal, None, None, None,
+                None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -784,8 +1654,9 @@ def _unsupported(route: str, why: str):
 
 def _plan(meshes, lights, smoothrast, smoothagg, settings,
           shade: str) -> FusedConfig:
-    """The flat route's static configuration; raises NotImplementedError
-    naming the route the JAX package would take instead."""
+    """The static configuration of the route the JAX package takes: flat
+    (every face holds a slot) or stream (F > faces_per_pixel); raises
+    NotImplementedError naming the binned, sharded or staged route."""
     from pertrenderer_tpu_torch.lights import DirectionalLights, PointLights
     from pertrenderer_tpu_torch.textures import (TexturesAtlas, TexturesUV,
                                                  TexturesVertex)
@@ -801,10 +1672,33 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings,
         _unsupported("sharded", "the estimators shard the sample axis")
     f = int(meshes.max_faces)
     k = int(settings.faces_per_pixel)
-    f_pad = _round_up(max(f, 8), 8)
+    size = int(settings.image_size)
+    hw = size * size
+    f_pad = f_real = _round_up(max(f, 8), 8)
+    stream, rw, tile_w = False, 0, 0
     if f > k or f_pad > MAX_SLOTS:
-        _unsupported("stream", "F=%d faces > faces_per_pixel=%d (or above "
-                     "%d slots)" % (f, k, MAX_SLOTS))
+        m = min(f_pad, int(settings.max_faces_per_bin or MAX_BIN_SLOTS),
+                MAX_BIN_SLOTS)
+        bin_ok = m >= 8 and _BIN_P_TILE < size and size % _BIN_P_TILE == 0
+        if (bin_ok and settings.bin_overflow == "allow"
+                and f > _COARSE_THRESHOLD):
+            _unsupported("binned", "bin_overflow='allow' opts F=%d faces "
+                         "into per-tile slots" % f)
+        stream, rw = True, _round_up(f, STREAM_CHUNK)
+        f_pad = f_real = STREAM_CHUNK
+        th, tw = _STREAM_TILE[0], min(_STREAM_TILE[1], size)
+        if (th * tw) % 128 == 0 and size % tw == 0 and size % th == 0:
+            p_tile, tile_w = th * tw, tw
+        else:
+            p_tile = min(_BIN_P_TILE, _round_up(hw, 128))
+    if size > 2048:
+        _unsupported("staged", "image size above the 2048 fused-kernel "
+                     "limit")
+    if not stream:
+        p_tile = min(2048 if f_pad <= 16 else 1024, _round_up(hw, 128))
+        th = p_tile // 64 if p_tile % 64 == 0 else 0
+        if th > 1 and size > 64 and size % 64 == 0 and size % th == 0:
+            tile_w = 64
 
     tex = meshes.textures
     if isinstance(tex, TexturesVertex):
@@ -836,7 +1730,7 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings,
     (rast_kind, rast_noise, rast_vr), (agg_kind, agg_noise, agg_vr) = \
         rast_entry, agg_entry
     return FusedConfig(
-        image_size=settings.image_size, f_pad=f_pad, f_real=f, k=k,
+        image_size=size, f_pad=f_pad, f_real=f_real if stream else f, k=k,
         rast_kind=rast_kind, rast_noise=rast_noise, rast_vr=rast_vr,
         s_rast=int(getattr(smoothrast, "nb_samples", 1)),
         agg_kind=agg_kind, agg_noise=agg_noise, agg_vr=agg_vr,
@@ -844,20 +1738,26 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings,
         eps_bg=float(smoothagg.eps), shade=shade, light_kind=light_kind,
         tex_mode=tex_mode, tex_d=tex_d, atlas_r=atlas_r,
         clip_bary=settings.resolve_clip(),
-        perspective_correct=bool(settings.perspective_correct))
+        perspective_correct=bool(settings.perspective_correct),
+        p_tile=p_tile, tile_w=tile_w, stream=stream, rw=rw)
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderPlan:
-    """Static routing report.  The port runs ``flat`` only: every face holds
-    a slot (F <= faces_per_pixel); exact, no selection."""
+    """Static routing report.  ``flat``: every face holds a slot
+    (F <= faces_per_pixel); ``stream``: the faces are sorted into 64-row
+    chunks and each tile streams the chunks its list names.  Both are
+    exact.  The binned, sharded and staged routes raise."""
 
     mode: str
     reason: str
     f: int
     k: int
     image_size: int
-    slots: int = 0
+    p_tile: int = 0
+    tile: tuple = ()
+    slots: int = 0          # flat: slot rows
+    table_rows: int = 0     # stream: sorted-table rows (chunk multiple)
 
 
 def render_plan(meshes, lights, smoothrast, smoothagg, settings,
@@ -865,9 +1765,18 @@ def render_plan(meshes, lights, smoothrast, smoothagg, settings,
     """The route :func:`try_render` takes; raises NotImplementedError for
     routes the port does not run yet."""
     cfg = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
+    f = int(meshes.max_faces)
+    tile = ((cfg.p_tile // cfg.tile_w, cfg.tile_w) if cfg.tile_w
+            else (1, cfg.p_tile))
+    if cfg.stream:
+        return RenderPlan(
+            mode="stream", f=f, k=cfg.k, image_size=cfg.image_size,
+            p_tile=cfg.p_tile, tile=tile, table_rows=cfg.rw,
+            reason="F > faces_per_pixel; chunk-streamed y-sorted windows "
+                   "(exact at any coverage density)")
     return RenderPlan(
-        mode="flat", f=int(meshes.max_faces), k=cfg.k,
-        image_size=cfg.image_size, slots=cfg.f_pad,
+        mode="flat", f=f, k=cfg.k, image_size=cfg.image_size,
+        p_tile=cfg.p_tile, tile=tile, slots=cfg.f_pad,
         reason="every face holds a slot (F <= faces_per_pixel); exact, no "
                "selection")
 
@@ -921,8 +1830,10 @@ def draw_seeds(n: int, generator: Optional[torch.Generator] = None,
 def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
                     smoothrast, smoothagg, blend_params, settings, seeds,
                     shade: str, blur_override=None):
-    """The kernel's tensor inputs: face tables, validity, packed scalars and
-    seed words (:func:`forward_plain` documents the shapes)."""
+    """The kernels' tensor inputs.  Flat: face tables, validity, packed
+    scalars and seed words (:func:`forward_plain` documents the shapes).
+    Stream: (tab, scal, rows, count, active, seeds), the order of the JAX
+    package (:func:`stream_forward_plain`)."""
     from pertrenderer_tpu_torch.textures import TexturesUV, TexturesVertex
 
     n, f, dev = meshes.batch_size, meshes.max_faces, meshes.device
@@ -958,16 +1869,23 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
                 * (fv_ndc[..., 6] - fv_ndc[..., 0]))
         validf = validf & (area > 0)
 
-    pad = lambda x: torch.nn.functional.pad(
-        x, (0, 0, 0, cfg.f_pad - f)).contiguous()
-    valid = torch.nn.functional.pad(validf.to(torch.float32),
-                                    (0, cfg.f_pad - f))
     scal = _pack_scal(cfg, n, cameras, lights, materials, smoothrast,
                       smoothagg, blend_params, blur, dev)
     if not isinstance(seeds, torch.Tensor):
         seeds = torch.from_numpy(np.array(seeds, dtype=np.int32))
     seeds = seeds.to(device=dev, dtype=torch.int32)
     seeds = seeds.reshape(n, -1)[:, :4].contiguous()
+    if cfg.stream:
+        merged = torch.cat([fv_ndc, fv_world, fn_world, tex_tab], dim=-1)
+        validf = validf.to(torch.float32)
+        tab, rows, count, _perm = _stream_tables(
+            cfg, merged, fv_ndc, validf, scal[:, _S_BLUR])
+        active = _active_tiles(cfg, fv_ndc, validf, scal[:, _S_BLUR])
+        return tab, scal, rows, count, active, seeds
+    pad = lambda x: torch.nn.functional.pad(
+        x, (0, 0, 0, cfg.f_pad - f)).contiguous()
+    valid = torch.nn.functional.pad(validf.to(torch.float32),
+                                    (0, cfg.f_pad - f))
     return (pad(fv_ndc), pad(fv_world), pad(fn_world), pad(tex_tab),
             valid.contiguous(), scal, seeds)
 
@@ -990,8 +1908,9 @@ def try_render(meshes, cameras, lights, materials, smoothrast, smoothagg,
                blend_params, settings, shade: str, seeds=None,
                generator: Optional[torch.Generator] = None,
                blur_override=None) -> torch.Tensor:
-    """Render (N, H, W, 4) RGBA through the flat fused forward (K3); its
-    gradients come from K4.
+    """Render (N, H, W, 4) RGBA through the flat fused forward (K3, its
+    gradients from K4) or, for F > faces_per_pixel, the stream forward (K5,
+    its gradients from K6).
 
     ``seeds``: (N, 4) int32 seed words, or JAX-layout (N, 1, 8) seed rows
     whose first four columns are used; drawn from ``generator`` when
@@ -999,6 +1918,8 @@ def try_render(meshes, cameras, lights, materials, smoothrast, smoothagg,
     cfg, inputs = _inputs_for(meshes, cameras, lights, materials,
                               smoothrast, smoothagg, blend_params, settings,
                               shade, seeds, generator, blur_override)
+    if cfg.stream:
+        return _FusedStream.apply(cfg, *inputs)
     return _FusedForward.apply(cfg, *inputs)
 
 
@@ -1009,7 +1930,8 @@ def try_render_loss(meshes, cameras, lights, materials, smoothrast,
                     blur_override=None) -> torch.Tensor:
     """Mean image loss (``l2_rgb``: squared, ``l1_rgb``: absolute error
     over the RGB channels of every pixel and batch element) against
-    ``target``, with the loss and every gradient from one K2 launch.
+    ``target``, with the loss and every gradient from one launch of K2
+    (flat) or K7 (stream).
 
     ``target`` broadcasts to (N, H, W, 3) and is a constant: it gets no
     gradient.  Seeds as for :func:`try_render`."""
@@ -1025,4 +1947,7 @@ def try_render_loss(meshes, cameras, lights, materials, smoothrast,
     target_cm = target.broadcast_to((n, s, s, 3)).permute(0, 3, 1, 2)
     target_cm = target_cm.reshape(n, 3, s * s).contiguous()
     lscale = 1.0 / (n * s * s * 3)
+    if cfg.stream:
+        return _FusedStreamLoss.apply(cfg, loss_kind, lscale, *inputs,
+                                      target_cm)
     return _FusedLoss.apply(cfg, loss_kind, lscale, *inputs, target_cm)

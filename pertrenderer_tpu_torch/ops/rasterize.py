@@ -19,16 +19,20 @@ __all__ = ["RasterizationSettings"]
 
 @dataclasses.dataclass(frozen=True)
 class RasterizationSettings:
-    """Static rasterizer configuration (PyTorch3D's field names).  The
-    JAX package's binning and chunking fields belong to routes the port
-    does not run yet."""
+    """Static rasterizer configuration (PyTorch3D's field names).
+    ``max_faces_per_bin`` and ``bin_overflow='allow'`` opt a large mesh
+    into the JAX package's binned route, which the port does not run yet
+    (it raises); every other mesh with more faces than faces_per_pixel
+    streams."""
 
     image_size: int = 128
     blur_radius: float = 0.0
     faces_per_pixel: int = 1
+    max_faces_per_bin: Optional[int] = None
     perspective_correct: bool = False
     clip_barycentric_coords: Optional[bool] = None
     cull_backfaces: bool = False
+    bin_overflow: str = "warn"
 
     def resolve_clip(self) -> bool:
         if self.clip_barycentric_coords is None:

@@ -71,6 +71,14 @@ class Meshes:
     def update_padded(self, new_verts: torch.Tensor) -> "Meshes":
         return dataclasses.replace(self, verts=new_verts)
 
+    def offset_verts(self, offset: torch.Tensor) -> "Meshes":
+        """offset: (V, 3) or (N, V, 3)."""
+        offset = torch.as_tensor(offset, dtype=torch.float32,
+                                 device=self.device)
+        if offset.dim() == 2:
+            offset = offset[None]
+        return dataclasses.replace(self, verts=self.verts + offset)
+
     def scale_verts(self, scale) -> "Meshes":
         scale = torch.atleast_1d(torch.as_tensor(
             scale, dtype=torch.float32, device=self.device))

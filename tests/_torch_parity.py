@@ -7,6 +7,7 @@ off, which keys the MC noise the way the port does.
 """
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -21,19 +22,58 @@ KEY = jax.random.PRNGKey(3)
 MC_NOISES = ("gaussian", "gaussian_wovr", "cauchy")
 
 
+@pytest.fixture(scope="module", autouse=False)
+def one_torch_thread():
+    """One intra-op torch thread for a module: the stream route's plain
+    sweeps are many small ops, which slow down by orders of magnitude
+    when every test worker runs a full thread pool on a shared machine."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def interpret_env(monkeypatch):
     monkeypatch.setenv("PERTRENDERER_FUSED", "interpret")
     monkeypatch.setenv("PERTRENDERER_PACK", "off")
 
 
+def scene_mesh(kind):
+    """A JAX test mesh: ``cube`` (12 faces, x2), ``icosphere`` (level 3,
+    1280 faces, x2, per-vertex colours) or ``cow`` (``make_cow``: 5120
+    faces, UV atlas 4, centred and scaled to 3 / max |v| as
+    tools/run_config3.py does)."""
+    if kind == "cube":
+        return pt.load_cube().scale_verts(2.0)
+    if kind == "icosphere":
+        from pertrenderer_tpu.io import make_icosphere
+
+        verts, faces = make_icosphere(3)
+        return pt.Meshes.create(2.0 * verts, faces,
+                                textures=pt.TexturesVertex(jnp.linspace(
+                                    0.2, 1.0, verts.shape[0] * 3).reshape(
+                                        1, verts.shape[0], 3)))
+    cow = pt.make_cow()
+    verts = cow.verts[0]
+    center = verts.mean(0)
+    scale = jnp.max(jnp.abs(verts - center))
+    return cow.offset_verts(-jnp.broadcast_to(center, verts.shape)) \
+        .scale_verts(3.0 / scale)
+
+
 def build(noise="softras", imsize=16, k=16, s=4, shade="phong",
           textures="uv", lights_kind="point", perspective_correct=False,
-          cull=False, n_views=1, sigma=1e-2, gamma=5e-1, faces16=False):
+          cull=False, n_views=1, sigma=1e-2, gamma=5e-1, faces16=False,
+          mesh_kind="cube", shift=None):
     """(mesh, cameras, lights, renderer) of the JAX package: the cube x2
-    seen from ``n_views`` poses.  ``faces16`` repeats four of its faces, so
-    that F = f_pad = 16 and the background row is appended below the slots
-    instead of compacted into a dead one."""
-    mesh = pt.load_cube().scale_verts(2.0)
+    (or another ``scene_mesh``) seen from ``n_views`` poses.  ``faces16``
+    repeats four of the cube's faces, so that F = f_pad = 16 and the
+    background row is appended below the slots instead of compacted into a
+    dead one.  ``shift`` moves the mesh by a world-space offset."""
+    mesh = scene_mesh(mesh_kind)
+    if shift is not None:
+        mesh = mesh.offset_verts(jnp.broadcast_to(
+            jnp.asarray(shift, jnp.float32), mesh.verts.shape[1:]))
     if faces16:
         faces = jnp.concatenate([mesh.faces[0], mesh.faces[0, :4]])
         mesh = pt.Meshes.create(mesh.verts[0], faces)
@@ -117,3 +157,65 @@ def assert_image_close(a, b, mc: bool):
     d = np.abs(a - b)
     assert d.mean() <= 1e-5, d.mean()
     assert np.mean(d.max(axis=-1) <= 1e-4) >= 0.999, d.max()
+
+
+def port_stream_inputs(jcfg, inputs):
+    """JAX stream kernel inputs (tab, scal, rows, n, active, seeds) -> the
+    port's argument order of the stream kernels (tab with its first
+    round_up(d + 1, 4) columns, rows, count, active, scal (N, 34), seeds
+    (N, 4))."""
+    tab, scal, rows, count, active, seeds = (np.asarray(x) for x in inputs)
+    n, nt = tab.shape[0], rows.shape[1]
+    dt = -(-(28 + jcfg.tex_d) // 4) * 4
+    t = lambda x: torch.from_numpy(np.array(x))
+    return (t(tab[:, :, :dt]), t(rows.reshape(n, nt, -1)),
+            t(count.reshape(n, nt)), t(active.reshape(n, nt)),
+            t(scal[:, 0]), t(seeds[:, 0, :4]))
+
+
+def _image_cm(jcfg, x):
+    """(N, H, W, C) -> the JAX kernels' tile-major (N, C, nt * p_tile)."""
+    n, s, c = x.shape[0], jcfg.image_size, x.shape[-1]
+    cm = jnp.moveaxis(jnp.asarray(x).reshape(n, s * s, c), -1, 1)
+    cm = jax.vmap(lambda a: jfr._to_tilemajor(jcfg, a))(cm)
+    return jnp.pad(cm, ((0, 0), (0, 0),
+                        (0, jfr._n_tiles(jcfg) * jcfg.p_tile - s * s)))
+
+
+def jax_stream_forward(jcfg, inputs):
+    """JAX ``_pallas_stream_forward`` per batch element: (N, H, W, 4)."""
+    tab, scal, rows, count, active, seeds = inputs
+    s = jcfg.image_size
+    outs = []
+    for b in range(tab.shape[0]):
+        o = jfr._pallas_stream_forward(jcfg, tab[b], rows[b], count[b],
+                                       active[b], scal[b], seeds[b])
+        outs.append(np.asarray(jfr._from_tilemajor(jcfg, o))[:, :s * s])
+    return np.moveaxis(np.stack(outs).reshape(-1, 4, s, s), 1, -1)
+
+
+def jax_stream_grads(jcfg, inputs, g_out=None, target=None, loss_kind=None,
+                     lscale=0.0):
+    """JAX ``_pallas_stream_backward`` (``g_out`` (N, H, W, 4)) or
+    ``_pallas_stream_loss_grad`` (``target`` (N, H, W, 3)) per batch
+    element: (loss (N,), g_tab (N, rw, dt), g_scal (N, 34)) with dt as in
+    :func:`port_stream_inputs`."""
+    tab, scal, rows, count, active, seeds = inputs
+    dt = -(-(28 + jcfg.tex_d) // 4) * 4
+    extra = _image_cm(jcfg, g_out if target is None else target)
+    losses, g_tabs, g_scals = [], [], []
+    for b in range(tab.shape[0]):
+        args = (tab[b], rows[b], count[b], active[b], scal[b], seeds[b])
+        if target is None:
+            g_tab, g_scal = jfr._pallas_stream_backward(jcfg, *args,
+                                                        extra[b])
+            loss = 0.0
+        else:
+            loss, g_tab, g_scal = jfr._pallas_stream_loss_grad(
+                jcfg, loss_kind, *args, extra[b],
+                jnp.full((1, 1), lscale, jnp.float32))
+            loss = float(loss[0, 0])
+        losses.append(loss)
+        g_tabs.append(np.asarray(g_tab)[:, :dt])
+        g_scals.append(np.asarray(g_scal)[0])
+    return np.array(losses, np.float32), np.stack(g_tabs), np.stack(g_scals)

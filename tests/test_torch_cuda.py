@@ -73,9 +73,30 @@ def _smoothers(noise, sigma, gamma, s):
     return ptt.SoftRast.create(sigma=sigma), ptt.SoftAgg.create(gamma=gamma)
 
 
+def scene_mesh(kind, device):
+    """``cube`` (12 faces, x2), ``icosphere`` (level 3, 1280 faces, x2,
+    per-vertex colours) or ``cow`` (``make_cow``: 5120 faces, UV atlas 4,
+    centred and scaled to 3 / max |v|)."""
+    if kind == "cube":
+        return ptt.load_cube(device=device).scale_verts(2.0)
+    if kind == "icosphere":
+        verts, faces = ptt.make_icosphere(3)
+        colours = torch.linspace(0.2, 1.0, verts.shape[0] * 3,
+                                 device=device).reshape(1, -1, 3)
+        return ptt.Meshes.create(2.0 * verts, faces, device=device,
+                                 textures=ptt.TexturesVertex(colours))
+    cow = ptt.make_cow(device=device)
+    verts = cow.verts[0]
+    center = verts.mean(0)
+    scale = torch.max(torch.abs(verts - center))
+    return cow.offset_verts(-center.expand_as(verts)).scale_verts(
+        3.0 / scale)
+
+
 def _renderer(noise, device, imsize=32, n=2, lights_kind="point",
-              textures="uv", perspective_correct=False):
-    mesh = ptt.load_cube(device=device).scale_verts(2.0)
+              textures="uv", perspective_correct=False, mesh_kind="cube",
+              sigma=1e-2, gamma=5e-1, s=4, k=50):
+    mesh = scene_mesh(mesh_kind, device)
     if textures == "atlas4":
         g = torch.Generator().manual_seed(0)
         mesh = mesh.with_textures(ptt.TexturesAtlas(
@@ -94,11 +115,10 @@ def _renderer(noise, device, imsize=32, n=2, lights_kind="point",
     else:
         lights = ptt.DirectionalLights.create(direction=(0.3, -1.0, 0.2),
                                               device=device)
-    sigma, gamma = 1e-2, 5e-1
     settings = ptt.RasterizationSettings(
         image_size=imsize, blur_radius=float(np.log(1 / 1e-4 - 1) * sigma),
-        faces_per_pixel=50, perspective_correct=perspective_correct)
-    sr, sa = _smoothers(noise, sigma, gamma, 4)
+        faces_per_pixel=k, perspective_correct=perspective_correct)
+    sr, sa = _smoothers(noise, sigma, gamma, s)
     renderer = ptt.MeshRenderer(
         ptt.MeshRasterizer(cams, settings),
         ptt.RandomPhongShader.create(
@@ -276,6 +296,171 @@ def test_render_loss_launches_k2_once(cuda_device):
     after = dict(tfr.launch_counts)
     assert {k: after[k] - before[k] for k in after} == {
         "prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
-        "fused_loss_grad": 1}
+        "fused_loss_grad": 1, "fused_stream_forward": 0,
+        "fused_stream_backward": 0, "fused_stream_loss_grad": 0}
     assert torch.isfinite(log_rot.grad).all()
     assert log_rot.grad.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["gaussian_wovr", "softras"])
+def test_flat_kernels_take_background_only_on_inactive_tiles(noise,
+                                                            cuda_device):
+    """The cube moved up in a 64^2 image (two 2048-pixel strips): the
+    lower strip is inactive.  K3, K4 and K2 equal their plain versions,
+    which give that tile JAX's bg_only image and gradient."""
+    mesh, renderer = _renderer(noise, cuda_device, imsize=64, sigma=1e-3)
+    mesh = mesh.offset_verts(torch.tensor([0.0, 2.5, 0.0],
+                                          device=cuda_device).expand(8, 3))
+    cfg, inputs = _inputs(mesh, renderer)
+    act = tfr._active_tiles(cfg, inputs[0], inputs[4],
+                            inputs[5][:, tfr._S_BLUR])
+    assert act.tolist() == [[1, 0], [1, 0]]
+    mc = noise in MC_NOISES
+    assert_kernel_close(tfr.fused_forward(cfg, *inputs),
+                        tfr.forward_plain(cfg, *inputs), mc)
+    g_out = torch.randn(2, 64, 64, 4, generator=torch.Generator()
+                        .manual_seed(1)).to(cuda_device)
+    assert_tables_close(tfr.fused_backward(cfg, *inputs, g_out),
+                        tfr.backward_plain(cfg, *inputs, g_out), mc)
+    target = torch.rand(2, 3, 64 * 64, generator=torch.Generator()
+                        .manual_seed(2)).to(cuda_device)
+    got = tfr.fused_loss_grad(cfg, *inputs, target, "l2_rgb", 1e-4)
+    want = tfr.loss_grad_plain(cfg, *inputs, target, "l2_rgb", 1e-4)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    assert_tables_close(got[1:], want[1:], mc)
+
+
+# The stream route (K5, K6, K7) at the config-3 settings (sigma 1e-3,
+# gamma 1e-2).  The gradient tables are held at the tolerances above on
+# every row except those of faces too thin for float32 to resolve them
+# (height under 2e-6 / tolerance of the longest edge, seen nearly edge-on
+# at the silhouette, ``_sliver_rows``): their edge functions divide by the
+# area and the barycentric adjoints cancel terms that large, so their
+# float32 gradients are accurate only to about 2e-7 / (height / edge) of
+# the table max, and the kernels' hand-written adjoints and autograd
+# round in another order (one face of the icosphere at height 5e-6 of its
+# edge moves the error from ~2e-5 to 2e-3 - 1e-2); those rows must be
+# finite.
+STREAM_SCENES = {"icosphere": (64, 2), "cow": (128, 1)}
+
+
+def _sliver_rows(tab, tol):
+    """(N, rw) bool: faces of height below 2e-6 / tol of their longest
+    edge, whose float32 gradients cannot be resolved to ``tol``."""
+    v = tab[..., :9].double()
+    ex = [v[..., 3] - v[..., 0], v[..., 6] - v[..., 3], v[..., 0] - v[..., 6]]
+    ey = [v[..., 4] - v[..., 1], v[..., 7] - v[..., 4], v[..., 1] - v[..., 7]]
+    area = ex[0] * (v[..., 7] - v[..., 1]) - ey[0] * (v[..., 6] - v[..., 0])
+    longest = torch.stack([a * a + b * b for a, b in zip(ex, ey)]).amax(0)
+    return area.abs() < (2e-6 / tol) * longest
+
+
+def _stream_case(noise, kind, device):
+    size, n = STREAM_SCENES[kind]
+    mesh, renderer = _renderer(noise, device, imsize=size, n=n,
+                               mesh_kind=kind, sigma=1e-3, gamma=1e-2, s=4)
+    cfg, (tab, scal, rows, count, active, seeds) = _inputs(mesh, renderer)
+    assert cfg.stream
+    return cfg, (tab, rows, count, active, scal, seeds), size, n
+
+
+def _split(cfg, g_tab, g_scal, keep=None):
+    """The four tables and the scalars; rows outside ``keep`` zeroed."""
+    if keep is not None:
+        g_tab = g_tab * keep[..., None]
+    td = cfg.tex_d
+    return (g_tab[..., :9], g_tab[..., 9:18], g_tab[..., 18:27],
+            g_tab[..., 27:27 + td], g_scal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(STREAM_SCENES))
+@pytest.mark.parametrize("noise", NOISE_MENU)
+def test_stream_forward_kernel_matches_plain(noise, kind, cuda_device):
+    cfg, args, _size, _n = _stream_case(noise, kind, cuda_device)
+    before = tfr.launch_counts["fused_stream_forward"]
+    got = tfr.fused_stream_forward(cfg, *args)
+    again = tfr.fused_stream_forward(cfg, *args)
+    torch.cuda.synchronize()
+    assert tfr.launch_counts["fused_stream_forward"] == before + 2
+    assert torch.equal(got, again)
+    assert_kernel_close(got, tfr.stream_forward_plain(cfg, *args),
+                        noise in MC_NOISES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(STREAM_SCENES))
+@pytest.mark.parametrize("noise", NOISE_MENU)
+def test_stream_gradient_kernels_match_plain(noise, kind, cuda_device):
+    """K6 and K7 against their plain versions on every row but those of
+    thin faces (see above), repeated launches bit-equal, and K7
+    equal to K5's image under the L2 loss fed through K6 (tables and
+    scalars within 1e-5 of their max: the same kernels' arithmetic on
+    both sides)."""
+    cfg, args, size, n = _stream_case(noise, kind, cuda_device)
+    mc = noise in MC_NOISES
+    g_out = torch.randn(n, size, size, 4, generator=torch.Generator()
+                        .manual_seed(1)).to(cuda_device)
+    before = dict(tfr.launch_counts)
+    got = tfr.fused_stream_backward(cfg, *args, g_out)
+    again = tfr.fused_stream_backward(cfg, *args, g_out)
+    target = torch.rand(n, 3, size * size, generator=torch.Generator()
+                        .manual_seed(2)).to(cuda_device)
+    lscale = 1.0 / (n * size * size * 3)
+    loss, *lg = tfr.fused_stream_loss_grad(cfg, *args, target, "l2_rgb",
+                                           lscale)
+    torch.cuda.synchronize()
+    assert tfr.launch_counts["fused_stream_backward"] == (
+        before["fused_stream_backward"] + 2)
+    assert tfr.launch_counts["fused_stream_loss_grad"] == (
+        before["fused_stream_loss_grad"] + 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(t).all()) for t in list(got) + lg)
+    keep = ~_sliver_rows(args[0], 1e-3 if mc else 1e-4)
+    want = tfr.stream_backward_plain(cfg, *args, g_out)
+    assert_tables_close(_split(cfg, *got, keep), _split(cfg, *want, keep),
+                        mc)
+    w_loss, *want = tfr.stream_loss_grad_plain(cfg, *args, target, "l2_rgb",
+                                               lscale)
+    torch.testing.assert_close(loss, w_loss, rtol=1e-5, atol=0)
+    assert_tables_close(_split(cfg, *lg, keep), _split(cfg, *want, keep), mc)
+    img = tfr.fused_stream_forward(cfg, *args)
+    d = img[..., :3].reshape(n, -1, 3).transpose(1, 2) - target
+    g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(n, size, size, 3)
+    g_l2 = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1])], dim=-1)
+    dual = tfr.fused_stream_backward(cfg, *args, g_l2.contiguous())
+    torch.testing.assert_close(loss, torch.sum(d * d, dim=(1, 2)) * lscale,
+                               rtol=1e-5, atol=0)
+    errors = table_errors(_split(cfg, *lg), _split(cfg, *dual))
+    assert all(e <= 1e-5 for _n, e in errors), errors
+
+
+@pytest.mark.cuda
+def test_stream_route_through_meshrenderer(cuda_device):
+    """The cow at 128^2, N=2, through the public entries: the render
+    launches K5 once, its backward K6 once, render_loss K7 once (and its
+    backward nothing); the pose gradients are finite and nonzero."""
+    mesh, renderer = _renderer("gaussian", cuda_device, imsize=128,
+                               mesh_kind="cow", sigma=1e-3, gamma=1e-2)
+    assert renderer.plan(mesh).mode == "stream"
+    renderer(mesh)                          # the PRNG check (K1) once
+    log_rot = torch.zeros(2, 3, device=cuda_device, requires_grad=True)
+    posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot))
+                               .transform_points(mesh.verts))
+    before = dict(tfr.launch_counts)
+    img = renderer(posed)
+    (g_img,) = torch.autograd.grad(img[..., :3].mean(), [log_rot])
+    posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot))
+                               .transform_points(mesh.verts))
+    loss = renderer.render_loss(posed, torch.zeros(128, 128, 3,
+                                                   device=cuda_device))
+    (g_loss,) = torch.autograd.grad(loss, [log_rot])
+    torch.cuda.synchronize()
+    after = dict(tfr.launch_counts)
+    assert {k: after[k] - before[k] for k in after} == {
+        "prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
+        "fused_loss_grad": 0, "fused_stream_forward": 1,
+        "fused_stream_backward": 1, "fused_stream_loss_grad": 1}
+    for g in (g_img, g_loss):
+        assert torch.isfinite(g).all() and g.abs().max() > 0

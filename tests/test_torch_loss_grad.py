@@ -26,7 +26,7 @@ from pertrenderer_tpu_torch.ops import perturbed as tperturbed
 
 from _torch_parity import (build, interpret_env, jax_inputs, port_config,
                            port_inputs)
-from test_torch_backward import assert_grads_close
+from test_torch_backward import assert_grads_close, jax_backward
 
 IMAGE = 16
 
@@ -124,28 +124,44 @@ def test_render_loss_matches_mean_squared_error():
                                    "cauchy", "uniform", "hard"])
 def test_pixel_without_candidate_gives_background_gradient(noise):
     """JAX gives a tile with no candidate face only the background-colour
-    gradient (``bg_only``); the port runs every pixel through the full
-    pipeline.  For a pixel with no candidate the two agree exactly, except
-    the aggregation without variance reduction, whose score-function term
-    leaves a zero-mean gamma gradient (ROADMAP Queue 3)."""
-    _jcfg, _jin, cfg, tin = _case(noise)
+    gradient (``bg_only``); so does the port, from the same activity bits
+    (``_active_tiles``).  At 48^2 the image is two JAX tiles (a 2048-pixel
+    strip and the last 256 pixels) and the cube, moved up, lies in the
+    first: for every menu
+    pair, the aggregation without variance reduction included, the
+    gradients equal JAX's, and a pixel of the empty tile gives exactly the
+    background gradient."""
+    size = 48
+    mesh, _cams, _lights, renderer = build(noise, imsize=size, s=2,
+                                           sigma=1e-3, shift=(0.0, 2.5, 0.0))
+    jcfg, jin = jax_inputs(mesh, renderer)
+    cfg, tin = port_config(jcfg), port_inputs(jin)
+    act = tfr._active_tiles(cfg, tin[0], tin[4], tin[5][:, tfr._S_BLUR])
+    assert tfr._n_tiles(cfg) == 2 and act.tolist() == [[1, 0]]
     n = tin[0].shape[0]
-    pos, px, py = tfr._pixel_coords(IMAGE, "cpu")
-    sc = lambda i: tin[5][:, i].view(n, 1, 1)
-    maskf = tfr._det1(cfg, px, py, *tin[:5], sc)[-1]
-    empty = torch.nonzero(maskf.sum(dim=(0, 1)) == 0)[:, 0]
-    assert len(empty) > 10
-    pix = int(empty[0])
-    g_out = torch.zeros(n, IMAGE * IMAGE, 4)
-    g_out[:, pix] = torch.tensor([0.3, -0.7, 1.1, 0.9])
-    g = tfr.backward_plain(cfg, *tin, g_out.reshape(n, IMAGE, IMAGE, 4))
+    g_out = np.random.default_rng(7).normal(
+        size=(n, size, size, 4)).astype(np.float32)
+    mc = noise in ("gaussian", "gaussian_wovr", "cauchy")
+    got = tfr.backward_plain(cfg, *tin, torch.from_numpy(g_out))
+    assert_grads_close(got, jax_backward(jcfg, jin, g_out), mc)
+    if noise == "gaussian_wovr":            # and K2's plain version
+        target = np.random.default_rng(8).uniform(
+            size=(n, 3, size * size)).astype(np.float32)
+        lscale = 1.0 / (n * size * size * 3)
+        loss, *got = tfr.loss_grad_plain(cfg, *tin, torch.from_numpy(target),
+                                         "l2_rgb", lscale)
+        want_loss, want = jax_loss_grad(jcfg, jin, target, "l2_rgb", lscale)
+        np.testing.assert_allclose(loss.numpy(), want_loss, rtol=1e-5)
+        assert_grads_close(got, want, mc)
+
+    pix = size * size - 1                   # the last pixel: tile 1
+    g_one = torch.zeros(n, size * size, 4)
+    g_one[:, pix] = torch.tensor([0.3, -0.7, 1.1, 0.9])
+    g = tfr.backward_plain(cfg, *tin, g_one.reshape(n, size, size, 4))
     for table in g[:4]:
         assert torch.count_nonzero(table) == 0
     want = torch.zeros(n, 34)
-    want[:, tfr._S_BG:tfr._S_BG + 3] = g_out[:, pix, :3]
-    if noise == "gaussian_wovr":
-        assert g[4][:, tfr._S_GAMMA].abs().max() > 0
-        want[:, tfr._S_GAMMA] = g[4][:, tfr._S_GAMMA]
+    want[:, tfr._S_BG:tfr._S_BG + 3] = g_one[:, pix, :3]
     torch.testing.assert_close(g[4], want, rtol=0, atol=0)
 
 

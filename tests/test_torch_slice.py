@@ -73,8 +73,14 @@ def test_unported_routes_raise():
         ptt.MeshRasterizer(trend.rasterizer.cameras, dataclasses.replace(
             trend.rasterizer.raster_settings, faces_per_pixel=8)),
         trend.shader)
-    with pytest.raises(NotImplementedError, match="stream"):
-        few_slots(tmesh)
+    # F = 12 > faces_per_pixel = 8 takes the stream route, which is
+    # ported; the routes below are not.
+    assert few_slots.plan(tmesh).mode == "stream"
+    with pytest.raises(NotImplementedError, match="staged"):
+        ptt.MeshRenderer(ptt.MeshRasterizer(
+            trend.rasterizer.cameras, dataclasses.replace(
+                trend.rasterizer.raster_settings, image_size=4096)),
+            trend.shader)(tmesh)
     sharded = dataclasses.replace(trend.shader, smoothrast=dataclasses.replace(
         trend.shader.smoothrast, sample_axis="samples"))
     with pytest.raises(NotImplementedError, match="sharded"):
@@ -83,8 +89,6 @@ def test_unported_routes_raise():
                                                        atlas_size=0))
     with pytest.raises(NotImplementedError, match="staged"):
         trend(no_atlas)
-    with pytest.raises(NotImplementedError, match="stream"):
-        few_slots.render_loss(tmesh, torch.zeros(2, 32, 32, 3))
     with pytest.raises(ValueError, match="loss_kind"):
         trend.render_loss(tmesh, torch.zeros(2, 32, 32, 3), loss_kind="l3")
 
