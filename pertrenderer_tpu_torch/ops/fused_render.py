@@ -437,20 +437,9 @@ def _active_tiles(cfg: FusedConfig, fv_ndc, valid, blur) -> torch.Tensor:
     return torch.any(overlap, dim=-1).to(torch.int32)
 
 
-def _flat_active(cfg: FusedConfig, fv_ndc, valid, scal, active=None):
-    """The flat route's (N, nt) int32 activity bits: ``active`` if given,
-    else computed from the tables."""
-    if active is None:
-        active = _active_tiles(cfg, fv_ndc, valid, scal[:, _S_BLUR])
-    return active
-
-
-def _pixel_active(cfg: FusedConfig, fv_ndc, valid, scal,
-                  active=None) -> torch.Tensor:
-    """(N, 1, P) bool: the flat route's activity bit of each pixel's
-    tile."""
-    act = _flat_active(cfg, fv_ndc, valid, scal, active) > 0
-    return act[:, _pixel_tiles(cfg, fv_ndc.device)][:, None, :]
+def _pixel_active(cfg: FusedConfig, active) -> torch.Tensor:
+    """(N, 1, P) bool: the activity bit of each pixel's tile."""
+    return (active > 0)[:, _pixel_tiles(cfg, active.device)][:, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -682,14 +671,14 @@ def _weights(cfg: FusedConfig, zmap, sc, seeds, pos):
 
 
 def _render_cm(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-               seeds, active=None) -> torch.Tensor:
+               seeds, active) -> torch.Tensor:
     """The plain pipeline: (N, 4, P) channel-major RGBA.  Pixels of
     inactive tiles give the background image, so their only gradient is
     the background colour's (the JAX kernels' ``bg_only``)."""
     n = fv_ndc.shape[0]
     pos, px, py = _pixel_coords(cfg.image_size, fv_ndc.device)
     sc = lambda i: scal[:, i].view(n, 1, 1)
-    act = _pixel_active(cfg, fv_ndc, valid, scal, active)
+    act = _pixel_active(cfg, active)
     dist, z, c0, c1, c2, maskf = _det1(cfg, px, py, fv_ndc, fv_world, fn,
                                        tex, valid, sc)
     prob = _coverage(cfg, dist, sc, seeds, pos) * maskf
@@ -716,13 +705,14 @@ def _bg_image(scal, p: int) -> torch.Tensor:
 
 
 def forward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds, active=None) -> torch.Tensor:
+                  seeds, active) -> torch.Tensor:
     """Plain version of K3 on any device: (N, H, W, 4) RGBA.
 
     fv_ndc / fv_world / fn: (N, F_pad, 9); tex: (N, F_pad, tex_d); valid:
     (N, F_pad); scal: (N, 34); seeds: (N, 4) int32 [rast0, rast1, agg0,
     agg1]; active: the tiles' (N, nt) int32 activity bits
-    (``_active_tiles``), computed from the tables when None."""
+    (``_active_tiles``).  :func:`_prepare_inputs` returns them in this
+    order."""
     out = _render_cm(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
                      active)
     s = cfg.image_size
@@ -743,11 +733,11 @@ def _grads(value, leaves, g_value=None):
 
 
 def backward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                   seeds, g_out, active=None):
+                   seeds, active, g_out):
     """Plain version of K4: the vector-Jacobian product of
     :func:`forward_plain` with ``g_out`` (N, H, W, 4), alpha included.
     Returns (g_ndc, g_world, g_fn, g_tex, g_scal) shaped like the inputs;
-    ``valid`` and ``seeds`` get no gradient."""
+    ``valid``, ``seeds`` and ``active`` get no gradient."""
     with torch.enable_grad():
         leaves = _grad_leaves(fv_ndc, fv_world, fn, tex, scal)
         out = forward_plain(cfg, *leaves[:4], valid, leaves[4], seeds,
@@ -764,8 +754,8 @@ def _image_loss(loss_kind: str, rgb_cm, target_cm, lscale: float):
 
 
 def loss_grad_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
-                    scal, seeds, target, loss_kind: str, lscale: float,
-                    active=None):
+                    scal, seeds, active, target, loss_kind: str,
+                    lscale: float):
     """Plain version of K2: the image loss against ``target`` (N, 3, H*W)
     and its gradients, as ``_loss_cotangent`` of the JAX package defines
     them.  Returns (loss (N,), g_ndc, g_world, g_fn, g_tex, g_scal)."""
@@ -1230,12 +1220,10 @@ def _check(kernel: str, ref: torch.Tensor, tensors: dict):
 
 
 def _check_inputs(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds, kernel: str = "fused_forward", active=None):
+                  seeds, active, kernel: str = "fused_forward"):
     n, f = fv_ndc.shape[0], cfg.f_pad
-    if active is not None:
-        _check(kernel, fv_ndc, {
-            "active": (active, (n, _n_tiles(cfg)), torch.int32)})
     _check(kernel, fv_ndc, {
+        "active": (active, (n, _n_tiles(cfg)), torch.int32),
         "fv_ndc": (fv_ndc, (n, f, 9), torch.float32),
         "fv_world": (fv_world, (n, f, 9), torch.float32),
         "fn": (fn, (n, f, 9), torch.float32),
@@ -1272,12 +1260,12 @@ def _tiling_args(cfg: FusedConfig):
 
 
 def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds, active=None) -> torch.Tensor:
+                  seeds, active) -> torch.Tensor:
     """K3: the flat fused forward (replaces ``_forward_kernel`` of
     ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
     :func:`forward_plain`; returns (N, H, W, 4) float32 RGBA."""
     dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                        active=active)
+                        active)
     if dev.type == "cpu":
         return forward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
                              seeds, active)
@@ -1286,7 +1274,6 @@ def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     lib = _build.library()
     n, s = fv_ndc.shape[0], cfg.image_size
     out = torch.empty((n, s, s, 4), dtype=torch.float32, device=dev)
-    active = _flat_active(cfg, fv_ndc, valid, scal, active).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.pt_fused_forward(
@@ -1299,8 +1286,8 @@ def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     return out
 
 
-def _launch_grads(kernel: str, cfg: FusedConfig, tables, extra,
-                  loss_id: int, lscale: float, active=None):
+def _launch_grads(kernel: str, cfg: FusedConfig, tables, active, extra,
+                  loss_id: int, lscale: float):
     """Launch K4 (``extra`` = g_out) or K2 (``extra`` = target, loss kind
     ``LOSS_KINDS[loss_id]``) and return (loss (N,), g_ndc, g_world, g_fn,
     g_tex, g_scal).  Each warp of the kernel sums its pixels into its own
@@ -1316,8 +1303,6 @@ def _launch_grads(kernel: str, cfg: FusedConfig, tables, extra,
     g_tex, g_scal, loss = new(n, f, cfg.tex_d), new(n, _NS), new(n)
     warps = lib.pt_grad_partial_warps(n, cfg.image_size, f, cfg.tex_d)
     partial = new(n, warps, lib.pt_grad_partial_width(f, cfg.tex_d))
-    active = _flat_active(cfg, fv_ndc, tables[4], tables[5],
-                          active).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn_c = (lib.pt_fused_backward if kernel == "fused_backward"
             else lib.pt_fused_loss_grad)
@@ -1334,33 +1319,33 @@ def _launch_grads(kernel: str, cfg: FusedConfig, tables, extra,
 
 
 def fused_backward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
-                   scal, seeds, g_out, active=None):
+                   scal, seeds, active, g_out):
     """K4: the flat fused backward (replaces ``_backward_kernel`` of
     ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
     :func:`backward_plain`; returns (g_ndc, g_world, g_fn, g_tex,
     g_scal)."""
     dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                        "fused_backward", active)
+                        active, "fused_backward")
     s = cfg.image_size
     _check("fused_backward", fv_ndc, {
         "g_out": (g_out, (fv_ndc.shape[0], s, s, 4), torch.float32)})
     if dev.type == "cpu":
         return backward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                              seeds, g_out, active)
+                              seeds, active, g_out)
     tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
-    return _launch_grads("fused_backward", cfg, tables, g_out, 0, 0.0,
-                         active)[1:]
+    return _launch_grads("fused_backward", cfg, tables, active, g_out, 0,
+                         0.0)[1:]
 
 
 def fused_loss_grad(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
-                    scal, seeds, target, loss_kind: str, lscale: float,
-                    active=None):
+                    scal, seeds, active, target, loss_kind: str,
+                    lscale: float):
     """K2: image loss and every gradient in one launch (replaces
     ``_loss_grad_kernel`` of ``pertrenderer_tpu/ops/fused_render.py``).
     ``target``: (N, 3, H*W) channel-major RGB.  Returns (loss (N,), g_ndc,
     g_world, g_fn, g_tex, g_scal) as :func:`loss_grad_plain`."""
     dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                        "fused_loss_grad", active)
+                        active, "fused_loss_grad")
     hw = cfg.image_size * cfg.image_size
     _check("fused_loss_grad", fv_ndc, {
         "target": (target, (fv_ndc.shape[0], 3, hw), torch.float32)})
@@ -1369,20 +1354,20 @@ def fused_loss_grad(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
                          f"expected one of {LOSS_KINDS}")
     if dev.type == "cpu":
         return loss_grad_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                               seeds, target, loss_kind, lscale, active)
+                               seeds, active, target, loss_kind, lscale)
     tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
-    return _launch_grads("fused_loss_grad", cfg, tables, target,
-                         LOSS_KINDS.index(loss_kind), lscale, active)
+    return _launch_grads("fused_loss_grad", cfg, tables, active, target,
+                         LOSS_KINDS.index(loss_kind), lscale)
 
 
 class _FusedForward(torch.autograd.Function):
-    """Autograd boundary of the fused render: K3 forward, K4 backward; the
-    activity prepass runs once for both."""
+    """Autograd boundary of the fused render: K3 forward, K4 backward;
+    valid, seeds and the activity bits get no gradient."""
 
     @staticmethod
-    def forward(ctx, cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds):
+    def forward(ctx, cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                active):
         ctx.cfg = cfg
-        active = _flat_active(cfg, fv_ndc, valid, scal)
         ctx.save_for_backward(fv_ndc, fv_world, fn, tex, valid, scal, seeds,
                               active)
         return fused_forward(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
@@ -1390,12 +1375,9 @@ class _FusedForward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        fv_ndc, fv_world, fn, tex, valid, scal, seeds, active = \
-            ctx.saved_tensors
         g_ndc, g_world, g_fn, g_tex, g_scal = fused_backward(
-            ctx.cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-            g.contiguous(), active)
-        return None, g_ndc, g_world, g_fn, g_tex, None, g_scal, None
+            ctx.cfg, *ctx.saved_tensors, g.contiguous())
+        return None, g_ndc, g_world, g_fn, g_tex, None, g_scal, None, None
 
 
 class _FusedLoss(torch.autograd.Function):
@@ -1405,9 +1387,9 @@ class _FusedLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, loss_kind, lscale, fv_ndc, fv_world, fn, tex,
-                valid, scal, seeds, target):
+                valid, scal, seeds, active, target):
         loss, *grads = fused_loss_grad(cfg, fv_ndc, fv_world, fn, tex,
-                                       valid, scal, seeds, target,
+                                       valid, scal, seeds, active, target,
                                        loss_kind, lscale)
         ctx.save_for_backward(*grads)
         return loss.sum()
@@ -1416,7 +1398,7 @@ class _FusedLoss(torch.autograd.Function):
     def backward(ctx, g):
         g_ndc, g_world, g_fn, g_tex, g_scal = ctx.saved_tensors
         return (None, None, None, g * g_ndc, g * g_world, g * g_fn,
-                g * g_tex, None, g * g_scal, None, None)
+                g * g_tex, None, g * g_scal, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -1831,9 +1813,10 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
                     smoothrast, smoothagg, blend_params, settings, seeds,
                     shade: str, blur_override=None):
     """The kernels' tensor inputs.  Flat: face tables, validity, packed
-    scalars and seed words (:func:`forward_plain` documents the shapes).
-    Stream: (tab, scal, rows, count, active, seeds), the order of the JAX
-    package (:func:`stream_forward_plain`)."""
+    scalars, seed words and the tiles' activity bits
+    (:func:`forward_plain` documents the shapes).  Stream: (tab, scal,
+    rows, count, active, seeds), the order of the JAX package
+    (:func:`stream_forward_plain`)."""
     from pertrenderer_tpu_torch.textures import TexturesUV, TexturesVertex
 
     n, f, dev = meshes.batch_size, meshes.max_faces, meshes.device
@@ -1885,9 +1868,11 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
     pad = lambda x: torch.nn.functional.pad(
         x, (0, 0, 0, cfg.f_pad - f)).contiguous()
     valid = torch.nn.functional.pad(validf.to(torch.float32),
-                                    (0, cfg.f_pad - f))
-    return (pad(fv_ndc), pad(fv_world), pad(fn_world), pad(tex_tab),
-            valid.contiguous(), scal, seeds)
+                                    (0, cfg.f_pad - f)).contiguous()
+    fv_ndc = pad(fv_ndc)
+    active = _active_tiles(cfg, fv_ndc, valid, scal[:, _S_BLUR])
+    return (fv_ndc, pad(fv_world), pad(fn_world), pad(tex_tab), valid, scal,
+            seeds, active)
 
 
 def _inputs_for(meshes, cameras, lights, materials, smoothrast, smoothagg,

@@ -134,14 +134,18 @@ def port_config(jcfg):
     return tfr.FusedConfig(**{n: getattr(jcfg, n) for n in names})
 
 
-def port_inputs(inputs):
-    """JAX kernel inputs -> the port's layout (valid (N, F), scal (N, 34),
-    seeds (N, 4))."""
+def port_inputs(jcfg, inputs):
+    """JAX flat kernel inputs -> the port's layout (valid (N, F), scal
+    (N, 34), seeds (N, 4)), followed by the JAX package's activity bits
+    of the tiles (N, nt)."""
+    active = jax.vmap(lambda v, va, s: jfr._active_tiles(
+        jcfg, v, va, s[0, jfr._S_BLUR]))(inputs[0], inputs[4], inputs[5])
     fv_ndc, fv_world, fn, tex, valid, scal, seeds = (np.asarray(x)
                                                      for x in inputs)
     t = lambda x: torch.from_numpy(np.array(x))
     return (t(fv_ndc), t(fv_world), t(fn), t(tex), t(valid[..., 0]),
-            t(scal[:, 0]), t(seeds[:, 0, :4]))
+            t(scal[:, 0]), t(seeds[:, 0, :4]),
+            t(np.asarray(active).reshape(fv_ndc.shape[0], -1)))
 
 
 def assert_image_close(a, b, mc: bool):

@@ -80,7 +80,7 @@ def assert_grads_close(got, want, mc: bool, names=TABLES):
 def _case(noise, **kw):
     mesh, _cams, _lights, renderer = build(noise, **kw)
     jcfg, jin = jax_inputs(mesh, renderer)
-    return jcfg, jin, port_config(jcfg), port_inputs(jin)
+    return jcfg, jin, port_config(jcfg), port_inputs(jcfg, jin)
 
 
 def _g_out(n, s=16, seed=0):

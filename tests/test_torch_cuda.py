@@ -15,6 +15,8 @@ import pytest
 import torch
 
 import pertrenderer_tpu_torch as ptt
+from pertrenderer_tpu_torch import checks
+from pertrenderer_tpu_torch.checks import table_errors
 from pertrenderer_tpu_torch.ops import fused_render as tfr
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens",
@@ -185,30 +187,6 @@ def test_renderer_on_cuda_matches_cpu(cuda_device):
     assert_kernel_close(got.cpu(), renderer_c(mesh_c, seeds=seeds), True)
 
 
-def table_errors(got, want):
-    """Error of each gradient table over its max |grad|.  The scalar table
-    (the fifth, (N, 34)) is held column by column: each scalar against its
-    own max |grad| over N, floored at 1e-6 of the table's max for columns
-    that are 0 in the reference.  Returns [(name, error)]."""
-    out = []
-    for i, (g, w) in enumerate(zip(got, want)):
-        if not bool(torch.isfinite(g).all()):
-            out.append((f"table {i}", float("inf")))
-            continue
-        d = (g - w).abs()
-        if i == 4:
-            scale = w.abs().amax(dim=0)
-            scale = torch.clamp(torch.maximum(scale, 1e-6 * scale.max()),
-                                min=1e-30)
-            col = d.amax(dim=0) / scale
-            j = int(col.argmax())
-            out.append((f"scalar {j}", col[j].item()))
-        else:
-            out.append((f"table {i}",
-                        d.max().item() / max(w.abs().max().item(), 1e-30)))
-    return out
-
-
 def assert_tables_close(got, want, mc: bool):
     """Each gradient table, and each of the 34 scalar gradients, within 1e-3
     (MC: shared noise, threshold flips only) or 1e-4 (deterministic) of its
@@ -313,9 +291,7 @@ def test_flat_kernels_take_background_only_on_inactive_tiles(noise,
     mesh = mesh.offset_verts(torch.tensor([0.0, 2.5, 0.0],
                                           device=cuda_device).expand(8, 3))
     cfg, inputs = _inputs(mesh, renderer)
-    act = tfr._active_tiles(cfg, inputs[0], inputs[4],
-                            inputs[5][:, tfr._S_BLUR])
-    assert act.tolist() == [[1, 0], [1, 0]]
+    assert inputs[7].tolist() == [[1, 0], [1, 0]]
     mc = noise in MC_NOISES
     assert_kernel_close(tfr.fused_forward(cfg, *inputs),
                         tfr.forward_plain(cfg, *inputs), mc)
@@ -332,28 +308,13 @@ def test_flat_kernels_take_background_only_on_inactive_tiles(noise,
 
 
 # The stream route (K5, K6, K7) at the config-3 settings (sigma 1e-3,
-# gamma 1e-2).  The gradient tables are held at the tolerances above on
-# every row except those of faces too thin for float32 to resolve them
-# (height under 2e-6 / tolerance of the longest edge, seen nearly edge-on
-# at the silhouette, ``_sliver_rows``): their edge functions divide by the
-# area and the barycentric adjoints cancel terms that large, so their
-# float32 gradients are accurate only to about 2e-7 / (height / edge) of
-# the table max, and the kernels' hand-written adjoints and autograd
-# round in another order (one face of the icosphere at height 5e-6 of its
-# edge moves the error from ~2e-5 to 2e-3 - 1e-2); those rows must be
-# finite.
+# gamma 1e-2).  The gradients are held against the plain version in
+# float32 and in float64 (``checks.stream_grads_close``): each row and
+# each scalar within the tolerances above of either, and the rows of faces
+# too thin for float32 to resolve them (height under 2e-6 / tolerance of
+# the longest edge, seen nearly edge-on at the silhouette) within 2e-6 /
+# (height / edge) of the table max.
 STREAM_SCENES = {"icosphere": (64, 2), "cow": (128, 1)}
-
-
-def _sliver_rows(tab, tol):
-    """(N, rw) bool: faces of height below 2e-6 / tol of their longest
-    edge, whose float32 gradients cannot be resolved to ``tol``."""
-    v = tab[..., :9].double()
-    ex = [v[..., 3] - v[..., 0], v[..., 6] - v[..., 3], v[..., 0] - v[..., 6]]
-    ey = [v[..., 4] - v[..., 1], v[..., 7] - v[..., 4], v[..., 1] - v[..., 7]]
-    area = ex[0] * (v[..., 7] - v[..., 1]) - ey[0] * (v[..., 6] - v[..., 0])
-    longest = torch.stack([a * a + b * b for a, b in zip(ex, ey)]).amax(0)
-    return area.abs() < (2e-6 / tol) * longest
 
 
 def _stream_case(noise, kind, device):
@@ -365,13 +326,12 @@ def _stream_case(noise, kind, device):
     return cfg, (tab, rows, count, active, scal, seeds), size, n
 
 
-def _split(cfg, g_tab, g_scal, keep=None):
-    """The four tables and the scalars; rows outside ``keep`` zeroed."""
-    if keep is not None:
-        g_tab = g_tab * keep[..., None]
-    td = cfg.tex_d
-    return (g_tab[..., :9], g_tab[..., 9:18], g_tab[..., 18:27],
-            g_tab[..., 27:27 + td], g_scal)
+def assert_stream_grads_close(cfg, tab, got, want, want64, mc: bool):
+    """``checks.stream_grads_close`` at the MC or deterministic
+    tolerance."""
+    ok, err, where, _n, bins = checks.stream_grads_close(
+        cfg, tab, got, want, want64, 1e-3 if mc else 1e-4)
+    assert ok, (err, where, checks.witness_text(bins))
 
 
 @pytest.mark.cuda
@@ -393,11 +353,10 @@ def test_stream_forward_kernel_matches_plain(noise, kind, cuda_device):
 @pytest.mark.parametrize("kind", list(STREAM_SCENES))
 @pytest.mark.parametrize("noise", NOISE_MENU)
 def test_stream_gradient_kernels_match_plain(noise, kind, cuda_device):
-    """K6 and K7 against their plain versions on every row but those of
-    thin faces (see above), repeated launches bit-equal, and K7
-    equal to K5's image under the L2 loss fed through K6 (tables and
-    scalars within 1e-5 of their max: the same kernels' arithmetic on
-    both sides)."""
+    """K6 and K7 against their plain versions in float32 and float64 (see
+    above), repeated launches bit-equal, and K7 equal to K5's image under
+    the L2 loss fed through K6 (tables and scalars within 1e-5 of their
+    max: the same kernels' arithmetic on both sides)."""
     cfg, args, size, n = _stream_case(noise, kind, cuda_device)
     mc = noise in MC_NOISES
     g_out = torch.randn(n, size, size, 4, generator=torch.Generator()
@@ -417,14 +376,16 @@ def test_stream_gradient_kernels_match_plain(noise, kind, cuda_device):
         before["fused_stream_loss_grad"] + 1)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert all(bool(torch.isfinite(t).all()) for t in list(got) + lg)
-    keep = ~_sliver_rows(args[0], 1e-3 if mc else 1e-4)
+    args64 = tuple(a.double() if a.is_floating_point() else a for a in args)
     want = tfr.stream_backward_plain(cfg, *args, g_out)
-    assert_tables_close(_split(cfg, *got, keep), _split(cfg, *want, keep),
-                        mc)
+    want64 = tfr.stream_backward_plain(cfg, *args64, g_out.double())
+    assert_stream_grads_close(cfg, args[0], got, want, want64, mc)
     w_loss, *want = tfr.stream_loss_grad_plain(cfg, *args, target, "l2_rgb",
                                                lscale)
+    _l64, *want64 = tfr.stream_loss_grad_plain(cfg, *args64, target.double(),
+                                               "l2_rgb", lscale)
     torch.testing.assert_close(loss, w_loss, rtol=1e-5, atol=0)
-    assert_tables_close(_split(cfg, *lg, keep), _split(cfg, *want, keep), mc)
+    assert_stream_grads_close(cfg, args[0], lg, want, want64, mc)
     img = tfr.fused_stream_forward(cfg, *args)
     d = img[..., :3].reshape(n, -1, 3).transpose(1, 2) - target
     g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(n, size, size, 3)
@@ -432,7 +393,8 @@ def test_stream_gradient_kernels_match_plain(noise, kind, cuda_device):
     dual = tfr.fused_stream_backward(cfg, *args, g_l2.contiguous())
     torch.testing.assert_close(loss, torch.sum(d * d, dim=(1, 2)) * lscale,
                                rtol=1e-5, atol=0)
-    errors = table_errors(_split(cfg, *lg), _split(cfg, *dual))
+    errors = table_errors(checks.split_stream(cfg, *lg),
+                          checks.split_stream(cfg, *dual))
     assert all(e <= 1e-5 for _n, e in errors), errors
 
 

@@ -27,7 +27,7 @@ def _case(noise, **kw):
     mesh, cameras, lights, renderer = build(noise, **kw)
     want = np.asarray(renderer(mesh, key=KEY))
     jcfg, jin = jax_inputs(mesh, renderer)
-    return port_config(jcfg), port_inputs(jin), want
+    return port_config(jcfg), port_inputs(jcfg, jin), want
 
 
 @pytest.mark.parametrize("noise", NOISE_MENU)

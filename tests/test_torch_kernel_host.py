@@ -131,7 +131,7 @@ def host_grads(lib, cfg, tables, extra, loss_id=-1, lscale=0.0):
     n, f = tables[0].shape[0], cfg.f_pad
     d = 27 + cfg.tex_d
     rows = torch.zeros(n, f * d + 34 + 1)
-    lib.host_grads(int(loss_id >= 0), *(t.data_ptr() for t in tables),
+    lib.host_grads(int(loss_id >= 0), *(t.data_ptr() for t in tables[:7]),
                    extra.data_ptr(), rows.data_ptr(), n, *tfr._cfg_args(cfg),
                    max(loss_id, 0), ctypes.c_float(lscale))
     tabs = rows[:, :f * d].reshape(n, f, d)

@@ -39,7 +39,7 @@ def _env(monkeypatch):
 def _case(noise, **kw):
     mesh, _cams, _lights, renderer = build(noise, imsize=IMAGE, **kw)
     jcfg, jin = jax_inputs(mesh, renderer)
-    return jcfg, jin, port_config(jcfg), port_inputs(jin)
+    return jcfg, jin, port_config(jcfg), port_inputs(jcfg, jin)
 
 
 def _target(n, seed=3):
@@ -135,9 +135,10 @@ def test_pixel_without_candidate_gives_background_gradient(noise):
     mesh, _cams, _lights, renderer = build(noise, imsize=size, s=2,
                                            sigma=1e-3, shift=(0.0, 2.5, 0.0))
     jcfg, jin = jax_inputs(mesh, renderer)
-    cfg, tin = port_config(jcfg), port_inputs(jin)
+    cfg, tin = port_config(jcfg), port_inputs(jcfg, jin)
     act = tfr._active_tiles(cfg, tin[0], tin[4], tin[5][:, tfr._S_BLUR])
     assert tfr._n_tiles(cfg) == 2 and act.tolist() == [[1, 0]]
+    assert torch.equal(act, tin[7])
     n = tin[0].shape[0]
     g_out = np.random.default_rng(7).normal(
         size=(n, size, size, 4)).astype(np.float32)
