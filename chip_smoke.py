@@ -56,19 +56,48 @@ line; any failure exits non-zero before a result is printed):
    gradient within 1e-3 of its max, the thin faces' rows of phase 10 left
    out of both table gradients).
 
-Phases 6-8 and 11-13 are the main paths: the launch counts are reset just
-before each and read just after, and each must have launched its kernels
-(serve: K1 and K3; render-grad: K3 and K4; train: K2 once per step;
-serve-stream: K5; render-grad-stream: K5 and K6; train-stream: K7 once
-per step).  Times are CUDA events except the per-request and per-step
-times (host clock ending in a device synchronisation).  Kernel and plain
-version are timed in turns (plain, kernel, kernel, plain) after a warm-up
-call.
+14. K9a / K9b / K10a / K10b — the staged route's row gather, its scatter,
+   the interpolating gather and its gradients against their plain
+   versions at the cow's staged shapes (256^2, K=50, N=4: 13.1 M columns
+   over 20,480 face rows; D = 9 for the corner table, 6 for positions and
+   normals), and on an edge case with -1 and out-of-range indices: K9a
+   bit-exact, K10a within 1 ulp of max |out|, K9b / K10b within 1e-6 of
+   the output's max of the nearer of the float32 and float64 plain
+   versions; repeated launches bit-equal; index_select (K9a) and
+   index_add_ (K9b) timed as the library calls;
+15. target — harness.init_target('cube', 256), the reference's K=1
+   Hard-Phong target on the staged route, and the share of its cube
+   pixels equal to [train]'s flat fused HardRast + HardAgg target on the
+   same pose; get_hard_rendering of the cow (binned select) with its
+   select / shade split;
+16. staged-softras — RandomPhongShader(SoftRast, SoftAgg) at sigma 1e-3,
+   gamma 1e-2 through rasterizer.planar + shader(...) at 256^2, K=50, N=4
+   on the cube and the cow, forward and the gradient to the vertices,
+   sigma and gamma, held against the fused route on the same poses (K3 /
+   K4 on the cube, K5 / K6 on the cow): image atol 2e-5, gradients within
+   1e-4 of their max; on the cow the pixels whose slot K-1 is filled and
+   the vertices of thin faces are left out, and sigma / gamma are held
+   against the nearer of K6 and the float64 plain version;
+17. determinism — two preparations of the cow's stream inputs and their
+   backward with torch's default algorithms give the same bits; the ops
+   that warn under torch.use_deterministic_algorithms (warn only).
 
-The last lines are the per-kernel report (one JSON object), the card's
-nvidia-smi name and power limit, then {"ok": true, "device": {...}}.
+Phases 6-8, 11-13, 15 and 16 are the main paths: the launch counts are
+reset just before each and read just after, and each must have launched
+its kernels (serve: K1 and K3; render-grad: K3 and K4; train: K2 once per
+step; serve-stream: K5; render-grad-stream: K5 and K6; train-stream: K7
+once per step; target: K9a and no fused kernel; staged-softras: K9a, K9b,
+K10a and K10b and no fused kernel).  Times are CUDA events except the
+per-request and per-step times (host clock ending in a device
+synchronisation).  Kernel and plain version are timed in turns (plain,
+kernel, kernel, plain) after a warm-up call.
+
+The last lines are the per-kernel report (one JSON object, eleven kernels),
+the card's nvidia-smi name and power limit, then
+{"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -81,10 +110,12 @@ import numpy as np
 import torch
 
 import pertrenderer_tpu_torch as ptt
-from pertrenderer_tpu_torch import _build, checks
+from pertrenderer_tpu_torch import _build, checks, shading
 from pertrenderer_tpu_torch.checks import tables_close
 from pertrenderer_tpu_torch.experiments import harness
 from pertrenderer_tpu_torch.ops import fused_render as fr
+from pertrenderer_tpu_torch.ops import gather as gk
+from pertrenderer_tpu_torch.ops import interp_gather as ik
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens", "prng_goldens.npz")
@@ -167,9 +198,17 @@ def timed_pair(kernel, plain, reps, plain_reps=None):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+COUNTS = (fr.launch_counts, gk.launch_counts, ik.launch_counts)
+
+
 def reset_counts():
-    for k in fr.launch_counts:
-        fr.launch_counts[k] = 0
+    for counts in COUNTS:
+        for k in counts:
+            counts[k] = 0
+
+
+def all_counts():
+    return {k: v for counts in COUNTS for k, v in counts.items()}
 
 
 def mc_close(got, want):
@@ -1123,6 +1162,449 @@ def phase_train_stream(dev, smi, report):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The staged route: K9a / K9b (row gather and scatter), K10a / K10b
+# (interpolating gather and its gradients)
+# ---------------------------------------------------------------------------
+
+def staged_renderer(noise, device, n=N_POSES, k=K):
+    """The headline renderer (softras: SoftRast + SoftAgg at the main
+    path's sigma / gamma), with max_faces_per_bin above the cow's face
+    count so that the staged selection's bins drop no face."""
+    rend = headline_renderer(noise, device, n)
+    rend.rasterizer.raster_settings = dataclasses.replace(
+        rend.rasterizer.raster_settings, max_faces_per_bin=50000,
+        faces_per_pixel=k)
+    return rend
+
+
+def nearer_error(got, want, want64):
+    """max |got - want| over max |want64|, against the nearer of the
+    float32 and float64 plain versions (the float32 plain version's
+    sequential sums round too)."""
+    scale = max(want64.abs().max().item(), 1e-30)
+    d32 = (got.double() - want.double()).abs().max().item()
+    d64 = (got.double() - want64).abs().max().item()
+    return min(d32, d64) / scale, d32 / scale, d64 / scale
+
+
+def staged_kernel_inputs(dev):
+    """The cow's staged shapes at 256^2, K=50, N=4: its planar fragments
+    (binned select), the per-face corner table (N F, 9), the merged
+    position / normal corner table (N F, 3, 6) and the flat indices with
+    the batch offsets, -1 where empty."""
+    rend = staged_renderer("softras", dev)
+    mesh = posed_cow(torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        pfrag = rend.rasterizer.planar(mesh)
+        n, f = mesh.batch_size, mesh.max_faces
+        faces = torch.clamp(mesh.faces, min=0)
+        verts_ndc = rend.rasterizer.cameras.transform_points_ndc(mesh.verts)
+        fv9 = gk.take_rows_batched(verts_ndc, faces).reshape(n * f, 9)
+        merged = shading.corner_table(mesh)
+    idx = gk.batch_index(pfrag.pix_to_face, n, f).reshape(-1).contiguous()
+    ws = [w.reshape(-1).contiguous() for w in (pfrag.w0, pfrag.w1,
+                                               pfrag.w2)]
+    return (fv9.contiguous(), merged.reshape(n * f, 3, 6).contiguous(), idx,
+            ws)
+
+
+def edge_indices(idx, f):
+    """idx with every 97th column -1 and every 89th out of range (f + 3)."""
+    e = idx.clone()
+    e[::97] = -1
+    e[::89] = f + 3
+    return e
+
+
+def phase_k9_k10(dev, smi, report):
+    """K9a / K9b / K10a / K10b against their plain versions at the cow's
+    staged shapes (P = N H W K = 13.1 M columns over N F = 20,480 rows):
+    K9a bit-exact, K10a within 1 ulp of max |out|, K9b / K10b within 1e-6
+    of the output's max |.| of the nearer of the float32 and float64 plain
+    versions; each also on an edge case with -1 and out-of-range
+    indices; two launches bit-equal.  Times in CUDA events; the bound is
+    bytes over 3.35 TB/s (each input read once, each output written
+    once); the library call times torch.index_select with a mask (K9a)
+    and index_add_ (K9b), which compute the same functions."""
+    fv9, merged, idx, ws = staged_kernel_inputs(dev)
+    rows, p = fv9.shape[0], idx.shape[0]
+    gen = torch.Generator().manual_seed(4)
+    edge = edge_indices(idx, rows)
+    filled = int((idx >= 0).sum())
+
+    # K9a: the (N F, 9) corner table at every column.
+    table_t = fv9.T.contiguous()
+    valid = ((idx >= 0) & (idx < rows)).float()
+    safe = idx.clamp(0, rows - 1)
+    for ix in (idx, edge):
+        got, again = gk.gather_rows_cm(fv9, ix), gk.gather_rows_cm(fv9, ix)
+        if not (torch.equal(got, gk.gather_rows_plain(fv9, ix))
+                and torch.equal(got, again)):
+            fail("K9a: not bit-exact against its plain version")
+    ms, plain_ms = timed_pair(lambda: gk.gather_rows_cm(fv9, idx),
+                              lambda: gk.gather_rows_plain(fv9, idx), 20)
+    lib_ms = cuda_ms(lambda: torch.index_select(table_t, 1, safe) * valid,
+                     20)
+    b_ms, b_by = bound(8 * p + 4 * 9 * p + 4 * fv9.numel(), 0)
+    report["gather_rows_cm"] = dict(max_abs_err=0.0, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=lib_ms)
+    print(f"[K9a] gather_rows_cm cow staged {IMAGE}^2 K={K} N={N_POSES} "
+          f"({rows} rows x "
+          f"9 at {p} columns, {filled} filled): bit-exact vs plain (also "
+          f"with -1 / out-of-range indices), repeat bit-equal; {ms:.4f} ms "
+          f"vs plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+
+    # K9b: a cotangent (9, P) summed into the rows.
+    g9 = torch.randn(9, p, generator=gen).to(dev)
+    worst = 0.0
+    for ix in (idx, edge):
+        got, again = (gk.scatter_rows_cm(g9, ix, rows) for _ in range(2))
+        want = gk.scatter_rows_plain(g9, ix, rows)
+        want64 = gk.scatter_rows_plain(g9.double(), ix, rows)
+        err, e32, e64 = nearer_error(got, want, want64)
+        worst = max(worst, err)
+        if err > 1e-6 or not torch.equal(got, again):
+            fail(f"K9b: error {err} (float32 plain {e32}, float64 {e64}), "
+                 f"repeat bit-equal {torch.equal(got, again)}")
+    ms, plain_ms = timed_pair(lambda: gk.scatter_rows_cm(g9, idx, rows),
+                              lambda: gk.scatter_rows_plain(g9, idx, rows),
+                              10)
+    gv = (g9 * valid).T.contiguous()
+    lib_ms = cuda_ms(lambda: torch.zeros(rows, 9, device=dev).index_add_(
+        0, safe, gv), 10)
+    b_ms, b_by = bound(4 * 9 * p + 8 * p + 4 * 9 * rows, 9 * filled)
+    report["scatter_rows_cm"] = dict(max_abs_err=worst, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=lib_ms)
+    print(f"[K9b] scatter_rows_cm cow staged (9, {p}) into {rows} rows: "
+          f"error {worst:.3g} of max (nearer of the float32 / float64 plain "
+          f"versions; float32 plain {e32:.3g}, float64 {e64:.3g} on the edge "
+          f"case), repeat bit-equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
+          f"index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | "
+          f"{smi}", flush=True)
+
+    # K10a: positions and normals (D = 6) interpolated at every column.
+    for ix in (idx, edge):
+        got = ik.interp_rows(merged, ix, *ws)
+        again = ik.interp_rows(merged, ix, *ws)
+        want = ik.interp_rows_plain(merged, ix, *ws)
+        ulp = torch.finfo(torch.float32).eps * want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if err > ulp or not torch.equal(got, again):
+            fail(f"K10a: max |d| {err} above 1 ulp of max |out| ({ulp})")
+    ms, plain_ms = timed_pair(lambda: ik.interp_rows(merged, idx, *ws),
+                              lambda: ik.interp_rows_plain(merged, idx, *ws),
+                              20)
+    b_ms, b_by = bound(8 * p + 12 * p + 4 * 6 * p + 4 * merged.numel(),
+                       5 * 6 * filled)
+    report["interp_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None)
+    print(f"[K10a] interp_rows cow staged (3, 6) corners at {p} columns: max "
+          f"|d| {err:.3g} vs plain (1 ulp of max |out|: {ulp:.3g}), also with "
+          f"-1 / out-of-range indices, repeat bit-equal; {ms:.4f} ms vs "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}",
+          flush=True)
+
+    # K10b: a cotangent (6, P) back to the corner table and the weights.
+    g6 = torch.randn(6, p, generator=gen).to(dev)
+    worst = 0.0
+    for ix in (idx, edge):
+        got = ik.interp_rows_backward(merged, ix, *ws, g6)
+        again = ik.interp_rows_backward(merged, ix, *ws, g6)
+        want = ik.interp_rows_backward_plain(merged, ix, *ws, g6)
+        want64 = ik.interp_rows_backward_plain(
+            merged.double(), ix, *(w.double() for w in ws), g6.double())
+        errs = [nearer_error(got[0], want[0], want64[0])[0]] + [
+            nearer_error(a, b, c)[0]
+            for a, b, c in zip(got[1], want[1], want64[1])]
+        same = torch.equal(got[0], again[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], again[1]))
+        worst = max(worst, *errs)
+        if max(errs) > 1e-6 or not same:
+            fail(f"K10b: errors {errs} (table, w0, w1, w2), repeat "
+                 f"bit-equal {same}")
+    ms, plain_ms = timed_pair(
+        lambda: ik.interp_rows_backward(merged, idx, *ws, g6),
+        lambda: ik.interp_rows_backward_plain(merged, idx, *ws, g6), 5)
+    b_ms, b_by = bound(4 * 6 * p + 8 * p + 12 * p + 2 * 4 * merged.numel()
+                       + 12 * p, 4 * 18 * filled)
+    report["interp_rows_backward"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    print(f"[K10b] interp_rows_backward cow staged (6, {p}) cotangent: table "
+          f"and weight gradients within {worst:.3g} of their max (nearer "
+          f"of the float32 / float64 plain versions), also with -1 / "
+          f"out-of-range indices, repeat bit-equal; {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}",
+          flush=True)
+
+
+def synced_ms(fn, reps=3):
+    """(result of the last call, median host ms per call ending in a device
+    synchronisation)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def phase_target(dev, smi, report):
+    """init_target('cube', 256): the reference's K=1 Hard-Phong target on
+    the staged route; the share of its cube pixels equal (every channel
+    within 1e-5) to the flat fused HardRast + HardAgg target [train]
+    uses, on the same pose; get_hard_rendering of the cow (binned select)
+    with its select / shade split."""
+    r_true = ptt.random_rotations(1, torch.Generator().manual_seed(2027),
+                                  device="cpu").to(dev)
+    reset_counts()
+    out, target_ms = synced_ms(lambda: harness.init_target(
+        category="cube", imsize=IMAGE, R_true=r_true, device=dev), 1)
+    counts = all_counts()
+    target = out[3][0]
+    if (tuple(target.shape) != (IMAGE, IMAGE, 3)
+            or not bool(torch.isfinite(target).all())
+            or counts["gather_rows_cm"] < 1
+            or counts["fused_forward"] + counts["fused_stream_forward"]):
+        fail(f"target: shape {tuple(target.shape)}, launches {counts}")
+    cover = (target.sum(-1) > 0).float().mean().item()
+    if not 0.02 < cover < 0.6:
+        fail(f"target: coverage share {cover}")
+
+    # The same pose of [train]'s cube x2 through both renderers.
+    r, t, lights = scene(dev)
+    cams = ptt.PerspectiveCameras.create(R=r, T=t, fov=60.0, device=dev)
+    mesh = cube_mesh(dev)
+    posed = mesh.update_padded(ptt.Rotate(r_true).transform_points(
+        mesh.verts))
+    *_x, train_target = train_setup(dev, r_true, 5)
+    hard = harness.get_hard_rendering(posed, cams, lights, IMAGE)[0, ..., :3]
+    fg = (hard.sum(-1) > 0) | (train_target.sum(-1) > 0)
+    equal = ((hard - train_target).abs() <= 1e-5).all(dim=-1)
+    share = equal[fg].float().mean().item()
+
+    # The cow through get_hard_rendering: select + derive, then shade.
+    cow = posed_cow(torch.Generator().manual_seed(5), dev, n=1)
+    settings = ptt.RasterizationSettings(
+        image_size=IMAGE, blur_radius=0.0, faces_per_pixel=1,
+        max_faces_per_bin=100000)
+    if settings.resolve_binning(cow.max_faces)[0] == 0:
+        fail("target: the cow does not bin")
+    harness.get_hard_rendering(cow, cams, lights, IMAGE)
+    rast = ptt.MeshRasterizer(cams, settings)
+    shader = ptt.HardPhongShader.create(
+        cameras=cams, lights=lights,
+        blend_params=ptt.BlendParams(background_color=(0.0, 0.0, 0.0)),
+        device=dev)
+    frags, select_ms = synced_ms(lambda: rast(cow))
+    img, shade_ms = synced_ms(lambda: shader(frags, cow))
+    _img, render_ms = synced_ms(
+        lambda: harness.get_hard_rendering(cow, cams, lights, IMAGE))
+    if not bool(torch.isfinite(img).all()) or not (
+            0.02 < (img[..., 3] > 0.5).float().mean().item() < 0.6):
+        fail("target: the cow's Hard-Phong render")
+    report["target"] = dict(share=share)
+    print(f"[target] init_target('cube', {IMAGE}) on the staged route (K=1 "
+          f"Hard-Phong): launches {counts}, {target_ms:.3f} ms, coverage "
+          f"{cover:.3f}; cube pixels equal (within 1e-5) to [train]'s flat "
+          f"fused HardRast + HardAgg target: {share:.5f} of {int(fg.sum())} "
+          f"covered; the cow (5120 faces, binned select) through "
+          f"get_hard_rendering: {render_ms:.3f} ms per render, rasterize "
+          f"(select + derive) {select_ms:.3f} ms, shade + blend "
+          f"{shade_ms:.3f} ms (host clock, synchronised) | {smi}",
+          flush=True)
+
+
+def staged_and_fused(rend, mesh, w, fused: bool):
+    """(image, grads to the vertices, sigma, gamma, fwd ms, bwd ms) of
+    sum(image * w), staged (rasterizer.planar + shader) or fused
+    (MeshRenderer)."""
+    verts = mesh.verts.detach().clone().requires_grad_()
+    sh = rend.shader
+    sigma = sh.smoothrast.sigma.detach().clone().to(mesh.device) \
+        .requires_grad_()
+    gamma = sh.smoothagg.gamma.detach().clone().to(mesh.device) \
+        .requires_grad_()
+    sh = dataclasses.replace(
+        sh, smoothrast=dataclasses.replace(sh.smoothrast, sigma=sigma),
+        smoothagg=dataclasses.replace(sh.smoothagg, gamma=gamma))
+    r = rend.replace(shader=sh)
+    m = mesh.update_padded(verts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if fused:
+        img = r(m, seeds=torch.zeros(mesh.batch_size, 4, dtype=torch.int32))
+    else:
+        img = r.shader(r.rasterizer.planar(m), m)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(torch.sum(img * w), [verts, sigma, gamma])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return img.detach(), grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def stream_scalar_grads64(rend, mesh, g_out):
+    """(sigma, gamma) gradients of sum(image * g_out) by the stream route's
+    plain backward evaluated in float64."""
+    cfg, (tab, scal, rows, count, active, seeds) = kernel_inputs(
+        rend, mesh, torch.zeros(mesh.batch_size, 4, dtype=torch.int32))
+    args = tuple(a.detach().double() if a.is_floating_point() else a
+                 for a in (tab, rows, count, active, scal, seeds))
+    _g_tab, g_scal = fr.stream_backward_plain(cfg, *args, g_out.double())
+    return (g_scal[:, fr._S_SIGMA].sum().item(),
+            g_scal[:, fr._S_GAMMA].sum().item())
+
+
+def phase_staged_softras(dev, smi, report):
+    """RandomPhongShader(SoftRast, SoftAgg) at the main path's sigma /
+    gamma through rasterizer.planar + shader(...) at 256^2, K=50, N=4 on
+    the cube and the cow: forward, then the gradient of an image
+    objective to the vertices, sigma and gamma — the staged route's main
+    path (launch counts reset just before, read just after).  Held
+    against the fused route on the same poses: K3 / K4 on the cube, K5 /
+    K6 on the cow; image atol 2e-5, gradients within 1e-4 of their max.
+    On the cow the pixels whose slot K-1 is filled (the staged route keeps
+    K faces, the stream route all) are left out of the objective and the
+    images, and the vertices of faces too thin for float32 to resolve
+    1e-4 (``checks.thin_rows``) out of the vertex gradient."""
+    cases = {"cube": posed_cube(torch.Generator().manual_seed(0), dev),
+             "cow": posed_cow(torch.Generator().manual_seed(0), dev)}
+    rend = staged_renderer("softras", dev)
+    gen = torch.Generator().manual_seed(6)
+    w = torch.randn(N_POSES, IMAGE, IMAGE, 4, generator=gen).to(dev)
+    staged, masks = {}, {}
+    for name, mesh in cases.items():           # warm-up, and the masks
+        with torch.no_grad():
+            p2f = rend.rasterizer.planar(mesh).pix_to_face
+        masks[name] = (p2f[..., K - 1] < 0)[..., None].float()
+        staged_and_fused(rend, mesh, w * masks[name], False)
+    reset_counts()
+    for name, mesh in cases.items():
+        staged[name] = staged_and_fused(rend, mesh, w * masks[name], False)
+    counts = all_counts()
+    needed = ("gather_rows_cm", "scatter_rows_cm", "interp_rows",
+              "interp_rows_backward")
+    if any(counts[k] < 1 for k in needed) or any(
+            counts[k] for k in fr.launch_counts):
+        fail(f"staged-softras: launch counts {counts}")
+    for k in needed:
+        report[k]["launches"] = counts[k]
+    lines = []
+    for name, mesh in cases.items():
+        img_s, g_s, fwd_ms, bwd_ms = staged[name]
+        img_f, g_f, _f, _b = staged_and_fused(rend, mesh, w * masks[name],
+                                              True)
+        mode = rend.plan(mesh).mode
+        if mode != ("flat" if name == "cube" else "stream"):
+            fail(f"staged-softras: the {name} takes the {mode} route")
+        keep = masks[name]
+        d_img = ((img_s - img_f).abs() * keep).max().item()
+        vkeep = torch.ones_like(mesh.verts[..., :1])
+        n_thin = 0
+        if name == "cow":
+            faces = torch.clamp(mesh.faces, min=0)
+            fv = gk.take_rows_batched(
+                rend.rasterizer.cameras.transform_points_ndc(mesh.verts),
+                faces).reshape(mesh.batch_size, -1, 9)
+            thin = checks.thin_rows(fv, 1e-4)                     # (N, F)
+            n_thin = int(thin.sum())
+            for b in range(mesh.batch_size):
+                vkeep[b, faces[b][thin[b]].reshape(-1)] = 0.0
+        errs = {}
+        for gname, a, b, keep_g in zip(("verts", "sigma", "gamma"), g_s,
+                                       g_f, (vkeep, 1.0, 1.0)):
+            errs[gname] = (((a - b) * keep_g).abs().max()
+                           / (b * keep_g).abs().max()).item()
+        ref64 = ""
+        if name == "cow" and max(errs["sigma"], errs["gamma"]) > 1e-4:
+            # sigma / gamma sum terms that cancel over every pixel and row:
+            # hold them against the nearer of K6 and the float64 plain
+            # version, as checks.stream_grads_close holds the scalars.
+            s64, g64 = stream_scalar_grads64(rend, mesh, w * keep)
+            for gname, a, b, r64 in zip(("sigma", "gamma"), g_s[1:], g_f[1:],
+                                        (s64, g64)):
+                a = a.double().item()
+                errs[gname] = min(abs(a - b.item()), abs(a - r64)) / abs(r64)
+            ref64 = (f", sigma / gamma against the nearer of K6 and the "
+                     f"float64 plain version ({s64:.9g} / {g64:.9g}; K6 "
+                     f"{g_f[1].item():.9g} / {g_f[2].item():.9g}, staged "
+                     f"{g_s[1].item():.9g} / {g_s[2].item():.9g})")
+        if d_img > 2e-5 or max(errs.values()) > 1e-4 or not all(
+                bool(torch.isfinite(g).all()) for g in g_s):
+            fail(f"staged-softras {name}: image {d_img}, gradients {errs}"
+                 f"{ref64}")
+        lines.append(f"{name} ({mode} route to compare): image max |d| "
+                     f"{d_img:.3g}, gradients verts {errs['verts']:.3g} / "
+                     f"sigma {errs['sigma']:.3g} / gamma {errs['gamma']:.3g} "
+                     f"of max (the vertices of {n_thin} thin faces and "
+                     f"{int((keep == 0).sum())} pixels with slot K-1 filled "
+                     f"left out{ref64}); staged forward {fwd_ms:.1f} ms, "
+                     f"backward {bwd_ms:.1f} ms")
+    print(f"[staged-softras] RandomPhongShader(SoftRast, SoftAgg) sigma "
+          f"{SIGMA} gamma {GAMMA}, {IMAGE}^2 K={K} N={N_POSES}, "
+          f"rasterizer.planar + shader: launches {counts}; "
+          + "; ".join(lines) + f" | {smi}", flush=True)
+
+
+def phase_determinism(dev, smi):
+    """Two preparations of the cow's stream inputs (N=4, 256^2), each
+    back-propagated from a fixed cotangent of the table and scalars to
+    the poses, with torch's default algorithms: the tables, scalars,
+    vertex normals and pose gradients must repeat bit for bit.  A third
+    preparation under torch.use_deterministic_algorithms(True,
+    warn_only=True) lists the ops that have no deterministic
+    implementation (torch swaps some ops for deterministic ones in that
+    mode, so only the default mode's bits show atomics)."""
+    import warnings
+
+    mesh = cow_mesh(dev).extend(N_POSES)
+    rend = headline_renderer("gaussian", dev)
+    seeds = fr.draw_seeds(N_POSES, torch.Generator().manual_seed(1),
+                          device=dev)
+    log_rot0 = torch.linspace(-1.0, 1.0, N_POSES * 3, device=dev).reshape(
+        N_POSES, 3)
+
+    def once():
+        log_rot = log_rot0.clone().requires_grad_()
+        posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot))
+                                   .transform_points(mesh.verts))
+        _cfg, (tab, scal, *_rest) = kernel_inputs(rend, posed, seeds)
+        g = torch.Generator().manual_seed(0)
+        g_tab = torch.randn(tab.shape, generator=g).to(dev)
+        g_scal = torch.randn(scal.shape, generator=g).to(dev)
+        (g_pose,) = torch.autograd.grad(
+            (tab * g_tab).sum() + (scal * g_scal).sum(), [log_rot])
+        torch.cuda.synchronize()
+        return {"table": tab.detach(), "scalars": scal.detach(),
+                "vertex normals": posed.verts_normals().detach(),
+                "pose gradient": g_pose}
+
+    runs = [once(), once()]
+    same = {k: torch.equal(runs[0][k], runs[1][k]) for k in runs[0]}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            once()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    warned = sorted({str(x.message).split("\n")[0][:120] for x in caught
+                     if "deterministic" in str(x.message)})
+    print(f"[determinism] two preparations of the cow's stream inputs "
+          f"(N=4) and their backward, default algorithms: bit-equal {same}; "
+          f"ops without a deterministic implementation: "
+          f"{warned or 'none'} | {smi}", flush=True)
+    if not all(same.values()):
+        fail("determinism: the preparation is not bit-equal from run to run")
+
+
 SOURCES = {
     "prng_probe": ("csrc/prng_probe.cu", "ops/fused_render.py:263"),
     "fused_forward": ("csrc/fused_forward.cu", "ops/fused_render.py:799"),
@@ -1135,6 +1617,11 @@ SOURCES = {
                               "ops/fused_render.py:2256"),
     "fused_stream_loss_grad": ("csrc/stream_loss_grad.cu",
                                "ops/fused_render.py:2266"),
+    "gather_rows_cm": ("csrc/gather.cu", "ops/gather.py:59"),
+    "scatter_rows_cm": ("csrc/gather.cu", "ops/gather.py:121"),
+    "interp_rows": ("csrc/interp_gather.cu", "ops/interp_gather.py:75"),
+    "interp_rows_backward": ("csrc/interp_gather.cu",
+                             "ops/interp_gather.py:101"),
 }
 
 
@@ -1167,6 +1654,10 @@ def main():
     phase_serve_stream(dev, smi, report)
     phase_render_grad_stream(dev, smi, report)
     phase_train_stream(dev, smi, report)
+    phase_k9_k10(dev, smi, report)
+    phase_target(dev, smi, report)
+    phase_staged_softras(dev, smi, report)
+    phase_determinism(dev, smi)
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
@@ -1178,7 +1669,7 @@ def main():
             "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

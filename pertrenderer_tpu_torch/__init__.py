@@ -3,13 +3,18 @@
 Differentiable rendering with perturbed optimizers, ported from the JAX
 package ``pertrenderer_tpu`` (the reference it is held against) to PyTorch
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).  The port covers
-the flat fused route, on scenes whose faces all fit a slot
-(F <= faces_per_pixel): ``MeshRenderer(meshes, seeds=...)`` renders through
+three routes.  The flat fused route (every face holds a slot, F <=
+faces_per_pixel): ``MeshRenderer(meshes, seeds=...)`` renders through
 kernel K3 and its gradients come from K4; ``MeshRenderer.render_loss``
 gives an image loss and every gradient from one launch of K2; the hash
-PRNG is pinned by K1.  ``experiments.harness.optimize_pose`` runs the pose
-optimisation loop on top.  On CPU tensors every kernel runs as its plain
-PyTorch version.
+PRNG is pinned by K1.  The stream route (F > faces_per_pixel): K5, K6, K7.
+The staged route (the baseline shaders, and whatever the fused kernels
+decline): ``rasterize_meshes`` selects and derives fragments through the
+row gather K9a / K9b, the shaders sample textures and shade through the
+interpolating gather K10a / K10b, with the deterministic estimators.
+``experiments.harness.optimize_pose`` runs the pose optimisation loop on
+top, and ``init_target`` builds the Hard-Phong target.  On CPU tensors
+every kernel runs as its plain PyTorch version.
 
 Everything is float32.  TF32 is turned off here, at import: a TF32 matmul
 keeps ~3 decimal digits, which moves projected vertices by more than a
@@ -22,7 +27,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from pertrenderer_tpu_torch.blending import BlendParams  # noqa: E402
+from pertrenderer_tpu_torch.blending import (  # noqa: E402
+    BlendParams,
+    hard_rgb_blend,
+    smooth_rgb_blend,
+    softmax_rgb_blend,
+)
 from pertrenderer_tpu_torch.cameras import (  # noqa: E402
     OpenGLPerspectiveCameras,
     PerspectiveCameras,
@@ -41,8 +51,13 @@ from pertrenderer_tpu_torch.models.renderer import (  # noqa: E402
     MeshRenderer,
 )
 from pertrenderer_tpu_torch.models.shaders import (  # noqa: E402
+    HardPhongShader,
     RandomPhongShader,
     RandomSimpleShader,
+    SimpleShader,
+    SoftPhongShader,
+    SoftSilhouetteShader,
+    SoftSimpleShader,
 )
 from pertrenderer_tpu_torch.models.smoothagg import (  # noqa: E402
     CauchyAgg,
@@ -63,18 +78,34 @@ from pertrenderer_tpu_torch.ops.fused_render import (  # noqa: E402
     RenderPlan,
     render_plan,
 )
+from pertrenderer_tpu_torch.ops.gather import (  # noqa: E402
+    take_rows,
+    take_rows_cm,
+)
+from pertrenderer_tpu_torch.ops.interp_gather import (  # noqa: E402
+    interp_rows_cm,
+)
 from pertrenderer_tpu_torch.ops.perturbed import (  # noqa: E402
     log_corrected,
+    perturbed_argmax,
+    perturbed_heaviside,
     prod_corrected,
 )
 from pertrenderer_tpu_torch.ops.rasterize import (  # noqa: E402
+    Fragments,
+    PlanarFragments,
     RasterizationSettings,
+    as_planar,
+    rasterize_meshes,
+    rasterize_planar,
 )
+from pertrenderer_tpu_torch.shading import phong_shading  # noqa: E402
 from pertrenderer_tpu_torch.structures import Meshes  # noqa: E402
 from pertrenderer_tpu_torch.textures import (  # noqa: E402
     TexturesAtlas,
     TexturesUV,
     TexturesVertex,
+    interpolate_face_attributes,
 )
 from pertrenderer_tpu_torch.transforms import (  # noqa: E402
     Rotate,

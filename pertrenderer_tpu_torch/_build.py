@@ -27,9 +27,9 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
            "fused_loss_grad.cu", "stream_forward.cu", "stream_backward.cu",
-           "stream_loss_grad.cu")
+           "stream_loss_grad.cu", "gather.cu", "interp_gather.cu")
 HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh",
-           "stream_grad.cuh")
+           "stream_grad.cuh", "segment_sum.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v")
@@ -126,6 +126,20 @@ def library() -> ctypes.CDLL:
     for fn in (lib.pt_stream_backward, lib.pt_stream_loss_grad):
         fn.argtypes = ([ptr] * 15 + geometry + config
                        + [i32, ctypes.c_float, ptr])
+        fn.restype = i32
+    # The gathers (ops/gather.py, ops/interp_gather.py): pointers, then the
+    # column count P (64-bit), the row count F and the width D.
+    i64 = ctypes.c_longlong
+    lib.pt_gather_rows.argtypes = [ptr] * 3 + [i64, i32, i32, ptr]
+    lib.pt_scatter_rows.argtypes = [ptr] * 6 + [i64, i32, i32, i64, i32,
+                                                ptr]
+    lib.pt_interp_rows.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
+    lib.pt_interp_rows_bwd_tables.argtypes = [ptr] * 9 + [i64, i32, i32,
+                                                          i64, i32, ptr]
+    lib.pt_interp_rows_bwd_weights.argtypes = [ptr] * 4 + [i64, i32, i32,
+                                                           ptr]
+    for fn in (lib.pt_gather_rows, lib.pt_scatter_rows, lib.pt_interp_rows,
+               lib.pt_interp_rows_bwd_tables, lib.pt_interp_rows_bwd_weights):
         fn.restype = i32
     lib.pt_grad_partial_warps.argtypes = [i32] * 4
     lib.pt_grad_partial_warps.restype = i32

@@ -4,7 +4,9 @@ Each function takes plain values — numpy arrays, or anything ``np.asarray``
 accepts, such as the JAX objects' fields — and builds the port's object.
 :func:`from_reference` walks a JAX scene object (mesh, textures, cameras,
 lights, materials, estimators, settings, shader, rasterizer or renderer)
-by its field names, so the tests feed both packages the same scene, and a
+by its field names — the baseline shaders and every field of the
+rasterization settings included — so the tests feed both packages the
+same scene, and a
 pose-optimisation state (``log_rot`` through :func:`tensor`; sigma, gamma
 and alpha as tensors, ``nb_samples`` and the blur override through the
 renderer) starts the same in both.  Every estimator of the menu keeps its
@@ -174,6 +176,14 @@ def from_reference(obj, device="cuda", _memo=None):
             materials=conv(obj.materials), smoothrast=conv(obj.smoothrast),
             smoothagg=conv(obj.smoothagg),
             blend_params=conv(obj.blend_params))
+    elif name in ("HardPhongShader", "SoftPhongShader"):
+        out = getattr(shaders, name)(
+            cameras=conv(obj.cameras), lights=conv(obj.lights),
+            materials=conv(obj.materials),
+            blend_params=conv(obj.blend_params))
+    elif name in ("SimpleShader", "SoftSimpleShader",
+                  "SoftSilhouetteShader"):
+        out = getattr(shaders, name)(blend_params=conv(obj.blend_params))
     elif name == "MeshRasterizer":
         out = renderer.MeshRasterizer(conv(obj.cameras),
                                       conv(obj.raster_settings))

@@ -13,10 +13,13 @@ count, learning rate), as the reference's loop does.
 Random numbers come from an explicit CPU ``torch.Generator``: the initial
 pose perturbation, each step's estimator seed words and the guard noise.
 
+``init_target`` builds an experiment's scene and its target image through
+``get_hard_rendering`` — the reference's Hard-Phong render at K = 1, which
+takes the staged route (kernels K9a and K10a on the card).
+
 Not ported yet (ROADMAP Queue 1): checkpoint and resume, artifacts, the
-capacity probe, ``max_dispatch_steps``, ``init_target`` (it renders through
-``HardPhongShader``, the unported staged route) and the scene-parameter
-loop.
+capacity probe, ``max_dispatch_steps``, the ShapeNet categories (they
+need the dataset) and the scene-parameter loop.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ from pertrenderer_tpu_torch.ops import fused_render
 from pertrenderer_tpu_torch.transforms import (Rotate, random_rotations,
                                                so3_exp_map, so3_log_map)
 
-__all__ = ["NOISE_MENU", "make_smoothers", "init_renderers", "PoseState",
-           "StepOut", "pose_step", "optimize_pose", "PoseOptResult"]
+__all__ = ["NOISE_MENU", "make_smoothers", "init_renderers", "init_target",
+           "get_hard_rendering", "PoseState", "StepOut", "pose_step",
+           "optimize_pose", "PoseOptResult"]
 
 _BLUR_CONST = float(np.log(1.0 / 1e-4 - 1.0))
 
@@ -104,6 +108,76 @@ def init_renderers(camera, lights, R_true, generator=None,
                 cameras=camera, lights=lights, blend_params=blend,
                 smoothrast=smoothrast, smoothagg=smoothagg, device=device)))
     return log_rot_init, renderers
+
+
+def _normalize_mesh(mesh):
+    """Centred on the first mesh's vertex mean and scaled to the unit box."""
+    verts = mesh.verts[0]
+    center = verts.mean(0)
+    scale = torch.max(torch.abs(verts - center))
+    return mesh.offset_verts(-center.expand_as(verts)).scale_verts(
+        1.0 / scale)
+
+
+def get_hard_rendering(mesh, camera, lights, imsize):
+    """The reference's Hard-Phong render (K = 1, no blur, black
+    background): the staged route."""
+    settings = ptt.RasterizationSettings(
+        image_size=imsize, blur_radius=0.0, faces_per_pixel=1,
+        max_faces_per_bin=100000)
+    renderer = ptt.MeshRenderer(
+        ptt.MeshRasterizer(camera, settings),
+        ptt.HardPhongShader.create(
+            cameras=camera, lights=lights,
+            blend_params=ptt.BlendParams(background_color=(0.0, 0.0, 0.0)),
+            device=camera.R.device))
+    return renderer(mesh, cameras=camera, lights=lights)
+
+
+def init_target(generator: Optional[torch.Generator] = None,
+                category: str = "cube", shapenet_path=None, imsize=128,
+                R_true=None, device="cuda"):
+    """An experiment's ground-truth scene and target render: (meshes,
+    cameras, lights, target_rgb, R_true, elev, azim) as the JAX
+    ``init_target``.  ``category`` is ``cube`` or ``sphere`` (level-3
+    icosphere, white per-vertex colour, scaled x3); the true pose is
+    ``R_true`` (1, 3, 3), or drawn from ``generator`` (a CPU generator,
+    seed 0 if None).  ShapeNet categories need the dataset, which the
+    repository does not hold: they raise."""
+    if category == "cube":
+        mesh = ptt.load_cube(device=device)
+    elif category == "sphere":
+        verts, faces = ptt.make_icosphere(3)
+        mesh = ptt.Meshes.create(verts, faces, device=device,
+                                 textures=ptt.TexturesVertex(torch.ones(
+                                     1, verts.shape[0], 3, device=device)))
+    else:
+        raise FileNotFoundError(
+            f"category {category!r} needs the ShapeNet dataset "
+            f"(shapenet_path={shapenet_path!r}); the port renders the cube "
+            "and sphere categories")
+    mesh = _normalize_mesh(mesh)
+    if category != "cube":
+        mesh = mesh.scale_verts(3.0)
+    elev = torch.linspace(30.0, 240.0, 1)
+    azim = torch.linspace(120.0, 150.0, 1)
+    lights = ptt.PointLights.create(location=(0.0, 2.0, -2.0), device=device)
+    r, t = ptt.look_at_view_transform(dist=6.7, elev=elev, azim=azim,
+                                      device=device)
+    cameras = [ptt.PerspectiveCameras.create(R=r[i:i + 1], T=t[i:i + 1],
+                                             fov=60.0, device=device)
+               for i in range(r.shape[0])]
+    meshes = mesh.extend(len(cameras))
+    if R_true is None:
+        R_true = random_rotations(
+            1, generator if generator is not None
+            else torch.Generator().manual_seed(0), device=device)
+    R_true = torch.as_tensor(R_true, dtype=torch.float32, device=device)
+    rotated = meshes.update_padded(
+        Rotate(R_true).transform_points(meshes.verts_padded()))
+    target = get_hard_rendering(rotated, cameras[0], lights, imsize)
+    target_rgb = [target[i, ..., :3] for i in range(len(cameras))]
+    return meshes, cameras, lights, target_rgb, R_true, elev, azim
 
 
 @dataclasses.dataclass

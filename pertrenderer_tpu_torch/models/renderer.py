@@ -2,10 +2,17 @@
 ``pertrenderer_tpu/models/renderer.py``).
 
 ``MeshRenderer(meshes, seeds=..., generator=...)`` renders (N, H, W, 4) RGBA
-through the flat fused forward (kernel K3), whose gradients come from K4;
-``render_loss`` gives an image loss and all its gradients from one launch
-of K2.  Configurations the JAX package sends down another route (stream,
-binned, sharded, staged) raise ``NotImplementedError`` naming the route.
+through the route the JAX package takes: the flat fused forward (kernel
+K3, gradients K4) or the stream forward (K5, gradients K6) for the
+perturbed shaders; ``render_loss`` gives an image loss and all its
+gradients from one launch of K2 or K7.  Everything else — the baseline
+shaders, znear/zfar overrides, shader and rasterizer cameras that differ,
+and configurations the fused kernels decline — takes the staged route:
+``MeshRasterizer`` (select and derive, kernels K9a / K9b), then the
+shader (texture sampling, Phong shading with K10a / K10b, blending).  The
+staged route runs the deterministic estimators; with a Monte-Carlo
+estimator it raises ``NotImplementedError`` (kernels K8a-c are not
+ported), as do the binned and sharded routes.
 """
 
 from __future__ import annotations
@@ -16,7 +23,9 @@ import torch
 from torch import nn
 
 from pertrenderer_tpu_torch.ops import fused_render
-from pertrenderer_tpu_torch.ops.rasterize import RasterizationSettings
+from pertrenderer_tpu_torch.ops.rasterize import (RasterizationSettings,
+                                                  rasterize_meshes,
+                                                  rasterize_planar)
 
 __all__ = ["MeshRasterizer", "MeshRenderer"]
 
@@ -37,6 +46,25 @@ class MeshRasterizer(nn.Module):
     @classmethod
     def create(cls, cameras=None, raster_settings=None):
         return cls(cameras=cameras, raster_settings=raster_settings)
+
+    def _cameras(self, cameras):
+        cameras = cameras if cameras is not None else self.cameras
+        if cameras is None:
+            raise ValueError("Cameras must be specified either at "
+                             "initialization or in the forward pass")
+        return cameras
+
+    def forward(self, meshes, cameras=None, **kwargs):
+        """PyTorch3D-layout fragments of ``meshes`` (the staged route)."""
+        return rasterize_meshes(meshes, self._cameras(cameras),
+                                self.raster_settings,
+                                blur_radius=self.blur_override)
+
+    def planar(self, meshes, cameras=None):
+        """Channel-major fragments (the staged hot path)."""
+        return rasterize_planar(meshes, self._cameras(cameras),
+                                self.raster_settings,
+                                blur_radius=self.blur_override)
 
     @property
     def blur(self):
@@ -85,39 +113,69 @@ class MeshRenderer(nn.Module):
             fused_render.check_prng_stream(dev)
             self._checked_devices.add(dev)
 
-    def _fused_args(self, kwargs):
+    def _fused_args(self, cameras, kwargs):
+        """The fused routes' arguments, or None where the JAX package
+        renders staged: a shader outside the fused menu, znear/zfar
+        overrides, or shader cameras other than the rasterizer's."""
         shader = self.shader
         shade = self._FUSED_SHADE.get(type(shader).__name__)
-        cameras = kwargs.get("cameras", self.rasterizer.cameras)
-        if shade is None:
-            fused_render._unsupported(
-                "staged", "shader %s is not fused-eligible"
-                % type(shader).__name__)
-        if cameras is None:
-            raise ValueError("Cameras must be specified either at "
-                             "initialization or in the forward pass")
+        if shade is None or cameras is None:
+            return None
         if "znear" in kwargs or "zfar" in kwargs:
-            fused_render._unsupported("staged", "znear/zfar overrides")
-        # The staged path shades through the shader's own cameras; the fused
-        # forward needs them to be the rasterizer's.
+            return None
+        # The staged route shades through the shader's own cameras; the
+        # fused routes need them to be the rasterizer's.
         if kwargs.get("cameras", shader.cameras) is not cameras:
-            fused_render._unsupported(
-                "staged", "shader and rasterizer cameras differ")
+            return None
         return (cameras, kwargs.get("lights", shader.lights),
                 kwargs.get("materials", shader.materials),
                 shader.smoothrast, shader.smoothagg,
                 kwargs.get("blend_params", shader.blend_params),
                 self.rasterizer.raster_settings), shade
 
+    def _fused(self, meshes, kwargs):
+        """(fused arguments, shade) if a fused route takes this render,
+        else None."""
+        cameras = kwargs.get("cameras", self.rasterizer.cameras)
+        if cameras is None:
+            raise ValueError("Cameras must be specified either at "
+                             "initialization or in the forward pass")
+        args = self._fused_args(cameras, kwargs)
+        if args is None:
+            return None
+        (_c, lights, _m, sr, sa, _b, settings), shade = args
+        if fused_render._plan(meshes, lights, sr, sa, settings,
+                              shade) is None:
+            return None
+        return args
+
+    def _staged(self, meshes, seeds, kwargs):
+        """Rasterize (planar fragments for the perturbed shaders), then
+        shade."""
+        for est in (getattr(self.shader, "smoothrast", None),
+                    getattr(self.shader, "smoothagg", None)):
+            if est is not None:
+                est.check_staged()
+        cameras = kwargs.get("cameras", self.rasterizer.cameras)
+        if getattr(type(self.shader), "planar_input", False):
+            fragments = self.rasterizer.planar(meshes, cameras=cameras)
+        else:
+            fragments = self.rasterizer(meshes, cameras=cameras)
+        return self.shader(fragments, meshes, seeds=seeds, **kwargs)
+
     def forward(self, meshes, seeds=None,
                 generator: Optional[torch.Generator] = None, **kwargs):
         """Render ``meshes``.  ``seeds``: (N, 4) int32 seed words (or JAX
         (N, 1, 8) seed rows); drawn from ``generator`` (a CPU generator,
-        seed 0 if None) when not given.  kwargs override cameras, lights,
-        materials and blend_params.  The first call on a CUDA device checks
-        the card's hash-PRNG stream (kernel K1) before rendering."""
-        (cameras, lights, materials, sr, sa, blend, settings), shade = \
-            self._fused_args(kwargs)
+        seed 0 if None) when not given; the staged route's deterministic
+        estimators use neither.  kwargs override cameras, lights,
+        materials, blend_params (and, staged, znear / zfar).  The first
+        fused render on a CUDA device checks the card's hash-PRNG stream
+        (kernel K1) before rendering."""
+        args = self._fused(meshes, kwargs)
+        if args is None:
+            return self._staged(meshes, seeds, kwargs)
+        (cameras, lights, materials, sr, sa, blend, settings), shade = args
         self._check_device(meshes.device)
         return fused_render.try_render(
             meshes, cameras, lights, materials, sr, sa, blend, settings,
@@ -125,9 +183,19 @@ class MeshRenderer(nn.Module):
             blur_override=self.rasterizer.blur_override)
 
     def plan(self, meshes, **kwargs) -> fused_render.RenderPlan:
-        """Routing report: the route this renderer takes for ``meshes``."""
-        (_cams, lights, _mats, sr, sa, _blend, settings), shade = \
-            self._fused_args(kwargs)
+        """Routing report: the route this renderer takes for ``meshes``,
+        and why."""
+        cameras = kwargs.get("cameras", self.rasterizer.cameras)
+        args = self._fused_args(cameras, kwargs)
+        settings = self.rasterizer.raster_settings
+        if args is None:
+            return fused_render.RenderPlan(
+                mode="staged",
+                reason="shader %s (or camera resolution) is not "
+                       "fused-eligible" % type(self.shader).__name__,
+                f=int(meshes.max_faces), k=int(settings.faces_per_pixel),
+                image_size=settings.image_size)
+        (_cams, lights, _mats, sr, sa, _blend, settings), shade = args
         return fused_render.render_plan(meshes, lights, sr, sa, settings,
                                         shade)
 
@@ -136,18 +204,27 @@ class MeshRenderer(nn.Module):
                     loss_kind: str = "l2_rgb", **kwargs):
         """Mean image loss against ``target`` (broadcast to (N, H, W, 3))
         over the RGB channels: ``l2_rgb`` = mean squared error (the pose
-        loop's loss), ``l1_rgb`` = mean absolute error.  The loss and every
-        gradient come from one launch of K2, so ``loss.backward()``
-        launches nothing more.  The target is a constant: it gets no
-        gradient.  ``seeds``, ``generator`` and kwargs as for
-        :meth:`forward`."""
+        loop's loss), ``l1_rgb`` = mean absolute error.  On the fused
+        routes the loss and every gradient come from one launch of K2 (or
+        K7), so ``loss.backward()`` launches nothing more; elsewhere the
+        render is reduced as the reference does.  The target is a
+        constant: it gets no gradient.  ``seeds``, ``generator`` and kwargs
+        as for :meth:`forward`."""
         if loss_kind not in fused_render.LOSS_KINDS:
             raise ValueError(f"unknown loss_kind {loss_kind!r} (expected "
                              "'l2_rgb' or 'l1_rgb')")
-        (cameras, lights, materials, sr, sa, blend, settings), shade = \
-            self._fused_args(kwargs)
-        self._check_device(meshes.device)
-        return fused_render.try_render_loss(
-            meshes, cameras, lights, materials, sr, sa, blend, settings,
-            shade, target, loss_kind, seeds=seeds, generator=generator,
-            blur_override=self.rasterizer.blur_override)
+        args = self._fused(meshes, kwargs)
+        if args is not None:
+            (cameras, lights, materials, sr, sa, blend, settings), shade = \
+                args
+            self._check_device(meshes.device)
+            return fused_render.try_render_loss(
+                meshes, cameras, lights, materials, sr, sa, blend, settings,
+                shade, target, loss_kind, seeds=seeds, generator=generator,
+                blur_override=self.rasterizer.blur_override)
+        images = self(meshes, seeds=seeds, generator=generator, **kwargs)
+        diff = images[..., :3] - torch.as_tensor(
+            target, dtype=torch.float32, device=images.device).detach()
+        if loss_kind == "l1_rgb":
+            return torch.mean(torch.abs(diff))
+        return torch.mean(diff ** 2)

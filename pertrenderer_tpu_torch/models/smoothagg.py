@@ -3,8 +3,20 @@
 
 ``gamma`` and ``alpha`` are float32 scalar tensors (learnable: a tensor
 that requires grad passed to ``update_smoothing`` is kept as it is);
-``eps``, ``nb_samples`` and ``fixed_noise`` are plain values.  The fused kernel
-evaluates the aggregation; the staged ``aggregate`` is not ported yet.
+``eps``, ``nb_samples`` and ``fixed_noise`` are plain values.  The fused
+kernels evaluate the aggregation on the flat and stream routes;
+``aggregate(...)`` is the staged route's, ported for the deterministic
+members (SoftAgg, HardAgg).  Every member shares the reference's
+preamble (``_z_map``):
+
+    z_inv     = (zfar - zbuf) / (zfar - znear) * mask
+    z_inv_max = max(max_K z_inv, eps)
+    z_map     = prod_corrected(gamma / alpha, log_corrected(prob))
+                + z_inv - z_inv_max,  then the background channel
+                eps - z_inv_max appended (K + 1 channels).
+
+The MC members' staged ``aggregate`` raises (kernels K8b / K8c are not
+ported).
 """
 
 from __future__ import annotations
@@ -14,6 +26,11 @@ from typing import Optional
 
 import torch
 
+from pertrenderer_tpu_torch.ops.perturbed import (hard_argmax_onehot,
+                                                  log_corrected,
+                                                  perturbed_argmax,
+                                                  prod_corrected)
+
 __all__ = ["SoftAgg", "GaussianAgg", "GaussianAgg_wovr", "CauchyAgg",
            "HardAgg"]
 
@@ -22,8 +39,33 @@ def _scalar(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
+def _z_map(gamma, alpha, eps, zbuf, zfar, znear, prob_map, mask,
+           corrected_prod: bool = True, gamma_over_alpha=None):
+    """The shared aggregation preamble: z_map (..., K + 1) with the
+    background channel last."""
+    mask = mask.to(zbuf.dtype)
+    z_inv = (zfar - zbuf) / (zfar - znear) * mask
+    z_inv_max = torch.amax(z_inv, dim=-1, keepdim=True)
+    z_inv_max = torch.maximum(z_inv_max, z_inv_max.new_tensor(eps))
+    log_prob = log_corrected(prob_map)
+    gal = gamma / alpha if gamma_over_alpha is None else gamma_over_alpha
+    if corrected_prod:
+        scaled = prod_corrected(gal, log_prob)
+    else:
+        scaled = gal * log_prob
+    z_map = scaled + z_inv - z_inv_max
+    bg = (eps - z_inv_max).expand(z_map.shape[:-1] + (1,))
+    return torch.cat([z_map, bg], dim=-1)
+
+
+def _on(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
 @dataclasses.dataclass
 class _Agg:
+    monte_carlo = True      # the staged aggregate needs kernels K8b / K8c
+
     gamma: torch.Tensor
     alpha: torch.Tensor
     eps: float = 1e-10
@@ -36,10 +78,23 @@ class _Agg:
     def update_nb_samples(self, nb_samples):
         return dataclasses.replace(self, nb_samples=int(nb_samples))
 
+    def aggregate(self, zbuf, zfar, znear, prob_map, mask, seeds=None):
+        """The MC members' perturbed argmax over the z_map: raises on the
+        staged route (K8b / K8c)."""
+        return perturbed_argmax(zbuf, self.gamma, seeds, self.nb_samples)
+
+    def check_staged(self):
+        """Raise NotImplementedError if the staged route cannot run this
+        estimator (before any work is done)."""
+        if self.monte_carlo:
+            perturbed_argmax(None, self.gamma)
+
 
 @dataclasses.dataclass
 class SoftAgg(_Agg):
     """Softmax aggregation (the SoftRas aggregate).  Deterministic."""
+
+    monte_carlo = False
 
     nb_samples: int = 1
 
@@ -47,6 +102,12 @@ class SoftAgg(_Agg):
     def create(cls, gamma=4e-2, alpha=1.0, eps=1e-10, nb_samples=1):
         return cls(gamma=_scalar(gamma), alpha=_scalar(alpha), eps=eps,
                    nb_samples=nb_samples)
+
+    def aggregate(self, zbuf, zfar, znear, prob_map, mask, seeds=None):
+        gamma = _on(self.gamma, zbuf)
+        z_map = _z_map(gamma, _on(self.alpha, zbuf), self.eps, zbuf, zfar,
+                       znear, prob_map, mask)
+        return torch.softmax(prod_corrected(1.0 / gamma, z_map), dim=-1)
 
 
 @dataclasses.dataclass
@@ -84,6 +145,8 @@ class CauchyAgg(_StochasticAgg):
 class HardAgg(_Agg):
     """Hard argmax; log-prob scaled by 1e-6.  gamma/alpha are inert."""
 
+    monte_carlo = False
+
     gamma: torch.Tensor = dataclasses.field(
         default_factory=lambda: _scalar(1.0))
     alpha: torch.Tensor = dataclasses.field(
@@ -93,6 +156,13 @@ class HardAgg(_Agg):
     @classmethod
     def create(cls, eps=1e-10):
         return cls(eps=eps)
+
+    def aggregate(self, zbuf, zfar, znear, prob_map, mask, seeds=None):
+        one = _on(1.0, zbuf)
+        z_map = _z_map(one, one, self.eps, zbuf, zfar, znear, prob_map,
+                       mask, corrected_prod=False,
+                       gamma_over_alpha=_on(1.0 / 1e6, zbuf))
+        return hard_argmax_onehot(z_map)
 
     def update_smoothing(self, gamma=4e-2, alpha=1.0):
         return self

@@ -1,12 +1,15 @@
 """Coverage front-ends, the SmoothRast family (PyTorch port of
-``pertrenderer_tpu/models/smoothrast.py``) as parameter holders.
+``pertrenderer_tpu/models/smoothrast.py``).
 
 ``sigma`` is a float32 scalar tensor (learnable: ``update_smoothing``
 keeps a tensor that requires grad, so the pose step's gradient reaches
 it); ``nb_samples`` sets the Monte-Carlo sample count, which annealing
 doubles through ``update_nb_samples``.  The fused kernels evaluate the
-estimators; the staged ``rasterize`` is not ported yet.  ``sample_axis``
-names the sample-sharded route, which the port does not run yet.
+estimators on the flat and stream routes; ``rasterize(dists)`` is the
+staged route's coverage map, ported for the deterministic members
+(SoftRast, AffineRast, HardRast).  The MC members' staged ``rasterize``
+raises (kernel K8a is not ported).  ``sample_axis`` names the
+sample-sharded route, which the port does not run yet.
 """
 
 from __future__ import annotations
@@ -15,6 +18,9 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from pertrenderer_tpu_torch.ops.perturbed import (heaviside,
+                                                  perturbed_heaviside)
 
 __all__ = ["SoftRast", "GaussianRast", "GaussianRast_wovr", "ArctanRast",
            "AffineRast", "HardRast"]
@@ -26,6 +32,8 @@ def _scalar(x) -> torch.Tensor:
 
 @dataclasses.dataclass
 class _Rast:
+    monte_carlo = True      # the staged rasterize needs kernel K8a
+
     sigma: torch.Tensor
     nb_samples: int = 16
 
@@ -39,16 +47,37 @@ class _Rast:
     def update_nb_samples(self, nb_samples):
         return dataclasses.replace(self, nb_samples=int(nb_samples))
 
+    def rasterize(self, dists, seeds=None):
+        """The MC members' perturbed Heaviside of -dists: raises on the
+        staged route (K8a)."""
+        return perturbed_heaviside(-dists, self.sigma, seeds,
+                                   self.nb_samples)
+
+    def check_staged(self):
+        """Raise NotImplementedError if the staged route cannot run this
+        estimator (before any work is done)."""
+        if self.monte_carlo:
+            perturbed_heaviside(None, self.sigma)
+
+    def _sigma(self, like: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(self.sigma, dtype=torch.float32,
+                               device=like.device)
+
 
 @dataclasses.dataclass
 class SoftRast(_Rast):
     """sigmoid(-d / sigma) coverage.  Deterministic."""
+
+    monte_carlo = False
 
     nb_samples: int = 1
 
     @classmethod
     def create(cls, sigma=2e-4, nb_samples=1):
         return cls(sigma=_scalar(sigma), nb_samples=nb_samples)
+
+    def rasterize(self, dists, seeds=None):
+        return torch.sigmoid(-dists / self._sigma(dists))
 
 
 @dataclasses.dataclass
@@ -76,10 +105,19 @@ class ArctanRast(_Rast):
 class AffineRast(_Rast):
     """Clamped affine coverage (uniform-noise closed form).  Deterministic."""
 
+    monte_carlo = False
+
+    def rasterize(self, dists, seeds=None):
+        x = -dists / self._sigma(dists)
+        p = torch.where(x > 0.5, torch.ones_like(x), x + 0.5)
+        return torch.maximum(p, p.new_tensor(0.0))
+
 
 @dataclasses.dataclass
 class HardRast(_Rast):
     """Hard Heaviside coverage; sigma is inert."""
+
+    monte_carlo = False
 
     sigma: torch.Tensor = dataclasses.field(
         default_factory=lambda: _scalar(0.0))
@@ -88,6 +126,9 @@ class HardRast(_Rast):
     @classmethod
     def create(cls):
         return cls()
+
+    def rasterize(self, dists, seeds=None):
+        return heaviside(-dists)
 
     def update_smoothing(self, sigma):
         return self

@@ -41,8 +41,11 @@ routes take JAX's tiles' activity bits (``_active_tiles``): a tile that
 no face's blur band reaches gives the background image and only the
 background gradient, as the JAX kernels' ``bg_only`` branch does.
 
-The binned, sharded and staged routes raise ``NotImplementedError``
-naming the route.
+Where the JAX package's ``_plan`` declines (an estimator pair outside
+the fused menu, an image above 2048 pixels, a texture or light the kernels
+do not take), ``_plan`` returns None with the reason and ``MeshRenderer``
+takes the staged route.  The binned and sharded routes raise
+``NotImplementedError`` naming the route.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pertrenderer_tpu_torch.ops.gather import take_rows_batched
 from pertrenderer_tpu_torch.ops.perturbed import log_corrected, prod_corrected
 from pertrenderer_tpu_torch.ops.rasterize import _face_pixel_geometry, _max
 
@@ -1634,21 +1638,27 @@ def _unsupported(route: str, why: str):
         f"{route} route is not ported to PyTorch yet: {why}")
 
 
-def _plan(meshes, lights, smoothrast, smoothagg, settings,
-          shade: str) -> FusedConfig:
-    """The static configuration of the route the JAX package takes: flat
-    (every face holds a slot) or stream (F > faces_per_pixel); raises
-    NotImplementedError naming the binned, sharded or staged route."""
+def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str,
+          why: Optional[list] = None) -> Optional[FusedConfig]:
+    """The static configuration of the fused route the JAX package takes:
+    flat (every face holds a slot) or stream (F > faces_per_pixel).  Where
+    the JAX ``_plan`` declines, this returns None and appends the reason
+    to ``why``: the caller takes the staged route.  Raises
+    NotImplementedError naming the binned or sharded route."""
     from pertrenderer_tpu_torch.lights import DirectionalLights, PointLights
     from pertrenderer_tpu_torch.textures import (TexturesAtlas, TexturesUV,
                                                  TexturesVertex)
 
+    def no(msg):
+        if why is not None:
+            why.append(msg)
+        return None
+
     rast_entry = _RAST_MAP.get(type(smoothrast).__name__)
     agg_entry = _AGG_MAP.get(type(smoothagg).__name__)
     if rast_entry is None or agg_entry is None:
-        _unsupported("staged", "estimator pair (%s, %s) is not a fused menu "
-                     "member" % (type(smoothrast).__name__,
-                                 type(smoothagg).__name__))
+        return no("estimator pair (%s, %s) is not a fused menu member"
+                  % (type(smoothrast).__name__, type(smoothagg).__name__))
     if (getattr(smoothrast, "sample_axis", None)
             or getattr(smoothagg, "sample_axis", None)):
         _unsupported("sharded", "the estimators shard the sample axis")
@@ -1674,8 +1684,7 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings,
         else:
             p_tile = min(_BIN_P_TILE, _round_up(hw, 128))
     if size > 2048:
-        _unsupported("staged", "image size above the 2048 fused-kernel "
-                     "limit")
+        return no("image size above the 2048 fused-kernel limit")
     if not stream:
         p_tile = min(2048 if f_pad <= 16 else 1024, _round_up(hw, 128))
         th = p_tile // 64 if p_tile % 64 == 0 else 0
@@ -1683,31 +1692,31 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings,
             tile_w = 64
 
     tex = meshes.textures
+    if tex is None:
+        return no("mesh has no textures")
     if isinstance(tex, TexturesVertex):
         if tex.verts_features.shape[-1] != 3:
-            _unsupported("staged", "TexturesVertex features must be RGB")
+            return no("TexturesVertex features must be RGB (3 channels)")
         tex_mode, tex_d, atlas_r = "corner", 9, 0
     elif isinstance(tex, TexturesAtlas):
         r = tex.atlas.shape[2]
         if tex.atlas.shape[-1] != 3 or r > 8:
-            _unsupported("staged", "TexturesAtlas must be RGB with "
-                         "resolution <= 8")
+            return no("TexturesAtlas must be RGB with resolution <= 8")
         tex_mode, tex_d, atlas_r = "atlas", r * r * 3, r
     elif isinstance(tex, TexturesUV):
         r = tex.atlas_size
         if not r or r > 8 or tex.maps.shape[-1] != 3:
-            _unsupported("staged", "TexturesUV needs atlas_size in 1..8 and "
-                         "RGB maps")
+            return no("TexturesUV needs atlas_size in 1..8 and RGB maps")
         tex_mode, tex_d, atlas_r = "atlas", r * r * 3, r
     else:
-        _unsupported("staged", "texture type %s" % type(tex).__name__)
+        return no("unsupported texture type %s" % type(tex).__name__)
 
     if isinstance(lights, PointLights):
         light_kind = "point"
     elif isinstance(lights, DirectionalLights):
         light_kind = "directional"
     else:
-        _unsupported("staged", "light type %s" % type(lights).__name__)
+        return no("unsupported light type %s" % type(lights).__name__)
 
     (rast_kind, rast_noise, rast_vr), (agg_kind, agg_noise, agg_vr) = \
         rast_entry, agg_entry
@@ -1729,7 +1738,9 @@ class RenderPlan:
     """Static routing report.  ``flat``: every face holds a slot
     (F <= faces_per_pixel); ``stream``: the faces are sorted into 64-row
     chunks and each tile streams the chunks its list names.  Both are
-    exact.  The binned, sharded and staged routes raise."""
+    exact.  ``staged``: the composed pipeline (rasterize, shade, blend;
+    ``reason`` says why the fused routes decline).  The binned and sharded
+    routes raise."""
 
     mode: str
     reason: str
@@ -1744,10 +1755,15 @@ class RenderPlan:
 
 def render_plan(meshes, lights, smoothrast, smoothagg, settings,
                 shade: str = "phong") -> RenderPlan:
-    """The route :func:`try_render` takes; raises NotImplementedError for
-    routes the port does not run yet."""
-    cfg = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
+    """The route :func:`try_render` takes (``staged`` when it declines);
+    raises NotImplementedError for the binned and sharded routes."""
+    why: list = []
+    cfg = _plan(meshes, lights, smoothrast, smoothagg, settings, shade, why)
     f = int(meshes.max_faces)
+    if cfg is None:
+        return RenderPlan(mode="staged", reason=why[-1] if why else "", f=f,
+                          k=int(settings.faces_per_pixel),
+                          image_size=int(settings.image_size))
     tile = ((cfg.p_tile // cfg.tile_w, cfg.tile_w) if cfg.tile_w
             else (1, cfg.p_tile))
     if cfg.stream:
@@ -1761,12 +1777,6 @@ def render_plan(meshes, lights, smoothrast, smoothagg, settings,
         p_tile=cfg.p_tile, tile=tile, slots=cfg.f_pad,
         reason="every face holds a slot (F <= faces_per_pixel); exact, no "
                "selection")
-
-
-def _gather_rows(table, faces):
-    """(N, V, C) table, (N, F, 3) int64 faces -> (N, F, 3C)."""
-    rows = torch.stack([t[f] for t, f in zip(table, faces)])
-    return rows.reshape(faces.shape[0], faces.shape[1], -1)
 
 
 def _pack_scal(cfg, n, cameras, lights, materials, smoothrast, smoothagg,
@@ -1822,20 +1832,24 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
     n, f, dev = meshes.batch_size, meshes.max_faces, meshes.device
     blur = settings.blur_radius if blur_override is None else blur_override
 
-    verts_ndc = cameras.transform_points_ndc(meshes.verts)
-    faces = torch.clamp(meshes.faces, min=0)
-    fv_ndc = _gather_rows(verts_ndc, faces)
-    fv_world = _gather_rows(meshes.verts, faces)
-    if shade == "phong":
-        fn_world = _gather_rows(meshes.verts_normals(), faces)
-    else:
-        fn_world = torch.zeros_like(fv_world)
-
+    # Every per-vertex table in one row gather (K9a on the card), whose
+    # backward is one deterministic segment sum (K9b), not an atomic
+    # scatter: (N, F, 3, C) split into (N, F, 3 c) tables.
     tex = meshes.textures
+    columns = [cameras.transform_points_ndc(meshes.verts), meshes.verts]
+    if shade == "phong":
+        columns.append(meshes.verts_normals())
     if cfg.tex_mode == "corner":
-        feats = tex.verts_features.expand(
-            (n,) + tuple(tex.verts_features.shape[1:]))
-        tex_tab = _gather_rows(feats, faces)
+        columns.append(tex.verts_features.expand(
+            (n,) + tuple(tex.verts_features.shape[1:])))
+    corners = take_rows_batched(torch.cat(columns, dim=-1),
+                                torch.clamp(meshes.faces, min=0))
+    tables = [t.reshape(n, f, -1) for t in torch.split(
+        corners, [c.shape[-1] for c in columns], dim=-1)]
+    fv_ndc, fv_world = tables[0], tables[1]
+    fn_world = tables[2] if shade == "phong" else torch.zeros_like(fv_world)
+    if cfg.tex_mode == "corner":
+        tex_tab = tables[-1]
     else:
         atlas = tex._bake_atlas() if isinstance(tex, TexturesUV) \
             else tex.atlas
@@ -1879,6 +1893,8 @@ def _inputs_for(meshes, cameras, lights, materials, smoothrast, smoothagg,
                 blend_params, settings, shade, seeds, generator,
                 blur_override):
     cfg = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
+    if cfg is None:
+        return None, None
     if seeds is None:
         seeds = draw_seeds(meshes.batch_size, generator,
                            getattr(smoothagg, "fixed_noise", False),
@@ -1899,10 +1915,13 @@ def try_render(meshes, cameras, lights, materials, smoothrast, smoothagg,
 
     ``seeds``: (N, 4) int32 seed words, or JAX-layout (N, 1, 8) seed rows
     whose first four columns are used; drawn from ``generator`` when
-    None."""
+    None.  Returns None where the fused routes decline (``render_plan``
+    says why), as the JAX package does."""
     cfg, inputs = _inputs_for(meshes, cameras, lights, materials,
                               smoothrast, smoothagg, blend_params, settings,
                               shade, seeds, generator, blur_override)
+    if cfg is None:
+        return None
     if cfg.stream:
         return _FusedStream.apply(cfg, *inputs)
     return _FusedForward.apply(cfg, *inputs)
@@ -1919,13 +1938,16 @@ def try_render_loss(meshes, cameras, lights, materials, smoothrast,
     (flat) or K7 (stream).
 
     ``target`` broadcasts to (N, H, W, 3) and is a constant: it gets no
-    gradient.  Seeds as for :func:`try_render`."""
+    gradient.  Seeds as for :func:`try_render`; None where the fused routes
+    decline."""
     if loss_kind not in LOSS_KINDS:
         raise ValueError(f"unknown loss_kind {loss_kind!r} (expected "
                          "'l2_rgb' or 'l1_rgb')")
     cfg, inputs = _inputs_for(meshes, cameras, lights, materials,
                               smoothrast, smoothagg, blend_params, settings,
                               shade, seeds, generator, blur_override)
+    if cfg is None:
+        return None
     n, s = meshes.batch_size, cfg.image_size
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=meshes.device).detach()

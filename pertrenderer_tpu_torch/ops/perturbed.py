@@ -1,18 +1,55 @@
-"""Numerically corrected primitives (PyTorch port of
-``pertrenderer_tpu/ops/perturbed.py:336-380``).
+"""Estimator primitives of the staged route (PyTorch port of
+``pertrenderer_tpu/ops/perturbed.py``).
 
-Their forward values are plain ``log`` and product; what makes them
-"corrected" is the backward, which zeroes the inf/nan terms a
-zero-coverage fragment (prob = 0, log = -inf) would otherwise spread
-through the whole gradient.  The MC estimators themselves live in
-``ops/fused_render.py``.
+``heaviside`` and ``hard_argmax_onehot`` are the hard members' maps.
+``log_corrected`` / ``prod_corrected`` (:336-380) have plain forward
+values; what makes them "corrected" is the backward, which zeroes the
+inf/nan terms a zero-coverage fragment (prob = 0, log = -inf) would
+otherwise spread through the whole gradient.
+
+The staged Monte-Carlo estimators ``perturbed_heaviside`` /
+``perturbed_argmax`` run on the TPU as the Pallas kernels K8a / K8b / K8c
+(``ops/perturbed_pallas.py``), which are not ported yet: they raise.  The
+fused routes' MC estimators live in ``ops/fused_render.py``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["log_corrected", "prod_corrected"]
+__all__ = ["heaviside", "hard_argmax_onehot", "perturbed_heaviside",
+           "perturbed_argmax", "log_corrected", "prod_corrected"]
+
+
+def heaviside(x: torch.Tensor) -> torch.Tensor:
+    """H(x) with H(0) = 1, as float32 (no gradient)."""
+    return torch.where(x >= 0, 1.0, 0.0).to(torch.float32)
+
+
+def hard_argmax_onehot(z: torch.Tensor) -> torch.Tensor:
+    """One-hot of the argmax over the last axis; the first index wins a
+    tie."""
+    return torch.nn.functional.one_hot(
+        torch.argmax(z, dim=-1), z.shape[-1]).to(torch.float32)
+
+
+def _staged_mc(what: str, kernels: str):
+    raise NotImplementedError(
+        f"staged route with Monte-Carlo estimators is not ported to "
+        f"PyTorch yet: {what} needs the staged MC estimator kernels "
+        f"{kernels} (pertrenderer_tpu/ops/perturbed_pallas.py); the fused "
+        "flat and stream routes run these estimators")
+
+
+def perturbed_heaviside(distances, noise_intensity, *args, **kwargs):
+    """E_Z[H(d + sigma Z)] on the staged route: not ported (kernel K8a)."""
+    _staged_mc("perturbed_heaviside", "K8a")
+
+
+def perturbed_argmax(z, noise_intensity, *args, **kwargs):
+    """E_Z[onehot(argmax(z + gamma Z))] on the staged route: not ported
+    (kernels K8b and K8c)."""
+    _staged_mc("perturbed_argmax", "K8b/K8c")
 
 
 class _LogCorrected(torch.autograd.Function):

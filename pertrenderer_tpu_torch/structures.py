@@ -3,6 +3,11 @@
 One padded representation: every mesh of the batch shares the (V, F)
 padding; padding faces are -1.  Updates return new ``Meshes``, as in the
 JAX package, so a caller's mesh is never changed behind its back.
+
+The per-face gathers and the vertex-normal sums go through
+``ops/gather.py`` (kernels K9a / K9b on the card), whose sums have a fixed
+order: no float atomics, so the same mesh gives the same bits on every
+run, forward and backward.
 """
 
 from __future__ import annotations
@@ -11,6 +16,9 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+
+from pertrenderer_tpu_torch.ops.gather import (batch_index, scatter_rows,
+                                               take_rows_batched)
 
 __all__ = ["Meshes"]
 
@@ -99,8 +107,7 @@ class Meshes:
     def face_verts(self) -> torch.Tensor:
         """(N, F, 3, 3) world coordinates of each face's corners (padding
         faces read vertex 0)."""
-        safe = torch.clamp(self.faces, min=0)
-        return torch.stack([v[f] for v, f in zip(self.verts, safe)])
+        return take_rows_batched(self.verts, torch.clamp(self.faces, min=0))
 
     def face_normals(self, normalize: bool = True) -> torch.Tensor:
         """(N, F, 3) face normals (area-weighted if normalize=False)."""
@@ -112,23 +119,33 @@ class Meshes:
         return n * self.faces_mask()[..., None].to(n.dtype)
 
     def verts_normals(self) -> torch.Tensor:
-        """(N, V, 3) unit vertex normals: area-weighted sum of the incident
-        face normals, normalized."""
+        """(N, V, 3) unit vertex normals: the sum of the incident faces'
+        area-weighted normals (corner 0 of every face in face order, then
+        corners 1 and 2, as the JAX package adds them), normalized."""
         fn = self.face_normals(normalize=False)
-        mask = self.faces_mask()
-        v = self.max_verts
-        out = []
-        for faces_n, fn_n, mask_n in zip(torch.clamp(self.faces, min=0), fn,
-                                         mask):
-            # Padding faces scatter into a dummy slot v.
-            idx = torch.where(mask_n[:, None], faces_n,
-                              torch.full_like(faces_n, v))
-            acc = torch.zeros(v + 1, 3, dtype=fn_n.dtype, device=fn_n.device)
-            for corner in range(3):
-                acc = acc.index_add(0, idx[:, corner], fn_n)
-            out.append(acc[:v])
-        vn = torch.stack(out)
+        n, v, f = self.batch_size, self.max_verts, self.max_faces
+        corners = torch.where(self.faces_mask()[..., None], self.faces,
+                              torch.full_like(self.faces, -1))
+        idx = batch_index(corners.transpose(1, 2), n, v)      # (N, 3, F)
+        vals = fn[:, None].expand(n, 3, f, 3)
+        vn = scatter_rows(vals, idx, n * v).reshape(n, v, 3)
         return vn / torch.clamp(_norm(vn), min=1e-10)
+
+    def sample_textures(self, fragments) -> torch.Tensor:
+        """Per-fragment texel colours (N, H, W, K, C) from the attached
+        textures (PyTorch3D's ``meshes.sample_textures(fragments)``)."""
+        if self.textures is None:
+            raise ValueError("Meshes has no textures attached.")
+        return self.textures.sample(self.faces, fragments.pix_to_face,
+                                    fragments.bary_coords)
+
+    def sample_textures_cm(self, pfrag) -> torch.Tensor:
+        """Channel-major texel colours (C, N, H, W, K) from planar
+        fragments."""
+        if self.textures is None:
+            raise ValueError("Meshes has no textures attached.")
+        return self.textures.sample_cm(self.faces, pfrag.pix_to_face,
+                                       pfrag.w0, pfrag.w1, pfrag.w2)
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:

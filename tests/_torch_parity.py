@@ -6,6 +6,8 @@ same scene.  The JAX fused forward runs in interpret mode with tile packing
 off, which keys the MC noise the way the port does.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -16,6 +18,7 @@ import torch
 import pertrenderer_tpu as pt
 from pertrenderer_tpu.experiments.harness import make_smoothers
 from pertrenderer_tpu.ops import fused_render as jfr
+from pertrenderer_tpu_torch import convert
 from pertrenderer_tpu_torch.ops import fused_render as tfr
 
 KEY = jax.random.PRNGKey(3)
@@ -223,3 +226,220 @@ def jax_stream_grads(jcfg, inputs, g_out=None, target=None, loss_kind=None,
         g_tabs.append(np.asarray(g_tab)[:, :dt])
         g_scals.append(np.asarray(g_scal)[0])
     return np.array(losses, np.float32), np.stack(g_tabs), np.stack(g_scals)
+
+
+def _rotation(seed):
+    """A fixed rotation matrix (float32) from a seeded unit quaternion."""
+    q = np.random.default_rng(seed).standard_normal(4)
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array(
+        [[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+         [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+         [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]],
+        np.float32)
+
+
+STAGED_SHADERS = ("RandomPhongShader", "RandomSimpleShader",
+                  "HardPhongShader", "SoftPhongShader", "SimpleShader",
+                  "SoftSimpleShader", "SoftSilhouetteShader")
+
+
+def staged_scene(shader="RandomPhongShader", noise="softras",
+                 mesh_kind="cube", textures="uv", n=2, imsize=32, k=4,
+                 sigma=1e-2, gamma=5e-1, bin_size=None):
+    """(mesh, cameras, lights, renderer) of the JAX package for the staged
+    route, seen so that both packages project every vertex to the same
+    bits: the mesh (``scene_mesh``) is turned to ``n`` fixed poses as data
+    (numpy float32) and the camera looks down the z axis (elev = azim = 0,
+    fov 50, rotation entries 0 and +-1).  ``textures``: ``uv`` (the
+    cube's, sampled through its one-texel atlas on the channel-major
+    path), ``uv_map`` (the same map with no atlas: bilinear fetches),
+    ``vertex`` or ``atlas4``."""
+    base = scene_mesh(mesh_kind)
+    v = np.asarray(base.verts[0])
+    verts = np.stack([v @ _rotation(i + 1) for i in range(n)])
+    tex = base.textures
+    nv, nf = base.max_verts, base.max_faces
+    if textures == "uv_map":
+        tex = tex.replace(atlas_size=0)
+    elif textures == "vertex":
+        tex = pt.TexturesVertex(jnp.linspace(0.1, 1.0, nv * 3).reshape(
+            1, nv, 3))
+    elif textures == "atlas4":
+        tex = pt.TexturesAtlas(jnp.asarray(np.random.default_rng(0).uniform(
+            0.0, 1.0, (1, nf, 4, 4, 3)), jnp.float32))
+    mesh = pt.Meshes(verts=jnp.asarray(verts),
+                     faces=jnp.repeat(base.faces, n, 0),
+                     num_verts=jnp.repeat(base.num_verts, n),
+                     num_faces=jnp.repeat(base.num_faces, n),
+                     textures=tex.extend(n))
+    r, t = pt.look_at_view_transform(dist=6.7, elev=0.0, azim=0.0)
+    cameras = pt.PerspectiveCameras.create(R=jnp.repeat(r, n, 0),
+                                           T=jnp.repeat(t, n, 0), fov=50.0)
+    lights = pt.PointLights.create(location=(0.0, 2.0, -2.0))
+    settings = pt.RasterizationSettings(
+        image_size=imsize, blur_radius=float(np.log(1.0 / 1e-4 - 1.0) * sigma),
+        faces_per_pixel=k, bin_size=bin_size)
+    blend = pt.BlendParams(sigma=sigma, gamma=gamma,
+                           background_color=(0.0, 0.1, 0.2))
+    cls = getattr(pt, shader)
+    if shader in ("RandomPhongShader", "RandomSimpleShader"):
+        sr, sa = make_smoothers(noise, sigma, gamma, 1.0, 4)
+        sh = cls.create(cameras=cameras, lights=lights, blend_params=blend,
+                        smoothrast=sr, smoothagg=sa)
+    elif shader in ("HardPhongShader", "SoftPhongShader"):
+        sh = cls.create(cameras=cameras, lights=lights, blend_params=blend)
+    else:
+        sh = cls.create(blend_params=blend)
+    renderer = pt.MeshRenderer.create(
+        rasterizer=pt.MeshRasterizer.create(cameras=cameras,
+                                            raster_settings=settings),
+        shader=sh)
+    return mesh, cameras, lights, renderer
+
+
+def jax_exact(fn, *args):
+    """``fn(*args)`` jitted at XLA backend optimisation level 0.  The CPU
+    backend otherwise contracts a * b + c into fused multiply-adds, which
+    neither the port's plain versions nor its kernels (-fmad=false) do;
+    faces seen nearly edge-on amplify that difference past 1e-6.  At level
+    0 each operation rounds on its own, as in the port."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
+def jax_staged(renderer, mesh, **kwargs):
+    """The JAX package's staged route: rasterize, then shade (planar
+    fragments for the perturbed shaders), whatever the fused planner
+    would say."""
+    cameras = kwargs.get("cameras", renderer.rasterizer.cameras)
+    if getattr(type(renderer.shader), "planar_input", False):
+        fragments = renderer.rasterizer.planar(mesh, cameras=cameras)
+    else:
+        fragments = renderer.rasterizer(mesh, cameras=cameras)
+    return renderer.shader(fragments, mesh, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Staged-route parity: images and gradients of both packages
+# ---------------------------------------------------------------------------
+
+TEX_FIELD = {"TexturesUV": "maps", "TexturesVertex": "verts_features",
+             "TexturesAtlas": "atlas"}
+LIT = ("RandomPhongShader", "HardPhongShader", "SoftPhongShader")
+
+
+def port_staged(renderer, mesh, **kwargs):
+    """The port's staged route through its public parts."""
+    cameras = kwargs.get("cameras", renderer.rasterizer.cameras)
+    if getattr(type(renderer.shader), "planar_input", False):
+        fragments = renderer.rasterizer.planar(mesh, cameras=cameras)
+    else:
+        fragments = renderer.rasterizer(mesh, cameras=cameras)
+    return renderer.shader(fragments, mesh, **kwargs)
+
+
+def _leaf_names(renderer, with_smoothing):
+    names = ["verts", "tex"]
+    if type(renderer.shader).__name__ in LIT:
+        names.append("light")
+    if with_smoothing:
+        sr, sa = renderer.shader.smoothrast, renderer.shader.smoothagg
+        if type(sr).__name__ in ("SoftRast", "AffineRast"):
+            names.append("sigma")
+        if type(sa).__name__ == "SoftAgg":
+            names.append("gamma")
+    return names
+
+
+def jax_value_and_grads(renderer, mesh, lights, w, names):
+    """(image, {leaf: gradient}) of sum(image * w) through the JAX
+    package's staged route (``jax_exact``)."""
+    sh = renderer.shader
+    tex = mesh.textures
+    field = TEX_FIELD[type(tex).__name__]
+    leaves = {"verts": mesh.verts, "tex": getattr(tex, field),
+              "light": lights.location}
+    if "sigma" in names:
+        leaves["sigma"] = sh.smoothrast.sigma
+    if "gamma" in names:
+        leaves["gamma"] = sh.smoothagg.gamma
+    leaves = {k: leaves[k] for k in names}
+
+    def render(p):
+        m = mesh.replace(verts=p["verts"],
+                         textures=tex.replace(**{field: p["tex"]}))
+        shader = sh
+        if "sigma" in p:
+            shader = shader.replace(
+                smoothrast=shader.smoothrast.replace(sigma=p["sigma"]))
+        if "gamma" in p:
+            shader = shader.replace(
+                smoothagg=shader.smoothagg.replace(gamma=p["gamma"]))
+        kw = {"cameras": renderer.rasterizer.cameras}
+        if "light" in p:
+            kw["lights"] = lights.replace(location=p["light"])
+        return jax_staged(renderer.replace(shader=shader), m, **kw)
+
+    def loss(p):
+        img = render(p)
+        return jnp.sum(img * w), img
+
+    (_, img), grads = jax_exact(jax.value_and_grad(loss, has_aux=True),
+                                leaves)
+    return np.asarray(img), {k: np.asarray(v) for k, v in grads.items()}
+
+
+def port_value_and_grads(renderer, mesh, lights, w, names):
+    """(image, {leaf: gradient}) of sum(image * w) through the port's
+    staged route (plain versions on the CPU)."""
+    trend = convert.from_reference(renderer, device="cpu")
+    tmesh = convert.from_reference(mesh, device="cpu")
+    tlights = convert.from_reference(lights, device="cpu")
+    tex = tmesh.textures
+    field = TEX_FIELD[type(tex).__name__]
+    sh = trend.shader
+    leaves = {"verts": tmesh.verts, "tex": getattr(tex, field),
+              "light": tlights.location}
+    if "sigma" in names:
+        leaves["sigma"] = sh.smoothrast.sigma
+    if "gamma" in names:
+        leaves["gamma"] = sh.smoothagg.gamma
+    leaves = {k: leaves[k].detach().clone().requires_grad_() for k in names}
+    m = dataclasses.replace(tmesh, verts=leaves["verts"],
+                            textures=dataclasses.replace(
+                                tex, **{field: leaves["tex"]}))
+    if "sigma" in leaves:
+        sh = dataclasses.replace(sh, smoothrast=dataclasses.replace(
+            sh.smoothrast, sigma=leaves["sigma"]))
+    if "gamma" in leaves:
+        sh = dataclasses.replace(sh, smoothagg=dataclasses.replace(
+            sh.smoothagg, gamma=leaves["gamma"]))
+    kw = {"cameras": trend.rasterizer.cameras}
+    if "light" in leaves:
+        kw["lights"] = dataclasses.replace(tlights,
+                                           location=leaves["light"])
+    img = port_staged(trend.replace(shader=sh), m, **kw)
+    grads = torch.autograd.grad(torch.sum(img * torch.from_numpy(w)),
+                                list(leaves.values()), allow_unused=True)
+    return img.detach().numpy(), {
+        k: (np.zeros(leaves[k].shape, np.float32) if g is None
+            else g.numpy()) for k, g in zip(leaves, grads)}
+
+
+def assert_staged_parity(renderer, mesh, lights, with_smoothing=True):
+    """Image atol 2e-5; each gradient within 1e-4 of its max |grad|."""
+    names = _leaf_names(renderer, with_smoothing)
+    n, s = mesh.batch_size, renderer.rasterizer.raster_settings.image_size
+    w = np.random.default_rng(7).standard_normal((n, s, s, 4)).astype(
+        np.float32)
+    jimg, jgrads = jax_value_and_grads(renderer, mesh, lights, w, names)
+    timg, tgrads = port_value_and_grads(renderer, mesh, lights, w, names)
+    np.testing.assert_allclose(timg, jimg, rtol=0, atol=2e-5)
+    assert (jimg[..., 3] > 0.5).sum() > 50          # the mesh is in view
+    for k in names:
+        scale = max(np.abs(jgrads[k]).max(), 1e-30)
+        err = np.abs(tgrads[k] - jgrads[k]).max() / scale
+        assert np.isfinite(tgrads[k]).all() and err <= 1e-4, (k, err)
+
+

@@ -426,3 +426,131 @@ def test_stream_route_through_meshrenderer(cuda_device):
         "fused_stream_backward": 1, "fused_stream_loss_grad": 1}
     for g in (g_img, g_loss):
         assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+# ---------------------------------------------------------------------------
+# The staged route's kernels: K9a / K9b (ops/gather.py) and K10a / K10b
+# (ops/interp_gather.py)
+# ---------------------------------------------------------------------------
+
+def _gather_case(d, f, p, device, seed=0):
+    """A table (f, d), a corner table (f, 3, d), weights and indices with
+    -1 and out-of-range entries; rows f // 2 .. f // 2 + 9 get no column
+    (empty faces)."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(-2, f + 2, (p,), generator=g)
+    idx[(idx >= f // 2) & (idx < f // 2 + 10)] = -1
+    table = torch.randn(f, d, generator=g)
+    corners = torch.randn(f, 3, d, generator=g)
+    ws = [torch.rand(p, generator=g) for _ in range(3)]
+    cot = torch.randn(d, p, generator=g)
+    to = lambda t: t.to(device)
+    return (to(table), to(corners), to(idx), [to(w) for w in ws], to(cot))
+
+
+def _nearer(got, want, want64):
+    scale = want64.abs().max().item()
+    return min((got.double() - want.double()).abs().max().item(),
+               (got.double() - want64).abs().max().item()) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 9])
+def test_gather_kernels_match_plain(d, cuda_device):
+    """K9a bit-exact and K9b within 1e-6 of its max (nearer of the float32
+    and float64 plain versions) on F = 9000 rows (above the TPU kernel's
+    8192 one-hot cap), with -1 / out-of-range indices and empty rows
+    (exact zeros); repeated launches bit-equal."""
+    from pertrenderer_tpu_torch.ops import gather as tg
+
+    f, p = 9000, 200_000
+    table, _c, idx, _w, cot = _gather_case(d, f, p, cuda_device)
+    got = tg.gather_rows_cm(table, idx)
+    assert torch.equal(got, tg.gather_rows_plain(table, idx))
+    assert torch.equal(got, tg.gather_rows_cm(table, idx))
+    s1 = tg.scatter_rows_cm(cot, idx, f)
+    s2 = tg.scatter_rows_cm(cot, idx, f)
+    want = tg.scatter_rows_plain(cot, idx, f)
+    want64 = tg.scatter_rows_plain(cot.double(), idx, f)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, s2)
+    assert _nearer(s1, want, want64) <= 1e-6
+    assert torch.all(s1[f // 2:f // 2 + 10] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 9])
+def test_interp_kernels_match_plain(d, cuda_device):
+    """K10a within 1 ulp of max |out| of its plain version, K10b's table
+    and weight gradients within 1e-6 of their max (nearer of the float32
+    and float64 plain versions), on F = 9000 rows with -1 /
+    out-of-range indices and empty rows; repeats bit-equal."""
+    from pertrenderer_tpu_torch.ops import interp_gather as ti
+
+    f, p = 9000, 200_000
+    _t, corners, idx, ws, cot = _gather_case(d, f, p, cuda_device, seed=1)
+    got = ti.interp_rows(corners, idx, *ws)
+    want = ti.interp_rows_plain(corners, idx, *ws)
+    ulp = torch.finfo(torch.float32).eps * want.abs().max().item()
+    assert (got - want).abs().max().item() <= ulp
+    assert torch.equal(got, ti.interp_rows(corners, idx, *ws))
+    dt, dws = ti.interp_rows_backward(corners, idx, *ws, cot)
+    dt2, dws2 = ti.interp_rows_backward(corners, idx, *ws, cot)
+    wt, wws = ti.interp_rows_backward_plain(corners, idx, *ws, cot)
+    wt64, wws64 = ti.interp_rows_backward_plain(
+        corners.double(), idx, *(w.double() for w in ws), cot.double())
+    torch.cuda.synchronize()
+    assert torch.equal(dt, dt2) and all(torch.equal(a, b)
+                                        for a, b in zip(dws, dws2))
+    assert _nearer(dt, wt, wt64) <= 1e-6
+    for a, b, c in zip(dws, wws, wws64):
+        assert _nearer(a, b, c) <= 1e-6
+    assert torch.all(dt[f // 2:f // 2 + 10] == 0.0)
+
+
+@pytest.mark.cuda
+def test_staged_hard_phong_cube_matches_cpu(cuda_device):
+    """A staged Hard-Phong render of the cube (the experiments' target
+    renderer, K = 1) on the card through K9a equals the CPU plain render,
+    atol 2e-5."""
+    from pertrenderer_tpu_torch.experiments import harness
+    from pertrenderer_tpu_torch.ops import gather as tg
+
+    r_true = ptt.random_rotations(1, torch.Generator().manual_seed(3),
+                                  device="cpu")
+    before = tg.launch_counts["gather_rows_cm"]
+    gpu = harness.init_target(category="cube", imsize=128,
+                              R_true=r_true.to(cuda_device),
+                              device=cuda_device)[3][0]
+    torch.cuda.synchronize()
+    assert tg.launch_counts["gather_rows_cm"] > before
+    cpu = harness.init_target(category="cube", imsize=128, R_true=r_true,
+                              device="cpu")[3][0]
+    assert (cpu.sum(-1) > 0).float().mean() > 0.05
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_stream_preparation_is_deterministic(cuda_device):
+    """Two preparations of the cow's stream inputs on the card, and their
+    backward to the poses, give the same bits (the vertex normals and the
+    face-table gathers sum through K9b, without float atomics)."""
+    mesh, renderer = _renderer("gaussian", cuda_device, imsize=128,
+                               mesh_kind="cow", sigma=1e-3, gamma=1e-2)
+    log_rot0 = torch.linspace(-1.0, 1.0, 6, device=cuda_device).reshape(2, 3)
+
+    def once():
+        log_rot = log_rot0.clone().requires_grad_()
+        posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot))
+                                   .transform_points(mesh.verts))
+        _cfg, (tab, scal, *_rest) = _inputs(posed, renderer)
+        g = torch.Generator().manual_seed(0)
+        loss = ((tab * torch.randn(tab.shape, generator=g).to(tab)).sum()
+                + (scal * torch.randn(scal.shape, generator=g).to(scal))
+                .sum())
+        (g_pose,) = torch.autograd.grad(loss, [log_rot])
+        return tab.detach(), scal.detach(), g_pose
+
+    first, second = once(), once()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
