@@ -134,8 +134,8 @@ class MeshRenderer(nn.Module):
                 self.rasterizer.raster_settings), shade
 
     def _fused(self, meshes, kwargs):
-        """(fused arguments, shade) if a fused route takes this render,
-        else None."""
+        """(the fused route's configuration, its arguments, shade) if a
+        fused route takes this render, else None."""
         cameras = kwargs.get("cameras", self.rasterizer.cameras)
         if cameras is None:
             raise ValueError("Cameras must be specified either at "
@@ -144,10 +144,9 @@ class MeshRenderer(nn.Module):
         if args is None:
             return None
         (_c, lights, _m, sr, sa, _b, settings), shade = args
-        if fused_render._plan(meshes, lights, sr, sa, settings,
-                              shade) is None:
-            return None
-        return args
+        cfg, _why = fused_render._plan(meshes, lights, sr, sa, settings,
+                                       shade)
+        return None if cfg is None else (cfg, *args)
 
     def _staged(self, meshes, seeds, kwargs):
         """Rasterize (planar fragments for the perturbed shaders), then
@@ -172,13 +171,14 @@ class MeshRenderer(nn.Module):
         materials, blend_params (and, staged, znear / zfar).  The first
         fused render on a CUDA device checks the card's hash-PRNG stream
         (kernel K1) before rendering."""
-        args = self._fused(meshes, kwargs)
-        if args is None:
+        fused = self._fused(meshes, kwargs)
+        if fused is None:
             return self._staged(meshes, seeds, kwargs)
-        (cameras, lights, materials, sr, sa, blend, settings), shade = args
+        cfg, (cameras, lights, materials, sr, sa, blend, settings), shade = \
+            fused
         self._check_device(meshes.device)
         return fused_render.try_render(
-            meshes, cameras, lights, materials, sr, sa, blend, settings,
+            cfg, meshes, cameras, lights, materials, sr, sa, blend, settings,
             shade, seeds=seeds, generator=generator,
             blur_override=self.rasterizer.blur_override)
 
@@ -213,14 +213,15 @@ class MeshRenderer(nn.Module):
         if loss_kind not in fused_render.LOSS_KINDS:
             raise ValueError(f"unknown loss_kind {loss_kind!r} (expected "
                              "'l2_rgb' or 'l1_rgb')")
-        args = self._fused(meshes, kwargs)
-        if args is not None:
-            (cameras, lights, materials, sr, sa, blend, settings), shade = \
-                args
+        fused = self._fused(meshes, kwargs)
+        if fused is not None:
+            cfg, (cameras, lights, materials, sr, sa, blend, settings), \
+                shade = fused
             self._check_device(meshes.device)
             return fused_render.try_render_loss(
-                meshes, cameras, lights, materials, sr, sa, blend, settings,
-                shade, target, loss_kind, seeds=seeds, generator=generator,
+                cfg, meshes, cameras, lights, materials, sr, sa, blend,
+                settings, shade, target, loss_kind, seeds=seeds,
+                generator=generator,
                 blur_override=self.rasterizer.blur_override)
         images = self(meshes, seeds=seeds, generator=generator, **kwargs)
         diff = images[..., :3] - torch.as_tensor(

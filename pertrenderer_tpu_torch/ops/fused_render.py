@@ -43,8 +43,8 @@ background gradient, as the JAX kernels' ``bg_only`` branch does.
 
 Where the JAX package's ``_plan`` declines (an estimator pair outside
 the fused menu, an image above 2048 pixels, a texture or light the kernels
-do not take), ``_plan`` returns None with the reason and ``MeshRenderer``
-takes the staged route.  The binned and sharded routes raise
+do not take), ``_plan`` returns no configuration and the reason, and
+``MeshRenderer`` takes the staged route.  The binned and sharded routes raise
 ``NotImplementedError`` naming the route.
 """
 
@@ -1638,27 +1638,22 @@ def _unsupported(route: str, why: str):
         f"{route} route is not ported to PyTorch yet: {why}")
 
 
-def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str,
-          why: Optional[list] = None) -> Optional[FusedConfig]:
-    """The static configuration of the fused route the JAX package takes:
-    flat (every face holds a slot) or stream (F > faces_per_pixel).  Where
-    the JAX ``_plan`` declines, this returns None and appends the reason
-    to ``why``: the caller takes the staged route.  Raises
+def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
+          ) -> tuple[Optional[FusedConfig], str]:
+    """(config, "") with the static configuration of the fused route the
+    JAX package takes: flat (every face holds a slot) or stream (F >
+    faces_per_pixel).  Where the JAX ``_plan`` declines, (None, the
+    reason): the caller takes the staged route.  Raises
     NotImplementedError naming the binned or sharded route."""
     from pertrenderer_tpu_torch.lights import DirectionalLights, PointLights
     from pertrenderer_tpu_torch.textures import (TexturesAtlas, TexturesUV,
                                                  TexturesVertex)
 
-    def no(msg):
-        if why is not None:
-            why.append(msg)
-        return None
-
     rast_entry = _RAST_MAP.get(type(smoothrast).__name__)
     agg_entry = _AGG_MAP.get(type(smoothagg).__name__)
     if rast_entry is None or agg_entry is None:
-        return no("estimator pair (%s, %s) is not a fused menu member"
-                  % (type(smoothrast).__name__, type(smoothagg).__name__))
+        return None, ("estimator pair (%s, %s) is not a fused menu member"
+                      % (type(smoothrast).__name__, type(smoothagg).__name__))
     if (getattr(smoothrast, "sample_axis", None)
             or getattr(smoothagg, "sample_axis", None)):
         _unsupported("sharded", "the estimators shard the sample axis")
@@ -1684,7 +1679,7 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str,
         else:
             p_tile = min(_BIN_P_TILE, _round_up(hw, 128))
     if size > 2048:
-        return no("image size above the 2048 fused-kernel limit")
+        return None, "image size above the 2048 fused-kernel limit"
     if not stream:
         p_tile = min(2048 if f_pad <= 16 else 1024, _round_up(hw, 128))
         th = p_tile // 64 if p_tile % 64 == 0 else 0
@@ -1693,30 +1688,30 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str,
 
     tex = meshes.textures
     if tex is None:
-        return no("mesh has no textures")
+        return None, "mesh has no textures"
     if isinstance(tex, TexturesVertex):
         if tex.verts_features.shape[-1] != 3:
-            return no("TexturesVertex features must be RGB (3 channels)")
+            return None, "TexturesVertex features must be RGB (3 channels)"
         tex_mode, tex_d, atlas_r = "corner", 9, 0
     elif isinstance(tex, TexturesAtlas):
         r = tex.atlas.shape[2]
         if tex.atlas.shape[-1] != 3 or r > 8:
-            return no("TexturesAtlas must be RGB with resolution <= 8")
+            return None, "TexturesAtlas must be RGB with resolution <= 8"
         tex_mode, tex_d, atlas_r = "atlas", r * r * 3, r
     elif isinstance(tex, TexturesUV):
         r = tex.atlas_size
         if not r or r > 8 or tex.maps.shape[-1] != 3:
-            return no("TexturesUV needs atlas_size in 1..8 and RGB maps")
+            return None, "TexturesUV needs atlas_size in 1..8 and RGB maps"
         tex_mode, tex_d, atlas_r = "atlas", r * r * 3, r
     else:
-        return no("unsupported texture type %s" % type(tex).__name__)
+        return None, "unsupported texture type %s" % type(tex).__name__
 
     if isinstance(lights, PointLights):
         light_kind = "point"
     elif isinstance(lights, DirectionalLights):
         light_kind = "directional"
     else:
-        return no("unsupported light type %s" % type(lights).__name__)
+        return None, "unsupported light type %s" % type(lights).__name__
 
     (rast_kind, rast_noise, rast_vr), (agg_kind, agg_noise, agg_vr) = \
         rast_entry, agg_entry
@@ -1730,7 +1725,7 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str,
         tex_mode=tex_mode, tex_d=tex_d, atlas_r=atlas_r,
         clip_bary=settings.resolve_clip(),
         perspective_correct=bool(settings.perspective_correct),
-        p_tile=p_tile, tile_w=tile_w, stream=stream, rw=rw)
+        p_tile=p_tile, tile_w=tile_w, stream=stream, rw=rw), ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1757,11 +1752,10 @@ def render_plan(meshes, lights, smoothrast, smoothagg, settings,
                 shade: str = "phong") -> RenderPlan:
     """The route :func:`try_render` takes (``staged`` when it declines);
     raises NotImplementedError for the binned and sharded routes."""
-    why: list = []
-    cfg = _plan(meshes, lights, smoothrast, smoothagg, settings, shade, why)
+    cfg, why = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
     f = int(meshes.max_faces)
     if cfg is None:
-        return RenderPlan(mode="staged", reason=why[-1] if why else "", f=f,
+        return RenderPlan(mode="staged", reason=why, f=f,
                           k=int(settings.faces_per_pixel),
                           image_size=int(settings.image_size))
     tile = ((cfg.p_tile // cfg.tile_w, cfg.tile_w) if cfg.tile_w
@@ -1889,47 +1883,42 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
             seeds, active)
 
 
-def _inputs_for(meshes, cameras, lights, materials, smoothrast, smoothagg,
-                blend_params, settings, shade, seeds, generator,
+def _inputs_for(cfg, meshes, cameras, lights, materials, smoothrast,
+                smoothagg, blend_params, settings, shade, seeds, generator,
                 blur_override):
-    cfg = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
-    if cfg is None:
-        return None, None
     if seeds is None:
         seeds = draw_seeds(meshes.batch_size, generator,
                            getattr(smoothagg, "fixed_noise", False),
                            device=meshes.device)
-    return cfg, _prepare_inputs(cfg, meshes, cameras, lights, materials,
-                                smoothrast, smoothagg, blend_params,
-                                settings, seeds, shade,
-                                blur_override=blur_override)
+    return _prepare_inputs(cfg, meshes, cameras, lights, materials,
+                           smoothrast, smoothagg, blend_params, settings,
+                           seeds, shade, blur_override=blur_override)
 
 
-def try_render(meshes, cameras, lights, materials, smoothrast, smoothagg,
-               blend_params, settings, shade: str, seeds=None,
-               generator: Optional[torch.Generator] = None,
+def try_render(cfg: FusedConfig, meshes, cameras, lights, materials,
+               smoothrast, smoothagg, blend_params, settings, shade: str,
+               seeds=None, generator: Optional[torch.Generator] = None,
                blur_override=None) -> torch.Tensor:
     """Render (N, H, W, 4) RGBA through the flat fused forward (K3, its
     gradients from K4) or, for F > faces_per_pixel, the stream forward (K5,
-    its gradients from K6).
+    its gradients from K6).  ``cfg`` is ``_plan``'s configuration for
+    these arguments (the caller takes the staged route where it has
+    none).
 
     ``seeds``: (N, 4) int32 seed words, or JAX-layout (N, 1, 8) seed rows
     whose first four columns are used; drawn from ``generator`` when
-    None.  Returns None where the fused routes decline (``render_plan``
-    says why), as the JAX package does."""
-    cfg, inputs = _inputs_for(meshes, cameras, lights, materials,
-                              smoothrast, smoothagg, blend_params, settings,
-                              shade, seeds, generator, blur_override)
-    if cfg is None:
-        return None
+    None."""
+    inputs = _inputs_for(cfg, meshes, cameras, lights, materials, smoothrast,
+                         smoothagg, blend_params, settings, shade, seeds,
+                         generator, blur_override)
     if cfg.stream:
         return _FusedStream.apply(cfg, *inputs)
     return _FusedForward.apply(cfg, *inputs)
 
 
-def try_render_loss(meshes, cameras, lights, materials, smoothrast,
-                    smoothagg, blend_params, settings, shade: str, target,
-                    loss_kind: str = "l2_rgb", seeds=None,
+def try_render_loss(cfg: FusedConfig, meshes, cameras, lights, materials,
+                    smoothrast, smoothagg, blend_params, settings,
+                    shade: str, target, loss_kind: str = "l2_rgb", seeds=None,
                     generator: Optional[torch.Generator] = None,
                     blur_override=None) -> torch.Tensor:
     """Mean image loss (``l2_rgb``: squared, ``l1_rgb``: absolute error
@@ -1938,16 +1927,13 @@ def try_render_loss(meshes, cameras, lights, materials, smoothrast,
     (flat) or K7 (stream).
 
     ``target`` broadcasts to (N, H, W, 3) and is a constant: it gets no
-    gradient.  Seeds as for :func:`try_render`; None where the fused routes
-    decline."""
+    gradient.  ``cfg`` and seeds as for :func:`try_render`."""
     if loss_kind not in LOSS_KINDS:
         raise ValueError(f"unknown loss_kind {loss_kind!r} (expected "
                          "'l2_rgb' or 'l1_rgb')")
-    cfg, inputs = _inputs_for(meshes, cameras, lights, materials,
-                              smoothrast, smoothagg, blend_params, settings,
-                              shade, seeds, generator, blur_override)
-    if cfg is None:
-        return None
+    inputs = _inputs_for(cfg, meshes, cameras, lights, materials, smoothrast,
+                         smoothagg, blend_params, settings, shade, seeds,
+                         generator, blur_override)
     n, s = meshes.batch_size, cfg.image_size
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=meshes.device).detach()

@@ -132,8 +132,8 @@ def _renderer(noise, device, imsize=32, n=2, lights_kind="point",
 
 def _inputs(mesh, renderer):
     sh, settings = renderer.shader, renderer.rasterizer.raster_settings
-    cfg = tfr._plan(mesh, sh.lights, sh.smoothrast, sh.smoothagg, settings,
-                    "phong")
+    cfg, _why = tfr._plan(mesh, sh.lights, sh.smoothrast, sh.smoothagg,
+                          settings, "phong")
     seeds = tfr.draw_seeds(mesh.batch_size, torch.Generator().manual_seed(5),
                            device=mesh.device)
     return cfg, tfr._prepare_inputs(cfg, mesh, sh.cameras, sh.lights,

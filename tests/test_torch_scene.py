@@ -159,8 +159,8 @@ def test_from_reference_carries_the_pose_state(noise):
         assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
         _close(got, want)
     _close(tr.rasterizer.blur, 0.02)
-    cfg = tfr._plan(convert.from_reference(mesh, device="cpu"), sh.lights,
-                    sh.smoothrast, sh.smoothagg,
-                    tr.rasterizer.raster_settings, "phong")
+    cfg, _why = tfr._plan(convert.from_reference(mesh, device="cpu"),
+                          sh.lights, sh.smoothrast, sh.smoothagg,
+                          tr.rasterizer.raster_settings, "phong")
     assert (cfg.rast_vr, cfg.agg_vr) == ((False, False) if noise ==
                                          "gaussian_wovr" else (True, True))

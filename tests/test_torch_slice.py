@@ -139,8 +139,8 @@ def test_fused_forward_checks_its_inputs():
     _posed, _jrend, tmesh, trend = _scene("softras")
     sh = trend.shader
     settings = trend.rasterizer.raster_settings
-    cfg = tfr._plan(tmesh, sh.lights, sh.smoothrast, sh.smoothagg, settings,
-                    "phong")
+    cfg, _why = tfr._plan(tmesh, sh.lights, sh.smoothrast, sh.smoothagg,
+                          settings, "phong")
     inputs = list(tfr._prepare_inputs(
         cfg, tmesh, sh.cameras, sh.lights, sh.materials, sh.smoothrast,
         sh.smoothagg, sh.blend_params, settings,

@@ -136,8 +136,8 @@ def test_port_prepare_inputs_stream_layout(stream_case):
     tmesh = convert.from_reference(mesh, device="cpu")
     trend = convert.from_reference(renderer, device="cpu")
     sh, settings = trend.shader, trend.rasterizer.raster_settings
-    cfg = tfr._plan(tmesh, sh.lights, sh.smoothrast, sh.smoothagg, settings,
-                    "phong")
+    cfg, _why = tfr._plan(tmesh, sh.lights, sh.smoothrast, sh.smoothagg,
+                          settings, "phong")
     assert cfg == port_config(c["jcfg"])
     seeds = tfr.draw_seeds(tmesh.batch_size, device="cpu")
     tab, scal, rows, count, active, seeds = tfr._prepare_inputs(
@@ -260,17 +260,16 @@ def test_other_routes_raise_naming_the_route():
     with pytest.raises(NotImplementedError, match="binned"):
         tfr._plan(big, cams_l, sr, sa, allow, "phong")
     assert tfr._plan(big, cams_l, sr, sa, dataclasses.replace(
-        allow, bin_overflow="warn"), "phong").stream
+        allow, bin_overflow="warn"), "phong")[0].stream
     cow = ptt.make_cow(device="cpu")
-    assert tfr._plan(cow, cams_l, sr, sa, allow, "phong").stream
+    assert tfr._plan(cow, cams_l, sr, sa, allow, "phong")[0].stream
     with pytest.raises(NotImplementedError, match="sharded"):
         tfr._plan(cow, cams_l, dataclasses.replace(sr, sample_axis="s"), sa,
                   allow, "phong")
     # Above 2048 pixels the fused routes decline, as JAX's _plan does: the
     # render goes staged, whose MC estimators (K8) are not ported.
-    why = []
     assert tfr._plan(cow, cams_l, sr, sa, dataclasses.replace(
-        allow, image_size=4096), "phong", why) is None
-    assert why == ["image size above the 2048 fused-kernel limit"]
+        allow, image_size=4096), "phong") == (
+            None, "image size above the 2048 fused-kernel limit")
     with pytest.raises(NotImplementedError, match="staged.*K8a"):
         sr.check_staged()
