@@ -116,6 +116,7 @@ from pertrenderer_tpu_torch.experiments import harness
 from pertrenderer_tpu_torch.ops import fused_render as fr
 from pertrenderer_tpu_torch.ops import gather as gk
 from pertrenderer_tpu_torch.ops import interp_gather as ik
+from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens", "prng_goldens.npz")
@@ -198,7 +199,8 @@ def timed_pair(kernel, plain, reps, plain_reps=None):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-COUNTS = (fr.launch_counts, gk.launch_counts, ik.launch_counts)
+COUNTS = (fr.launch_counts, gk.launch_counts, ik.launch_counts,
+          pk.launch_counts)
 
 
 def reset_counts():
@@ -880,12 +882,15 @@ def phase_k5(dev, smi, report):
               f"bound {b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
 
 
-def stream_grad_calls(cfg, args, size, seed=2):
+def stream_grad_calls(cfg, args, size, seed=2, g_out=None):
     """{kernel name: (kernel call, plain call)} of K6 and K7 on a seeded
-    cotangent / target; each call returns (loss or None, g_tab, g_scal)."""
+    cotangent (or ``g_out``) / target; each call returns (loss or None,
+    g_tab, g_scal)."""
     n, hw = args[0].shape[0], size * size
-    g_out = torch.randn(n, size, size, 4, generator=torch.Generator()
-                        .manual_seed(seed)).to(args[0])
+    if g_out is None:
+        g_out = torch.randn(n, size, size, 4, generator=torch.Generator()
+                            .manual_seed(seed))
+    g_out = g_out.to(args[0])
     target = torch.rand(n, 3, hw, generator=torch.Generator()
                         .manual_seed(seed + 1)).to(args[0])
     lscale = 1.0 / (n * hw * 3)
@@ -909,51 +914,100 @@ def phase_k6_k7(dev, smi, report):
     float64; the rows of faces too thin for float32 to resolve 1e-3
     within 2e-6 / thinness (``checks.stream_grads_close``, which reports
     both versions' distances from float64 per thinness bin).  Repeated
-    launches bit-equal.  (The softras pair's K6 / K7 are held at 1e-4 in
-    tests/test_torch_cuda.py at 64^2 and 128^2.)  Then K7 = K5 + K6 at
-    N=4, every row within 1e-5 of each table's max."""
-    tol = 1e-3
-    for kname, n in (("fused_stream_backward", N_POSES),
-                     ("fused_stream_loss_grad", 1)):
-        cfg, args = stream_inputs("gaussian", dev, n)
-        calls = stream_grad_calls(cfg, args, IMAGE)
-        kern, plain = calls[kname]
-        got, again, want = kern(), kern(), plain()
-        args64 = tuple(a.double() if a.is_floating_point() else a
-                       for a in args)
-        want64 = stream_grad_calls(cfg, args64, IMAGE)[kname][1]()
-        torch.cuda.synchronize()
-        ok, err, where, n_thin, bins = checks.stream_grads_close(
-            cfg, args[0], got[1:], want[1:], want64[1:], tol)
-        finite = all(bool(torch.isfinite(t).all()) for t in got[1:])
-        same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
-        lerr = 0.0
-        if got[0] is not None:
-            lerr = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
-        if not ok or not same or not finite or lerr > 1e-5:
-            fail(f"{kname}: worst error {err} at {where} (tolerance "
-                 f"{tol}), thin rows {checks.witness_text(bins)}, finite "
-                 f"{finite}, repeat bit-equal {same}, loss rel {lerr}")
-        k_ms, p_ms = timed_pair(kern, plain, 5, 1)
-        w = stream_work(cfg, args)
-        loss = kname == "fused_stream_loss_grad"
-        nbytes = (2 * stream_bytes(args) + 34 * 4 * n
-                  + (12 if loss else 16) * w["pixels"])
-        b_ms, b_by = bound(nbytes, stream_grad_ops(cfg, w, loss))
-        report[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                             bound_ms=b_ms, bound_by=b_by)
-        print(f"[{'K7' if loss else 'K6'}] {kname} gaussian cow {IMAGE}^2 "
-              f"K=50 S=8 N={n}: worst error {err:.3g} of max |grad| at "
-              f"{where} from the nearer of the float32 and float64 plain "
-              f"versions (tolerance {tol}) outside the {n_thin} rows of "
-              f"thin faces (held within {checks.THIN_NOISE:g} / thinness; "
-              f"per thinness bin: {checks.witness_text(bins)}); loss rel "
-              f"{lerr:.3g}, "
-              f"repeat bit-equal; {w['visited']} visited, {w['cand']} "
-              f"candidate (row, pixel) pairs; {k_ms:.4f} ms vs plain "
-              f"{p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}",
-              flush=True)
+    launches bit-equal.  Then the softras pair (SoftRast + SoftAgg at the
+    same sigma / gamma) likewise at 1e-4, K6 on [staged-softras]'s
+    cotangent (its objective's weights, the pixels whose slot K-1 fills
+    left out), and every scalar (sigma and gamma among them) against the
+    float64 plain version alone: the softmax's gamma, znear and zfar
+    gradients are sums whose terms cancel, and a float32 version of them
+    lost digits that the float32 plain version lost too.  Then K7 = K5 +
+    K6 at N=4, every row within 1e-5 of each table's max."""
+    for noise, tol in (("gaussian", 1e-3), ("softras", 1e-4)):
+        for kname, n in (("fused_stream_backward", N_POSES),
+                         ("fused_stream_loss_grad", 1)):
+            k6_k7_case(dev, smi, report, noise, tol, kname, n)
+    k7_equals_k5_k6(dev, smi)
 
+
+def k6_k7_case(dev, smi, report, noise, tol, kname, n):
+    """One K6 / K7 check of ``phase_k6_k7`` (``noise``: gaussian or
+    softras)."""
+    cfg, args = stream_inputs(noise, dev, n)
+    g_out = None
+    if noise == "softras" and kname == "fused_stream_backward":
+        g_out = staged_softras_cotangent(dev)
+    calls = stream_grad_calls(cfg, args, IMAGE, g_out=g_out)
+    kern, plain = calls[kname]
+    got, again, want = kern(), kern(), plain()
+    args64 = tuple(a.double() if a.is_floating_point() else a
+                   for a in args)
+    want64 = stream_grad_calls(cfg, args64, IMAGE, g_out=g_out)[kname][1]()
+    torch.cuda.synchronize()
+    ok, err, where, n_thin, bins = checks.stream_grads_close(
+        cfg, args[0], got[1:], want[1:], want64[1:], tol)
+    s_text = ""
+    if noise == "softras":
+        s_ok, s_err, s_where = checks.scalars_close64(got[2], want64[2], tol)
+        ok = ok and s_ok
+        s_text = (f"; every scalar against float64 alone within {s_err:.3g} "
+                  f"of its max at {s_where} (gamma summed over N: kernel "
+                  f"{got[2][:, fr._S_GAMMA].sum().item():.9g}, float32 "
+                  f"plain {want[2][:, fr._S_GAMMA].sum().item():.9g}, "
+                  f"float64 {want64[2][:, fr._S_GAMMA].sum().item():.9g}; "
+                  f"sigma: kernel {got[2][:, fr._S_SIGMA].sum().item():.9g}, "
+                  f"float64 {want64[2][:, fr._S_SIGMA].sum().item():.9g})")
+    finite = all(bool(torch.isfinite(t).all()) for t in got[1:])
+    same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+    lerr = 0.0
+    if got[0] is not None:
+        lerr = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
+    if not ok or not same or not finite or lerr > 1e-5:
+        fail(f"{kname} {noise}: worst error {err} at {where} (tolerance "
+             f"{tol}){s_text}, thin rows {checks.witness_text(bins)}, "
+             f"finite {finite}, repeat bit-equal {same}, loss rel {lerr}")
+    loss = kname == "fused_stream_loss_grad"
+    tag = "K7" if loss else "K6"
+    if noise == "softras":
+        print(f"[{tag}] {kname} softras cow {IMAGE}^2 K=50 N={n}: worst "
+              f"error {err:.3g} of max |grad| at {where} from the nearer of "
+              f"the float32 and float64 plain versions (tolerance {tol}) "
+              f"outside the {n_thin} rows of thin faces{s_text}; loss rel "
+              f"{lerr:.3g}, repeat bit-equal | {smi}", flush=True)
+        return
+    k_ms, p_ms = timed_pair(kern, plain, 5, 1)
+    w = stream_work(cfg, args)
+    nbytes = (2 * stream_bytes(args) + 34 * 4 * n
+              + (12 if loss else 16) * w["pixels"])
+    b_ms, b_by = bound(nbytes, stream_grad_ops(cfg, w, loss))
+    report[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+    print(f"[{tag}] {kname} gaussian cow {IMAGE}^2 "
+          f"K=50 S=8 N={n}: worst error {err:.3g} of max |grad| at "
+          f"{where} from the nearer of the float32 and float64 plain "
+          f"versions (tolerance {tol}) outside the {n_thin} rows of "
+          f"thin faces (held within {checks.THIN_NOISE:g} / thinness; "
+          f"per thinness bin: {checks.witness_text(bins)}); loss rel "
+          f"{lerr:.3g}, "
+          f"repeat bit-equal; {w['visited']} visited, {w['cand']} "
+          f"candidate (row, pixel) pairs; {k_ms:.4f} ms vs plain "
+          f"{p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}",
+          flush=True)
+
+
+def staged_softras_cotangent(dev):
+    """[staged-softras]'s objective on the cow as a cotangent of the N=4
+    image: seeded weights, 0 at the pixels whose slot K-1 fills."""
+    mesh = posed_cow(torch.Generator().manual_seed(0), dev)
+    with torch.no_grad():
+        p2f = staged_renderer("softras", dev).rasterizer.planar(
+            mesh).pix_to_face
+    w = torch.randn(N_POSES, IMAGE, IMAGE, 4,
+                    generator=torch.Generator().manual_seed(6)).to(dev)
+    return w * (p2f[..., K - 1] < 0)[..., None].float()
+
+
+def k7_equals_k5_k6(dev, smi):
+    """K7 = K5 + K6 at N=4: every row within 1e-5 of each table's max."""
     cfg, args = stream_inputs("gaussian", dev, N_POSES)
     n, hw = N_POSES, IMAGE * IMAGE
     target = torch.rand(n, 3, hw,
@@ -1436,10 +1490,11 @@ def phase_target(dev, smi, report):
           flush=True)
 
 
-def staged_and_fused(rend, mesh, w, fused: bool):
+def staged_and_fused(rend, mesh, w, fused: bool, seeds=None):
     """(image, grads to the vertices, sigma, gamma, fwd ms, bwd ms) of
     sum(image * w), staged (rasterizer.planar + shader) or fused
-    (MeshRenderer)."""
+    (MeshRenderer); ``seeds`` (N, 4) int32 (fused: zeros, staged: drawn
+    from a generator seeded 0 when None)."""
     verts = mesh.verts.detach().clone().requires_grad_()
     sh = rend.shader
     sigma = sh.smoothrast.sigma.detach().clone().to(mesh.device) \
@@ -1454,9 +1509,10 @@ def staged_and_fused(rend, mesh, w, fused: bool):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if fused:
-        img = r(m, seeds=torch.zeros(mesh.batch_size, 4, dtype=torch.int32))
+        img = r(m, seeds=seeds if seeds is not None else torch.zeros(
+            mesh.batch_size, 4, dtype=torch.int32))
     else:
-        img = r.shader(r.rasterizer.planar(m), m)
+        img = r.shader(r.rasterizer.planar(m), m, seeds=seeds)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     grads = torch.autograd.grad(torch.sum(img * w), [verts, sigma, gamma])
@@ -1603,6 +1659,374 @@ def phase_staged_softras(dev, smi, report):
           + "; ".join(lines) + f" | {smi}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The staged route's Monte-Carlo estimators: K8a (perturbed Heaviside), K8b
+# (perturbed argmax) and K8c (its gradients)
+# ---------------------------------------------------------------------------
+
+OPS_DRAW = {"gaussian": 10, "cauchy": OPS_CAUCHY, "uniform": 3}
+STAGED_NOISES = ("gaussian", "cauchy", "uniform")
+
+
+def staged_estimator_inputs(dev):
+    """The cow's staged estimator inputs at 256^2, K=50, N=4 (13.1 M
+    slots): -dists (N, H, W, K), the GaussianAgg z_map (N, H, W, K + 1) of
+    the gaussian coverage, a seeded cotangent of the z_map, sigma, gamma
+    and the (N, 2) seed words of coverage and aggregation."""
+    from pertrenderer_tpu_torch.models import shaders, smoothagg
+
+    rend = staged_renderer("gaussian", dev)
+    mesh = posed_cow(torch.Generator().manual_seed(0), dev)
+    seeds = fr.draw_seeds(N_POSES, torch.Generator().manual_seed(1),
+                          device=dev)
+    rs, ags = seeds[:, :2].contiguous(), seeds[:, 2:].contiguous()
+    sigma = torch.tensor(SIGMA, device=dev)
+    gamma = torch.tensor(GAMMA, device=dev)
+    with torch.no_grad():
+        pfrag = rend.rasterizer.planar(mesh)
+        d = (-pfrag.dists).contiguous()
+        mask = pfrag.pix_to_face >= 0
+        prob = pk.heaviside_mean(d, sigma, rs, S, "gaussian") * mask
+        znear, zfar = shaders._znear_zfar(rend.rasterizer.cameras, {})
+        z = smoothagg._z_map(gamma, torch.tensor(1.0, device=dev), 1e-10,
+                             pfrag.zbuf, zfar, znear, prob,
+                             mask).contiguous()
+    g = torch.randn(z.shape, generator=torch.Generator().manual_seed(7)).to(
+        dev)
+    return d, z, g, sigma, gamma, rs, ags
+
+
+def estimator_close(got, want):
+    """(ok, max |d|, mean |d|, share of elements beyond 1e-4): a forward
+    estimator on shared noise, where only ulp-level threshold flips may
+    differ (PERF.md's MC tolerance: mean |d| <= 1e-5, >= 99.9% within
+    1e-4)."""
+    d = (got - want).abs()
+    flips = (d > 1e-4).float().mean().item()
+    ok = (bool(torch.isfinite(got).all()) and d.mean().item() <= 1e-5
+          and flips <= 1e-3)
+    return ok, d.max().item(), d.mean().item(), flips
+
+
+def grad_close(got, want, tol=1e-3):
+    """(ok, error over max |want|) of an MC gradient on shared noise."""
+    err = ((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30)).item()
+    return bool(torch.isfinite(got).all()) and err <= tol, err
+
+
+def phase_k8(dev, smi, report):
+    """K8a, K8b and K8c against their plain versions on the card at the
+    cow's staged shapes (256^2, K=50, N=4, S=8: 13.1 M coverage slots, a
+    (4, 65536, 51) z_map), with the gaussian, cauchy and uniform families
+    (uniform is forward-only): forwards at the MC tolerance on shared
+    noise (``estimator_close``), gradients within 1e-3 of their max, two
+    launches bit-equal.  Times in CUDA events (plain, kernel, kernel,
+    plain); the bound is the larger of the bytes (each input read once,
+    each output written once) over 3.35 TB/s and the float32 operations
+    the function needs (a draw, the threshold or argmax and the
+    accumulations per element and sample; the hash left out) over 67
+    TFLOP/s.  No single PyTorch call computes the hashed estimator: no
+    library time."""
+    d, z, g, sigma, gamma, rs, ags = staged_estimator_inputs(dev)
+    nd, nz, npx = d.numel(), z.numel(), z.numel() // z.shape[-1]
+    out = {}
+    for noise in STAGED_NOISES:
+        grads = noise in pk.GRAD_NOISES
+        calls = {"heaviside_mean": (
+            lambda: pk.heaviside_mean(d, sigma, rs, S, noise),
+            lambda: pk.heaviside_mean_plain(d, sigma, rs, S, noise),
+            8 * nd, nd * S * (OPS_DRAW[noise] + OPS_COVER))}
+        if grads:
+            calls["heaviside_coeff"] = (
+                lambda: pk.heaviside_coeff(d, sigma, rs, S, noise),
+                lambda: pk.heaviside_coeff_plain(d, sigma, rs, S, noise,
+                                                 True),
+                8 * nd, nd * S * (OPS_DRAW[noise] + OPS_COVER
+                                  + OPS_COVER_BWD))
+        calls["argmax_mean"] = (
+            lambda: pk.argmax_mean(z, gamma, ags, S, noise),
+            lambda: pk.argmax_mean_plain(z, gamma, ags, S, noise),
+            8 * nz, nz * S * (OPS_DRAW[noise] + OPS_AGG))
+        if grads:
+            calls["argmax_grads"] = (
+                lambda: pk.argmax_grads(z, g, gamma, ags, S, noise),
+                lambda: pk.argmax_grads_plain(z, g, gamma, ags, S, noise,
+                                              True),
+                12 * nz + 4 * npx,
+                nz * S * (OPS_DRAW[noise] + OPS_AGG + OPS_AGG_BWD))
+        for kname, (kern, plain, nbytes, ops) in calls.items():
+            got, again, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            if kname == "argmax_grads":
+                oks = [grad_close(a, b) for a, b in zip(got, want)]
+                ok, err = all(o for o, _ in oks), max(e for _, e in oks)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                text = f"grad_z and gamma term within {err:.3g} of max"
+            elif kname == "heaviside_coeff":
+                ok, err = grad_close(got, want)
+                same = torch.equal(got, again)
+                text = f"within {err:.3g} of max"
+            else:
+                ok, err, dmean, flips = estimator_close(got, want)
+                same = torch.equal(got, again)
+                text = (f"max |d| {err:.3g}, mean |d| {dmean:.3g}, elements "
+                        f"beyond 1e-4 {flips:.3g}")
+            if not ok or not same:
+                fail(f"{kname} {noise}: {text}, repeat bit-equal {same}")
+            k_ms, p_ms = timed_pair(kern, plain, 10, 1)
+            b_ms, b_by = bound(nbytes, ops)
+            out[(kname, noise)] = (err, k_ms, p_ms, b_ms, b_by)
+            tag = {"heaviside_mean": "K8a", "heaviside_coeff": "K8a",
+                   "argmax_mean": "K8b", "argmax_grads": "K8c"}[kname]
+            shape = tuple(d.shape) if tag == "K8a" else tuple(z.shape)
+            print(f"[{tag}] {kname} {noise} cow staged {shape} S={S}: "
+                  f"{text} vs plain on shared noise, repeat bit-equal; "
+                  f"{k_ms:.4f} ms vs plain {p_ms:.2f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+    # The kernels line: K8a is the forward and its backward coefficient
+    # together (both entry points), K8b and K8c one call each; gaussian.
+    mean, coeff = out[("heaviside_mean", "gaussian")], \
+        out[("heaviside_coeff", "gaussian")]
+    report["perturbed_heaviside"] = dict(
+        max_abs_err=max(mean[0], coeff[0]), ms=mean[1] + coeff[1],
+        plain_ms=mean[2] + coeff[2], bound_ms=mean[3] + coeff[3],
+        bound_by=mean[4], library_ms=None)
+    for kname in ("argmax_mean", "argmax_grads"):
+        err, k_ms, p_ms, b_ms, b_by = out[(kname, "gaussian")]
+        report[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+MC_PAIRS = {"gaussian": (ptt.GaussianRast, ptt.GaussianAgg),
+            "gaussian_wovr": (ptt.GaussianRast_wovr, ptt.GaussianAgg_wovr),
+            "cauchy": (ptt.ArctanRast, ptt.CauchyAgg)}
+STAGED_MC_CASES = (("cube", "gaussian"), ("cube", "gaussian_wovr"),
+                   ("cube", "cauchy"), ("cow", "gaussian"))
+STAGED_MC_SEEDS = 64
+STAGED_MC_RATIO = 1.5
+STAGED_MC_Z = 4.0
+
+
+def mc_renderer(noise, dev):
+    """The staged renderer (K=50, no bin drops) with the MC pair
+    ``noise`` at the main path's sigma / gamma / S."""
+    rend = staged_renderer("softras", dev)
+    sr, sa = MC_PAIRS[noise]
+    return rend.replace(shader=dataclasses.replace(
+        rend.shader, smoothrast=sr.create(sigma=SIGMA, nb_samples=S),
+        smoothagg=sa.create(gamma=GAMMA, nb_samples=S)))
+
+
+def phase_staged_mc(dev, smi, report):
+    """RandomPhongShader with the MC pairs through rasterizer.planar +
+    shader(...) at 256^2, K=50, N=4 (the gaussian pair on the cube and the
+    cow, the _wovr and cauchy pairs on the cube): forward, then the
+    gradient of sum(image * w) to the vertices, sigma and gamma — the
+    staged route's MC path (launch counts reset just before the staged
+    runs and read just after: K8a, K8b and K8c launched, no plain version
+    taken).  Oracle: the fused route on the same poses at the same sigma,
+    gamma and S (K3 / K4 on the cube, K5 / K6 on the cow), which draws
+    other noise.  For each of STAGED_MC_SEEDS seed words (N, 4) i: the
+    staged run with seeds a_i, a fused run with seeds b_i and a second
+    fused run with seeds c_i.  The criterion, fixed before the first run:
+    for the image, the vertex gradients and sigma, the RMS over the runs
+    (and the elements) of staged_i - fused_i is at most STAGED_MC_RATIO =
+    1.5 times the RMS of fused_i - fused'_i: estimators of equal mean and
+    spread give a ratio near 1, a bias raises it; with 64 seed words the
+    ratio of a scalar's two RMS exceeds 1.5 by chance with probability
+    ~1e-3.  For gamma the mean difference over its standard error (64
+    staged runs against 128 fused) is at most STAGED_MC_Z = 4 in
+    magnitude: the staged gamma gradient's phi sums the noise of all K + 1
+    channels, where the fused routes put its mean for the channels that
+    hold no face (flat: K - bg_row; stream: K less the visited rows), so
+    its spread differs by design and only its mean is held (its RMS ratio
+    is reported).  On the cow the pixels whose slot K-1 fills (the staged
+    route keeps K faces, the stream route all) are left out of the
+    objective and the image."""
+    meshes = {"cube": posed_cube(torch.Generator().manual_seed(0), dev),
+              "cow": posed_cow(torch.Generator().manual_seed(0), dev)}
+    w = torch.randn(N_POSES, IMAGE, IMAGE, 4,
+                    generator=torch.Generator().manual_seed(6)).to(dev)
+    gen = torch.Generator().manual_seed(2031)
+    seeds = [[fr.draw_seeds(N_POSES, gen, device=dev) for _ in range(3)]
+             for _ in range(STAGED_MC_SEEDS)]
+    masks = {}
+    for name, mesh in meshes.items():
+        with torch.no_grad():
+            p2f = staged_renderer("softras", dev).rasterizer.planar(
+                mesh).pix_to_face
+        masks[name] = (p2f[..., K - 1] < 0)[..., None].float()
+    rends = {noise: mc_renderer(noise, dev) for noise in MC_PAIRS}
+    for name, noise in STAGED_MC_CASES:            # warm-up
+        staged_and_fused(rends[noise], meshes[name], w * masks[name], False,
+                         seeds[0][0])
+    reset_counts()
+    plain0 = dict(pk.plain_calls)
+    staged = {case: [] for case in STAGED_MC_CASES}
+    t0 = time.perf_counter()
+    for name, noise in STAGED_MC_CASES:
+        for i in range(STAGED_MC_SEEDS):
+            img, g, _f, _b = staged_and_fused(
+                rends[noise], meshes[name], w * masks[name], False,
+                seeds[i][0])
+            staged[(name, noise)].append((img, *g))
+    torch.cuda.synchronize()
+    staged_s = time.perf_counter() - t0
+    counts = all_counts()
+    needed = ("heaviside_mean", "heaviside_coeff", "argmax_mean",
+              "argmax_grads")
+    if any(counts[k] < 1 for k in needed) or pk.plain_calls != plain0 or any(
+            counts[k] for k in fr.launch_counts):
+        fail(f"staged-mc: launch counts {counts}, plain calls "
+             f"{pk.plain_calls}")
+    report["perturbed_heaviside"]["launches"] = (
+        counts["heaviside_mean"] + counts["heaviside_coeff"])
+    for k in ("argmax_mean", "argmax_grads"):
+        report[k]["launches"] = counts[k]
+    lines = []
+    for name, noise in STAGED_MC_CASES:
+        mesh, keep = meshes[name], masks[name]
+        mode = rends[noise].plan(mesh).mode
+        if mode != ("flat" if name == "cube" else "stream"):
+            fail(f"staged-mc: the {name} takes the {mode} route")
+        sq_sf, sq_ff = [0.0] * 4, [0.0] * 4
+        scal_s, scal_f = ([], []), ([], [])         # sigma, gamma values
+        for i in range(STAGED_MC_SEEDS):
+            fa = staged_and_fused(rends[noise], mesh, w * keep, True,
+                                  seeds[i][1])
+            fb = staged_and_fused(rends[noise], mesh, w * keep, True,
+                                  seeds[i][2])
+            fa, fb = (fa[0], *fa[1]), (fb[0], *fb[1])
+            st = staged[(name, noise)][i]
+            for j in range(4):
+                a, b, c = st[j], fa[j], fb[j]
+                if j == 0:
+                    a, b, c = a * keep, b * keep, c * keep
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"staged-mc {name} {noise}: non-finite output {j}")
+                sq_sf[j] += ((a - b).double() ** 2).sum().item()
+                sq_ff[j] += ((b - c).double() ** 2).sum().item()
+                if j >= 2:
+                    scal_s[j - 2].append(a.item())
+                    scal_f[j - 2].extend((b.item(), c.item()))
+        ratios = [math.sqrt(a / max(b, 1e-300)) for a, b in zip(sq_sf, sq_ff)]
+        zs = [(statistics.fmean(a) - statistics.fmean(b)) / max(math.sqrt(
+            statistics.variance(a) / len(a) + statistics.variance(b)
+            / len(b)), 1e-300) for a, b in zip(scal_s, scal_f)]
+        text = (" / ".join(f"{q} {r:.3f}" for q, r in zip(
+            ("image", "verts", "sigma", "gamma"), ratios))
+            + f"; mean difference over its standard error: sigma "
+              f"{zs[0]:.2f}, gamma {zs[1]:.2f} (gamma staged "
+              f"{statistics.fmean(scal_s[1]):.6g} +- "
+              f"{statistics.stdev(scal_s[1]):.3g}, fused "
+              f"{statistics.fmean(scal_f[1]):.6g} +- "
+              f"{statistics.stdev(scal_f[1]):.3g})")
+        if max(ratios[:3]) > STAGED_MC_RATIO or abs(zs[1]) > STAGED_MC_Z:
+            fail(f"staged-mc {name} {noise}: RMS staged-fused over "
+                 f"fused-fused {text} (limits: ratio {STAGED_MC_RATIO} for "
+                 f"the image, verts and sigma; |z| {STAGED_MC_Z} for gamma)")
+        lines.append(f"{name} {noise} ({mode} route as the oracle): "
+                     f"{text}")
+    print(f"[staged-mc] RandomPhongShader MC pairs sigma {SIGMA} gamma "
+          f"{GAMMA} S={S}, {IMAGE}^2 K={K} N={N_POSES}, rasterizer.planar + "
+          f"shader, forward and gradient, {STAGED_MC_SEEDS} seed words per "
+          f"case: {len(STAGED_MC_CASES) * STAGED_MC_SEEDS} staged runs in "
+          f"{staged_s:.1f} s, launches {counts}, no plain version; RMS of "
+          f"staged - fused over RMS of fused - fused' (limit "
+          f"{STAGED_MC_RATIO}; gamma: |z| <= {STAGED_MC_Z}): "
+          + "; ".join(lines) + f" | {smi}", flush=True)
+
+
+def phase_staged_uniform(dev, smi, report):
+    """RandomPhongShader(AffineRast, UniformAgg) on the cow at 256^2, N=4
+    through MeshRenderer.forward: the planner itself sends it staged
+    (UniformAgg is not a fused menu member).  plan()'s reason, the median
+    latency of 5 calls after a warm-up (host clock ending in a
+    synchronisation), and K8b's launches (AffineRast is deterministic:
+    no K8a)."""
+    rend = staged_renderer("softras", dev)
+    rend = rend.replace(shader=dataclasses.replace(
+        rend.shader, smoothrast=ptt.AffineRast.create(sigma=SIGMA,
+                                                      nb_samples=S),
+        smoothagg=ptt.UniformAgg.create(gamma=GAMMA, nb_samples=S)))
+    mesh = posed_cow(torch.Generator().manual_seed(0), dev)
+    plan = rend.plan(mesh)
+    if plan.mode != "staged":
+        fail(f"staged-uniform: plan {plan}")
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        rend(mesh, generator=gen)                      # warm-up
+        reset_counts()
+        img, lat = synced_ms(lambda: rend(mesh, generator=gen), 5)
+    counts = all_counts()
+    if (tuple(img.shape) != (N_POSES, IMAGE, IMAGE, 4)
+            or not bool(torch.isfinite(img).all())
+            or counts["argmax_mean"] != 5 or counts["heaviside_mean"]
+            or any(counts[k] for k in fr.launch_counts)):
+        fail(f"staged-uniform: shape {tuple(img.shape)}, launches {counts}")
+    cover = (img[..., 3] > 0.5).float().mean().item()
+    report["staged_uniform"] = dict(ms=lat)
+    print(f"[staged-uniform] RandomPhongShader(AffineRast, UniformAgg) cow "
+          f"{IMAGE}^2 K={K} N={N_POSES} through MeshRenderer.forward: plan "
+          f"{plan.mode} ({plan.reason}); median {lat:.3f} ms per request "
+          f"of 5 after a warm-up; launches {counts}; alpha > 0.5 on "
+          f"{cover:.3f} of pixels | {smi}", flush=True)
+
+
+LARGE_IMAGE = 2304
+
+
+def phase_large(dev, smi, report):
+    """One request above the fused kernels' 2048 limit through
+    MeshRenderer.forward: the gaussian pair on the cube, N=1, 2304^2,
+    K=50 (the planner sends it staged).  The latency of the first call
+    and the median of 3 more, and torch.cuda.max_memory_allocated over
+    them.  If K=50 does not fit in the card's memory, that is reported
+    with the largest K of 50, 40, 32, 25, 16, 8 that does."""
+    rend = headline_renderer("gaussian", dev, n=1, size=LARGE_IMAGE)
+    mesh = cube_mesh(dev)
+    plan = rend.plan(mesh)
+    if plan.mode != "staged":
+        fail(f"large: plan {plan}")
+    gen = torch.Generator().manual_seed(4)
+    notes = []
+    for k in (50, 40, 32, 25, 16, 8):
+        r = rend
+        if k != K:
+            r = rend.replace(rasterizer=ptt.MeshRasterizer(
+                rend.rasterizer.cameras, dataclasses.replace(
+                    rend.rasterizer.raster_settings, faces_per_pixel=k)))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        try:
+            with torch.no_grad():
+                img, first = synced_ms(lambda: r(mesh, generator=gen), 1)
+                img, lat = synced_ms(lambda: r(mesh, generator=gen), 3)
+        except torch.OutOfMemoryError as e:
+            notes.append(f"K={k} does not fit ({str(e).splitlines()[0]})")
+            continue
+        counts = all_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if (tuple(img.shape) != (1, LARGE_IMAGE, LARGE_IMAGE, 4)
+                or not bool(torch.isfinite(img).all())
+                or counts["heaviside_mean"] != 4
+                or counts["argmax_mean"] != 4):
+            fail(f"large: shape {tuple(img.shape)}, launches {counts}")
+        cover = (img[..., 3] > 0.5).float().mean().item()
+        report["large"] = dict(k=k, ms=lat, peak_gib=peak)
+        print(f"[large] gaussian cube N=1 {LARGE_IMAGE}^2 K={k} through "
+              f"MeshRenderer.forward: plan {plan.mode} ({plan.reason}); "
+              f"first call {first:.1f} ms, then median {lat:.1f} ms of 3; "
+              f"peak memory {peak:.2f} GiB (max_memory_allocated); "
+              f"launches {counts}; alpha > 0.5 on {cover:.4f} of pixels"
+              + (f"; {'; '.join(notes)}" if notes else "") + f" | {smi}",
+              flush=True)
+        return
+    fail(f"large: no K fits: {notes}")
+
+
 def phase_determinism(dev, smi):
     """Two preparations of the cow's stream inputs (N=4, 256^2), each
     back-propagated from a fixed cotangent of the table and scalars to
@@ -1672,6 +2096,10 @@ SOURCES = {
     "interp_rows": ("csrc/interp_gather.cu", "ops/interp_gather.py:75"),
     "interp_rows_backward": ("csrc/interp_gather.cu",
                              "ops/interp_gather.py:101"),
+    "perturbed_heaviside": ("csrc/perturbed.cu",
+                            "ops/perturbed_pallas.py:133"),
+    "argmax_mean": ("csrc/perturbed.cu", "ops/perturbed_pallas.py:223"),
+    "argmax_grads": ("csrc/perturbed.cu", "ops/perturbed_pallas.py:238"),
 }
 
 
@@ -1707,6 +2135,10 @@ def main():
     phase_k9_k10(dev, smi, report)
     phase_target(dev, smi, report)
     phase_staged_softras(dev, smi, report)
+    phase_k8(dev, smi, report)
+    phase_staged_mc(dev, smi, report)
+    phase_staged_uniform(dev, smi, report)
+    phase_large(dev, smi, report)
     phase_determinism(dev, smi)
 
     kernels = []

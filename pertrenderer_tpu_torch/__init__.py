@@ -11,7 +11,9 @@ PRNG is pinned by K1.  The stream route (F > faces_per_pixel): K5, K6, K7.
 The staged route (the baseline shaders, and whatever the fused kernels
 decline): ``rasterize_meshes`` selects and derives fragments through the
 row gather K9a / K9b, the shaders sample textures and shade through the
-interpolating gather K10a / K10b, with the deterministic estimators.
+interpolating gather K10a / K10b, and the Monte-Carlo estimators run as
+K8a (perturbed Heaviside) and K8b / K8c (perturbed argmax and its
+gradients).
 ``experiments.harness.optimize_pose`` runs the pose optimisation loop on
 top, and ``init_target`` builds the Hard-Phong target.  On CPU tensors
 every kernel runs as its plain PyTorch version.
@@ -65,6 +67,7 @@ from pertrenderer_tpu_torch.models.smoothagg import (  # noqa: E402
     GaussianAgg_wovr,
     HardAgg,
     SoftAgg,
+    UniformAgg,
 )
 from pertrenderer_tpu_torch.models.smoothrast import (  # noqa: E402
     AffineRast,

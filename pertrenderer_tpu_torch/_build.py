@@ -27,7 +27,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
            "fused_loss_grad.cu", "stream_forward.cu", "stream_backward.cu",
-           "stream_loss_grad.cu", "gather.cu", "interp_gather.cu")
+           "stream_loss_grad.cu", "gather.cu", "interp_gather.cu",
+           "perturbed.cu")
 HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh",
            "stream_grad.cuh", "segment_sum.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -140,6 +141,14 @@ def library() -> ctypes.CDLL:
                                                            ptr]
     for fn in (lib.pt_gather_rows, lib.pt_scatter_rows, lib.pt_interp_rows,
                lib.pt_interp_rows_bwd_tables, lib.pt_interp_rows_bwd_weights):
+        fn.restype = i32
+    # The staged estimators (ops/perturbed_kernels.py): pointers, then the
+    # shape (N or the element count, P, C) and the sampling configuration.
+    lib.pt_heaviside.argtypes = [ptr] * 4 + [i32, i64, i64] + [i32] * 4 + [
+        ptr]
+    lib.pt_argmax_mean.argtypes = [ptr] * 5 + [i32, i64] + [i32] * 3 + [ptr]
+    lib.pt_argmax_grads.argtypes = [ptr] * 7 + [i32, i64] + [i32] * 4 + [ptr]
+    for fn in (lib.pt_heaviside, lib.pt_argmax_mean, lib.pt_argmax_grads):
         fn.restype = i32
     lib.pt_grad_partial_warps.argtypes = [i32] * 4
     lib.pt_grad_partial_warps.restype = i32

@@ -57,6 +57,21 @@ def softmax_rgb_blend(colors: torch.Tensor, fragments,
     return torch.cat([rgb, alpha], dim=-1)
 
 
+def _seed_pairs(seeds, n: int, device):
+    """(rasterization words, aggregation words), each (N, 2) int32, of
+    (N, 4) seed words (JAX-layout (N, 1, 8) rows: their first four); drawn
+    as ``fused_render.draw_seeds`` draws them (generator seed 0) when None.
+    The fused routes' convention: words 0/1 key the coverage noise, 2/3
+    the aggregation's."""
+    from pertrenderer_tpu_torch.ops import fused_render
+
+    if seeds is None:
+        seeds = fused_render.draw_seeds(n, device=device)
+    seeds = torch.as_tensor(seeds, dtype=torch.int32, device=device)
+    seeds = seeds.reshape(n, -1)[:, :4]
+    return seeds[:, :2].contiguous(), seeds[:, 2:].contiguous()
+
+
 def smooth_rgb_blend(colors: torch.Tensor, fragments, smoothrast,
                      smoothagg, blend_params: BlendParams, znear=1.0,
                      zfar=100.0, seeds=None) -> torch.Tensor:
@@ -68,14 +83,17 @@ def smooth_rgb_blend(colors: torch.Tensor, fragments, smoothrast,
         weights  = smoothagg.aggregate(zbuf, ...)       (K + 1 channels)
         rgb      = sum_K w_k colors_k + w_bg background
 
-    colors (N, H, W, K, 3) -> (N, H, W, 4).  ``seeds`` would key the MC
-    estimators; the deterministic members ignore it."""
+    colors (N, H, W, K, 3) -> (N, H, W, 4).  ``seeds``: (N, 4) int32 seed
+    words keying the MC estimators (:func:`_seed_pairs`); the
+    deterministic members ignore them."""
     background = _background(blend_params, colors)
+    seeds_rast, seeds_agg = _seed_pairs(seeds, colors.shape[0],
+                                        colors.device)
     mask = fragments.pix_to_face >= 0
-    prob_map = smoothrast.rasterize(fragments.dists, seeds) * mask
+    prob_map = smoothrast.rasterize(fragments.dists, seeds_rast) * mask
     alpha_chan = torch.prod(1.0 - prob_map, dim=-1, keepdim=True)
     weights = smoothagg.aggregate(fragments.zbuf, zfar, znear, prob_map,
-                                  mask, seeds)
+                                  mask, seeds_agg)
     wz, wb = weights[..., :-1], weights[..., -1:]
     rgb = torch.sum(wz[..., None] * colors, dim=-2) + wb * background
     return torch.cat([rgb, 1.0 - alpha_chan], dim=-1)
@@ -87,11 +105,13 @@ def smooth_rgb_blend_cm(colors_cm: torch.Tensor, pfrag, smoothrast,
     """Channel-major twin of :func:`smooth_rgb_blend`: colors_cm
     (3, N, H, W, K) and planar fragments -> RGBA (N, H, W, 4)."""
     background = _background(blend_params, colors_cm)
+    seeds_rast, seeds_agg = _seed_pairs(seeds, colors_cm.shape[1],
+                                        colors_cm.device)
     mask = pfrag.pix_to_face >= 0
-    prob_map = smoothrast.rasterize(pfrag.dists, seeds) * mask
+    prob_map = smoothrast.rasterize(pfrag.dists, seeds_rast) * mask
     alpha = 1.0 - torch.prod(1.0 - prob_map, dim=-1)           # (N, H, W)
     weights = smoothagg.aggregate(pfrag.zbuf, zfar, znear, prob_map, mask,
-                                  seeds)                       # (.., K + 1)
+                                  seeds_agg)                   # (.., K + 1)
     wz, wb = weights[..., :-1], weights[..., -1]
     rgb = torch.sum(wz[None] * colors_cm, dim=-1)              # (3, N, H, W)
     rgb = rgb + wb[None] * background.reshape(3, 1, 1, 1)

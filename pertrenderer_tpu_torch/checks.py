@@ -143,6 +143,19 @@ def stream_grads_close(cfg, tab, got, want, want64, tol):
     return ok, worst, where, int(thin.sum()), report
 
 
+def scalars_close64(got, want64, tol):
+    """(ok, worst error, where) of each scalar gradient (N, 34) against the
+    plain version evaluated in float64 alone, over its own max |want64|
+    over N (floored as in ``table_errors``): for a deterministic pair,
+    whose float32 versions may share a rounding that float64 does not."""
+    g, q = got.double(), want64.double()
+    scale = q.abs().amax(dim=0)
+    scale = torch.clamp(torch.maximum(scale, 1e-6 * scale.max()), min=1e-30)
+    col = torch.nan_to_num((g - q).abs().amax(dim=0), nan=math.inf) / scale
+    j = int(col.argmax())
+    return col[j].item() <= tol, col[j].item(), f"scalar {j}"
+
+
 def witness_text(report) -> str:
     """One line of ``stream_grads_close``'s per-bin report."""
     return "; ".join(f"[{lo:g}, {hi:g}): {rows} rows, kernel {ek:.3g} and "

@@ -119,7 +119,7 @@ def smoothagg_from(name: str, gamma, alpha, eps: float, nb_samples: int,
 _RAST_NAMES = ("SoftRast", "GaussianRast", "GaussianRast_wovr",
                "ArctanRast", "AffineRast", "HardRast")
 _AGG_NAMES = ("SoftAgg", "GaussianAgg", "GaussianAgg_wovr", "CauchyAgg",
-              "HardAgg")
+              "UniformAgg", "HardAgg")
 
 
 def from_reference(obj, device="cuda", _memo=None):

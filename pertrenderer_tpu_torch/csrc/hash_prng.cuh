@@ -8,8 +8,9 @@
 // tests/goldens/prng_goldens.npz; the gaussian / cauchy maps use the
 // precise (non fast-math) logf / sqrtf / sinf / cosf / tanf.
 //
-// Shared by the probe (K1) and the fused forward (K3); the backward and
-// stream kernels will key their replays on the same words.
+// Shared by the probe (K1), the fused and stream kernels (K3-K7) and the
+// staged estimators (K8a-c), whose backward passes replay the forward's
+// noise from the same words.
 #pragma once
 
 #include <stdint.h>
@@ -59,6 +60,32 @@ __device__ __forceinline__ float uniform_draw(uint32_t x) {
 __device__ __forceinline__ float cauchy_draw(uint32_t x) {
   const float t = tanf(3.1415927410125732f * (uniform_draw(x) - 0.5f));
   return fminf(fmaxf(t, -1e7f), 1e7f);
+}
+
+// The staged estimators' families (K8a-c, csrc/perturbed.cu): one value
+// per hash word, the maps of _sample in
+// pertrenderer_tpu/ops/perturbed_pallas.py.  Gaussian keeps the cos half
+// of gaussian_pair.
+enum Family { kFamGaussian = 0, kFamCauchy, kFamLogistic, kFamGumbel,
+              kFamUniform };
+
+__device__ __forceinline__ float gaussian_draw(uint32_t x) {
+  const float u1 = uniform01(x);
+  const float u2 = uniform01(mix(x + 0xBB67AE85u));
+  return sqrtf(-2.0f * logf(u1)) * cosf(6.2831854820251465f * u2);
+}
+
+__device__ __forceinline__ float family_draw(int family, uint32_t x) {
+  switch (family) {
+    case kFamGaussian: return gaussian_draw(x);
+    case kFamCauchy: return cauchy_draw(x);
+    case kFamLogistic: {
+      const float u = uniform_draw(x);
+      return logf(u) - log1pf(-u);
+    }
+    case kFamGumbel: return -logf(-logf(uniform_draw(x)));
+    default: return uniform_draw(x) - 0.5f;
+  }
 }
 
 }  // namespace ptt

@@ -359,7 +359,19 @@ PT_HD void stream_post(const Params& p, const float* sc, int b, int pix,
       bgdot += sc[kBg + c] * st.g_rgb[c];
     }
     const float gb_x = w_bg * (bgdot - st.dot_w);
-    acc.gsc[kGamma] += -(p.eps_bg * gb_x) / (gamma * gamma);
+    // gamma, znear and zfar reach the softmax only through z / gamma, z =
+    // eps for the background and z_inv for a row; sum g_x = 0 over both.
+    // Each z is taken less c = the pixel's max z_map (m * gamma), exact in
+    // real arithmetic, so the rows' sum G = sum g_x (z_inv - c) (in
+    // g_invgam, chunk_grads) does not cancel: gamma takes -(G + (eps - c)
+    // gb_x) / gamma^2, znear (G - c gb_x) / (gamma zden) and zfar
+    // -(G + (1 - c) gb_x) / (gamma zden).  Here the background's share;
+    // stream_finish adds G's.
+    const float c = st.m * gamma;
+    const float gz_den = gamma * (sc[kZfar] - sc[kZnear]);
+    acc.gsc[kGamma] += -((p.eps_bg - c) * gb_x) / (gamma * gamma);
+    acc.gsc[kZnear] += -(c * gb_x) / gz_den;
+    acc.gsc[kZfar] += -((1.0f - c) * gb_x) / gz_den;
     return;
   }
   const int S = agg_samples(p);
@@ -396,7 +408,16 @@ PT_HD void chunk_grads(const Params& p, const Tables& T, int b, int cid,
   float gz[kChunk], gc0[kChunk], gc1[kChunk], gc2[kChunk];
   for (int r = 0; r < kChunk; ++r) gz[r] = gc0[r] = gc1[r] = gc2[r] = 0.0f;
   if (p.agg_kind == kAggSoft) {
+    // x = log(prob) / alpha + z_inv / gamma: gamma, znear and zfar reach
+    // it through z_inv / gamma alone, so g_invgam sums g_x (z_inv - c) (c
+    // as stream_post's), and neither the z_map's gamma / alpha factor
+    // (stream_finish) nor the rows' z_inv adjoint (below) books them.
+    // Apart, the gamma paths are large sums of log(prob) g_x that cancel
+    // exactly, and the z_inv adjoints sums of z_inv g_x whose g_x cancel:
+    // their float32 rounding was what those gradients kept.
     const float inv_g = 1.0f / gamma;
+    const float zshift = st.m * gamma;
+    const float zfar = sc[kZfar], znear = sc[kZnear];
     for (int r = 0; r < kChunk; ++r) {
       const float x = R.zmap[r] * inv_g;
       const float wgt = expf(x - st.m) / st.den;
@@ -404,7 +425,8 @@ PT_HD void chunk_grads(const Params& p, const Tables& T, int b, int cid,
           R.c0[r] * g_rgb[0] + R.c1[r] * g_rgb[1] + R.c2[r] * g_rgb[2];
       const float g_x = wgt * (gwr - st.dot_w);
       gz[r] = g_x * inv_g;
-      acc.g_invgam += (isinf(R.zmap[r]) ? 0.0f : R.zmap[r]) * g_x;
+      const float zinv = (zfar - R.z[r]) / (zfar - znear) * R.mk[r];
+      acc.g_invgam += (isinf(R.zmap[r]) ? 0.0f : zinv - zshift) * g_x;
       gc0[r] = wgt * g_rgb[0];
       gc1[r] = wgt * g_rgb[1];
       gc2[r] = wgt * g_rgb[2];
@@ -473,8 +495,10 @@ PT_HD void chunk_grads(const Params& p, const Tables& T, int b, int cid,
       const float num = zfar - R.z[r];
       const float g_num = g_q / zden;
       const float g_den = -g_q * num / (zden * zden);
-      acc.gsc[kZfar] += g_num + g_den;
-      acc.gsc[kZnear] -= g_den;
+      if (p.agg_kind != kAggSoft) {       // the softmax's: stream_post
+        acc.gsc[kZfar] += g_num + g_den;
+        acc.gsc[kZnear] -= g_den;
+      }
       const float g_z = -g_num;
       if (TRACK_ALPHA) {       // alpha = 1 - prod(1 - p): exclusion products
         const bool one = prob >= 1.0f;
@@ -546,14 +570,21 @@ PT_HD void acc_fold(StreamAcc& total, PixelAcc& step) {
 }
 
 // The thread's scalar sums once every chunk is done: the z_map's
-// gamma / alpha factor and the softmax's 1 / gamma.
+// gamma / alpha factor (gamma's share only for the argmax aggregations:
+// the softmax's is in its 1 / gamma term, see chunk_grads), the
+// softmax's 1 / gamma, and its znear / zfar from the same sum.
 PT_HD void stream_finish(const Params& p, const float* sc, StreamAcc& acc) {
   const double gamma = sc[kGamma], alpha = sc[kAlpha];
   if (p.agg_kind != kAggHard) {
-    acc.gsc[kGamma] += acc.g_gal / alpha;
+    if (p.agg_kind != kAggSoft) acc.gsc[kGamma] += acc.g_gal / alpha;
     acc.gsc[kAlpha] += -acc.g_gal * gamma / (alpha * alpha);
   }
   acc.gsc[kGamma] += -acc.g_invgam / (gamma * gamma);
+  if (p.agg_kind == kAggSoft) {        // G's share (stream_post)
+    const double gz_den = gamma * ((double)sc[kZfar] - (double)sc[kZnear]);
+    acc.gsc[kZnear] += acc.g_invgam / gz_den;
+    acc.gsc[kZfar] += -acc.g_invgam / gz_den;
+  }
 }
 
 #ifdef __CUDACC__

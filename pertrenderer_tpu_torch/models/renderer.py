@@ -9,10 +9,10 @@ gradients from one launch of K2 or K7.  Everything else — the baseline
 shaders, znear/zfar overrides, shader and rasterizer cameras that differ,
 and configurations the fused kernels decline — takes the staged route:
 ``MeshRasterizer`` (select and derive, kernels K9a / K9b), then the
-shader (texture sampling, Phong shading with K10a / K10b, blending).  The
-staged route runs the deterministic estimators; with a Monte-Carlo
-estimator it raises ``NotImplementedError`` (kernels K8a-c are not
-ported), as do the binned and sharded routes.
+shader (texture sampling, Phong shading with K10a / K10b, blending), whose
+Monte-Carlo estimators run as kernels K8a (coverage) and K8b / K8c
+(aggregation).  The binned and sharded routes raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -148,13 +148,20 @@ class MeshRenderer(nn.Module):
                                        shade)
         return None if cfg is None else (cfg, *args)
 
-    def _staged(self, meshes, seeds, kwargs):
+    def _staged(self, meshes, seeds, generator, kwargs):
         """Rasterize (planar fragments for the perturbed shaders), then
-        shade."""
-        for est in (getattr(self.shader, "smoothrast", None),
-                    getattr(self.shader, "smoothagg", None)):
+        shade; the seed words are drawn from ``generator`` when not given,
+        as the fused routes draw them."""
+        agg = getattr(self.shader, "smoothagg", None)
+        for est in (getattr(self.shader, "smoothrast", None), agg):
             if est is not None:
                 est.check_staged()
+        if agg is not None:         # the perturbed shaders draw MC noise
+            self._check_device(meshes.device)
+        if seeds is None:
+            seeds = fused_render.draw_seeds(
+                meshes.batch_size, generator,
+                getattr(agg, "fixed_noise", False), device=meshes.device)
         cameras = kwargs.get("cameras", self.rasterizer.cameras)
         if getattr(type(self.shader), "planar_input", False):
             fragments = self.rasterizer.planar(meshes, cameras=cameras)
@@ -165,15 +172,16 @@ class MeshRenderer(nn.Module):
     def forward(self, meshes, seeds=None,
                 generator: Optional[torch.Generator] = None, **kwargs):
         """Render ``meshes``.  ``seeds``: (N, 4) int32 seed words (or JAX
-        (N, 1, 8) seed rows); drawn from ``generator`` (a CPU generator,
-        seed 0 if None) when not given; the staged route's deterministic
-        estimators use neither.  kwargs override cameras, lights,
-        materials, blend_params (and, staged, znear / zfar).  The first
-        fused render on a CUDA device checks the card's hash-PRNG stream
-        (kernel K1) before rendering."""
+        (N, 1, 8) seed rows), words 0/1 keying the coverage noise and 2/3
+        the aggregation's; drawn from ``generator`` (a CPU generator, seed
+        0 if None) when not given; the deterministic estimators ignore
+        them.  kwargs override cameras, lights, materials, blend_params
+        (and, staged, znear / zfar).  The first fused or perturbed staged
+        render on a CUDA device checks the card's hash-PRNG stream (kernel
+        K1) before rendering."""
         fused = self._fused(meshes, kwargs)
         if fused is None:
-            return self._staged(meshes, seeds, kwargs)
+            return self._staged(meshes, seeds, generator, kwargs)
         cfg, (cameras, lights, materials, sr, sa, blend, settings), shade = \
             fused
         self._check_device(meshes.device)

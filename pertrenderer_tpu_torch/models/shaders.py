@@ -3,7 +3,8 @@
 ``RandomPhongShader`` / ``RandomSimpleShader`` hold the shading and
 smoothing configuration that ``MeshRenderer`` hands to the fused routes;
 called on fragments they run the staged route: sample the texture, Phong
-shading (``shading.phong_shading_cm``) and the perturbed blend.  The
+shading (``shading.phong_shading_cm``) and the perturbed blend, whose
+Monte-Carlo estimators are kernels K8a-c.  The
 PyTorch3D baselines ``SimpleShader``, ``SoftSimpleShader``,
 ``HardPhongShader`` (the experiments' target renderer), ``SoftPhongShader``
 and ``SoftSilhouetteShader`` run only staged.  A shader maps (fragments,
@@ -106,7 +107,8 @@ class RandomPhongShader(_RandomShader):
 
     def __call__(self, fragments, meshes, seeds=None, **kwargs):
         """The staged route: sample, Phong (K10a), perturbed blend.
-        ``seeds`` would key the MC estimators, which raise here."""
+        ``seeds``: (N, 4) int32 seed words of the MC estimators (K8a-c),
+        drawn from a generator seeded 0 when None."""
         cameras = _cameras(self, kwargs)
         pfrag = as_planar(fragments)
         colors_cm = phong_shading_cm(
@@ -137,7 +139,8 @@ class RandomSimpleShader(_RandomShader):
                               smoothagg, blend_params, device=device)
 
     def __call__(self, fragments, meshes, seeds=None, **kwargs):
-        """The staged route: texels straight to the perturbed blend."""
+        """The staged route: texels straight to the perturbed blend
+        (``seeds`` as for RandomPhongShader)."""
         cameras = _cameras(self, kwargs)
         pfrag = as_planar(fragments)
         znear, zfar = _znear_zfar(cameras, kwargs)

@@ -15,8 +15,10 @@ preamble (``_z_map``):
                 + z_inv - z_inv_max,  then the background channel
                 eps - z_inv_max appended (K + 1 channels).
 
-The MC members' staged ``aggregate`` raises (kernels K8b / K8c are not
-ported).
+The MC members (GaussianAgg, GaussianAgg_wovr, CauchyAgg and the
+forward-only UniformAgg, whose log-prob scaling is the plain product)
+take the perturbed argmax of the z_map (kernels K8b / K8c), keyed by the
+(N, 2) int32 aggregation seed words.
 """
 
 from __future__ import annotations
@@ -26,13 +28,14 @@ from typing import Optional
 
 import torch
 
+from pertrenderer_tpu_torch.ops import fused_render
 from pertrenderer_tpu_torch.ops.perturbed import (hard_argmax_onehot,
                                                   log_corrected,
                                                   perturbed_argmax,
                                                   prod_corrected)
 
 __all__ = ["SoftAgg", "GaussianAgg", "GaussianAgg_wovr", "CauchyAgg",
-           "HardAgg"]
+           "UniformAgg", "HardAgg"]
 
 
 def _scalar(x) -> torch.Tensor:
@@ -64,8 +67,6 @@ def _on(x, like: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class _Agg:
-    monte_carlo = True      # the staged aggregate needs kernels K8b / K8c
-
     gamma: torch.Tensor
     alpha: torch.Tensor
     eps: float = 1e-10
@@ -78,23 +79,18 @@ class _Agg:
     def update_nb_samples(self, nb_samples):
         return dataclasses.replace(self, nb_samples=int(nb_samples))
 
-    def aggregate(self, zbuf, zfar, znear, prob_map, mask, seeds=None):
-        """The MC members' perturbed argmax over the z_map: raises on the
-        staged route (K8b / K8c)."""
-        return perturbed_argmax(zbuf, self.gamma, seeds, self.nb_samples)
-
     def check_staged(self):
-        """Raise NotImplementedError if the staged route cannot run this
-        estimator (before any work is done)."""
-        if self.monte_carlo:
-            perturbed_argmax(None, self.gamma)
+        """Raise NotImplementedError, before any work is done, where the
+        staged route cannot run this estimator: a sharded sample axis."""
+        if getattr(self, "sample_axis", None):
+            raise NotImplementedError(
+                "sharded route is not ported to PyTorch yet: the estimator "
+                f"shards its samples over {self.sample_axis!r}")
 
 
 @dataclasses.dataclass
 class SoftAgg(_Agg):
     """Softmax aggregation (the SoftRas aggregate).  Deterministic."""
-
-    monte_carlo = False
 
     nb_samples: int = 1
 
@@ -112,8 +108,13 @@ class SoftAgg(_Agg):
 
 @dataclasses.dataclass
 class _StochasticAgg(_Agg):
-    """Perturbed argmax.  ``fixed_noise`` renders with the aggregation seed
-    words drawn from a generator seeded 1 (the reference reseeds to 1)."""
+    """Perturbed argmax.  ``fixed_noise`` (or no seeds) renders with the
+    aggregation seed words drawn from a generator seeded 1, as
+    ``fused_render.draw_seeds`` does (the reference reseeds to 1)."""
+
+    noise_type = "gaussian"
+    variance_reduction = True
+    corrected_prod = True       # prod_corrected scales the log-prob
 
     fixed_noise: bool = False
     sample_axis: Optional[str] = None
@@ -125,6 +126,20 @@ class _StochasticAgg(_Agg):
                    nb_samples=nb_samples, fixed_noise=fixed_noise,
                    sample_axis=sample_axis)
 
+    def aggregate(self, zbuf, zfar, znear, prob_map, mask, seeds=None):
+        """The perturbed argmax of the z_map (K8b, gradients K8c);
+        ``seeds``: (N, 2) int32 aggregation seed words."""
+        if self.fixed_noise or seeds is None:
+            seeds = fused_render.draw_seeds(zbuf.shape[0], fixed_noise=True,
+                                            device=zbuf.device)[:, 2:]
+        gamma = _on(self.gamma, zbuf)
+        z_map = _z_map(gamma, _on(self.alpha, zbuf), self.eps, zbuf, zfar,
+                       znear, prob_map, mask,
+                       corrected_prod=self.corrected_prod)
+        return perturbed_argmax(z_map, gamma, seeds, self.nb_samples,
+                                self.noise_type, self.variance_reduction,
+                                self.sample_axis)
+
 
 @dataclasses.dataclass
 class GaussianAgg(_StochasticAgg):
@@ -135,17 +150,30 @@ class GaussianAgg(_StochasticAgg):
 class GaussianAgg_wovr(_StochasticAgg):
     """Gaussian perturbed argmax without variance reduction."""
 
+    variance_reduction = False
+
 
 @dataclasses.dataclass
 class CauchyAgg(_StochasticAgg):
     """Cauchy perturbed argmax with variance reduction."""
 
+    noise_type = "cauchy"
+
+
+@dataclasses.dataclass
+class UniformAgg(_StochasticAgg):
+    """Uniform-noise perturbed argmax: forward-only (its gradients are
+    zero, with a warning), and the log-prob scaled by the plain product,
+    as in the reference (smoothagg.py:267).  Not a fused menu member: a
+    renderer with it takes the staged route."""
+
+    noise_type = "uniform"
+    corrected_prod = False
+
 
 @dataclasses.dataclass
 class HardAgg(_Agg):
     """Hard argmax; log-prob scaled by 1e-6.  gamma/alpha are inert."""
-
-    monte_carlo = False
 
     gamma: torch.Tensor = dataclasses.field(
         default_factory=lambda: _scalar(1.0))

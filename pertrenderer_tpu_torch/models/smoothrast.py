@@ -5,11 +5,12 @@
 keeps a tensor that requires grad, so the pose step's gradient reaches
 it); ``nb_samples`` sets the Monte-Carlo sample count, which annealing
 doubles through ``update_nb_samples``.  The fused kernels evaluate the
-estimators on the flat and stream routes; ``rasterize(dists)`` is the
-staged route's coverage map, ported for the deterministic members
-(SoftRast, AffineRast, HardRast).  The MC members' staged ``rasterize``
-raises (kernel K8a is not ported).  ``sample_axis`` names the
-sample-sharded route, which the port does not run yet.
+estimators on the flat and stream routes; ``rasterize(dists, seeds)`` is
+the staged route's coverage map: the deterministic members' closed forms
+(SoftRast, AffineRast, HardRast) and the MC members' perturbed Heaviside
+(kernel K8a), keyed by the (N, 2) int32 rasterization seed words.
+``sample_axis`` names the sample-sharded route, which the port does not
+run yet.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def _scalar(x) -> torch.Tensor:
 
 @dataclasses.dataclass
 class _Rast:
-    monte_carlo = True      # the staged rasterize needs kernel K8a
+    noise_type = "gaussian"          # the MC members' noise family
+    variance_reduction = True
 
     sigma: torch.Tensor
     nb_samples: int = 16
@@ -48,16 +50,20 @@ class _Rast:
         return dataclasses.replace(self, nb_samples=int(nb_samples))
 
     def rasterize(self, dists, seeds=None):
-        """The MC members' perturbed Heaviside of -dists: raises on the
-        staged route (K8a)."""
-        return perturbed_heaviside(-dists, self.sigma, seeds,
-                                   self.nb_samples)
+        """The MC members' perturbed Heaviside of -dists (kernel K8a);
+        ``seeds``: (N, 2) int32 seed words."""
+        return perturbed_heaviside(-dists, self._sigma(dists), seeds,
+                                   self.nb_samples, self.noise_type,
+                                   self.variance_reduction,
+                                   getattr(self, "sample_axis", None))
 
     def check_staged(self):
-        """Raise NotImplementedError if the staged route cannot run this
-        estimator (before any work is done)."""
-        if self.monte_carlo:
-            perturbed_heaviside(None, self.sigma)
+        """Raise NotImplementedError, before any work is done, where the
+        staged route cannot run this estimator: a sharded sample axis."""
+        if getattr(self, "sample_axis", None):
+            raise NotImplementedError(
+                "sharded route is not ported to PyTorch yet: the estimator "
+                f"shards its samples over {self.sample_axis!r}")
 
     def _sigma(self, like: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(self.sigma, dtype=torch.float32,
@@ -67,8 +73,6 @@ class _Rast:
 @dataclasses.dataclass
 class SoftRast(_Rast):
     """sigmoid(-d / sigma) coverage.  Deterministic."""
-
-    monte_carlo = False
 
     nb_samples: int = 1
 
@@ -91,6 +95,8 @@ class GaussianRast(_Rast):
 class GaussianRast_wovr(_Rast):
     """Gaussian perturbed Heaviside without variance reduction."""
 
+    variance_reduction = False
+
     sample_axis: Optional[str] = None
 
 
@@ -98,14 +104,14 @@ class GaussianRast_wovr(_Rast):
 class ArctanRast(_Rast):
     """Cauchy-noise perturbed Heaviside."""
 
+    noise_type = "cauchy"
+
     sample_axis: Optional[str] = None
 
 
 @dataclasses.dataclass
 class AffineRast(_Rast):
     """Clamped affine coverage (uniform-noise closed form).  Deterministic."""
-
-    monte_carlo = False
 
     def rasterize(self, dists, seeds=None):
         x = -dists / self._sigma(dists)
@@ -116,8 +122,6 @@ class AffineRast(_Rast):
 @dataclasses.dataclass
 class HardRast(_Rast):
     """Hard Heaviside coverage; sigma is inert."""
-
-    monte_carlo = False
 
     sigma: torch.Tensor = dataclasses.field(
         default_factory=lambda: _scalar(0.0))

@@ -230,6 +230,32 @@ def _draw_block(noise_type: str, seed0, seed1, s: int, c: int, pos,
     raise ValueError(f"fused forward: noise {noise_type!r} unsupported")
 
 
+def _draw_values(noise_type: str, seed0, seed1, s: int, rows, pos):
+    """One standard value per (row, pos) word for sample ``s``: the staged
+    estimators' draws (K8a-c; ``hash_prng.cuh`` ``family_draw``), with the
+    maps of ``_sample`` in the JAX package's ``ops/perturbed_pallas.py``.
+    Gaussian keeps the cos half of the Box-Muller pair; uniform is centred
+    on [-0.5, 0.5].  ``seed0``/``seed1``, ``rows`` and ``pos`` broadcast
+    (int64 in [0, 2^32))."""
+    x = _hash_words(seed0, seed1, s, rows, pos)
+    if noise_type == "gaussian":
+        u1 = _uniform01(x)
+        u2 = _uniform01(_mix((x + _C_BM) & _M32))
+        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
+            (2.0 * math.pi) * u2)
+    u = _uniform01(_mix((x + _C_CAUCHY) & _M32))
+    if noise_type == "cauchy":
+        return torch.clamp(torch.tan(math.pi * (u - 0.5)), -_CAUCHY_CLAMP,
+                           _CAUCHY_CLAMP)
+    if noise_type == "logistic":
+        return torch.log(u) - torch.log1p(-u)
+    if noise_type == "gumbel":
+        return -torch.log(-torch.log(u))
+    if noise_type == "uniform":
+        return u - 0.5
+    raise ValueError(f"noise type {noise_type!r} not implemented")
+
+
 _NOISE_IDS = {"uniform": 0, "gaussian": 1, "cauchy": 2}
 _PROBE_SEEDS = (1234567, -987654)
 
@@ -887,26 +913,33 @@ def _first_hot(val):
     return m, first
 
 
-def _stream_zmap(cfg: FusedConfig, prob, z, maskf, sc):
-    """A chunk's z_map: no stabilising shift, no z_inv_max clamp (the JAX
-    ``_stream_zmap``).  Dead rows (prob 0) give -inf."""
-    z_inv = (sc(_S_ZFAR) - z) / (sc(_S_ZFAR) - sc(_S_ZNEAR)) * maskf
+def _stream_zmap(cfg: FusedConfig, prob, z, maskf, sc, softmax=False):
+    """A chunk's (z_map, z_inv): no stabilising shift, no z_inv_max clamp
+    (the JAX ``_stream_zmap``).  Dead rows (prob 0) give -inf.  With
+    ``softmax`` gamma, znear and zfar are constants here: the softmax's
+    backward books their gradients itself (:func:`_stream_grad_plain`)."""
+    fixed = (lambda t: t.detach()) if softmax else (lambda t: t)
+    zfar, znear = fixed(sc(_S_ZFAR)), fixed(sc(_S_ZNEAR))
+    z_inv = (zfar - z) / (zfar - znear) * maskf
     lp = log_corrected(prob)
     if cfg.agg_kind == "hard":
-        return (1.0 / 1e6) * lp + z_inv
-    return prod_corrected(sc(_S_GAMMA) / sc(_S_ALPHA), lp) + z_inv
+        return (1.0 / 1e6) * lp + z_inv, z_inv
+    return prod_corrected(fixed(sc(_S_GAMMA)) / sc(_S_ALPHA), lp) + z_inv, \
+        z_inv
 
 
-def _stream_chunk(cfg: FusedConfig, blk, c: int, px, py, pos, sc, seeds):
+def _stream_chunk(cfg: FusedConfig, blk, c: int, px, py, pos, sc, seeds,
+                  softmax=False):
     """det1, coverage and z_map of chunk c (blk (N, 64, Dt)) at the pixels
-    (px, py, pos) (1, 1, Q): (prob, zmap, c0, c1, c2, z, maskf)."""
+    (px, py, pos) (1, 1, Q): (prob, zmap, c0, c1, c2, z_inv)."""
     td = cfg.tex_d
     valid = (blk[..., 27 + td] < _BIG_LO).to(torch.float32)
     dist, z, c0, c1, c2, maskf = _det1(
         cfg, px, py, blk[..., :9], blk[..., 9:18], blk[..., 18:27],
         blk[..., 27:27 + td], valid, sc)
     prob = _coverage(cfg, dist, sc, seeds, pos, c * STREAM_CHUNK) * maskf
-    return prob, _stream_zmap(cfg, prob, z, maskf, sc), c0, c1, c2
+    zmap, z_inv = _stream_zmap(cfg, prob, z, maskf, sc, softmax)
+    return prob, zmap, c0, c1, c2, z_inv
 
 
 class _StreamPass:
@@ -987,8 +1020,8 @@ def _stream_sweep(cfg: FusedConfig, tab, rows, count, active, scal, seeds,
     with torch.no_grad():
         for c, sel, vis, pos, px, py in ps.chunks():
             blk = tab[:, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK]
-            prob, zmap, c0, c1, c2 = _stream_chunk(cfg, blk, c, px, py, pos,
-                                                   sc, seeds)
+            prob, zmap, c0, c1, c2, _zi = _stream_chunk(cfg, blk, c, px, py,
+                                                        pos, sc, seeds)
             at = lambda k: st[k][..., sel]
             _set(st["alpha"], sel, vis, at("alpha") * _prod_rows(1.0 - prob))
             if track_alpha:
@@ -1102,8 +1135,21 @@ def _stream_grad_plain(cfg: FusedConfig, tab, rows, count, active, scal,
         w_bg = torch.exp(x_bg - st["m"]) / st["den"]
         g_scal[:, _S_BG:_S_BG + 3] += torch.sum(w_bg * g_rgb, dim=2)
         gb_x = w_bg * (torch.sum(bgc * g_rgb, 1, keepdim=True) - dot_w)
-        g_scal[:, _S_GAMMA] += (-torch.sum(cfg.eps_bg * gb_x, dim=(1, 2))
+        # gamma, znear and zfar reach the softmax only through z / gamma (z
+        # = eps for the background, z_inv for a row), and sum g_x = 0 over
+        # both: with c the pixel's max z_map (m * gamma) and G = sum over
+        # the rows of g_x (z_inv - c), which does not cancel, gamma takes
+        # -(G + (eps - c) gb_x) / gamma^2, znear (G - c gb_x) / (gamma
+        # zden) and zfar -(G + (1 - c) gb_x) / (gamma zden), exactly.
+        zshift = st["m"] * gamma                              # (N, 1, P)
+        g_rows = torch.zeros_like(zshift, dtype=torch.float64)   # G
+        gz_den = (gamma * (sc0(_S_ZFAR) - sc0(_S_ZNEAR))).view(n)
+        g_scal[:, _S_GAMMA] += (-torch.sum((cfg.eps_bg - zshift) * gb_x,
+                                           dim=(1, 2))
                                 / (gamma * gamma).view(n))
+        g_scal[:, _S_ZNEAR] += -torch.sum(zshift * gb_x, dim=(1, 2)) / gz_den
+        g_scal[:, _S_ZFAR] += (-torch.sum((1.0 - zshift) * gb_x, dim=(1, 2))
+                               / gz_den)
     else:
         s_agg = st["runmax"].shape[1]
         dot = torch.sum((st["winc"] - st["w0c"][:, None]) * g_rgb[:, None],
@@ -1127,8 +1173,9 @@ def _stream_grad_plain(cfg: FusedConfig, tab, rows, count, active, scal,
             blk = tab[:, rows_sl].detach().requires_grad_()
             scal_l = scal.detach().requires_grad_()
             sc = lambda i: scal_l[:, i].view(n, 1, 1)
-            prob, zmap, c0, c1, c2 = _stream_chunk(cfg, blk, c, px, py, pos,
-                                                   sc, seeds)
+            prob, zmap, c0, c1, c2, z_inv = _stream_chunk(
+                cfg, blk, c, px, py, pos, sc, seeds,
+                softmax=cfg.agg_kind == "soft")
         with torch.no_grad():
             cols = (c0, c1, c2)
             if cfg.agg_kind == "soft":
@@ -1137,10 +1184,17 @@ def _stream_grad_plain(cfg: FusedConfig, tab, rows, count, active, scal,
                 gwr = sum(ci * g_sel[:, i:i + 1] for i, ci in enumerate(cols))
                 g_x = wgt * (gwr - dot_w[..., sel] * vis)
                 g_zmap = g_x * (1.0 / gamma)
-                zsafe = torch.where(torch.isinf(zmap), 0.0, zmap)
-                g_scal[:, _S_GAMMA] -= (
-                    torch.sum((zsafe * g_x).double(), dim=(1, 2))
-                    / (gamma * gamma).view(n).double())
+                # x = log(prob) / alpha + z_inv / gamma.  Taking gamma
+                # through the z_map's gamma / alpha factor and through 1 /
+                # gamma apart gives two large sums of log(prob) g_x that
+                # cancel exactly, and znear / zfar through each row's z_inv
+                # sums of z_inv g_x whose g_x cancel: their float32
+                # rounding was the fault.  So _stream_chunk holds the three
+                # constant and they come from G (above).
+                zsafe = torch.where(torch.isinf(zmap), 0.0,
+                                    z_inv - zshift[..., sel])
+                g_rows[..., sel] += torch.sum((zsafe * g_x).double(), dim=1,
+                                              keepdim=True)
                 g_c = [wgt * g_sel[:, i:i + 1] for i in range(3)]
             else:
                 rows_abs = (torch.arange(STREAM_CHUNK, device=dev)
@@ -1178,6 +1232,11 @@ def _stream_grad_plain(cfg: FusedConfig, tab, rows, count, active, scal,
             g_tab[:, rows_sl] += g_blk
         if g_sc is not None:
             g_scal += g_sc.double()
+    if cfg.agg_kind == "soft":                        # G's share
+        g = torch.sum(g_rows, dim=(1, 2))
+        g_scal[:, _S_GAMMA] -= g / (gamma * gamma).view(n).double()
+        g_scal[:, _S_ZNEAR] += g / gz_den.double()
+        g_scal[:, _S_ZFAR] -= g / gz_den.double()
     return loss, g_tab, g_scal.to(tab.dtype)
 
 

@@ -246,7 +246,8 @@ STAGED_SHADERS = ("RandomPhongShader", "RandomSimpleShader",
 
 def staged_scene(shader="RandomPhongShader", noise="softras",
                  mesh_kind="cube", textures="uv", n=2, imsize=32, k=4,
-                 sigma=1e-2, gamma=5e-1, bin_size=None):
+                 sigma=1e-2, gamma=5e-1, bin_size=None, same_pose=False,
+                 nb_samples=4):
     """(mesh, cameras, lights, renderer) of the JAX package for the staged
     route, seen so that both packages project every vertex to the same
     bits: the mesh (``scene_mesh``) is turned to ``n`` fixed poses as data
@@ -254,10 +255,13 @@ def staged_scene(shader="RandomPhongShader", noise="softras",
     fov 50, rotation entries 0 and +-1).  ``textures``: ``uv`` (the
     cube's, sampled through its one-texel atlas on the channel-major
     path), ``uv_map`` (the same map with no atlas: bilinear fetches),
-    ``vertex`` or ``atlas4``."""
+    ``vertex`` or ``atlas4``.  ``same_pose`` gives every batch element the
+    first pose (replicas of one render); ``nb_samples`` is the MC
+    estimators' S."""
     base = scene_mesh(mesh_kind)
     v = np.asarray(base.verts[0])
-    verts = np.stack([v @ _rotation(i + 1) for i in range(n)])
+    verts = np.stack([v @ _rotation(1 if same_pose else i + 1)
+                      for i in range(n)])
     tex = base.textures
     nv, nf = base.max_verts, base.max_faces
     if textures == "uv_map":
@@ -284,7 +288,7 @@ def staged_scene(shader="RandomPhongShader", noise="softras",
                            background_color=(0.0, 0.1, 0.2))
     cls = getattr(pt, shader)
     if shader in ("RandomPhongShader", "RandomSimpleShader"):
-        sr, sa = make_smoothers(noise, sigma, gamma, 1.0, 4)
+        sr, sa = make_smoothers(noise, sigma, gamma, 1.0, nb_samples)
         sh = cls.create(cameras=cameras, lights=lights, blend_params=blend,
                         smoothrast=sr, smoothagg=sa)
     elif shader in ("HardPhongShader", "SoftPhongShader"):

@@ -554,3 +554,93 @@ def test_stream_preparation_is_deterministic(cuda_device):
     first, second = once(), once()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise,vr", [
+    ("gaussian", True), ("gaussian", False), ("cauchy", True),
+    ("logistic", True), ("gumbel", True), ("uniform", True)])
+def test_staged_estimator_kernels_match_plain(noise, vr, cuda_device):
+    """K8a / K8b / K8c against their plain versions on shared noise at a
+    small staged shape (N=2, 37 x 41 pixels, K=9, S=8): forwards at the MC
+    tolerance (mean |d| <= 1e-5, 99.9% of elements within 1e-4), the
+    gradients of gaussian and cauchy within 1e-3 of their max, two
+    launches bit-equal, one launch counted per call; a pixel of exact
+    ties counts every tied channel."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    gen = torch.Generator().manual_seed(12)
+    d = (torch.randn(2, 37, 41, 9, generator=gen) * 0.02).to(cuda_device)
+    z = torch.randn(2, 37, 41, 10, generator=gen).to(cuda_device)
+    z[0, 0, 0] = 0.25
+    g = torch.randn(z.shape, generator=gen).to(cuda_device)
+    seeds = torch.tensor([[5, -6], [7, 8]], dtype=torch.int32,
+                         device=cuda_device)
+    sigma = torch.tensor(1e-2, device=cuda_device)
+    gamma = torch.tensor(0.5, device=cuda_device)
+
+    def mc_close(got, want):
+        dd = (got - want).abs()
+        assert torch.isfinite(got).all()
+        assert dd.mean().item() <= 1e-5
+        assert (dd <= 1e-4).float().mean().item() >= 0.999
+
+    before = dict(pk.launch_counts)
+    for fn, plain, x, scale in (
+            (pk.heaviside_mean, pk.heaviside_mean_plain, d, sigma),
+            (pk.argmax_mean, pk.argmax_mean_plain, z, gamma)):
+        got, again = fn(x, scale, seeds, 8, noise), fn(x, scale, seeds, 8,
+                                                       noise)
+        assert torch.equal(got, again)
+        mc_close(got, plain(x, scale, seeds, 8, noise))
+    tied = pk.argmax_mean(z, gamma, seeds, 8, noise)[0, 0, 0]
+    assert tied.sum().item() >= 1.0
+    if noise in pk.GRAD_NOISES:
+        got = pk.heaviside_coeff(d, sigma, seeds, 8, noise, vr)
+        want = pk.heaviside_coeff_plain(d, sigma, seeds, 8, noise, vr)
+        assert torch.equal(got, pk.heaviside_coeff(d, sigma, seeds, 8,
+                                                   noise, vr))
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+        got = pk.argmax_grads(z, g, gamma, seeds, 8, noise, vr)
+        want = pk.argmax_grads_plain(z, g, gamma, seeds, 8, noise, vr)
+        for a, b, c in zip(got, want, pk.argmax_grads(z, g, gamma, seeds, 8,
+                                                      noise, vr)):
+            assert torch.equal(a, c)
+            assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-3
+    torch.cuda.synchronize()
+    launched = {k: pk.launch_counts[k] - before[k] for k in before}
+    assert launched["heaviside_mean"] == 2 and launched["argmax_mean"] == 3
+    if noise in pk.GRAD_NOISES:
+        assert launched["heaviside_coeff"] == 2
+        assert launched["argmax_grads"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["gaussian", "cauchy"])
+def test_staged_mc_render_matches_cpu(noise, cuda_device):
+    """A staged MC render of the cube (a znear override sends it staged)
+    and its vertex gradient on the card (K8a-c, K9, K10) against the CPU
+    plain versions on the same seed words: the image at the MC tolerance,
+    the gradient within 1e-3 of its max."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    def run(device):
+        mesh, renderer = _renderer(noise, device, imsize=64)
+        seeds = tfr.draw_seeds(mesh.batch_size,
+                               torch.Generator().manual_seed(4),
+                               device=device)
+        verts = mesh.verts.detach().clone().requires_grad_()
+        img = renderer(mesh.update_padded(verts), seeds=seeds, znear=1.0)
+        w = torch.randn(img.shape, generator=torch.Generator()
+                        .manual_seed(5)).to(device)
+        (g,) = torch.autograd.grad((img * w).sum(), [verts])
+        return img.detach().cpu(), g.cpu()
+
+    before = dict(pk.launch_counts)
+    img_g, g_g = run(cuda_device)
+    torch.cuda.synchronize()
+    assert all(pk.launch_counts[k] > before[k] for k in before)
+    img_c, g_c = run("cpu")
+    assert (img_c[..., 3] > 0.5).float().mean() > 0.05
+    assert_kernel_close(img_g, img_c, mc=True)
+    assert ((g_g - g_c).abs().max() / g_c.abs().max()).item() <= 1e-3

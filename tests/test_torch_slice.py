@@ -68,27 +68,33 @@ def test_render_plan_is_flat():
 
 
 def test_unported_routes_raise():
+    """The sharded route raises; F > faces_per_pixel streams; what the
+    fused planner declines (an image above 2048, a UV texture without an
+    atlas) takes the staged route, whose MC estimators run (K8a-c)."""
     _posed, _jrend, tmesh, trend = _scene("gaussian")
     few_slots = ptt.MeshRenderer(
         ptt.MeshRasterizer(trend.rasterizer.cameras, dataclasses.replace(
             trend.rasterizer.raster_settings, faces_per_pixel=8)),
         trend.shader)
     # F = 12 > faces_per_pixel = 8 takes the stream route, which is
-    # ported; the routes below are not.
+    # ported; the sharded route below is not.
     assert few_slots.plan(tmesh).mode == "stream"
-    with pytest.raises(NotImplementedError, match="staged"):
-        ptt.MeshRenderer(ptt.MeshRasterizer(
-            trend.rasterizer.cameras, dataclasses.replace(
-                trend.rasterizer.raster_settings, image_size=4096)),
-            trend.shader)(tmesh)
+    big = ptt.MeshRenderer(ptt.MeshRasterizer(
+        trend.rasterizer.cameras, dataclasses.replace(
+            trend.rasterizer.raster_settings, image_size=4096)),
+        trend.shader).plan(tmesh)
+    assert (big.mode, big.reason) == (
+        "staged", "image size above the 2048 fused-kernel limit")
     sharded = dataclasses.replace(trend.shader, smoothrast=dataclasses.replace(
         trend.shader.smoothrast, sample_axis="samples"))
     with pytest.raises(NotImplementedError, match="sharded"):
         ptt.MeshRenderer(trend.rasterizer, sharded)(tmesh)
     no_atlas = tmesh.with_textures(dataclasses.replace(tmesh.textures,
                                                        atlas_size=0))
-    with pytest.raises(NotImplementedError, match="staged"):
-        trend(no_atlas)
+    assert trend.plan(no_atlas).mode == "staged"
+    img = trend(no_atlas, generator=torch.Generator().manual_seed(0))
+    assert img.shape == (2, 32, 32, 4) and torch.isfinite(img).all()
+    assert (img[..., 3] > 0.5).sum() > 50
     with pytest.raises(ValueError, match="loss_kind"):
         trend.render_loss(tmesh, torch.zeros(2, 32, 32, 3), loss_kind="l3")
 

@@ -25,6 +25,7 @@ from pertrenderer_tpu.experiments import harness as jharness
 from pertrenderer_tpu.ops import fused_render as jfr
 from pertrenderer_tpu_torch import convert
 from pertrenderer_tpu_torch.experiments import harness as tharness
+from pertrenderer_tpu_torch.ops import fused_render as tfr
 from _torch_parity import (jax_exact, one_torch_thread,  # noqa: F401
                            staged_scene)
 
@@ -81,21 +82,44 @@ def test_render_plan_reports_staged_as_jax():
 
 
 def test_staged_mc_estimators_raise_naming_k8():
-    """The staged route with a Monte-Carlo estimator raises before any
-    work, naming the unported kernels."""
-    mesh, _c, _l, renderer = staged_scene(noise="gaussian", imsize=4096)
+    """The staged route with a Monte-Carlo estimator runs (kernels K8a-c,
+    their plain versions on the CPU): a render the fused planner declines
+    (a znear override) gives a finite image that its seed words fix, draws
+    them from the generator as the fused routes do, and has gradients, also
+    through render_loss's staged fallback;
+    only a sharded sample axis still raises, before any work, naming the
+    route."""
+    mesh, _c, _l, renderer = staged_scene(noise="gaussian", imsize=16)
     trend = convert.from_reference(renderer, device="cpu")
     tmesh = convert.from_reference(mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="K8a"):
-        trend(tmesh)
-    sh = dataclasses.replace(trend.shader,
-                             smoothrast=ptt.SoftRast.create(sigma=1e-2))
-    with pytest.raises(NotImplementedError, match="K8b"):
-        trend.replace(shader=sh)(tmesh)
-    with pytest.raises(NotImplementedError, match="K8a"):
-        ptt.perturbed_heaviside(torch.zeros(3), 1e-2)
-    with pytest.raises(NotImplementedError, match="K8b/K8c"):
-        ptt.perturbed_argmax(torch.zeros(3), 1e-2)
+    assert trend.plan(tmesh, znear=1.0).mode == "staged"
+    seeds = tfr.draw_seeds(2, torch.Generator().manual_seed(5), device="cpu")
+    img = trend(tmesh, seeds=seeds, znear=1.0)
+    assert img.shape == (2, 16, 16, 4) and torch.isfinite(img).all()
+    assert (img[..., 3] > 0.5).sum() > 20
+    assert torch.equal(img, trend(tmesh, seeds=seeds, znear=1.0))
+    assert not torch.equal(img, trend(tmesh, seeds=seeds + 1, znear=1.0))
+    drawn = trend(tmesh, generator=torch.Generator().manual_seed(5),
+                  znear=1.0)
+    assert torch.equal(img, drawn)
+    verts = tmesh.verts.detach().clone().requires_grad_()
+    (g,) = torch.autograd.grad(
+        trend(tmesh.update_padded(verts), seeds=seeds, znear=1.0)[..., :3]
+        .sum(), [verts])
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    loss = trend.render_loss(tmesh.update_padded(verts), img[..., :3] * 0.5,
+                             seeds=seeds, znear=1.0)
+    torch.testing.assert_close(
+        loss, torch.mean((img[..., :3] * 0.5) ** 2), rtol=1e-6, atol=0)
+    (g,) = torch.autograd.grad(loss, [verts])
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    sh = dataclasses.replace(trend.shader, smoothrast=dataclasses.replace(
+        trend.shader.smoothrast, sample_axis="s"))
+    with pytest.raises(NotImplementedError, match="sharded"):
+        trend.replace(shader=sh)(tmesh, znear=1.0)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        ptt.perturbed_argmax(torch.zeros(1, 3), 1e-2, seeds[:1, 2:],
+                             sample_axis="s")
 
 
 def test_init_target_cube_matches_jax():

@@ -248,7 +248,8 @@ def test_other_routes_raise_naming_the_route():
     """Binned (bin_overflow='allow' with F > 8192 at a binnable size) and
     sharded estimators raise; 'allow' with fewer faces still streams, as
     in the JAX package; images above 2048 decline to the staged route,
-    whose MC estimators raise."""
+    which runs the MC estimators (K8a-c) and raises only for a sharded
+    sample axis."""
     cams_l = ptt.PointLights.create(location=(0.0, 2.0, -2.0), device="cpu")
     sr = ptt.GaussianRast.create(sigma=1e-3, nb_samples=2)
     sa = ptt.GaussianAgg.create(gamma=1e-2, nb_samples=2)
@@ -267,9 +268,11 @@ def test_other_routes_raise_naming_the_route():
         tfr._plan(cow, cams_l, dataclasses.replace(sr, sample_axis="s"), sa,
                   allow, "phong")
     # Above 2048 pixels the fused routes decline, as JAX's _plan does: the
-    # render goes staged, whose MC estimators (K8) are not ported.
+    # render goes staged, whose MC estimators run (K8a-c) unless sharded.
     assert tfr._plan(cow, cams_l, sr, sa, dataclasses.replace(
         allow, image_size=4096), "phong") == (
             None, "image size above the 2048 fused-kernel limit")
-    with pytest.raises(NotImplementedError, match="staged.*K8a"):
-        sr.check_staged()
+    assert sr.check_staged() is None and sa.check_staged() is None
+    for est in (sr, sa):
+        with pytest.raises(NotImplementedError, match="sharded"):
+            dataclasses.replace(est, sample_axis="s").check_staged()
