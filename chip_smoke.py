@@ -78,21 +78,48 @@ line; any failure exits non-zero before a result is printed):
    1e-4 of their max; on the cow the pixels whose slot K-1 is filled and
    the vertices of thin faces are left out, and sigma / gamma are held
    against the nearer of K6 and the float64 plain version;
-17. determinism — two preparations of the cow's stream inputs and their
+17. K12 — the binned route's forward (N=4), backward and loss-and-grad
+   (N=1) against their plain versions on BASELINE config 5 (the level-6
+   icosphere, 81,920 faces, x3, oracle colours, at 512^2, K=150, M=160
+   slots in 2048 strip tiles of 128 pixels; random poses), gaussian (S=8)
+   and softras: forward as K3; each gradient row and scalar within 1e-3
+   (MC) or 1e-4 (softras) of its max of the float32 or float64 plain
+   version, thin faces' rows within 2e-6 L / h (K12 and its plain
+   versions aggregate in double: in float the softras alpha gradient
+   misses float64 by 1.5e-4); repeats bit-equal; the
+   loss-and-grad equal to the forward's L2 cotangent through the backward
+   (1e-5);
+18. capacity-binned — capacity_stats of tools/oracle_config5.py's scene
+   within 1% of artifacts/oracle_config5.json (max_range 12134,
+   max_tile_candidates 4954);
+19. serve-binned — 8 requests of N=4 config-5 poses through MeshRenderer
+   (K1, K12's forward; no flat, stream or staged kernel);
+20. train-binned — optimize_pose on config 5 for 30 steps at N=1 from 20
+   degrees off (gaussian, S=8, sigma 6e-3, gamma 6e-2), against the
+   port's binned HardRast + HardAgg render of the true pose: K12's
+   loss-and-grad once per step and the capacity probe at the segment
+   boundary; its first step against the same step through the plain
+   version on the card (loss rtol 1e-5, pose gradient within 1e-3 of its
+   max, the thin faces' rows left out of both);
+21. determinism — two preparations of the cow's stream inputs and their
    backward with torch's default algorithms give the same bits; the ops
    that warn under torch.use_deterministic_algorithms (warn only).
 
-Phases 6-8, 11-13, 15 and 16 are the main paths: the launch counts are
-reset just before each and read just after, and each must have launched
-its kernels (serve: K1 and K3; render-grad: K3 and K4; train: K2 once per
-step; serve-stream: K5; render-grad-stream: K5 and K6; train-stream: K7
-once per step; target: K9a and no fused kernel; staged-softras: K9a, K9b,
-K10a and K10b and no fused kernel).  Times are CUDA events except the
+Phases 6-8, 11-13, 15, 16, 19 and 20 are the main paths: the launch
+counts are reset just before each and read just after, and each must have
+launched its kernels (serve: K1 and K3; render-grad: K3 and K4; train: K2
+once per step; serve-stream: K5; render-grad-stream: K5 and K6;
+train-stream: K7 once per step; target: K9a and no fused kernel;
+staged-softras: K9a, K9b, K10a and K10b and no fused kernel;
+serve-binned: K1 and K12's forward; train-binned: K12's loss-and-grad
+once per step).  Times are CUDA events except the
 per-request and per-step times (host clock ending in a device
 synchronisation).  Kernel and plain version are timed in turns (plain,
 kernel, kernel, plain) after a warm-up call.
 
-The last lines are the per-kernel report (one JSON object, eleven kernels),
+The last lines are the per-kernel report (one JSON object, fifteen
+kernels; K12's row gives its loss-and-grad at N=1, the pose step's
+kernel, and every mode under "modes"),
 the card's nvidia-smi name and power limit, then
 {"ok": true, "device": {...}}.
 """
@@ -112,7 +139,8 @@ import torch
 import pertrenderer_tpu_torch as ptt
 from pertrenderer_tpu_torch import _build, checks, shading
 from pertrenderer_tpu_torch.checks import tables_close
-from pertrenderer_tpu_torch.experiments import harness
+from pertrenderer_tpu_torch.experiments import config5, harness
+from pertrenderer_tpu_torch.ops import binned
 from pertrenderer_tpu_torch.ops import fused_render as fr
 from pertrenderer_tpu_torch.ops import gather as gk
 from pertrenderer_tpu_torch.ops import interp_gather as ik
@@ -383,9 +411,10 @@ def stream_grad_ops(cfg, w, loss):
     return ops + (w["pixels"] * OPS_LOSS if loss else 0)
 
 
-def stream_bytes(args):
-    """Bytes of the sorted table, the chunk lists, counts, activity bits,
-    scalars and seeds."""
+def tensor_bytes(args):
+    """Bytes of a kernel's tensor arguments (stream: the sorted table,
+    chunk lists, counts, activity bits, scalars and seeds; binned: the
+    per-tile tables, slot validity, scalars, seeds and activity bits)."""
     return sum(t.numel() * t.element_size() for t in args)
 
 
@@ -864,7 +893,7 @@ def phase_k5(dev, smi, report):
                                 lambda: fr.stream_forward_plain(cfg, *args),
                                 10, 1)
         w = stream_work(cfg, args)
-        b_ms, b_by = bound(stream_bytes(args) + 16 * w["pixels"],
+        b_ms, b_by = bound(tensor_bytes(args) + 16 * w["pixels"],
                            stream_forward_ops(cfg, w))
         if noise == "gaussian":
             report["fused_stream_forward"] = dict(
@@ -976,7 +1005,7 @@ def k6_k7_case(dev, smi, report, noise, tol, kname, n):
         return
     k_ms, p_ms = timed_pair(kern, plain, 5, 1)
     w = stream_work(cfg, args)
-    nbytes = (2 * stream_bytes(args) + 34 * 4 * n
+    nbytes = (2 * tensor_bytes(args) + 34 * 4 * n
               + (12 if loss else 16) * w["pixels"])
     b_ms, b_by = bound(nbytes, stream_grad_ops(cfg, w, loss))
     report[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
@@ -2079,6 +2108,442 @@ def phase_determinism(dev, smi):
         fail("determinism: the preparation is not bit-equal from run to run")
 
 
+# ---------------------------------------------------------------------------
+# The binned route (K12): BASELINE config 5, the level-6 icosphere (81,920
+# faces) at 512^2, K=150, M=160 slots in 2048 strip tiles of 128 pixels
+# ---------------------------------------------------------------------------
+
+C5_TRAIN_SIGMA, C5_TRAIN_GAMMA = 6e-3, 6e-2   # config5's coarse start
+
+
+def binned_inputs(noise, dev, n, seed=0):
+    """(cfg, K12 arguments, renderer) of the oracle's config-5 mesh at n
+    random rotations (``noise`` gaussian at S=8, or softras)."""
+    cams, lights = config5.scene(dev, n)
+    rend = config5.renderer(cams, lights, noise, SIGMA, GAMMA, s=S,
+                            device=dev)
+    mesh = config5.icosphere_mesh(config5.LEVEL, "oracle", dev).extend(n)
+    log_rot = torch.randn(n, 3, generator=torch.Generator().manual_seed(seed))
+    mesh = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot.to(dev)))
+                              .transform_points(mesh.verts))
+    seeds = fr.draw_seeds(n, torch.Generator().manual_seed(1), device=dev)
+    cfg, ins = kernel_inputs(rend, mesh, seeds)
+    if not cfg.binned or cfg.f_pad != 160 or cfg.p_tile != 128:
+        fail(f"config 5 did not take the binned route: {cfg}")
+    return cfg, ins, rend
+
+
+def binned_work(cfg, ins):
+    """``work``'s counts for K12 on these inputs: geometry for every filled
+    slot at every pixel of its tile; texel, shading, coverage, z_map,
+    blend and the adjoints per candidate (slot, pixel); aggregation per
+    live z_map row; the noise only for the draws those rows use."""
+    n, c = ins[0].shape[0], cfg.c_zpad
+    w = dict(pixels=n * cfg.image_size ** 2, faces=0, cand=0, live=0,
+             grad_rows=0, rast_draw_ops=0, agg_draw_ops=0,
+             agg_draw_ops_grad=0)
+    draws = lambda rows, noise: (_pairs_used(rows) * OPS_PAIR
+                                 if noise == "gaussian"
+                                 else int(rows.sum().item()) * OPS_CAUCHY)
+    with torch.no_grad():
+        for t0, t1 in binned._tile_blocks(cfg, n):
+            a = binned._block_args(cfg, [t[:, t0:t1] for t in ins[:4]],
+                                   *ins[4:8], t0, t1)
+            scal, px, py, act = a[5], a[8], a[9], a[10]
+            sc = lambda i: scal[:, i].view(-1, 1, 1)
+            cand = (fr._det1(cfg, px, py, *a[:5], sc)[-1] > 0) & act
+            w["faces"] += int((a[4] > 0.5).sum().item()) * cfg.p_tile
+            live = torch.zeros(cand.shape[0], c, cand.shape[-1],
+                               dtype=torch.bool, device=cand.device)
+            live[:, :cfg.f_pad] = cand
+            live[:, cfg.bg_row] = True
+            grad_px = (cand.any(dim=1) if cfg.agg_vr
+                       else torch.ones_like(cand[:, 0]))
+            up_to_bg = (torch.arange(c, device=cand.device).view(1, c, 1)
+                        <= cfg.bg_row)
+            grad_rows = up_to_bg & grad_px[:, None, :]
+            w["cand"] += int(cand.sum().item())
+            w["live"] += int(live.sum().item())
+            w["grad_rows"] += int(grad_rows.sum().item())
+            w["rast_draw_ops"] += draws(cand, cfg.rast_noise)
+            w["agg_draw_ops"] += draws(live, cfg.agg_noise)
+            w["agg_draw_ops_grad"] += draws(live | grad_rows, cfg.agg_noise)
+    return w
+
+
+def k12_grads_close(cfg, ins, kernel, plain, tol):
+    """(ok, worst, where, thin rows, witness bins) of K12's gradients
+    (``kernel(ins)``: (g_ndc, g_world, g_fn, g_tex, g_scal)) against the
+    float32 or float64 plain version (``plain(ins)``) by
+    ``checks.binned_grads_close``: every row and every scalar on the full
+    arguments."""
+    a64 = [t.double() if t.is_floating_point() else t for t in ins]
+    return checks.binned_grads_close(cfg, ins[:4], kernel(ins), plain(ins),
+                                     plain(a64), tol)
+
+
+def phase_k12(dev, smi, report):
+    """K12's forward (N=4), backward and loss-and-grad (N=1) on config 5
+    against their plain versions, repeats bit-equal, the dual path."""
+    rows = {}
+    for noise in ("gaussian", "softras"):
+        mc = noise == "gaussian"
+        cfg, ins, _rend = binned_inputs(noise, dev, N_POSES)
+        got = binned.fused_binned_forward(cfg, *ins)
+        again = binned.fused_binned_forward(cfg, *ins)
+        want = binned.binned_forward_plain(cfg, *ins)
+        torch.cuda.synchronize()
+        if mc:
+            ok, dmax, dmean, flips = mc_close(got, want)
+        else:
+            d = (got - want).abs()
+            dmax, dmean, flips = d.max().item(), d.mean().item(), 0.0
+            ok = bool(torch.isfinite(got).all()) and dmax <= 2e-5
+        if not ok or not torch.equal(got, again):
+            fail(f"K12 forward {noise}: max {dmax} mean {dmean} flips "
+                 f"{flips}, repeat bit-equal {torch.equal(got, again)}")
+        cover = (got[..., 3] > 0.5).float().mean().item()
+        f_ms, fp_ms = timed_pair(
+            lambda: binned.fused_binned_forward(cfg, *ins),
+            lambda: binned.binned_forward_plain(cfg, *ins), 5, 1)
+        w = binned_work(cfg, ins)
+        fb_ms, fb_by = bound(tensor_bytes(ins) + 16 * w["pixels"],
+                             forward_ops(cfg, w))
+        print(f"[K12] fused_binned_forward {noise} config 5 (81920 faces, "
+              f"{cfg.image_size}^2, M={cfg.f_pad}, {fr._n_tiles(cfg)} "
+              f"tiles) N={N_POSES}: max |d| {dmax:.3g}, mean |d| "
+              f"{dmean:.3g}, pixels beyond 1e-4 {flips:.3g}, alpha > 0.5 on "
+              f"{cover:.3f}, repeat bit-equal; {w['cand']} candidate (slot, "
+              f"pixel) pairs; {f_ms:.3f} ms vs plain {fp_ms:.1f} ms, bound "
+              f"{fb_ms:.4f} ms ({fb_by}) | {smi}", flush=True)
+
+        cfg, ins, _rend = binned_inputs(noise, dev, 1, seed=3)
+        tol = 1e-3 if mc else 1e-4
+        g_out = torch.randn(1, cfg.image_size, cfg.image_size, 4,
+                            generator=torch.Generator().manual_seed(2)
+                            ).to(dev)
+        hw = cfg.image_size ** 2
+        target = torch.rand(1, 3, hw, generator=torch.Generator()
+                            .manual_seed(3)).to(dev)
+        lscale = 1.0 / (3 * hw)
+        bwd = binned.fused_binned_backward(cfg, *ins, g_out)
+        bwd2 = binned.fused_binned_backward(cfg, *ins, g_out)
+        cast = lambda a, t: t.double() if a[0].dtype == torch.float64 else t
+        ok_b, err_b, where_b, thin_b, bins_b = k12_grads_close(
+            cfg, ins, lambda a: binned.fused_binned_backward(cfg, *a, g_out),
+            lambda a: binned.binned_backward_plain(cfg, *a,
+                                                   cast(a, g_out)), tol)
+        loss, *lg = binned.fused_binned_loss_grad(cfg, *ins, target,
+                                                  "l2_rgb", lscale)
+        loss2, *lg2 = binned.fused_binned_loss_grad(cfg, *ins, target,
+                                                    "l2_rgb", lscale)
+        w_loss, *_want = binned.binned_loss_grad_plain(cfg, *ins, target,
+                                                       "l2_rgb", lscale)
+        ok_l, err_l, where_l, thin_l, bins_l = k12_grads_close(
+            cfg, ins, lambda a: binned.fused_binned_loss_grad(
+                cfg, *a, target, "l2_rgb", lscale)[1:],
+            lambda a: binned.binned_loss_grad_plain(
+                cfg, *a, cast(a, target), "l2_rgb", lscale)[1:], tol)
+        lerr = ((loss - w_loss).abs() / w_loss.abs()).max().item()
+        same = (all(torch.equal(a, b) for a, b in zip(bwd, bwd2))
+                and torch.equal(loss, loss2)
+                and all(torch.equal(a, b) for a, b in zip(lg, lg2)))
+        img = binned.fused_binned_forward(cfg, *ins)
+        d = img[..., :3].reshape(1, hw, 3).transpose(1, 2) - target
+        g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(
+            1, cfg.image_size, cfg.image_size, 3)
+        g_l2 = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1])], dim=-1)
+        dual = binned.fused_binned_backward(cfg, *ins, g_l2.contiguous())
+        ok_d, err_d, where_d = tables_close(lg, dual, 1e-5)
+        dlerr = ((loss - torch.sum(d * d, dim=(1, 2)) * lscale).abs()
+                 / loss.abs()).max().item()
+        torch.cuda.synchronize()
+        if not (ok_b and ok_l and same and lerr <= 1e-5 and ok_d
+                and dlerr <= 1e-5):
+            fail(f"K12 gradients {noise}: backward {err_b} at {where_b} "
+                 f"({checks.witness_text(bins_b)}), loss-and-grad {err_l} "
+                 f"at {where_l} ({checks.witness_text(bins_l)}), loss rel "
+                 f"{lerr}, repeats bit-equal {same}, dual path {err_d} at "
+                 f"{where_d}, loss {dlerr}")
+        b_ms, bp_ms = timed_pair(
+            lambda: binned.fused_binned_backward(cfg, *ins, g_out),
+            lambda: binned.binned_backward_plain(cfg, *ins, g_out), 3, 1)
+        l_ms, lp_ms = timed_pair(
+            lambda: binned.fused_binned_loss_grad(cfg, *ins, target,
+                                                  "l2_rgb", lscale),
+            lambda: binned.binned_loss_grad_plain(cfg, *ins, target,
+                                                  "l2_rgb", lscale), 3, 1)
+        w1 = binned_work(cfg, ins)
+        tb_ = tensor_bytes(ins)
+        grad_out = sum(t.numel() * 4 for t in ins[:4]) + 4 * 35
+        bb_ms, bb_by = bound(tb_ + grad_out + 16 * w1["pixels"],
+                             grad_ops(cfg, w1, False))
+        lb_ms, lb_by = bound(tb_ + grad_out + 12 * w1["pixels"],
+                             grad_ops(cfg, w1, True))
+        print(f"[K12] fused_binned_backward / _loss_grad {noise} config 5 "
+              f"N=1: worst row or scalar error {err_b:.3g} at {where_b} / "
+              f"{err_l:.3g} at {where_l} "
+              f"(tolerance {tol}; {thin_b} thin slot rows held by L/h: "
+              f"{checks.witness_text(bins_l)}), loss rel {lerr:.3g}, "
+              f"repeats bit-equal, loss-and-grad vs forward + backward "
+              f"{err_d:.3g} (loss {dlerr:.3g}); {w1['cand']} candidate "
+              f"pairs; backward {b_ms:.3f} ms vs plain {bp_ms:.1f} ms, "
+              f"bound {bb_ms:.4f} ms ({bb_by}); loss-and-grad {l_ms:.3f} ms "
+              f"vs plain {lp_ms:.1f} ms, bound {lb_ms:.4f} ms ({lb_by}) | "
+              f"{smi}", flush=True)
+        rows[noise] = dict(
+            forward=dict(max_abs_err=dmax, ms=f_ms, plain_ms=fp_ms,
+                         bound_ms=fb_ms, bound_by=fb_by, n=N_POSES),
+            backward=dict(max_abs_err=err_b, ms=b_ms, plain_ms=bp_ms,
+                          bound_ms=bb_ms, bound_by=bb_by, n=1),
+            loss_grad=dict(max_abs_err=err_l, ms=l_ms, plain_ms=lp_ms,
+                           bound_ms=lb_ms, bound_by=lb_by, n=1))
+    g = rows["gaussian"]
+    report["fused_binned"] = dict(
+        max_abs_err=max(g[m]["max_abs_err"] for m in g),
+        ms=g["loss_grad"]["ms"], plain_ms=g["loss_grad"]["plain_ms"],
+        bound_ms=g["loss_grad"]["bound_ms"],
+        bound_by=g["loss_grad"]["bound_by"], library_ms=None,
+        modes={noise: r for noise, r in rows.items()})
+
+
+def phase_capacity_binned(dev, smi, report):
+    """capacity_stats of the oracle's config-5 scene at its pose (softras
+    blur) against artifacts/oracle_config5.json's, within 1%."""
+    with open(os.path.join(HERE, "artifacts", "oracle_config5.json")) as f:
+        want = json.load(f)["modes"]["binned"]["capacity"]
+    mesh, cams, lights, rend = config5.oracle_scene(dev)
+    sh, st = rend.shader, rend.rasterizer.raster_settings
+    stats, ms = synced_ms(lambda: binned.capacity_stats(
+        mesh, cams, st, sh.smoothrast, sh.smoothagg, lights), 3)
+    errs = {k: abs(stats[k] - want[k]) / want[k]
+            for k in ("max_range", "max_tile_candidates")}
+    if (stats["slots"] != want["slots"]
+            or stats["range_limit"] != want["range_limit"]
+            or max(errs.values()) > 0.01):
+        fail(f"capacity-binned: {stats} against the TPU artifact {want}")
+    report["capacity"] = stats
+    print(f"[capacity-binned] capacity_stats of the oracle's config-5 scene "
+          f"(softras blur): max_range {stats['max_range']} (TPU artifact "
+          f"{want['max_range']}), max_tile_candidates "
+          f"{stats['max_tile_candidates']} ({want['max_tile_candidates']}), "
+          f"slots {stats['slots']}, range limit {stats['range_limit']}; "
+          f"{ms:.1f} ms | {smi}", flush=True)
+
+
+STAGED_KERNELS = ("heaviside_mean", "heaviside_coeff", "argmax_mean",
+                  "argmax_grads", "interp_rows", "interp_rows_backward")
+OTHER_FUSED = ("fused_forward", "fused_backward", "fused_loss_grad",
+               "fused_stream_forward", "fused_stream_backward",
+               "fused_stream_loss_grad")
+
+
+def phase_serve_binned(dev, smi, report):
+    """Eight N=4 requests of the config-5 scene (gaussian, S=8) at random
+    poses through MeshRenderer: K1 once and K12's forward per request,
+    no flat, stream or staged kernel."""
+    gen = torch.Generator().manual_seed(2032)
+    cams, lights = config5.scene(dev, N_POSES)
+    base = config5.icosphere_mesh(config5.LEVEL, "oracle", dev).extend(
+        N_POSES)
+
+    def posed():
+        rot = ptt.so3_exp_map(torch.randn(N_POSES, 3, generator=gen).to(dev))
+        return base.update_padded(ptt.Rotate(rot).transform_points(
+            base.verts))
+
+    def make():
+        return config5.renderer(cams, lights, "gaussian", SIGMA, GAMMA, s=S,
+                                device=dev)
+
+    make()(posed(), generator=gen)                  # warm the allocator
+    torch.cuda.synchronize()
+    renderer = make()
+    reset_counts()
+    lat_ms, alphas = [], []
+    t_all = time.perf_counter()
+    for _ in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        img = renderer(posed(), generator=gen)
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        if (tuple(img.shape) != (N_POSES, 512, 512, 4)
+                or not bool(torch.isfinite(img).all())):
+            fail(f"serve-binned: image {tuple(img.shape)}")
+        alphas.append((img[..., 3] > 0.5).float().mean().item())
+    total_s = time.perf_counter() - t_all
+    counts = all_counts()
+    if (counts["fused_binned_forward"] != N_REQUESTS
+            or counts["prng_probe"] < 1
+            or any(counts[k] for k in OTHER_FUSED + STAGED_KERNELS)):
+        fail(f"serve-binned: launch counts {counts}")
+    if not all(0.2 < a < 0.9 for a in alphas):
+        fail(f"serve-binned: coverage shares {alphas}")
+    report["fused_binned"]["launches_forward"] = counts[
+        "fused_binned_forward"]
+    print(f"[serve-binned] {N_REQUESTS} requests x {N_POSES} poses of config "
+          f"5 (81920 faces, 512^2, K=150, binned) through MeshRenderer: "
+          f"launches {counts}; alpha > 0.5 on {min(alphas):.3f}-"
+          f"{max(alphas):.3f}; request latency median "
+          f"{statistics.median(lat_ms[1:]):.1f} ms (after the first), "
+          f"{N_REQUESTS * N_POSES / total_s:.2f} renders/s | {smi}",
+          flush=True)
+
+
+def phase_train_binned(dev, smi, report):
+    """optimize_pose on config 5 (binned, gaussian S=8, the config5
+    module's coarse start sigma 6e-3, gamma 6e-2), 30 steps at N=1 from
+    20 degrees off, against the port's binned HardRast + HardAgg render of
+    the true pose; its first step against the same step through K12's
+    plain version on the card."""
+    r_true = ptt.random_rotations(1, torch.Generator().manual_seed(2033),
+                                  device="cpu").to(dev)
+    cams, lights = config5.scene(dev)
+    mesh = config5.icosphere_mesh(config5.LEVEL, "asymmetric", dev)
+    hard = config5.renderer(cams, lights, "hard", SIGMA, GAMMA, blur=0.0,
+                            device=dev)
+    posed = mesh.update_padded(ptt.Rotate(r_true).transform_points(
+        mesh.verts))
+    if hard.plan(posed).mode != "binned":
+        fail(f"train-binned: the target does not bin: {hard.plan(posed)}")
+    with torch.no_grad():
+        target = hard(posed, seeds=torch.zeros(1, 4, dtype=torch.int32))[
+            0, ..., :3]
+    log_rot, (renderer,) = harness.init_renderers(
+        cams, lights, r_true, torch.Generator().manual_seed(7),
+        pert_init_intensity=TRAIN_OFFSET_DEG, sigma=C5_TRAIN_SIGMA,
+        gamma=C5_TRAIN_GAMMA, nb_samples=S, noise_type=("gaussian",),
+        imsize=512, faces_per_pixel=150)
+    renderer.rasterizer.raster_settings = dataclasses.replace(
+        renderer.rasterizer.raster_settings, max_faces_per_bin=50000,
+        bin_overflow="allow")
+    if renderer.plan(mesh).mode != "binned":
+        fail(f"train-binned: plan {renderer.plan(mesh)}")
+
+    # The first step: K12's loss-and-grad through pose_step, against its
+    # plain version on the card fed back through the same preparation
+    # (the per-tile tables' gradients reach the pose through K9b); the
+    # thin faces' slot rows left out of both table gradients.
+    seeds = fr.draw_seeds(1, torch.Generator().manual_seed(7), device=dev)
+    st = harness.PoseState.start(log_rot)
+    opt = torch.optim.Adam([st.log_rot], lr=TRAIN_LR)
+    out = harness.pose_step(mesh, target, st, renderer, cams, lights, opt,
+                            seeds, torch.zeros(1, 3))[1]
+    tcm = target.permute(2, 0, 1).reshape(1, 3, -1).contiguous()
+    lscale = 1.0 / tcm.numel()
+
+    def pose_grad(loss_grad, hold_thin):
+        lr0 = log_rot.detach().clone().requires_grad_()
+        pm = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(lr0))
+                                .transform_points(mesh.verts))
+        cfg, ins = kernel_inputs(renderer, pm, seeds)
+        det = [t.detach() for t in ins]
+        loss, *g = loss_grad(cfg, *det, tcm, "l2_rgb", lscale)
+        keep = ~checks.thin_rows(det[0].reshape(1, -1, 9), 1e-3).view(
+            det[0].shape[:3])[..., None] if hold_thin else 1.0
+        (gp,) = torch.autograd.grad(ins[:4], [lr0],
+                                    [t * keep for t in g[:4]])
+        return loss, gp
+
+    _k, g_kernel = pose_grad(binned.fused_binned_loss_grad, False)
+    _k, g_kernel_held = pose_grad(binned.fused_binned_loss_grad, True)
+    p_loss, g_plain = pose_grad(binned.binned_loss_grad_plain, True)
+    lerr = abs(out.loss.item() - p_loss.item()) / abs(p_loss.item())
+    gerr = ((g_kernel_held - g_plain).abs().max()
+            / g_plain.abs().max()).item()
+    serr = ((out.g_pose - g_kernel).abs().max()
+            / g_kernel.abs().max()).item()
+    if lerr > 1e-5 or gerr > 1e-3 or serr > 1e-5:
+        fail(f"train-binned: first step: loss rel {lerr} vs plain, pose "
+             f"gradient {gerr} of its max vs plain, pose_step vs K12 {serr}")
+
+    start_deg = degrees_off(log_rot, r_true)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = harness.optimize_pose(
+        mesh, cams, lights, log_rot, renderer, [target],
+        generator=torch.Generator().manual_seed(8), lr_init=TRAIN_LR,
+        Niter=TRAIN_STEPS, segment_size=TRAIN_STEPS)
+    counts = all_counts()
+    if (counts["fused_binned_loss_grad"] != TRAIN_STEPS
+            or any(counts[k] for k in OTHER_FUSED + STAGED_KERNELS)
+            or counts["fused_binned_forward"] or len(res.capacity) != 1):
+        fail(f"train-binned: launch counts {counts}, capacity probes "
+             f"{res.capacity}")
+    if not (np.all(np.isfinite(res.losses))
+            and np.all(np.isfinite(res.grad_norms))):
+        fail(f"train-binned: losses {res.losses}")
+    best = float(np.min(res.losses))
+    if not best < res.losses[0]:
+        fail(f"train-binned: best loss {best} not below the first "
+             f"{res.losses[0]}")
+    report["fused_binned"]["launches_loss_grad"] = counts[
+        "fused_binned_loss_grad"]
+    steps_s = TRAIN_STEPS / res.runtimes["total"][0]
+    end_deg = degrees_off(res.best_log_rot, r_true)
+
+    # Where a step goes: the synchronised step; the preparation and
+    # selection (host clock); K12's loss-and-grad, the K9b scatter of its
+    # table gradients and Adam (CUDA events).
+    gen = torch.Generator().manual_seed(9)
+    st = harness.PoseState.start(res.log_rot)
+    opt = torch.optim.Adam([st.log_rot], lr=TRAIN_LR)
+    step_ms, prep_ms = [], []
+    for _ in range(6):
+        sd = fr.draw_seeds(1, gen, device=dev)
+        t0 = time.perf_counter()
+        st, _o = harness.pose_step(mesh, target, st, renderer, cams, lights,
+                                   opt, sd, torch.zeros(1, 3))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    sd = fr.draw_seeds(1, gen, device=dev)
+    for _ in range(6):
+        t0 = time.perf_counter()
+        pm = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(st.log_rot))
+                                .transform_points(mesh.verts))
+        cfg, ins = kernel_inputs(renderer, pm, sd)
+        torch.cuda.synchronize()
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+    det = [t.detach() for t in ins]
+    k12_ms = cuda_ms(lambda: binned.fused_binned_loss_grad(
+        cfg, *det, tcm, "l2_rgb", lscale), 5)
+    lr0 = st.log_rot.detach().clone().requires_grad_()
+    pm = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(lr0))
+                            .transform_points(mesh.verts))
+    _cfg, ins = kernel_inputs(renderer, pm, sd)
+    g_tabs = [torch.ones_like(t) for t in ins[:4]]
+    k9b0 = gk.launch_counts["scatter_rows_cm"]
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        ins[:4], [lr0], g_tabs, retain_graph=True), 5)
+    k9b_per = (gk.launch_counts["scatter_rows_cm"] - k9b0) / 5
+    st.log_rot.grad = torch.ones_like(st.log_rot)
+    adam_ms = cuda_ms(opt.step, 20)
+    med, prep_med = statistics.median(step_ms[1:]), statistics.median(
+        prep_ms[1:])
+    cap = res.capacity[0]
+    print(f"[train-binned] optimize_pose {TRAIN_STEPS} steps, N=1, config 5 "
+          f"(81920 faces, 512^2, binned, sigma {C5_TRAIN_SIGMA} gamma "
+          f"{C5_TRAIN_GAMMA}), lr {TRAIN_LR}: launches {counts}; capacity "
+          f"probe at the boundary: {cap['max_tile_candidates']} candidates "
+          f"per tile at most, window {cap['max_range']}; loss "
+          f"{res.losses[0]:.5g} -> best {best:.5g}; pose error "
+          f"{start_deg:.2f} -> {end_deg:.2f} deg; {steps_s:.2f} steps/s; "
+          f"synchronised step median {med:.1f} ms: preparation and "
+          f"selection {prep_med:.1f} ms (host clock), K12 {k12_ms:.3f} ms, "
+          f"the preparation's backward {bwd_ms:.3f} ms ({k9b_per:g} K9b "
+          f"scatters, the slot tables' into the faces' first), Adam "
+          f"{adam_ms:.4f} ms (CUDA events), the rest (Python, launches) "
+          f"{med - prep_med - k12_ms - bwd_ms - adam_ms:.1f} ms; "
+          f"first step K12 vs plain on the card: loss rel {lerr:.3g}, pose "
+          f"gradient {gerr:.3g} of max (thin faces' rows left out of both; "
+          f"{serr:.3g} between pose_step and K12 with them) | {smi}",
+          flush=True)
+    report["train_binned"] = dict(steps_s=steps_s, step_ms=med,
+                                  prep_ms=prep_med, k12_ms=k12_ms,
+                                  prep_bwd_ms=bwd_ms, adam_ms=adam_ms,
+                                  start_deg=start_deg, end_deg=end_deg)
+
+
 SOURCES = {
     "prng_probe": ("csrc/prng_probe.cu", "ops/fused_render.py:263"),
     "fused_forward": ("csrc/fused_forward.cu", "ops/fused_render.py:799"),
@@ -2100,6 +2565,7 @@ SOURCES = {
                             "ops/perturbed_pallas.py:133"),
     "argmax_mean": ("csrc/perturbed.cu", "ops/perturbed_pallas.py:223"),
     "argmax_grads": ("csrc/perturbed.cu", "ops/perturbed_pallas.py:238"),
+    "fused_binned": ("csrc/fused_binned.cu", "ops/fused_render.py:2962"),
 }
 
 
@@ -2139,11 +2605,21 @@ def main():
     phase_staged_mc(dev, smi, report)
     phase_staged_uniform(dev, smi, report)
     phase_large(dev, smi, report)
+    phase_k12(dev, smi, report)
+    phase_capacity_binned(dev, smi, report)
+    phase_serve_binned(dev, smi, report)
+    phase_train_binned(dev, smi, report)
     phase_determinism(dev, smi)
 
     kernels = []
+    k12 = report["fused_binned"]
+    k12["launches"] = k12["launches_forward"] + k12["launches_loss_grad"]
     for kname, (src, replaces) in SOURCES.items():
         r = report[kname]
+        extra = ({"launches_by_mode": {
+            "forward": k12["launches_forward"], "backward": 0,
+            "loss_grad": k12["launches_loss_grad"]},
+            "modes": k12["modes"]} if kname == "fused_binned" else {})
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"pertrenderer_tpu_torch/{src}",
@@ -2151,7 +2627,7 @@ def main():
             "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms")})
+            "library_ms": r.get("library_ms"), **extra})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,14 @@
 Differentiable rendering with perturbed optimizers, ported from the JAX
 package ``pertrenderer_tpu`` (the reference it is held against) to PyTorch
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).  The port covers
-three routes.  The flat fused route (every face holds a slot, F <=
+four routes.  The flat fused route (every face holds a slot, F <=
 faces_per_pixel): ``MeshRenderer(meshes, seeds=...)`` renders through
 kernel K3 and its gradients come from K4; ``MeshRenderer.render_loss``
 gives an image loss and every gradient from one launch of K2; the hash
 PRNG is pinned by K1.  The stream route (F > faces_per_pixel): K5, K6, K7.
-The staged route (the baseline shaders, and whatever the fused kernels
+The binned route (F > 8192 with ``bin_overflow='allow'``: each tile of a
+pixel row renders its nearest 160 faces, an approximation whose capacity
+``ops.binned.capacity_stats`` measures): K12.  The staged route (the baseline shaders, and whatever the fused kernels
 decline): ``rasterize_meshes`` selects and derives fragments through the
 row gather K9a / K9b, the shaders sample textures and shade through the
 interpolating gather K10a / K10b, and the Monte-Carlo estimators run as

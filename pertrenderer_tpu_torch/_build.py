@@ -26,9 +26,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
-           "fused_loss_grad.cu", "stream_forward.cu", "stream_backward.cu",
-           "stream_loss_grad.cu", "gather.cu", "interp_gather.cu",
-           "perturbed.cu")
+           "fused_loss_grad.cu", "fused_binned.cu", "stream_forward.cu",
+           "stream_backward.cu", "stream_loss_grad.cu", "gather.cu",
+           "interp_gather.cu", "perturbed.cu")
 HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh",
            "stream_grad.cuh", "segment_sum.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -111,11 +111,15 @@ def library() -> ctypes.CDLL:
     # activity bits and the tiling (nt, p_tile, tile_w).
     config = [i32] * 16 + [ctypes.c_float] + [i32] * 4
     tiling = [ptr] + [i32] * 3
-    lib.pt_fused_forward.argtypes = [ptr] * 8 + config + tiling + [ptr]
-    lib.pt_fused_forward.restype = i32
+    # The binned route's K12 takes the flat kernels' arguments over
+    # per-tile tables (its scalar rows in the partial buffer's place).
+    for fn in (lib.pt_fused_forward, lib.pt_binned_forward):
+        fn.argtypes = [ptr] * 8 + config + tiling + [ptr]
+        fn.restype = i32
     grads = ([ptr] * 9 + [i32] + [ptr] * 6 + config
              + [i32, ctypes.c_float] + tiling + [ptr])
-    for fn in (lib.pt_fused_backward, lib.pt_fused_loss_grad):
+    for fn in (lib.pt_fused_backward, lib.pt_fused_loss_grad,
+               lib.pt_binned_backward, lib.pt_binned_loss_grad):
         fn.argtypes = grads
         fn.restype = i32
     # The stream kernels: tables, n, the stream geometry (nt, nch, p_tile,

@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from pertrenderer_tpu_torch.transforms import _rounded, cross3, matmul3
+
 __all__ = ["PerspectiveCameras", "OpenGLPerspectiveCameras",
            "look_at_rotation", "look_at_view_transform"]
 
@@ -27,7 +29,7 @@ def _batched_scalar(x, n: int, device) -> torch.Tensor:
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
     """sqrt(sum v^2) over the last axis (the JAX package's ``linalg.norm``)."""
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    return _rounded(torch.sqrt, torch.sum(v * v, dim=-1, keepdim=True))
 
 
 @dataclasses.dataclass
@@ -63,11 +65,11 @@ class PerspectiveCameras:
 
     def camera_center(self) -> torch.Tensor:
         """World-space camera positions (N, 3): C = -T @ R^T."""
-        return -torch.einsum("nj,nkj->nk", self.T, self.R)
+        return -matmul3(self.T[:, None, :], self.R.transpose(-1, -2))[:, 0]
 
     def transform_points_view(self, points: torch.Tensor) -> torch.Tensor:
         """World -> view. points: (N, P, 3)."""
-        return torch.matmul(points, self.R) + self.T[:, None, :]
+        return matmul3(points, self.R) + self.T[:, None, :]
 
     def project_view_to_ndc(self, points_view: torch.Tensor) -> torch.Tensor:
         """View -> (x_ndc, y_ndc, z_view); focal s = 1 / tan(fov / 2)."""
@@ -103,10 +105,10 @@ def look_at_rotation(camera_position, at=None, up=None,
         return v / torch.clamp(_norm(v), min=1e-8)
 
     z_axis = unit(at - camera_position)
-    x_axis = torch.linalg.cross(up, z_axis)
+    x_axis = cross3(up, z_axis)
     fallback = _f32((1.0, 0.0, 0.0), device).expand_as(x_axis)
     x_axis = unit(torch.where(_norm(x_axis) < 1e-6, fallback, x_axis))
-    y_axis = unit(torch.linalg.cross(z_axis, x_axis))
+    y_axis = unit(cross3(z_axis, x_axis))
     return torch.stack([x_axis, y_axis, z_axis], dim=-1)
 
 
@@ -122,10 +124,12 @@ def look_at_view_transform(dist=1.0, elev=0.0, azim=0.0, degrees=True,
     if degrees:
         elev, azim = torch.deg2rad(elev), torch.deg2rad(azim)
     at_arr = _f32((0.0, 0.0, 0.0) if at is None else at, device).expand(n, 3)
-    x = dist * torch.cos(elev) * torch.sin(azim)
-    y = dist * torch.sin(elev)
-    z = dist * torch.cos(elev) * torch.cos(azim)
+    cos_e, sin_e = _rounded(torch.cos, elev), _rounded(torch.sin, elev)
+    cos_a, sin_a = _rounded(torch.cos, azim), _rounded(torch.sin, azim)
+    x = dist * cos_e * sin_a
+    y = dist * sin_e
+    z = dist * cos_e * cos_a
     camera_position = torch.stack([x, y, z], dim=-1) + at_arr
     R = look_at_rotation(camera_position, at=at_arr, up=up, device=device)
-    T = -torch.einsum("nj,njk->nk", camera_position, R)
+    T = -matmul3(camera_position[:, None, :], R)[:, 0]
     return R, T

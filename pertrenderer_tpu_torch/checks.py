@@ -81,7 +81,7 @@ def split_stream(cfg, g_tab, g_scal):
             g_tab[..., 27:27 + cfg.tex_d], g_scal)
 
 
-def stream_grads_close(cfg, tab, got, want, want64, tol):
+def stream_grads_close(cfg, tab, got, want, want64, tol, scalar_tol=None):
     """Hold a stream kernel's gradient against its plain version.
 
     ``got``, ``want``, ``want64``: (g_tab, g_scal) of the kernel, the
@@ -91,7 +91,8 @@ def stream_grads_close(cfg, tab, got, want, want64, tol):
     plain version, over the table's max |grad|: ``tol``, and for the row
     of a face of height h over its longest edge L below THIN_NOISE / tol
     (a thin row) THIN_NOISE * L / h.  Each scalar gradient likewise within
-    ``tol`` of its own max over N (floored as in ``table_errors``).
+    ``tol`` of its own max over N (floored as in ``table_errors``), or
+    within ``scalar_tol`` (34,) where that is larger.
     Either reference, because the float32 plain version rounds too (its
     thin faces, its scalar sums that cancel) and the two float32 versions
     may share an MC threshold decision that float64 takes the other way.
@@ -129,8 +130,11 @@ def stream_grads_close(cfg, tab, got, want, want64, tol):
     col = torch.nan_to_num(torch.minimum((gs - ws).abs().amax(dim=0),
                                          (gs - qs).abs().amax(dim=0)),
                            nan=math.inf) / scale
-    j = int(col.argmax())
-    ok = ok and col[j].item() <= tol
+    lim = torch.full_like(col, tol)
+    if scalar_tol is not None:
+        lim = torch.maximum(lim, scalar_tol.to(lim))
+    j = int((col / lim).argmax())
+    ok = ok and col[j].item() <= lim[j].item()
     if col[j].item() > worst:
         worst, where = col[j].item(), f"scalar {j}"
     report = []
@@ -141,6 +145,23 @@ def stream_grads_close(cfg, tab, got, want, want64, tol):
                            d_p64[sel].max().item(), share[sel].max().item(),
                            own[sel].median().item()))
     return ok, worst, where, int(thin.sum()), report
+
+
+def binned_grads_close(cfg, tables, got, want, want64, tol,
+                       scalar_tol=None):
+    """``stream_grads_close`` for the binned route's gradients: ``tables``
+    the per-tile tables (fv_ndc, fv_world, fn, tex) (N, nt, M, .) and
+    got / want / want64 the (g_ndc, g_world, g_fn, g_tex, g_scal) of the
+    kernel, the float32 plain version and the float64 one, each slot row
+    held as a sorted-table row (its face's thinness by L / h)."""
+    n = tables[0].shape[0]
+
+    def rows(x):
+        return torch.cat(list(x[:4]), dim=-1).reshape(n, -1, 27 + cfg.tex_d)
+
+    return stream_grads_close(cfg, rows(tables), (rows(got), got[4]),
+                              (rows(want), want[4]),
+                              (rows(want64), want64[4]), tol, scalar_tol)
 
 
 def scalars_close64(got, want64, tol):

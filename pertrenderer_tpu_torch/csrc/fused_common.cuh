@@ -1,11 +1,13 @@
 // Pieces shared by the fused kernels: the flat route's K3
 // (fused_forward.cu), K4 (fused_backward.cu) and K2 (fused_loss_grad.cu),
-// and the stream route's K5-K7 (stream_grad.cuh).
+// the binned route's K12 (fused_binned.cu) and the stream route's K5-K7
+// (stream_grad.cuh).
 //
 // The packed scalar layout, the launch parameters, the tiling and its
-// activity bits, the shared-memory face tables, the noise draws and det1 —
+// activity bits, the shared-memory face tables, the noise draws, det1 —
 // the per-(slot, pixel) geometry, texel select and Phong shading of
-// _make_det1 (pertrenderer_tpu/ops/fused_render.py:324).  The functions outside the
+// _make_det1 (pertrenderer_tpu/ops/fused_render.py:324) — and the forward
+// pipeline of one pixel (pixel_forward).  The functions outside the
 // __CUDACC__ block use no CUDA intrinsics, so with the CUDA keywords
 // defined away the gradient kernels' per-pixel arithmetic also compiles
 // with a host compiler and can be held against the plain PyTorch version
@@ -67,6 +69,9 @@ struct Params {
   const int *rows, *count, *voff, *vstart, *vidx;
   float *pscal, *g_tab;
   int nch, rw, dt;
+  // The binned route's K12: each tile's 34 scalar gradients and loss
+  // (N, nt, 35), in double.
+  double* pscal64;
 };
 
 // The static configuration, in the order every C entry takes it (the
@@ -306,6 +311,151 @@ PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
   *m_out = m;
   for (int c = 0; c < 3; ++c) col[c] = texel[c];
 }
+
+// K3's per-pixel pipeline, shared with the binned route's forward (K12,
+// fused_binned.cu): det1 (edge-function geometry, texel select, Phong),
+// coverage (MC perturbed Heaviside or soft / affine / hard), det2 (z_map
+// with the log / gamma-over-alpha scaling and the background channel),
+// aggregation (MC perturbed >=-max one-hots, softmax, or first-wins hard
+// one-hot) and det3 (weighted colors, alpha = 1 - prod(1 - prob)) for
+// row-major pixel `pix` of batch element b over the tables T: RGBA into
+// out[0..3].  A pixel of an inactive tile gives the background, alpha 0.
+// A: the type of the aggregation and the blend's weighted sum (z_inv,
+// z_map, the weights), float for K3 and double for K12, as pixel_grads.
+template <int MAXF, class A = float>
+PT_HD void pixel_forward(const Params& p, const Tables& T, int b, int pix,
+                         float out[4]) {
+  constexpr int MAXC = MAXF + 8;
+  const int F = p.f_pad;
+  const float* sc = T.sc;
+  float px, py;
+  pixel_center(p.image_size, pix, &px, &py);
+  const uint32_t pos = (uint32_t)pix;
+  if (!pixel_active(p, b, pix)) {
+    out[0] = sc[kBg];
+    out[1] = sc[kBg + 1];
+    out[2] = sc[kBg + 2];
+    out[3] = 0.0f;
+    return;
+  }
+
+  // ---- det1: geometry, texel, shading per slot --------------------------
+  float dist[MAXF], zz[MAXF], maskf[MAXF];
+  float col0[MAXF], col1[MAXF], col2[MAXF];
+  for (int i = 0; i < F; ++i) {
+    float c3[3];
+    face_forward(p, T, i, px, py, true, &dist[i], &zz[i], &maskf[i], c3);
+    col0[i] = c3[0];
+    col1[i] = c3[1];
+    col2[i] = c3[2];
+  }
+
+  // ---- coverage: prob = prob_raw * maskf (kept in dist[]) ---------------
+  const float sigma = sc[kSigma];
+  if (p.rast_kind == kRastMC) {
+    // Heaviside of -dist + sigma * Z over an f_pad-row noise block.
+    float nz[MAXF], acc[MAXF];
+    for (int i = 0; i < F; ++i) acc[i] = 0.0f;
+    const uint32_t s0 = (uint32_t)p.seeds[b * 4 + 0];
+    const uint32_t s1 = (uint32_t)p.seeds[b * 4 + 1];
+    for (int s = 0; s < p.s_rast; ++s) {
+      draw_noise<MAXF>(nz, F, p.rast_noise, s0, s1, s, pos);
+      for (int i = 0; i < F; ++i)
+        acc[i] += -dist[i] + sigma * nz[i] >= 0.0f ? 1.0f : 0.0f;
+    }
+    const float inv_s = 1.0f / (float)p.s_rast;
+    for (int i = 0; i < F; ++i) dist[i] = acc[i] * inv_s * maskf[i];
+  } else {
+    for (int i = 0; i < F; ++i) {
+      const float x = -dist[i] / sigma;
+      float pr;
+      if (p.rast_kind == kRastSoft) {
+        pr = 1.0f / (1.0f + expf(-x));
+      } else if (p.rast_kind == kRastAffine) {
+        pr = fmaxf(x > 0.5f ? 1.0f : x + 0.5f, 0.0f);
+      } else {
+        pr = -dist[i] >= 0.0f ? 1.0f : 0.0f;
+      }
+      dist[i] = pr * maskf[i];
+    }
+  }
+  const float* prob = dist;
+
+  // ---- det2: z_map rows (slots, background, -inf padding) ---------------
+  const int C = p.c_zpad;
+  A zmap[MAXC], zinv[MAXF];
+  const float zfar = sc[kZfar], znear = sc[kZnear];
+  const A zden = (A)zfar - (A)znear;
+  A zmax = -INFINITY;
+  for (int i = 0; i < F; ++i) {
+    zinv[i] = ((A)zfar - zz[i]) / zden * maskf[i];
+    zmax = fmax(zmax, zinv[i]);
+  }
+  zmax = fmax(zmax, (A)p.eps_bg);
+  const A gal =
+      p.agg_kind == kAggHard ? (A)1e-6f : (A)sc[kGamma] / (A)sc[kAlpha];
+  for (int i = 0; i < F; ++i)
+    zmap[i] = gal * log((A)prob[i]) + zinv[i] - zmax;
+  for (int r = F; r < C; ++r) zmap[r] = -INFINITY;
+  zmap[p.bg_row] = (A)p.eps_bg - zmax;
+
+  // ---- aggregation weights over the C z_map rows -------------------------
+  A wts[MAXC];
+  if (p.agg_kind == kAggMC) {
+    // >=-max one-hots of z_map + gamma * N over a c_zpad-row noise block.
+    float nz[MAXC];
+    A pert[MAXC];
+    for (int r = 0; r < C; ++r) wts[r] = 0.0f;
+    const uint32_t s0 = (uint32_t)p.seeds[b * 4 + 2];
+    const uint32_t s1 = (uint32_t)p.seeds[b * 4 + 3];
+    const float gamma = sc[kGamma];
+    for (int s = 0; s < p.s_agg; ++s) {
+      draw_noise<MAXC>(nz, C, p.agg_noise, s0, s1, s, pos);
+      for (int r = 0; r < C; ++r) pert[r] = zmap[r] + (A)gamma * nz[r];
+      A mx = -INFINITY;
+      for (int r = 0; r < C; ++r) mx = fmax(mx, pert[r]);
+      for (int r = 0; r < C; ++r) wts[r] += pert[r] >= mx ? 1.0f : 0.0f;
+    }
+    const A inv_s = (A)1 / (A)p.s_agg;
+    for (int r = 0; r < C; ++r) wts[r] = wts[r] * inv_s;
+  } else if (p.agg_kind == kAggSoft) {
+    const A inv_gamma = (A)1 / (A)sc[kGamma];
+    A mx = -INFINITY;
+    for (int r = 0; r < C; ++r) {
+      wts[r] = inv_gamma * zmap[r];
+      mx = fmax(mx, wts[r]);
+    }
+    A sum = 0.0f;
+    for (int r = 0; r < C; ++r) {
+      wts[r] = exp(wts[r] - mx);
+      sum += wts[r];
+    }
+    for (int r = 0; r < C; ++r) wts[r] = wts[r] / sum;
+  } else {                                   // first-wins hard one-hot
+    A mx = -INFINITY;
+    for (int r = 0; r < C; ++r) mx = fmax(mx, zmap[r]);
+    int first = C;
+    for (int r = C - 1; r >= 0; --r)
+      if (zmap[r] >= mx) first = r;
+    for (int r = 0; r < C; ++r) wts[r] = r == first ? 1.0f : 0.0f;
+  }
+
+  // ---- det3: blend ------------------------------------------------------
+  A rgb0 = 0.0f, rgb1 = 0.0f, rgb2 = 0.0f;
+  float ap = 1.0f;
+  for (int i = 0; i < F; ++i) {
+    rgb0 += wts[i] * col0[i];
+    rgb1 += wts[i] * col1[i];
+    rgb2 += wts[i] * col2[i];
+    ap = ap * (1.0f - prob[i]);
+  }
+  const A wb = wts[p.bg_row];
+  out[0] = (float)(rgb0 + wb * sc[kBg + 0]);
+  out[1] = (float)(rgb1 + wb * sc[kBg + 1]);
+  out[2] = (float)(rgb2 + wb * sc[kBg + 2]);
+  out[3] = 1.0f - ap;
+}
+
 
 #ifdef __CUDACC__
 // Copies batch element b's face tables and scalars into shared memory.

@@ -7,6 +7,8 @@
 // log / gamma-over-alpha scaling and the background channel), aggregation
 // (MC perturbed >=-max one-hots, softmax, or first-wins hard one-hot) and
 // det3 (weighted colors, alpha = 1 - prod(1 - prob)).  Output (N, H, W, 4).
+// The per-pixel pipeline is pixel_forward (fused_common.cuh), which the
+// binned route's forward (K12, fused_binned.cu) shares.
 //
 // Bound on the H100: compute.  Every pixel draws S_rast * f_pad / 2 +
 // S_agg * c_zpad / 2 Box-Muller pairs (a log, a sqrt, a sincos each) and
@@ -34,137 +36,16 @@ using namespace ptf;
 template <int MAXF>
 __global__ void __launch_bounds__(kThreads)
 fused_forward_kernel(const Params p) {
-  constexpr int MAXC = MAXF + 8;
   extern __shared__ float smem[];
-  const int F = p.f_pad;
   const int b = blockIdx.y;
   const Tables T = load_tables(p, smem, b);
-  const float* sc = T.sc;
-
-  const int w = p.image_size, hgt = p.image_size;
+  const int npix = p.image_size * p.image_size;
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= w * hgt) return;
-  float px, py;
-  pixel_center(w, pix, &px, &py);
-  const uint32_t pos = (uint32_t)pix;
-  float4* out = reinterpret_cast<float4*>(p.out) + (size_t)b * w * hgt + pix;
-  if (!pixel_active(p, b, pix)) {
-    *out = make_float4(sc[kBg], sc[kBg + 1], sc[kBg + 2], 0.0f);
-    return;
-  }
-
-  // ---- det1: geometry, texel, shading per slot --------------------------
-  float dist[MAXF], zz[MAXF], maskf[MAXF];
-  float col0[MAXF], col1[MAXF], col2[MAXF];
-  for (int i = 0; i < F; ++i) {
-    float c3[3];
-    face_forward(p, T, i, px, py, true, &dist[i], &zz[i], &maskf[i], c3);
-    col0[i] = c3[0];
-    col1[i] = c3[1];
-    col2[i] = c3[2];
-  }
-
-  // ---- coverage: prob = prob_raw * maskf (kept in dist[]) ---------------
-  const float sigma = sc[kSigma];
-  if (p.rast_kind == kRastMC) {
-    // Heaviside of -dist + sigma * Z over an f_pad-row noise block.
-    float nz[MAXF], acc[MAXF];
-    for (int i = 0; i < F; ++i) acc[i] = 0.0f;
-    const uint32_t s0 = (uint32_t)p.seeds[b * 4 + 0];
-    const uint32_t s1 = (uint32_t)p.seeds[b * 4 + 1];
-    for (int s = 0; s < p.s_rast; ++s) {
-      draw_noise<MAXF>(nz, F, p.rast_noise, s0, s1, s, pos);
-      for (int i = 0; i < F; ++i)
-        acc[i] += -dist[i] + sigma * nz[i] >= 0.0f ? 1.0f : 0.0f;
-    }
-    const float inv_s = 1.0f / (float)p.s_rast;
-    for (int i = 0; i < F; ++i) dist[i] = acc[i] * inv_s * maskf[i];
-  } else {
-    for (int i = 0; i < F; ++i) {
-      const float x = -dist[i] / sigma;
-      float pr;
-      if (p.rast_kind == kRastSoft) {
-        pr = 1.0f / (1.0f + expf(-x));
-      } else if (p.rast_kind == kRastAffine) {
-        pr = fmaxf(x > 0.5f ? 1.0f : x + 0.5f, 0.0f);
-      } else {
-        pr = -dist[i] >= 0.0f ? 1.0f : 0.0f;
-      }
-      dist[i] = pr * maskf[i];
-    }
-  }
-  const float* prob = dist;
-
-  // ---- det2: z_map rows (slots, background, -inf padding) ---------------
-  const int C = p.c_zpad;
-  float zmap[MAXC];
-  const float zfar = sc[kZfar], znear = sc[kZnear];
-  float zmax = -INFINITY;
-  for (int i = 0; i < F; ++i) {
-    zz[i] = (zfar - zz[i]) / (zfar - znear) * maskf[i];   // z_inv
-    zmax = fmaxf(zmax, zz[i]);
-  }
-  zmax = fmaxf(zmax, p.eps_bg);
-  const float gal = p.agg_kind == kAggHard ? 1e-6f : sc[kGamma] / sc[kAlpha];
-  for (int i = 0; i < F; ++i) zmap[i] = gal * logf(prob[i]) + zz[i] - zmax;
-  for (int r = F; r < C; ++r) zmap[r] = -INFINITY;
-  zmap[p.bg_row] = p.eps_bg - zmax;
-
-  // ---- aggregation weights over the C z_map rows -------------------------
-  float wts[MAXC];
-  if (p.agg_kind == kAggMC) {
-    // >=-max one-hots of z_map + gamma * N over a c_zpad-row noise block.
-    float pert[MAXC];
-    for (int r = 0; r < C; ++r) wts[r] = 0.0f;
-    const uint32_t s0 = (uint32_t)p.seeds[b * 4 + 2];
-    const uint32_t s1 = (uint32_t)p.seeds[b * 4 + 3];
-    const float gamma = sc[kGamma];
-    for (int s = 0; s < p.s_agg; ++s) {
-      draw_noise<MAXC>(pert, C, p.agg_noise, s0, s1, s, pos);
-      for (int r = 0; r < C; ++r) pert[r] = zmap[r] + gamma * pert[r];
-      float mx = -INFINITY;
-      for (int r = 0; r < C; ++r) mx = fmaxf(mx, pert[r]);
-      for (int r = 0; r < C; ++r) wts[r] += pert[r] >= mx ? 1.0f : 0.0f;
-    }
-    const float inv_s = 1.0f / (float)p.s_agg;
-    for (int r = 0; r < C; ++r) wts[r] = wts[r] * inv_s;
-  } else if (p.agg_kind == kAggSoft) {
-    const float inv_gamma = 1.0f / sc[kGamma];
-    float mx = -INFINITY;
-    for (int r = 0; r < C; ++r) {
-      wts[r] = inv_gamma * zmap[r];
-      mx = fmaxf(mx, wts[r]);
-    }
-    float sum = 0.0f;
-    for (int r = 0; r < C; ++r) {
-      wts[r] = expf(wts[r] - mx);
-      sum += wts[r];
-    }
-    for (int r = 0; r < C; ++r) wts[r] = wts[r] / sum;
-  } else {                                   // first-wins hard one-hot
-    float mx = -INFINITY;
-    for (int r = 0; r < C; ++r) mx = fmaxf(mx, zmap[r]);
-    int first = C;
-    for (int r = C - 1; r >= 0; --r)
-      if (zmap[r] >= mx) first = r;
-    for (int r = 0; r < C; ++r) wts[r] = r == first ? 1.0f : 0.0f;
-  }
-
-  // ---- det3: blend ------------------------------------------------------
-  float rgb0 = 0.0f, rgb1 = 0.0f, rgb2 = 0.0f, ap = 1.0f;
-  for (int i = 0; i < F; ++i) {
-    rgb0 += wts[i] * col0[i];
-    rgb1 += wts[i] * col1[i];
-    rgb2 += wts[i] * col2[i];
-    ap = ap * (1.0f - prob[i]);
-  }
-  const float wb = wts[p.bg_row];
-  float4 o;
-  o.x = rgb0 + wb * sc[kBg + 0];
-  o.y = rgb1 + wb * sc[kBg + 1];
-  o.z = rgb2 + wb * sc[kBg + 2];
-  o.w = 1.0f - ap;
-  *out = o;
+  if (pix >= npix) return;
+  float o[4];
+  pixel_forward<MAXF>(p, T, b, pix, o);
+  reinterpret_cast<float4*>(p.out)[(size_t)b * npix + pix] =
+      make_float4(o[0], o[1], o[2], o[3]);
 }
 
 template <int MAXF>

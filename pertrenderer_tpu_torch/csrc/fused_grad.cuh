@@ -30,13 +30,18 @@
 namespace ptf {
 
 // Per-thread sums across a thread's pixels: the 34 scalar gradients, the
-// two reciprocal-scale terms converted once at the end, and the loss.
-struct PixelAcc {
-  float gsc[kNS];
-  float g_gal;      // d loss / d (gamma / alpha)
-  float g_invgam;   // d loss / d (1 / gamma), softmax aggregation
-  float loss;
+// two reciprocal-scale terms converted once at the end, and the loss; in
+// float (K4, K2, K5-K7) or in double (the binned route's K12).  Real is
+// also the type of pixel_grads' aggregation arithmetic (see there).
+template <class F>
+struct PixelAccT {
+  using Real = F;
+  F gsc[kNS];
+  F g_gal;          // d loss / d (gamma / alpha)
+  F g_invgam;       // d loss / d (1 / gamma), softmax aggregation
+  F loss;
 };
+using PixelAcc = PixelAccT<float>;
 
 PT_HD float tie_max(float x, float c) {   // d max(x, c) / dx, JAX rule
   return x > c ? 1.0f : (x == c ? 0.5f : 0.0f);
@@ -46,35 +51,43 @@ PT_HD float tie_min(float x, float c) {   // d min(x, c) / dx, JAX rule
   return x < c ? 1.0f : (x == c ? 0.5f : 0.0f);
 }
 
+PT_HD float tie_max(double x, double c) {
+  return x > c ? 1.0f : (x == c ? 0.5f : 0.0f);
+}
+
+PT_HD float tie_min(double x, double c) {
+  return x < c ? 1.0f : (x == c ? 0.5f : 0.0f);
+}
+
 PT_HD float score(float n, int noise) {
   return noise == kGaussian ? n : 2.0f * n / (1.0f + n * n);
 }
 
 // Adjoint of edge_dist_sq: adds d(dist)/d(a, b) * g to ga, gb.
-PT_HD void edge_backward(float px, float py, float ax, float ay, float bx,
-                         float by, float g, float* gax, float* gay,
-                         float* gbx, float* gby) {
-  const float ex = bx - ax, ey = by - ay;
-  const float len = ex * ex + ey * ey;
-  const float inv = 1.0f / fmaxf(len, 1e-12f);
-  const float exs = ex * inv, eys = ey * inv;
-  const float dx = px - ax, dy = py - ay;
-  const float tr = dx * exs + dy * eys;
-  const float u = fmaxf(tr, 0.0f);
-  const float t = fminf(u, 1.0f);
-  const float rx = dx - t * ex, ry = dy - t * ey;
-  const float g_rx = 2.0f * rx * g, g_ry = 2.0f * ry * g;
-  float g_dx = g_rx, g_dy = g_ry;
-  const float g_t = -(g_rx * ex + g_ry * ey);
-  float g_ex = -g_rx * t, g_ey = -g_ry * t;
-  const float g_tr = g_t * tie_min(u, 1.0f) * tie_max(tr, 0.0f);
+template <class F>
+PT_HD void edge_backward(F px, F py, F ax, F ay, F bx, F by, F g, F* gax,
+                         F* gay, F* gbx, F* gby) {
+  const F ex = bx - ax, ey = by - ay;
+  const F len = ex * ex + ey * ey;
+  const F inv = (F)1 / fmax(len, (F)1e-12f);
+  const F exs = ex * inv, eys = ey * inv;
+  const F dx = px - ax, dy = py - ay;
+  const F tr = dx * exs + dy * eys;
+  const F u = fmax(tr, (F)0);
+  const F t = fmin(u, (F)1);
+  const F rx = dx - t * ex, ry = dy - t * ey;
+  const F g_rx = 2.0f * rx * g, g_ry = 2.0f * ry * g;
+  F g_dx = g_rx, g_dy = g_ry;
+  const F g_t = -(g_rx * ex + g_ry * ey);
+  F g_ex = -g_rx * t, g_ey = -g_ry * t;
+  const F g_tr = g_t * tie_min(u, (F)1) * tie_max(tr, (F)0);
   g_dx += g_tr * exs;
   g_dy += g_tr * eys;
-  const float g_exs = g_tr * dx, g_eys = g_tr * dy;
+  const F g_exs = g_tr * dx, g_eys = g_tr * dy;
   g_ex += g_exs * inv;
   g_ey += g_eys * inv;
-  const float g_inv = g_exs * ex + g_eys * ey;
-  const float g_len = -g_inv * inv * inv * tie_max(len, 1e-12f);
+  const F g_inv = g_exs * ex + g_eys * ey;
+  const F g_len = -g_inv * inv * inv * tie_max(len, (F)1e-12f);
   g_ex += 2.0f * ex * g_len;
   g_ey += 2.0f * ey * g_len;
   *gax += -g_dx - g_ex;
@@ -84,138 +97,142 @@ PT_HD void edge_backward(float px, float py, float ax, float ay, float bx,
 }
 
 // Adjoint of v / max(|v|, 1e-8) for a 3-vector: g_v from g_u.
-PT_HD void normalize_backward(const float v[3], float n_raw,
-                              const float g_u[3], float g_v[3]) {
-  const float n = fmaxf(n_raw, 1e-8f);
-  float g_n = 0.0f;
+template <class F>
+PT_HD void normalize_backward(const F v[3], F n_raw, const F g_u[3],
+                              F g_v[3]) {
+  const F n = fmax(n_raw, (F)1e-8f);
+  F g_n = 0.0f;
   for (int c = 0; c < 3; ++c) {
     g_v[c] = g_u[c] / n;
     g_n -= g_u[c] * v[c] / (n * n);
   }
-  g_n *= tie_max(n_raw, 1e-8f);
+  g_n *= tie_max(n_raw, (F)1e-8f);
   for (int c = 0; c < 3; ++c)
-    g_v[c] += n_raw > 0.0f ? g_n * v[c] / n_raw : 0.0f;
+    g_v[c] += n_raw > 0.0f ? g_n * v[c] / n_raw : (F)0;
 }
 
-// det1's adjoint for a candidate slot i: recomputes the geometry and
-// shading of face_forward and pulls (g_dist, g_z, g_col) back to the
-// slot's tables.  gslot: [0, 9) ndc, [9, 18) world, [18, 27) normals,
-// [27, 27 + 9) corner texels (or [27, 30) for a one-cell atlas); an atlas
-// with more cells reports its cell and gcell instead.
+// det1's adjoint for a candidate slot i, in F (float, or double for K12):
+// recomputes the geometry and shading of face_forward and pulls (g_dist,
+// g_z, g_col) back to the slot's tables.  gslot: [0, 9) ndc, [9, 18)
+// world, [18, 27) normals, [27, 27 + 9) corner texels (or [27, 30) for a
+// one-cell atlas); an atlas with more cells reports its cell and gcell
+// instead.
+template <class F>
 PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
-                         float py, float g_dist, float g_z,
-                         const float g_col[3], float* gslot, int* cell_out,
-                         float gcell[3], float* gsc) {
+                         float py, F g_dist, F g_z, const F g_col[3],
+                         float* gslot, int* cell_out, float gcell[3],
+                         F* gsc) {
   const float* sc = T.sc;
   const float* v = T.ndc + i * T.rs_geo;
-  const float ax = v[0], ay = v[1], az = v[2], bx = v[3], by = v[4],
-              bz = v[5], cx = v[6], cy = v[7], cz = v[8];
-  const float vz[3] = {az, bz, cz};
+  const F ax = v[0], ay = v[1], az = v[2], bx = v[3], by = v[4],
+          bz = v[5], cx = v[6], cy = v[7], cz = v[8];
+  const F vz[3] = {az, bz, cz};
   // ---- forward recompute (as face_forward) -------------------------------
-  const float area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
-  const bool degen = fabsf(area) < 1e-10f;
-  const float ia = 1.0f / (degen ? 1.0f : area);
-  const float e0x = (cy - by) * ia, e0y = (cx - bx) * ia;
-  const float e1x = (ay - cy) * ia, e1y = (ax - cx) * ia;
-  const float w0r = e0y * py - e0x * px + (e0x * bx - e0y * by);
-  const float w1r = e1y * py - e1x * px + (e1x * cx - e1y * cy);
-  const float wr[3] = {w0r, w1r, 1.0f - w0r - w1r};
+  const F area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
+  const bool degen = fabs(area) < (F)1e-10f;
+  const F ia = 1.0f / (degen ? 1.0f : area);
+  const F e0x = (cy - by) * ia, e0y = (cx - bx) * ia;
+  const F e1x = (ay - cy) * ia, e1y = (ax - cx) * ia;
+  const F w0r = e0y * py - e0x * px + (e0x * bx - e0y * by);
+  const F w1r = e1y * py - e1x * px + (e1x * cx - e1y * cy);
+  const F wr[3] = {w0r, w1r, 1.0f - w0r - w1r};
   const bool inside = wr[0] >= 0.0f && wr[1] >= 0.0f && wr[2] >= 0.0f &&
                       !degen;
-  const float d0 = edge_dist_sq(px, py, ax, ay, bx, by);
-  const float d1 = edge_dist_sq(px, py, bx, by, cx, cy);
-  const float d2 = edge_dist_sq(px, py, cx, cy, ax, ay);
-  float mz[3], sp[3], wp[3], sum_s = 0.0f, den_p = 1.0f;
+  const F d0 = edge_dist_sq(px, py, ax, ay, bx, by);
+  const F d1 = edge_dist_sq(px, py, bx, by, cx, cy);
+  const F d2 = edge_dist_sq(px, py, cx, cy, ax, ay);
+  F mz[3], sp[3], wp[3], sum_s = 0.0f, den_p = 1.0f;
   for (int k = 0; k < 3; ++k) wp[k] = wr[k];
   if (p.persp) {
     for (int k = 0; k < 3; ++k) {
-      mz[k] = fmaxf(vz[k], 1e-8f);
+      mz[k] = fmax(vz[k], (F)1e-8f);
       sp[k] = wr[k] / mz[k];
     }
     sum_s = sp[0] + sp[1] + sp[2];
-    den_p = fmaxf(sum_s, 1e-12f);
+    den_p = fmax(sum_s, (F)1e-12f);
     for (int k = 0; k < 3; ++k) wp[k] = sp[k] / den_p;
   }
-  float cc[3], w[3], sum_c = 0.0f, den_c = 1.0f;
+  F cc[3], w[3], sum_c = 0.0f, den_c = 1.0f;
   for (int k = 0; k < 3; ++k) w[k] = wp[k];
   if (p.clip) {
-    for (int k = 0; k < 3; ++k) cc[k] = fmaxf(wp[k], 0.0f);
+    for (int k = 0; k < 3; ++k) cc[k] = fmax(wp[k], (F)0);
     sum_c = cc[0] + cc[1] + cc[2];
-    den_c = fmaxf(sum_c, 1e-12f);
+    den_c = fmax(sum_c, (F)1e-12f);
     for (int k = 0; k < 3; ++k) w[k] = cc[k] / den_c;
   }
 
   // ---- texel + shading adjoint -> g_w (final barycentrics) ----------------
-  float g_w[3] = {0.0f, 0.0f, 0.0f};
+  F g_w[3] = {0.0f, 0.0f, 0.0f};
   const float* t = T.tex + i * T.rs_tex;
-  float texel[3];
+  F texel[3];
   int cell = -1;
   if (p.atlas_r == 0) {
     for (int c = 0; c < 3; ++c)
       texel[c] = w[0] * t[c] + w[1] * t[3 + c] + w[2] * t[6 + c];
   } else {
     const int r = p.atlas_r;
-    const int xi = min(max((int)(fminf(fmaxf(w[1], 0.0f), 1.0f) * r), 0),
+    const int xi = min(max((int)(fmin(fmax(w[1], (F)0), (F)1) * r), 0),
                        r - 1);
-    const int yi = min(max((int)(fminf(fmaxf(w[2], 0.0f), 1.0f) * r), 0),
+    const int yi = min(max((int)(fmin(fmax(w[2], (F)0), (F)1) * r), 0),
                        r - 1);
     cell = yi * r + xi;
     for (int c = 0; c < 3; ++c) texel[c] = t[cell * 3 + c];
   }
-  float g_texel[3];
+  F g_texel[3];
   if (p.phong) {
     const float* fw = T.world + i * T.rs_geo;
     const float* fnn = T.fn + i * T.rs_geo;
-    float pnt[3], nrm[3], tl[3], vd[3];
+    F pnt[3], nrm[3], tl[3], vd[3];
     for (int c = 0; c < 3; ++c) {
       pnt[c] = w[0] * fw[c] + w[1] * fw[3 + c] + w[2] * fw[6 + c];
       nrm[c] = w[0] * fnn[c] + w[1] * fnn[3 + c] + w[2] * fnn[6 + c];
       tl[c] = p.point_light ? sc[kLight + c] - pnt[c] : -sc[kLight + c];
       vd[c] = sc[kCam + c] - pnt[c];
     }
-    const float tln = sqrtf(tl[0] * tl[0] + tl[1] * tl[1] + tl[2] * tl[2]);
-    const float vdn = sqrtf(vd[0] * vd[0] + vd[1] * vd[1] + vd[2] * vd[2]);
-    float tlu[3], vdu[3];
+    const F tln = sqrt(tl[0] * tl[0] + tl[1] * tl[1] + tl[2] * tl[2]);
+    const F vdn = sqrt(vd[0] * vd[0] + vd[1] * vd[1] + vd[2] * vd[2]);
+    F tlu[3], vdu[3];
     for (int c = 0; c < 3; ++c) {
-      tlu[c] = tl[c] / fmaxf(tln, 1e-8f);
-      vdu[c] = vd[c] / fmaxf(vdn, 1e-8f);
+      tlu[c] = tl[c] / fmax(tln, (F)1e-8f);
+      vdu[c] = vd[c] / fmax(vdn, (F)1e-8f);
     }
-    const float cosv = nrm[0] * tlu[0] + nrm[1] * tlu[1] + nrm[2] * tlu[2];
-    const float cos2 = 2.0f * cosv;
-    float refl[3];
+    const F cosv = nrm[0] * tlu[0] + nrm[1] * tlu[1] + nrm[2] * tlu[2];
+    const F cos2 = 2.0f * cosv;
+    F refl[3];
     for (int c = 0; c < 3; ++c) refl[c] = cos2 * nrm[c] - tlu[c];
-    const float sa_raw =
+    const F sa_raw =
         vdu[0] * refl[0] + vdu[1] * refl[1] + vdu[2] * refl[2];
-    const float spec_a = fmaxf(sa_raw, 0.0f);
-    const float facing = cosv > 0.0f ? 1.0f : 0.0f;
-    const float shin = sc[kShin];               // no gradient (JAX)
-    const float spec_pow = facing * powf(spec_a, shin);
-    const float cmax = fmaxf(cosv, 0.0f);
-    float g_cmax = 0.0f, g_spow = 0.0f;
+    const F spec_a = fmax(sa_raw, (F)0);
+    const F facing = cosv > 0.0f ? 1.0f : 0.0f;
+    const F shin = sc[kShin];               // no gradient (JAX)
+    const F spec_pow = facing * pow(spec_a, shin);
+    const F cmax = fmax(cosv, (F)0);
+    F g_cmax = 0.0f, g_spow = 0.0f;
     for (int c = 0; c < 3; ++c) {
-      const float ma = sc[kMAmb + c], la = sc[kLAmb + c];
-      const float ld = sc[kLDiff + c], md = sc[kMDiff + c];
-      const float ls = sc[kLSpec + c], ms = sc[kMSpec + c];
-      const float cl = cmax * ld;
-      const float g = g_col[c];
+      const F ma = sc[kMAmb + c], la = sc[kLAmb + c];
+      const F ld = sc[kLDiff + c], md = sc[kMDiff + c];
+      const F ls = sc[kLSpec + c], ms = sc[kMSpec + c];
+      const F cl = cmax * ld;
+      const F g = g_col[c];
       g_texel[c] = g * (ma * la + cl * md);
-      const float g_amb = g * texel[c];           // = g_diffuse
+      const F g_amb = g * texel[c];           // = g_diffuse
       gsc[kMAmb + c] += g_amb * la;
       gsc[kLAmb + c] += g_amb * ma;
       gsc[kMDiff + c] += g_amb * cl;
-      const float g_cl = g_amb * md;
+      const F g_cl = g_amb * md;
       g_cmax += g_cl * ld;
       gsc[kLDiff + c] += g_cl * cmax;
-      const float spl = spec_pow * ls;
+      const F spl = spec_pow * ls;
       gsc[kMSpec + c] += g * spl;
-      const float g_spl = g * ms;
+      const F g_spl = g * ms;
       g_spow += g_spl * ls;
       gsc[kLSpec + c] += g_spl * spec_pow;
     }
-    const float dpow = shin == 0.0f ? 0.0f : shin * powf(spec_a, shin - 1.0f);
-    const float g_sa = g_spow * facing * dpow * tie_max(sa_raw, 0.0f);
-    float g_vdu[3], g_refl[3], g_nrm[3], g_tlu[3];
-    float g_c2 = 0.0f;
+    const F dpow =
+        shin == 0.0f ? (F)0 : shin * pow(spec_a, shin - (F)1);
+    const F g_sa = g_spow * facing * dpow * tie_max(sa_raw, (F)0);
+    F g_vdu[3], g_refl[3], g_nrm[3], g_tlu[3];
+    F g_c2 = 0.0f;
     for (int c = 0; c < 3; ++c) {
       g_vdu[c] = g_sa * refl[c];
       g_refl[c] = g_sa * vdu[c];
@@ -223,12 +240,12 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
       g_nrm[c] = g_refl[c] * cos2;
       g_tlu[c] = -g_refl[c];
     }
-    const float g_cos = 2.0f * g_c2 + g_cmax * tie_max(cosv, 0.0f);
+    const F g_cos = 2.0f * g_c2 + g_cmax * tie_max(cosv, (F)0);
     for (int c = 0; c < 3; ++c) {
       g_nrm[c] += g_cos * tlu[c];
       g_tlu[c] += g_cos * nrm[c];
     }
-    float g_vd[3], g_tl[3], g_pnt[3];
+    F g_vd[3], g_tl[3], g_pnt[3];
     normalize_backward(vd, vdn, g_vdu, g_vd);
     normalize_backward(tl, tln, g_tlu, g_tl);
     for (int c = 0; c < 3; ++c) {
@@ -264,48 +281,48 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
   *cell_out = cell;
 
   // ---- z = w . (az, bz, cz) ------------------------------------------------
-  float g_vz[3];
+  F g_vz[3];
   for (int k = 0; k < 3; ++k) {
     g_w[k] += g_z * vz[k];
     g_vz[k] = g_z * w[k];
   }
   // ---- clip, then perspective correction, in reverse -----------------------
   if (p.clip) {
-    float g_den = 0.0f, g_cc[3];
+    F g_den = 0.0f, g_cc[3];
     for (int k = 0; k < 3; ++k) {
       g_cc[k] = g_w[k] / den_c;
       g_den -= g_w[k] * cc[k] / (den_c * den_c);
     }
-    const float g_sum = g_den * tie_max(sum_c, 1e-12f);
+    const F g_sum = g_den * tie_max(sum_c, (F)1e-12f);
     for (int k = 0; k < 3; ++k)
-      g_w[k] = (g_cc[k] + g_sum) * tie_max(wp[k], 0.0f);
+      g_w[k] = (g_cc[k] + g_sum) * tie_max(wp[k], (F)0);
   }
   if (p.persp) {
-    float g_den = 0.0f, g_sp[3];
+    F g_den = 0.0f, g_sp[3];
     for (int k = 0; k < 3; ++k) {
       g_sp[k] = g_w[k] / den_p;
       g_den -= g_w[k] * sp[k] / (den_p * den_p);
     }
-    const float g_sum = g_den * tie_max(sum_s, 1e-12f);
+    const F g_sum = g_den * tie_max(sum_s, (F)1e-12f);
     for (int k = 0; k < 3; ++k) {
-      const float g_s = g_sp[k] + g_sum;
+      const F g_s = g_sp[k] + g_sum;
       g_w[k] = g_s / mz[k];
-      g_vz[k] -= g_s * wr[k] / (mz[k] * mz[k]) * tie_max(vz[k], 1e-8f);
+      g_vz[k] -= g_s * wr[k] / (mz[k] * mz[k]) * tie_max(vz[k], (F)1e-8f);
     }
   }
   // ---- raw barycentrics (edge functions) -----------------------------------
-  float gax = 0.0f, gay = 0.0f, gbx = 0.0f, gby = 0.0f, gcx = 0.0f,
+  F gax = 0.0f, gay = 0.0f, gbx = 0.0f, gby = 0.0f, gcx = 0.0f,
         gcy = 0.0f;
-  const float g_w0 = g_w[0] - g_w[2], g_w1 = g_w[1] - g_w[2];
-  const float g_e0y = g_w0 * py - g_w0 * by;
-  const float g_e0x = g_w0 * bx - g_w0 * px;
+  const F g_w0 = g_w[0] - g_w[2], g_w1 = g_w[1] - g_w[2];
+  const F g_e0y = g_w0 * py - g_w0 * by;
+  const F g_e0x = g_w0 * bx - g_w0 * px;
   gbx += g_w0 * e0x;
   gby -= g_w0 * e0y;
-  const float g_e1y = g_w1 * py - g_w1 * cy;
-  const float g_e1x = g_w1 * cx - g_w1 * px;
+  const F g_e1y = g_w1 * py - g_w1 * cy;
+  const F g_e1x = g_w1 * cx - g_w1 * px;
   gcx += g_w1 * e1x;
   gcy -= g_w1 * e1y;
-  float g_ia = 0.0f;
+  F g_ia = 0.0f;
   gcy += g_e0x * ia;
   gby -= g_e0x * ia;
   g_ia += g_e0x * (cy - by);
@@ -319,7 +336,7 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
   gcx -= g_e1y * ia;
   g_ia += g_e1y * (ax - cx);
   if (!degen) {
-    const float g_area = -g_ia * ia * ia;
+    const F g_area = -g_ia * ia * ia;
     gbx += g_area * (cy - ay);
     gax -= g_area * (cy - ay);
     gcy += g_area * (bx - ax);
@@ -330,14 +347,14 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
     gax += g_area * (by - ay);
   }
   // ---- signed distance: where(inside, -min_d, min_d) -----------------------
-  const float g_min = inside ? -g_dist : g_dist;
-  const float m12 = fminf(d1, d2);
-  const float g_d0 = g_min * tie_min(d0, m12);
-  const float g_m12 = g_min * tie_min(m12, d0);
-  edge_backward(px, py, ax, ay, bx, by, g_d0, &gax, &gay, &gbx, &gby);
-  edge_backward(px, py, bx, by, cx, cy, g_m12 * tie_min(d1, d2), &gbx, &gby,
+  const F g_min = inside ? -g_dist : g_dist;
+  const F m12 = fmin(d1, d2);
+  const F g_d0 = g_min * tie_min(d0, m12);
+  const F g_m12 = g_min * tie_min(m12, d0);
+  edge_backward<F>(px, py, ax, ay, bx, by, g_d0, &gax, &gay, &gbx, &gby);
+  edge_backward<F>(px, py, bx, by, cx, cy, g_m12 * tie_min(d1, d2), &gbx, &gby,
                 &gcx, &gcy);
-  edge_backward(px, py, cx, cy, ax, ay, g_m12 * tie_min(d2, d1), &gcx, &gcy,
+  edge_backward<F>(px, py, cx, cy, ax, ay, g_m12 * tie_min(d2, d1), &gcx, &gcy,
                 &gax, &gay);
   gslot[0] = gax;
   gslot[1] = gay;
@@ -352,9 +369,25 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
 
 // The gradient pipeline of one pixel.  LOSS: K2 (cotangent from the
 // target), else K4 (cotangent g_out).  Sink: the reduction across pixels.
-template <int MAXF, bool LOSS, class Sink>
+//
+// From the aggregation on — z_inv, z_map, the weights, the weight
+// cotangent, g_zmap, the slot's cotangents and det1's adjoint
+// (face_backward) — the arithmetic runs in Acc::Real: float for K4 / K2
+// (the bits of float32 arithmetic), double for K12; det1's forward stays
+// float.  Two sums need it on a large binned scene.  The scalar gradients
+// sum terms over every (slot, pixel) that, under a cotangent of mixed
+// sign, cancel to a small share of their magnitude, and the softmax
+// weights carry z_inv's float32 rounding magnified by 1 / gamma: in float
+// alpha's gradient on config 5 misses float64 by 1.7e-4 of its value
+// (5e-6 in double; the float32 plain version 8e-5).  A face seen nearly
+// edge-on has adjoint terms of order L / h that cancel across its
+// pixels: in float its rows miss float64 by up to 16 float32 ulps times
+// L / h of the table's max (the card's thin-row bound), in double by a
+// twentieth of that.
+template <int MAXF, bool LOSS, class Sink, class Acc>
 PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
-                       bool live, Sink& sink, PixelAcc& acc) {
+                       bool live, Sink& sink, Acc& acc) {
+  using A = typename Acc::Real;
   constexpr int MAXC = MAXF + 8;
   const int F = p.f_pad, C = p.c_zpad, bg = p.bg_row;
   const int npix = p.image_size * p.image_size;
@@ -416,20 +449,20 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
 
   // ---- det2: z_map ---------------------------------------------------------
   const float zfar = sc[kZfar], znear = sc[kZnear];
-  const float zden = zfar - znear;
-  float zinv[MAXF];
-  float zmax_raw = -INFINITY;
+  const A zden = (A)zfar - (A)znear;
+  A zinv[MAXF];
+  A zmax_raw = -INFINITY;
   for (int i = 0; i < F; ++i) {
-    zinv[i] = (zfar - zz[i]) / zden * mk[i];
-    zmax_raw = fmaxf(zmax_raw, zinv[i]);
+    zinv[i] = ((A)zfar - zz[i]) / zden * mk[i];
+    zmax_raw = fmax(zmax_raw, zinv[i]);
   }
-  const float zmax = fmaxf(zmax_raw, p.eps_bg);
+  const A zmax = fmax(zmax_raw, (A)p.eps_bg);
   const bool hard_agg = p.agg_kind == kAggHard;
-  const float gal = hard_agg ? 1e-6f : sc[kGamma] / sc[kAlpha];
-  float zmap[MAXC];
-  for (int i = 0; i < F; ++i) zmap[i] = gal * logf(prob[i]) + zinv[i] - zmax;
+  const A gal = hard_agg ? (A)1e-6f : (A)sc[kGamma] / (A)sc[kAlpha];
+  A zmap[MAXC];
+  for (int i = 0; i < F; ++i) zmap[i] = gal * log((A)prob[i]) + zinv[i] - zmax;
   for (int r = F; r < C; ++r) zmap[r] = -INFINITY;
-  zmap[bg] = p.eps_bg - zmax;
+  zmap[bg] = (A)p.eps_bg - zmax;
 
   // ---- output cotangent (K4) -----------------------------------------------
   // A pixel of an inactive tile has no candidate, so its image is the
@@ -452,23 +485,24 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
     if (!act) bg_only();
   }
   // Weight cotangent of the (linear) blend, laid out like z_map.
-  float gw[MAXC];
+  A gw[MAXC];
   auto build_gw = [&]() {
     for (int i = 0; i < F; ++i)
-      gw[i] = col0[i] * g_rgb[0] + col1[i] * g_rgb[1] + col2[i] * g_rgb[2];
+      gw[i] = (A)col0[i] * g_rgb[0] + (A)col1[i] * g_rgb[1] +
+              (A)col2[i] * g_rgb[2];
     for (int r = F; r < C; ++r) gw[r] = 0.0f;
-    gw[bg] = sc[kBg] * g_rgb[0] + sc[kBg + 1] * g_rgb[1] +
-             sc[kBg + 2] * g_rgb[2];
+    gw[bg] = (A)sc[kBg] * g_rgb[0] + (A)sc[kBg + 1] * g_rgb[1] +
+             (A)sc[kBg + 2] * g_rgb[2];
   };
 
   // ---- aggregation: weights, and g_zmap ------------------------------------
   const float gamma = sc[kGamma];
-  float wts[MAXC], gz[MAXC];
+  A wts[MAXC], gz[MAXC];
   for (int r = 0; r < C; ++r) gz[r] = 0.0f;
   int first = -1;                 // first-wins argmax of z_map (VR baseline)
   {
-    float mx = -INFINITY;
-    for (int r = 0; r < C; ++r) mx = fmaxf(mx, zmap[r]);
+    A mx = -INFINITY;
+    for (int r = 0; r < C; ++r) mx = fmax(mx, zmap[r]);
     for (int r = C - 1; r >= 0; --r)
       if (zmap[r] >= mx) first = r;
   }
@@ -477,23 +511,25 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   // One replay of the MC aggregation noise: accumulates the weights
   // (want_w) and the score-function terms of g_zmap and gamma (want_g).
   auto mc_agg = [&](bool want_w, bool want_g) {
-    float nz[MAXC], pert[MAXC];
-    float g_gam = 0.0f;
+    float nz[MAXC];
+    A pert[MAXC];
+    A g_gam = 0.0f;
     const float phi_comp = (float)(p.k - bg);
     if (want_w)
       for (int r = 0; r < C; ++r) wts[r] = 0.0f;
     for (int s = 0; s < p.s_agg; ++s) {
       draw_noise<MAXC>(nz, C, p.agg_noise, a0, a1, s, pos);
-      float mx = -INFINITY;
+      A mx = -INFINITY;
       for (int r = 0; r < C; ++r) {
-        pert[r] = zmap[r] + gamma * nz[r];
-        mx = fmaxf(mx, pert[r]);
+        pert[r] = zmap[r] + (A)gamma * nz[r];
+        mx = fmax(mx, pert[r]);
       }
       if (want_w)
         for (int r = 0; r < C; ++r) wts[r] += pert[r] >= mx ? 1.0f : 0.0f;
       if (want_g) {
         // Rows past bg_row are -inf and never win; their noise is masked.
-        float dot = 0.0f, phi = 0.0f;
+        A dot = 0.0f;
+        float phi = 0.0f;
         for (int r = 0; r <= bg; ++r) {
           const float oh = pert[r] >= mx ? 1.0f : 0.0f;
           const float w0 = p.agg_vr && r == first ? 1.0f : 0.0f;
@@ -507,11 +543,11 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
       }
     }
     if (want_w) {
-      const float inv_s = 1.0f / (float)p.s_agg;
+      const A inv_s = (A)1 / (A)p.s_agg;
       for (int r = 0; r < C; ++r) wts[r] = wts[r] * inv_s;
     }
     if (want_g) {
-      const float sg = (float)p.s_agg * gamma;
+      const A sg = (A)p.s_agg * (A)gamma;
       for (int r = 0; r < C; ++r) gz[r] = gz[r] / sg;
       acc.gsc[kGamma] += g_gam / sg;
     }
@@ -520,15 +556,15 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
     if (!LOSS) build_gw();
     mc_agg(true, !LOSS);            // K4: forward and backward in one pass
   } else if (p.agg_kind == kAggSoft) {
-    const float inv_gamma = 1.0f / gamma;
-    float mx = -INFINITY;
+    const A inv_gamma = (A)1 / (A)gamma;
+    A mx = -INFINITY;
     for (int r = 0; r < C; ++r) {
       wts[r] = inv_gamma * zmap[r];
-      mx = fmaxf(mx, wts[r]);
+      mx = fmax(mx, wts[r]);
     }
-    float sum = 0.0f;
+    A sum = 0.0f;
     for (int r = 0; r < C; ++r) {
-      wts[r] = expf(wts[r] - mx);
+      wts[r] = exp(wts[r] - mx);
       sum += wts[r];
     }
     for (int r = 0; r < C; ++r) wts[r] = wts[r] / sum;
@@ -537,7 +573,8 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   }
 
   // ---- blend (forward) -----------------------------------------------------
-  float rgb[3] = {0.0f, 0.0f, 0.0f}, ap = 1.0f, pre[MAXF];
+  A rgb[3] = {0.0f, 0.0f, 0.0f};
+  float ap = 1.0f, pre[MAXF];
   for (int i = 0; i < F; ++i) {
     rgb[0] += wts[i] * col0[i];
     rgb[1] += wts[i] * col1[i];
@@ -545,7 +582,7 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
     pre[i] = ap;
     ap = ap * (1.0f - prob[i]);
   }
-  const float wb = wts[bg];
+  const A wb = wts[bg];
   for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + wb * sc[kBg + c];
 
   // ---- image loss and its cotangent (K2) -----------------------------------
@@ -553,7 +590,7 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
     if (live) {
       const float* tg = p.extra + (size_t)b * 3 * npix + pix;
       for (int c = 0; c < 3; ++c) {
-        const float d = rgb[c] - tg[(size_t)c * npix];
+        const float d = (float)rgb[c] - tg[(size_t)c * npix];
         if (p.loss_kind == kL2) {
           acc.loss += d * d;
           g_rgb[c] = 2.0f * d * p.lscale;
@@ -569,32 +606,32 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   }
   if (p.agg_kind == kAggSoft) {
     if (!LOSS) build_gw();
-    const float inv_gamma = 1.0f / gamma;
-    float sdot = 0.0f;
+    const A inv_gamma = (A)1 / (A)gamma;
+    A sdot = 0.0f;
     for (int r = 0; r < C; ++r) sdot += wts[r] * gw[r];
     for (int r = 0; r < C; ++r) {
-      const float gx = wts[r] * (gw[r] - sdot);
-      const float gy = inv_gamma * gx;
-      gz[r] = isnan(gy) ? 0.0f : gy;
-      const float term = (isinf(zmap[r]) ? 0.0f : zmap[r]) * gx;
+      const A gx = wts[r] * (gw[r] - sdot);
+      const A gy = inv_gamma * gx;
+      gz[r] = isnan(gy) ? (A)0 : gy;
+      const A term = (isinf(zmap[r]) ? (A)0 : zmap[r]) * gx;
       if (!isnan(term)) acc.g_invgam += term;
     }
   }
   for (int c = 0; c < 3; ++c) acc.gsc[kBg + c] += wb * g_rgb[c];
 
   // ---- det2 adjoint, shared part: the z_inv_max clamp ----------------------
-  float sum_gz = 0.0f;
+  A sum_gz = 0.0f;
   for (int r = 0; r < C; ++r) sum_gz += gz[r];
-  const float g_zmax = -sum_gz * tie_max(zmax_raw, p.eps_bg);
+  const A g_zmax = -sum_gz * tie_max(zmax_raw, (A)p.eps_bg);
   int ties = 0;
   for (int i = 0; i < F; ++i) ties += zinv[i] == zmax_raw ? 1 : 0;
-  const float g_share = ties ? g_zmax / (float)ties : 0.0f;
+  const A g_share = ties ? g_zmax / (A)ties : (A)0;
 
   // ---- per slot, in reverse: alpha product, det2, coverage, det1 -----------
-  float g_ap = -g_alpha;
+  A g_ap = -g_alpha;
   for (int i = F - 1; i >= 0; --i) {
-    const float g_p3 = -(g_ap * pre[i]);
-    g_ap = g_ap * (1.0f - prob[i]);
+    const A g_p3 = -(g_ap * pre[i]);
+    g_ap = g_ap * ((A)1 - prob[i]);
     const bool cand = mk[i] != 0.0f;
     if (!sink.any(cand)) continue;
     float gslot[kGeo + 9];
@@ -603,50 +640,50 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
     float gcell[3] = {0.0f, 0.0f, 0.0f};
     if (cand) {
       // det2: zmap_i = scaled_i + zinv_i - zmax (bg_row never a candidate).
-      const float g_zm = gz[i];
-      const float g_zinv = g_zm + (zinv[i] == zmax_raw ? g_share : 0.0f);
-      const float lp = logf(prob[i]);
-      float g_lp;
+      const A g_zm = gz[i];
+      const A g_zinv = g_zm + (zinv[i] == zmax_raw ? g_share : (A)0);
+      const A lp = log((A)prob[i]);
+      A g_lp;
       if (hard_agg) {
-        g_lp = 1e-6f * g_zm;
+        g_lp = (A)1e-6f * g_zm;
       } else {
-        const float gy = gal * g_zm;
-        g_lp = isnan(gy) ? 0.0f : gy;
-        const float term = (isinf(lp) ? 0.0f : lp) * g_zm;
+        const A gy = gal * g_zm;
+        g_lp = isnan(gy) ? (A)0 : gy;
+        const A term = (isinf(lp) ? (A)0 : lp) * g_zm;
         if (!isnan(term)) acc.g_gal += term;
       }
-      float inv = 1.0f / prob[i];
+      A inv = (A)1 / (A)prob[i];
       if (isinf(inv)) inv = 0.0f;
-      const float g_p2 = inv * g_lp;
-      const float g_q = g_zinv * mk[i];
-      const float num = zfar - zz[i];
-      const float g_num = g_q / zden;
-      const float g_den = -g_q * num / (zden * zden);
+      const A g_p2 = inv * g_lp;
+      const A g_q = g_zinv * mk[i];
+      const A num = (A)zfar - zz[i];
+      const A g_num = g_q / zden;
+      const A g_den = -g_q * num / (zden * zden);
       acc.gsc[kZfar] += g_num + g_den;
       acc.gsc[kZnear] -= g_den;
-      const float g_z = -g_num;
+      const A g_z = -g_num;
       // coverage
-      const float g_raw = (g_p3 + g_p2) * mk[i];
-      float g_dist = 0.0f;
+      const A g_raw = (g_p3 + g_p2) * mk[i];
+      A g_dist = 0.0f;
       if (p.rast_kind == kRastMC) {
-        const float g_d = coeff[i] * g_raw;
+        const A g_d = coeff[i] * g_raw;
         g_dist = -g_d;
         acc.gsc[kSigma] += g_d;
       } else if (p.rast_kind != kRastHard) {
         const float nd = -dist[i];
         const float x = nd / sigma;
-        float g_x;
+        A g_x;
         if (p.rast_kind == kRastSoft) {
-          g_x = g_raw * prob[i] * (1.0f - prob[i]);
+          g_x = g_raw * prob[i] * ((A)1 - prob[i]);
         } else {
           const float p1 = x > 0.5f ? 1.0f : x + 0.5f;
-          g_x = x > 0.5f ? 0.0f : g_raw * tie_max(p1, 0.0f);
+          g_x = x > 0.5f ? (A)0 : g_raw * tie_max(p1, 0.0f);
         }
         g_dist = -(g_x / sigma);
-        acc.gsc[kSigma] += -g_x * nd / (sigma * sigma);
+        acc.gsc[kSigma] += -g_x * nd / ((A)sigma * (A)sigma);
       }
-      const float g_col[3] = {wts[i] * g_rgb[0], wts[i] * g_rgb[1],
-                              wts[i] * g_rgb[2]};
+      const A g_col[3] = {wts[i] * g_rgb[0], wts[i] * g_rgb[1],
+                          wts[i] * g_rgb[2]};
       face_backward(p, T, i, px, py, g_dist, g_z, g_col, gslot, &cell, gcell,
                     acc.gsc);
     }
@@ -662,9 +699,9 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
 }
 
 // The thread's last step: scalar gradients and the loss into the sink.
-template <class Sink>
+template <class Sink, class Acc>
 PT_HD void finish_pixels(const Params& p, const Tables& T, Sink& sink,
-                         PixelAcc& acc) {
+                         Acc& acc) {
   const float* sc = T.sc;
   if (p.agg_kind != kAggHard) {     // z_map's gamma / alpha factor
     acc.gsc[kGamma] += acc.g_gal / sc[kAlpha];

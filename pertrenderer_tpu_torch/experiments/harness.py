@@ -8,7 +8,10 @@ gradients, takes an Adam step on the axis-angle pose ``log_rot`` and keeps
 the best iterate and an EMA of the smoothing parameters' gradients.  The
 steps run eagerly in segments of ``segment_size``; at a segment boundary
 past step 100 the host anneals the smoothing (sigma, gamma, blur, sample
-count, learning rate), as the reference's loop does.
+count, learning rate), as the reference's loop does.  On the binned route
+(an approximation the user opts into) every segment boundary also probes
+the binning capacity at the current pose (``capacity_stats``) and applies
+the settings' overflow policy (``check_capacity_host``).
 
 Random numbers come from an explicit CPU ``torch.Generator``: the initial
 pose perturbation, each step's estimator seed words and the guard noise.
@@ -17,9 +20,9 @@ pose perturbation, each step's estimator seed words and the guard noise.
 ``get_hard_rendering`` — the reference's Hard-Phong render at K = 1, which
 takes the staged route (kernels K9a and K10a on the card).
 
-Not ported yet (ROADMAP Queue 1): checkpoint and resume, artifacts, the
-capacity probe, ``max_dispatch_steps``, the ShapeNet categories (they
-need the dataset) and the scene-parameter loop.
+Not ported yet (ROADMAP Queue 1): checkpoint and resume, artifacts,
+``max_dispatch_steps``, the ShapeNet categories (they need the dataset)
+and the scene-parameter loop.
 """
 
 from __future__ import annotations
@@ -33,9 +36,10 @@ import numpy as np
 import torch
 
 import pertrenderer_tpu_torch as ptt
-from pertrenderer_tpu_torch.ops import fused_render
-from pertrenderer_tpu_torch.transforms import (Rotate, random_rotations,
-                                               so3_exp_map, so3_log_map)
+from pertrenderer_tpu_torch.ops import binned, fused_render
+from pertrenderer_tpu_torch.transforms import (Rotate, matmul3,
+                                               random_rotations, so3_exp_map,
+                                               so3_log_map)
 
 __all__ = ["NOISE_MENU", "make_smoothers", "init_renderers", "init_target",
            "get_hard_rendering", "PoseState", "StepOut", "pose_step",
@@ -90,7 +94,7 @@ def init_renderers(camera, lights, R_true, generator=None,
         r_pert = so3_exp_map(
             angle * axis / torch.sqrt(torch.sum(axis * axis, dim=1,
                                                 keepdim=True)))
-        r_init = torch.matmul(R_true, r_pert)
+        r_init = matmul3(R_true, r_pert)
     log_rot_init = so3_log_map(r_init)
 
     blend = ptt.BlendParams(sigma, gamma, (0.0, 0.0, 0.0))
@@ -271,6 +275,7 @@ class PoseOptResult:
     runtimes: Dict[str, List[float]] = dataclasses.field(default_factory=dict)
     images: List[np.ndarray] = dataclasses.field(default_factory=list)
     nb_samples: List[int] = dataclasses.field(default_factory=list)
+    capacity: List[dict] = dataclasses.field(default_factory=list)
 
 
 def _make_optimizer(name: str, log_rot, lr: float):
@@ -296,9 +301,16 @@ def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
     new sigma, sample count doubled up to ``anneal_sample_cap``, lr / 1.5,
     and the optimizer state and EMA reset).
 
+    On the binned route each segment boundary probes the capacity at the
+    current pose (``capacity_stats``; one device sync) and applies the
+    settings' ``bin_overflow`` policy (``check_capacity_host``: warn,
+    raise, or stay silent under 'allow').
+
     Returns a :class:`PoseOptResult`; ``runtimes`` holds each segment's
-    wall time (ending in a device synchronisation), the mean per step and
-    the total, and ``nb_samples`` the sample count of each segment."""
+    wall time (ending in a device synchronisation, before the probe), the
+    mean per step and the total, ``nb_samples`` the sample count of each
+    segment and ``capacity`` the probe's stats at each boundary (binned
+    route only)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     target = target_rgb[0][None] if target_rgb[0].dim() == 3 \
@@ -313,6 +325,10 @@ def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
                                             device=dev))
     opt = _make_optimizer(optimizer, state.log_rot, lr)
     fixed = getattr(renderer.shader.smoothagg, "fixed_noise", False)
+    settings = renderer.rasterizer.raster_settings
+    probe = renderer.plan(mesh, cameras=cameras,
+                          lights=lights).mode == "binned"
+    capacity: List[dict] = []
 
     boundaries = [min(Niter, segment_size)]
     while boundaries[-1] < Niter:
@@ -339,6 +355,16 @@ def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
         losses.append(torch.stack(seg_loss).cpu().numpy())   # waits
         gnorms.append(torch.stack(seg_gnorm).cpu().numpy())
         seg_times.append(time.perf_counter() - t0)
+        if probe:
+            with torch.no_grad():
+                pred = mesh.update_padded(Rotate(so3_exp_map(
+                    state.log_rot)).transform_points(mesh.verts_padded()))
+                sh = renderer.shader
+                stats = binned.capacity_stats(
+                    pred, cameras, settings, sh.smoothrast, sh.smoothagg,
+                    lights, blur_override=renderer.rasterizer.blur)
+            binned.check_capacity_host(settings, stats)
+            capacity.append(stats)
         if collect_images:
             with torch.no_grad():
                 rot = so3_exp_map(state.log_rot)
@@ -376,4 +402,5 @@ def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
         best_log_rot=state.best_log_rot, log_rot=state.log_rot.detach(),
         losses=np.concatenate(losses) if losses else np.zeros(0),
         grad_norms=np.concatenate(gnorms) if gnorms else np.zeros(0),
-        runtimes=runtimes, images=images, nb_samples=samples)
+        runtimes=runtimes, images=images, nb_samples=samples,
+        capacity=capacity)

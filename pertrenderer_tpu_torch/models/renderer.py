@@ -3,16 +3,18 @@
 
 ``MeshRenderer(meshes, seeds=..., generator=...)`` renders (N, H, W, 4) RGBA
 through the route the JAX package takes: the flat fused forward (kernel
-K3, gradients K4) or the stream forward (K5, gradients K6) for the
-perturbed shaders; ``render_loss`` gives an image loss and all its
-gradients from one launch of K2 or K7.  Everything else — the baseline
+K3, gradients K4), the stream forward (K5, gradients K6) or, for a mesh
+above 8192 faces opted in with ``bin_overflow='allow'``, the binned
+forward (K12 over per-tile slot tables, its gradients from K12's backward
+and K9b) for the perturbed shaders; ``render_loss`` gives an image loss
+and all its gradients from one launch of K2, K7 or K12's loss-and-grad.
+Everything else — the baseline
 shaders, znear/zfar overrides, shader and rasterizer cameras that differ,
 and configurations the fused kernels decline — takes the staged route:
 ``MeshRasterizer`` (select and derive, kernels K9a / K9b), then the
 shader (texture sampling, Phong shading with K10a / K10b, blending), whose
 Monte-Carlo estimators run as kernels K8a (coverage) and K8b / K8c
-(aggregation).  The binned and sharded routes raise
-``NotImplementedError``.
+(aggregation).  The sharded route raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

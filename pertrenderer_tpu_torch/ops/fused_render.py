@@ -41,11 +41,14 @@ routes take JAX's tiles' activity bits (``_active_tiles``): a tile that
 no face's blur band reaches gives the background image and only the
 background gradient, as the JAX kernels' ``bg_only`` branch does.
 
-Where the JAX package's ``_plan`` declines (an estimator pair outside
-the fused menu, an image above 2048 pixels, a texture or light the kernels
-do not take), ``_plan`` returns no configuration and the reason, and
-``MeshRenderer`` takes the staged route.  The binned and sharded routes raise
-``NotImplementedError`` naming the route.
+The binned route (F > ``_COARSE_THRESHOLD`` with ``bin_overflow='allow'``)
+renders per-tile slot tables through K12; its selection, plain versions
+and kernel wrappers are ``ops/binned.py``.  Where the JAX package's
+``_plan`` declines (an estimator pair outside the fused menu, an image
+above 2048 pixels, a texture or light the kernels do not take), ``_plan``
+returns no configuration and the reason, and ``MeshRenderer`` takes the
+staged route.  The sharded route raises ``NotImplementedError`` naming
+the route.
 """
 
 from __future__ import annotations
@@ -104,7 +107,9 @@ _NS = 34
 # launches its kernel and nowhere else (plain CPU calls do not count).
 launch_counts = {"prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
                  "fused_loss_grad": 0, "fused_stream_forward": 0,
-                 "fused_stream_backward": 0, "fused_stream_loss_grad": 0}
+                 "fused_stream_backward": 0, "fused_stream_loss_grad": 0,
+                 "fused_binned_forward": 0, "fused_binned_backward": 0,
+                 "fused_binned_loss_grad": 0}
 LOSS_KINDS = ("l2_rgb", "l1_rgb")
 
 
@@ -142,6 +147,9 @@ class FusedConfig:
     tile_w: int = 0            # 2-D tiles of (p_tile // tile_w, tile_w)
                                # pixels; 0 = row-major strips of p_tile
     stream: bool = False       # the stream route (F > faces_per_pixel)
+    binned: bool = False       # the binned route: slots are each tile's
+                               # own faces (ops/binned.py), tables
+                               # (N, nt, f_pad, .)
     rw: int = 0                # stream: sorted-table rows, F rounded up to
                                # the chunk; also the background noise row
 
@@ -705,21 +713,39 @@ def _render_cm(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     """The plain pipeline: (N, 4, P) channel-major RGBA.  Pixels of
     inactive tiles give the background image, so their only gradient is
     the background colour's (the JAX kernels' ``bg_only``)."""
-    n = fv_ndc.shape[0]
     pos, px, py = _pixel_coords(cfg.image_size, fv_ndc.device)
-    sc = lambda i: scal[:, i].view(n, 1, 1)
-    act = _pixel_active(cfg, active)
+    return _render_block(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                         pos, px, py, _pixel_active(cfg, active))
+
+
+def _render_block(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                  seeds, pos, px, py, act, agg_dtype=None) -> torch.Tensor:
+    """The plain pipeline over a block of B face tables (B, F, .) with
+    their scalars (B, 34) and seed words (B, 4), at the pixels pos / px /
+    py and activity act ((B or 1, 1, P)): (B, 4, P) RGBA.  ``agg_dtype``
+    (float64 for the binned gradients, as K12 computes them) runs the
+    aggregation and the blend's weighted sum in that type, the RGB
+    rounded back to the tables' type.  Scalars (B, 34, P), one copy per
+    pixel, give each pixel's share of the scalar gradients."""
+    n = fv_ndc.shape[0]
+    if scal.dim() == 2:
+        sc = lambda i: scal[:, i].view(n, 1, 1)
+    else:
+        sc = lambda i: scal[:, i:i + 1]
     dist, z, c0, c1, c2, maskf = _det1(cfg, px, py, fv_ndc, fv_world, fn,
                                        tex, valid, sc)
     prob = _coverage(cfg, dist, sc, seeds, pos) * maskf
-    weights = _weights(cfg, _zmap(cfg, prob, z, maskf, sc), sc, seeds, pos)
+    dt = agg_dtype or prob.dtype
+    sca = lambda i: sc(i).to(dt)
+    weights = _weights(cfg, _zmap(cfg, prob.to(dt), z.to(dt), maskf.to(dt),
+                                  sca), sca, seeds, pos)
     # Blend.  In the compacted layout the background row lies inside
     # [:f_pad] but its colors are 0, so the slot sum is unaffected.
     wz = weights[:, :cfg.f_pad]
     wb = weights[:, cfg.bg_row:cfg.bg_row + 1]
-    rgb = [torch.sum(wz * cc, dim=1, keepdim=True) + wb * sc(_S_BG + c)
-           for c, cc in enumerate((c0, c1, c2))]
-    ap = torch.ones_like(wb)
+    rgb = [(torch.sum(wz * cc, dim=1, keepdim=True) + wb * sca(_S_BG + c))
+           .to(prob.dtype) for c, cc in enumerate((c0, c1, c2))]
+    ap = torch.ones_like(prob[:, :1])
     for i in range(cfg.f_pad):
         ap = ap * (1.0 - prob[:, i:i + 1])
     out = torch.cat(rgb + [1.0 - ap], dim=1)
@@ -728,10 +754,10 @@ def _render_cm(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
 
 def _bg_image(scal, p: int) -> torch.Tensor:
     """(N, 4, P) background colour, alpha 0: the image of a tile with no
-    candidate face."""
+    candidate face (scalars (N, 34) or per pixel (N, 34, P))."""
     bg = torch.cat([scal[:, _S_BG:_S_BG + 3],
                     torch.zeros_like(scal[:, :1])], dim=1)
-    return bg[:, :, None].expand(-1, -1, p)
+    return bg if bg.dim() == 3 else bg[:, :, None].expand(-1, -1, p)
 
 
 def forward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
@@ -1423,9 +1449,21 @@ def fused_loss_grad(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
                          LOSS_KINDS.index(loss_kind), lscale)
 
 
+def _kernels(cfg: FusedConfig):
+    """(forward, backward, loss-and-grad) wrappers of the flat route (K3,
+    K4, K2) or, binned, of K12 (``ops/binned.py``)."""
+    if cfg.binned:
+        from pertrenderer_tpu_torch.ops import binned
+
+        return (binned.fused_binned_forward, binned.fused_binned_backward,
+                binned.fused_binned_loss_grad)
+    return fused_forward, fused_backward, fused_loss_grad
+
+
 class _FusedForward(torch.autograd.Function):
-    """Autograd boundary of the fused render: K3 forward, K4 backward;
-    valid, seeds and the activity bits get no gradient."""
+    """Autograd boundary of the fused render: K3 forward, K4 backward
+    (binned: K12's forward and backward over per-tile tables); valid,
+    seeds and the activity bits get no gradient."""
 
     @staticmethod
     def forward(ctx, cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
@@ -1433,27 +1471,28 @@ class _FusedForward(torch.autograd.Function):
         ctx.cfg = cfg
         ctx.save_for_backward(fv_ndc, fv_world, fn, tex, valid, scal, seeds,
                               active)
-        return fused_forward(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                             seeds, active)
+        return _kernels(cfg)[0](cfg, fv_ndc, fv_world, fn, tex, valid, scal,
+                                seeds, active)
 
     @staticmethod
     def backward(ctx, g):
-        g_ndc, g_world, g_fn, g_tex, g_scal = fused_backward(
+        g_ndc, g_world, g_fn, g_tex, g_scal = _kernels(ctx.cfg)[1](
             ctx.cfg, *ctx.saved_tensors, g.contiguous())
         return None, g_ndc, g_world, g_fn, g_tex, None, g_scal, None, None
 
 
 class _FusedLoss(torch.autograd.Function):
-    """Autograd boundary of K2 (JAX ``_fused_loss_core``): the forward
-    returns the summed loss and keeps K2's gradients; the backward only
-    scales them by the incoming gradient."""
+    """Autograd boundary of K2 (JAX ``_fused_loss_core``; binned: K12's
+    loss-and-grad): the forward returns the summed loss and keeps the
+    kernel's gradients; the backward only scales them by the incoming
+    gradient."""
 
     @staticmethod
     def forward(ctx, cfg, loss_kind, lscale, fv_ndc, fv_world, fn, tex,
                 valid, scal, seeds, active, target):
-        loss, *grads = fused_loss_grad(cfg, fv_ndc, fv_world, fn, tex,
-                                       valid, scal, seeds, active, target,
-                                       loss_kind, lscale)
+        loss, *grads = _kernels(cfg)[2](cfg, fv_ndc, fv_world, fn, tex,
+                                        valid, scal, seeds, active, target,
+                                        loss_kind, lscale)
         ctx.save_for_backward(*grads)
         return loss.sum()
 
@@ -1700,10 +1739,11 @@ def _unsupported(route: str, why: str):
 def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
           ) -> tuple[Optional[FusedConfig], str]:
     """(config, "") with the static configuration of the fused route the
-    JAX package takes: flat (every face holds a slot) or stream (F >
-    faces_per_pixel).  Where the JAX ``_plan`` declines, (None, the
-    reason): the caller takes the staged route.  Raises
-    NotImplementedError naming the binned or sharded route."""
+    JAX package takes: flat (every face holds a slot), stream (F >
+    faces_per_pixel) or binned (F > _COARSE_THRESHOLD with
+    ``bin_overflow='allow'`` at a binnable size).  Where the JAX ``_plan``
+    declines, (None, the reason): the caller takes the staged route.
+    Raises NotImplementedError naming the sharded route."""
     from pertrenderer_tpu_torch.lights import DirectionalLights, PointLights
     from pertrenderer_tpu_torch.textures import (TexturesAtlas, TexturesUV,
                                                  TexturesVertex)
@@ -1721,25 +1761,30 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
     size = int(settings.image_size)
     hw = size * size
     f_pad = f_real = _round_up(max(f, 8), 8)
-    stream, rw, tile_w = False, 0, 0
+    stream, binned, rw, tile_w = False, False, 0, 0
     if f > k or f_pad > MAX_SLOTS:
+        # The binned route is an approximation where a tile's candidates
+        # exceed its slots, so the user opts in (the JAX package's
+        # PERTRENDERER_STREAM=off, an environment switch, is not ported).
         m = min(f_pad, int(settings.max_faces_per_bin or MAX_BIN_SLOTS),
                 MAX_BIN_SLOTS)
         bin_ok = m >= 8 and _BIN_P_TILE < size and size % _BIN_P_TILE == 0
         if (bin_ok and settings.bin_overflow == "allow"
                 and f > _COARSE_THRESHOLD):
-            _unsupported("binned", "bin_overflow='allow' opts F=%d faces "
-                         "into per-tile slots" % f)
-        stream, rw = True, _round_up(f, STREAM_CHUNK)
-        f_pad = f_real = STREAM_CHUNK
-        th, tw = _STREAM_TILE[0], min(_STREAM_TILE[1], size)
-        if (th * tw) % 128 == 0 and size % tw == 0 and size % th == 0:
-            p_tile, tile_w = th * tw, tw
+            binned = True
+            f_pad = f_real = _round_up(m, 8)     # every slot row is live
+            p_tile = _BIN_P_TILE
         else:
-            p_tile = min(_BIN_P_TILE, _round_up(hw, 128))
+            stream, rw = True, _round_up(f, STREAM_CHUNK)
+            f_pad = f_real = STREAM_CHUNK
+            th, tw = _STREAM_TILE[0], min(_STREAM_TILE[1], size)
+            if (th * tw) % 128 == 0 and size % tw == 0 and size % th == 0:
+                p_tile, tile_w = th * tw, tw
+            else:
+                p_tile = min(_BIN_P_TILE, _round_up(hw, 128))
     if size > 2048:
         return None, "image size above the 2048 fused-kernel limit"
-    if not stream:
+    if not stream and not binned:
         p_tile = min(2048 if f_pad <= 16 else 1024, _round_up(hw, 128))
         th = p_tile // 64 if p_tile % 64 == 0 else 0
         if th > 1 and size > 64 and size % 64 == 0 and size % th == 0:
@@ -1775,7 +1820,8 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
     (rast_kind, rast_noise, rast_vr), (agg_kind, agg_noise, agg_vr) = \
         rast_entry, agg_entry
     return FusedConfig(
-        image_size=size, f_pad=f_pad, f_real=f_real if stream else f, k=k,
+        image_size=size, f_pad=f_pad,
+        f_real=f_real if stream or binned else f, k=k,
         rast_kind=rast_kind, rast_noise=rast_noise, rast_vr=rast_vr,
         s_rast=int(getattr(smoothrast, "nb_samples", 1)),
         agg_kind=agg_kind, agg_noise=agg_noise, agg_vr=agg_vr,
@@ -1784,7 +1830,8 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
         tex_mode=tex_mode, tex_d=tex_d, atlas_r=atlas_r,
         clip_bary=settings.resolve_clip(),
         perspective_correct=bool(settings.perspective_correct),
-        p_tile=p_tile, tile_w=tile_w, stream=stream, rw=rw), ""
+        p_tile=p_tile, tile_w=tile_w, stream=stream, binned=binned,
+        rw=rw), ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1792,9 +1839,11 @@ class RenderPlan:
     """Static routing report.  ``flat``: every face holds a slot
     (F <= faces_per_pixel); ``stream``: the faces are sorted into 64-row
     chunks and each tile streams the chunks its list names.  Both are
-    exact.  ``staged``: the composed pipeline (rasterize, shade, blend;
-    ``reason`` says why the fused routes decline).  The binned and sharded
-    routes raise."""
+    exact.  ``binned``: each tile renders its own nearest-``slots`` faces
+    (opted in with ``bin_overflow='allow'``; approximate where a tile's
+    candidates exceed its slots, which ``capacity_stats`` measures).
+    ``staged``: the composed pipeline (rasterize, shade, blend; ``reason``
+    says why the fused routes decline).  The sharded route raises."""
 
     mode: str
     reason: str
@@ -1803,14 +1852,14 @@ class RenderPlan:
     image_size: int
     p_tile: int = 0
     tile: tuple = ()
-    slots: int = 0          # flat: slot rows
+    slots: int = 0          # flat / binned: slot rows
     table_rows: int = 0     # stream: sorted-table rows (chunk multiple)
 
 
 def render_plan(meshes, lights, smoothrast, smoothagg, settings,
                 shade: str = "phong") -> RenderPlan:
     """The route :func:`try_render` takes (``staged`` when it declines);
-    raises NotImplementedError for the binned and sharded routes."""
+    raises NotImplementedError for the sharded route."""
     cfg, why = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
     f = int(meshes.max_faces)
     if cfg is None:
@@ -1825,6 +1874,14 @@ def render_plan(meshes, lights, smoothrast, smoothagg, settings,
             p_tile=cfg.p_tile, tile=tile, table_rows=cfg.rw,
             reason="F > faces_per_pixel; chunk-streamed y-sorted windows "
                    "(exact at any coverage density)")
+    if cfg.binned:
+        return RenderPlan(
+            mode="binned", f=f, k=cfg.k, image_size=cfg.image_size,
+            p_tile=cfg.p_tile, tile=tile, slots=cfg.f_pad,
+            reason="explicitly opted in (bin_overflow='allow' or "
+                   "PERTRENDERER_STREAM=off): per-tile nearest-%d slots "
+                   "(max_faces_per_bin regime; approximate under detected "
+                   "overflow)" % cfg.f_pad)
     return RenderPlan(
         mode="flat", f=f, k=cfg.k, image_size=cfg.image_size,
         p_tile=cfg.p_tile, tile=tile, slots=cfg.f_pad,
@@ -1872,14 +1929,30 @@ def draw_seeds(n: int, generator: Optional[torch.Generator] = None,
     return words.to(torch.int32).to(device)
 
 
+def _face_valid(meshes, fv_ndc, settings) -> torch.Tensor:
+    """(N, F) bool: the mesh's real faces, less the back faces when the
+    settings cull them (by the sign of the NDC area)."""
+    face_ids = torch.arange(meshes.max_faces, device=fv_ndc.device)
+    validf = ((face_ids[None, :] < meshes.num_faces[:, None])
+              & torch.all(meshes.faces >= 0, dim=-1))
+    if settings.cull_backfaces:
+        area = ((fv_ndc[..., 3] - fv_ndc[..., 0])
+                * (fv_ndc[..., 7] - fv_ndc[..., 1])
+                - (fv_ndc[..., 4] - fv_ndc[..., 1])
+                * (fv_ndc[..., 6] - fv_ndc[..., 0]))
+        validf = validf & (area > 0)
+    return validf
+
+
 def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
                     smoothrast, smoothagg, blend_params, settings, seeds,
                     shade: str, blur_override=None):
     """The kernels' tensor inputs.  Flat: face tables, validity, packed
     scalars, seed words and the tiles' activity bits
-    (:func:`forward_plain` documents the shapes).  Stream: (tab, scal,
-    rows, count, active, seeds), the order of the JAX package
-    (:func:`stream_forward_plain`)."""
+    (:func:`forward_plain` documents the shapes); binned: the same with
+    per-tile tables (N, nt, M, .) and slot validity (N, nt, M)
+    (``ops/binned.py``).  Stream: (tab, scal, rows, count, active, seeds),
+    the order of the JAX package (:func:`stream_forward_plain`)."""
     from pertrenderer_tpu_torch.textures import TexturesUV, TexturesVertex
 
     n, f, dev = meshes.batch_size, meshes.max_faces, meshes.device
@@ -1909,16 +1982,7 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
         atlas = atlas.expand((n,) + tuple(atlas.shape[1:]))
         tex_tab = atlas.reshape(n, f, -1)
 
-    face_ids = torch.arange(f, device=dev)
-    validf = ((face_ids[None, :] < meshes.num_faces[:, None])
-              & torch.all(meshes.faces >= 0, dim=-1))
-    if settings.cull_backfaces:
-        area = ((fv_ndc[..., 3] - fv_ndc[..., 0])
-                * (fv_ndc[..., 7] - fv_ndc[..., 1])
-                - (fv_ndc[..., 4] - fv_ndc[..., 1])
-                * (fv_ndc[..., 6] - fv_ndc[..., 0]))
-        validf = validf & (area > 0)
-
+    validf = _face_valid(meshes, fv_ndc, settings)
     scal = _pack_scal(cfg, n, cameras, lights, materials, smoothrast,
                       smoothagg, blend_params, blur, dev)
     if not isinstance(seeds, torch.Tensor):
@@ -1932,6 +1996,13 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
             cfg, merged, fv_ndc, validf, scal[:, _S_BLUR])
         active = _active_tiles(cfg, fv_ndc, validf, scal[:, _S_BLUR])
         return tab, scal, rows, count, active, seeds
+    if cfg.binned:
+        from pertrenderer_tpu_torch.ops import binned
+
+        merged = torch.cat([fv_ndc, fv_world, fn_world, tex_tab], dim=-1)
+        tables, valid, active = binned.binned_inputs(
+            cfg, merged, fv_ndc, validf.to(torch.float32), scal[:, _S_BLUR])
+        return (*tables, valid, scal, seeds, active)
     pad = lambda x: torch.nn.functional.pad(
         x, (0, 0, 0, cfg.f_pad - f)).contiguous()
     valid = torch.nn.functional.pad(validf.to(torch.float32),
@@ -1959,10 +2030,11 @@ def try_render(cfg: FusedConfig, meshes, cameras, lights, materials,
                seeds=None, generator: Optional[torch.Generator] = None,
                blur_override=None) -> torch.Tensor:
     """Render (N, H, W, 4) RGBA through the flat fused forward (K3, its
-    gradients from K4) or, for F > faces_per_pixel, the stream forward (K5,
-    its gradients from K6).  ``cfg`` is ``_plan``'s configuration for
-    these arguments (the caller takes the staged route where it has
-    none).
+    gradients from K4), for F > faces_per_pixel the stream forward (K5, its
+    gradients from K6), or binned K12's forward (its gradients from K12's
+    backward, then K9b into the face tables).  ``cfg`` is ``_plan``'s
+    configuration for these arguments (the caller takes the staged route
+    where it has none).
 
     ``seeds``: (N, 4) int32 seed words, or JAX-layout (N, 1, 8) seed rows
     whose first four columns are used; drawn from ``generator`` when
@@ -1983,7 +2055,7 @@ def try_render_loss(cfg: FusedConfig, meshes, cameras, lights, materials,
     """Mean image loss (``l2_rgb``: squared, ``l1_rgb``: absolute error
     over the RGB channels of every pixel and batch element) against
     ``target``, with the loss and every gradient from one launch of K2
-    (flat) or K7 (stream).
+    (flat), K7 (stream) or K12's loss-and-grad (binned).
 
     ``target`` broadcasts to (N, H, W, 3) and is a constant: it gets no
     gradient.  ``cfg`` and seeds as for :func:`try_render`."""

@@ -85,9 +85,12 @@ class RasterizationSettings:
 
     ``bin_size`` / ``max_faces_per_bin`` configure the staged selection's
     binning (``resolve_binning``); ``faces_per_chunk`` its chunk of faces.
-    On the fused routes, ``max_faces_per_bin`` with ``bin_overflow='allow'``
-    opts a large mesh into the JAX package's binned route, which the port
-    does not run yet (it raises); every other mesh with more faces than
+    On the fused routes, ``bin_overflow='allow'`` opts a mesh above 8192
+    faces into the binned route (``ops/binned.py``: per-tile slots, at
+    most ``max_faces_per_bin`` and 160; an approximation where a tile's
+    candidates exceed them), whose capacity ``capacity_stats`` measures
+    and ``check_capacity_host`` reports under this policy ('warn',
+    'error' or 'allow'); every other mesh with more faces than
     faces_per_pixel streams."""
 
     image_size: int = 128

@@ -17,6 +17,7 @@ from typing import Any, Optional
 
 import torch
 
+from pertrenderer_tpu_torch.transforms import cross3
 from pertrenderer_tpu_torch.ops.gather import (batch_index, scatter_rows,
                                                take_rows_batched)
 
@@ -112,8 +113,8 @@ class Meshes:
     def face_normals(self, normalize: bool = True) -> torch.Tensor:
         """(N, F, 3) face normals (area-weighted if normalize=False)."""
         fv = self.face_verts()
-        n = torch.linalg.cross(fv[..., 1, :] - fv[..., 0, :],
-                               fv[..., 2, :] - fv[..., 0, :])
+        n = cross3(fv[..., 1, :] - fv[..., 0, :],
+                   fv[..., 2, :] - fv[..., 0, :])
         if normalize:
             n = n / torch.clamp(_norm(n), min=1e-10)
         return n * self.faces_mask()[..., None].to(n.dtype)

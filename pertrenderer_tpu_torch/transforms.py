@@ -1,19 +1,48 @@
 """SO(3) transforms and rigid rotations (PyTorch port of
 ``pertrenderer_tpu/transforms.py``).
 
-Row-vector convention throughout: ``x_out = x @ R``.  Every matmul runs at
-full float32 — the package pins TF32 off at import (``__init__.py``).
+Row-vector convention throughout: ``x_out = x @ R``.  The 3-term products
+of the pose path (``matmul3``) are written as separate multiplies and adds,
+rounded in the order XLA rounds them at backend optimisation level 0: a
+GEMM (oneDNN on the CPU, cuBLAS on the card) rounds its dot products as a
+fused multiply-add chain, which moves posed vertices by an ulp and with
+them the sort keys that key the Monte-Carlo noise.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["hat", "hat_inv", "so3_exp_map", "so3_exponential_map",
+__all__ = ["matmul3", "cross3", "hat", "hat_inv", "so3_exp_map", "so3_exponential_map",
            "so3_log_map", "so3_relative_angle", "so3_rotation_angle",
            "quaternion_to_matrix", "random_rotations", "Rotate"]
 
 _EPS = 1e-8
+
+
+def matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for a (..., m, 3) and b (..., 3, k), each entry rounded as
+    (a0 b0 + a1 b1) + a2 b2: elementwise ops only, no GEMM and no
+    contraction."""
+    a0, a1, a2 = (a[..., i:i + 1] for i in range(3))
+    b0, b1, b2 = (b[..., i:i + 1, :] for i in range(3))
+    return (a0 * b0 + a1 * b1) + a2 * b2
+
+
+def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b over the last axis in ``jnp.cross``'s rounding order
+    (``torch.linalg.cross`` rounds otherwise)."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def _rounded(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` evaluated in float64 and rounded once to x's dtype: the
+    correctly rounded value on every device (float32 library sqrt, sin and
+    cos differ from it, and from one another, in the last place)."""
+    return fn(x.double()).to(x.dtype)
 
 
 def hat(v: torch.Tensor) -> torch.Tensor:
@@ -36,12 +65,15 @@ def hat_inv(m: torch.Tensor) -> torch.Tensor:
 def so3_exp_map(log_rot: torch.Tensor) -> torch.Tensor:
     """Axis-angle vectors (N, 3) -> rotations (N, 3, 3) (Rodrigues, with the
     angle clamped away from 0 as in the JAX package)."""
-    theta_sq = torch.sum(log_rot * log_rot, dim=-1)
-    theta = torch.sqrt(torch.clamp(theta_sq, min=_EPS * _EPS))
+    theta_sq = torch.clamp(torch.sum(log_rot * log_rot, dim=-1),
+                           min=_EPS * _EPS)
+    theta = _rounded(torch.sqrt, theta_sq)
     k = hat(log_rot)
-    k2 = torch.matmul(k, k)
-    a = (torch.sin(theta) / theta)[..., None, None]
-    b = ((1.0 - torch.cos(theta)) / (theta * theta))[..., None, None]
+    k2 = matmul3(k, k)
+    a = (_rounded(torch.sin, theta) / theta)[..., None, None]
+    # theta * theta as the clamped square itself: XLA simplifies
+    # sqrt(x) * sqrt(x) to x, and the two differ in the last place.
+    b = ((1.0 - _rounded(torch.cos, theta)) / theta_sq)[..., None, None]
     eye = torch.eye(3, dtype=log_rot.dtype, device=log_rot.device)
     return eye.expand(k.shape) + a * k + b * k2
 
@@ -67,7 +99,7 @@ def so3_log_map(r: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
 def so3_relative_angle(r1: torch.Tensor, r2: torch.Tensor,
                        eps: float = 1e-4) -> torch.Tensor:
     """Angle of the relative rotation r1^T r2 (radians)."""
-    return so3_rotation_angle(torch.matmul(r1.transpose(-1, -2), r2),
+    return so3_rotation_angle(matmul3(r1.transpose(-1, -2), r2),
                               eps=eps)
 
 
@@ -98,4 +130,4 @@ class Rotate:
 
     def transform_points(self, points: torch.Tensor) -> torch.Tensor:
         """points: (N, P, 3) -> (N, P, 3)."""
-        return torch.matmul(points, self.R)
+        return matmul3(points, self.R)

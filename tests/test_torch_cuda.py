@@ -275,7 +275,9 @@ def test_render_loss_launches_k2_once(cuda_device):
     assert {k: after[k] - before[k] for k in after} == {
         "prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
         "fused_loss_grad": 1, "fused_stream_forward": 0,
-        "fused_stream_backward": 0, "fused_stream_loss_grad": 0}
+        "fused_stream_backward": 0, "fused_stream_loss_grad": 0,
+        "fused_binned_forward": 0, "fused_binned_backward": 0,
+        "fused_binned_loss_grad": 0}
     assert torch.isfinite(log_rot.grad).all()
     assert log_rot.grad.abs().max() > 0
 
@@ -423,7 +425,125 @@ def test_stream_route_through_meshrenderer(cuda_device):
     assert {k: after[k] - before[k] for k in after} == {
         "prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
         "fused_loss_grad": 0, "fused_stream_forward": 1,
-        "fused_stream_backward": 1, "fused_stream_loss_grad": 1}
+        "fused_stream_backward": 1, "fused_stream_loss_grad": 1,
+        "fused_binned_forward": 0, "fused_binned_backward": 0,
+        "fused_binned_loss_grad": 0}
+    for g in (g_img, g_loss):
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+# ---------------------------------------------------------------------------
+# The binned route's K12 (ops/binned.py): the icosphere at 64^2 with the
+# route's tile shrunk to 32 pixels and its face threshold to 512, M = 32
+# ---------------------------------------------------------------------------
+
+BINNED_NOISES = ("gaussian", "cauchy", "softras", "hard")
+
+
+def _binned_case(noise, device, monkeypatch, n=2):
+    import dataclasses
+
+    monkeypatch.setattr(tfr, "_COARSE_THRESHOLD", 512)
+    monkeypatch.setattr(tfr, "_BIN_P_TILE", 32)
+    mesh, renderer = _renderer(noise, device, imsize=64, n=n,
+                               mesh_kind="icosphere", sigma=1e-2,
+                               gamma=5e-2, s=2)
+    renderer.rasterizer.raster_settings = dataclasses.replace(
+        renderer.rasterizer.raster_settings, bin_overflow="allow",
+        max_faces_per_bin=32)
+    cfg, args = _inputs(mesh, renderer)
+    assert cfg.binned and cfg.f_pad == 32 and cfg.p_tile == 32
+    return cfg, args, mesh, renderer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", BINNED_NOISES)
+def test_binned_kernels_match_plain(noise, cuda_device, monkeypatch):
+    """K12's forward, backward and loss-and-grad against their plain
+    versions (forward as the flat kernels; gradients by
+    ``checks.binned_grads_close`` against the float32 or float64 plain
+    version, thin faces' rows by L / h), repeated launches bit-equal, and
+    the loss-and-grad equal to the forward's L2 cotangent fed through the
+    backward (tables and scalars within 1e-5 of their max)."""
+    from pertrenderer_tpu_torch.ops import binned as tbin
+
+    cfg, args, _mesh, _r = _binned_case(noise, cuda_device, monkeypatch)
+    mc = noise in MC_NOISES
+    tol = 1e-3 if mc else 1e-4
+    n, size = args[0].shape[0], cfg.image_size
+    before = dict(tfr.launch_counts)
+    img = tbin.fused_binned_forward(cfg, *args)
+    assert torch.equal(img, tbin.fused_binned_forward(cfg, *args))
+    assert_kernel_close(img, tbin.binned_forward_plain(cfg, *args), mc)
+    args64 = [a.double() if a.is_floating_point() else a for a in args]
+    g_out = torch.randn(n, size, size, 4, generator=torch.Generator()
+                        .manual_seed(1)).to(cuda_device)
+    got = tbin.fused_binned_backward(cfg, *args, g_out)
+    again = tbin.fused_binned_backward(cfg, *args, g_out)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ok, err, where, _t, bins = checks.binned_grads_close(
+        cfg, args[:4], got, tbin.binned_backward_plain(cfg, *args, g_out),
+        tbin.binned_backward_plain(cfg, *args64, g_out.double()), tol)
+    assert ok, (err, where, checks.witness_text(bins))
+    target = torch.rand(n, 3, size * size, generator=torch.Generator()
+                        .manual_seed(2)).to(cuda_device)
+    lscale = 1.0 / (n * size * size * 3)
+    loss, *lg = tbin.fused_binned_loss_grad(cfg, *args, target, "l2_rgb",
+                                            lscale)
+    w_loss, *want = tbin.binned_loss_grad_plain(cfg, *args, target,
+                                                "l2_rgb", lscale)
+    _l64, *want64 = tbin.binned_loss_grad_plain(
+        cfg, *args64, target.double(), "l2_rgb", lscale)
+    torch.testing.assert_close(loss, w_loss, rtol=1e-5, atol=0)
+    ok, err, where, _t, bins = checks.binned_grads_close(
+        cfg, args[:4], lg, want, want64, tol)
+    assert ok, (err, where, checks.witness_text(bins))
+    d = img[..., :3].reshape(n, -1, 3).transpose(1, 2) - target
+    g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(n, size, size, 3)
+    g_l2 = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1])], dim=-1)
+    dual = tbin.fused_binned_backward(cfg, *args, g_l2.contiguous())
+    ok, err, where = checks.tables_close(lg, dual, 1e-5)
+    assert ok, (err, where)
+    after = dict(tfr.launch_counts)
+    assert {k: after[k] - before[k] for k in after if "binned" in k} == {
+        "fused_binned_forward": 2, "fused_binned_backward": 3,
+        "fused_binned_loss_grad": 1}
+
+
+@pytest.mark.cuda
+def test_binned_route_through_meshrenderer(cuda_device, monkeypatch):
+    """The binned icosphere through the public entries: the render
+    launches K12's forward once and its backward once, render_loss K12's
+    loss-and-grad once (its gradients reach the face tables through K9b),
+    and no flat or stream kernel; the pose gradients are finite and
+    nonzero."""
+    from pertrenderer_tpu_torch.ops import gather as gk
+
+    _cfg, _args, mesh, renderer = _binned_case("gaussian", cuda_device,
+                                               monkeypatch)
+    assert renderer.plan(mesh).mode == "binned"
+    renderer(mesh)                          # the PRNG check (K1) once
+    log_rot = torch.zeros(2, 3, device=cuda_device, requires_grad=True)
+    posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot))
+                               .transform_points(mesh.verts))
+    before, scatters = dict(tfr.launch_counts), gk.launch_counts[
+        "scatter_rows_cm"]
+    img = renderer(posed)
+    (g_img,) = torch.autograd.grad(img[..., :3].mean(), [log_rot])
+    posed = mesh.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot))
+                               .transform_points(mesh.verts))
+    loss = renderer.render_loss(posed, torch.zeros(64, 64, 3,
+                                                   device=cuda_device))
+    (g_loss,) = torch.autograd.grad(loss, [log_rot])
+    torch.cuda.synchronize()
+    after = dict(tfr.launch_counts)
+    assert {k: after[k] - before[k] for k in after} == {
+        "prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
+        "fused_loss_grad": 0, "fused_stream_forward": 0,
+        "fused_stream_backward": 0, "fused_stream_loss_grad": 0,
+        "fused_binned_forward": 1, "fused_binned_backward": 1,
+        "fused_binned_loss_grad": 1}
+    assert gk.launch_counts["scatter_rows_cm"] > scatters
     for g in (g_img, g_loss):
         assert torch.isfinite(g).all() and g.abs().max() > 0
 

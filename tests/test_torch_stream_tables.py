@@ -10,8 +10,9 @@
   refinement included) equal JAX's on images of several tiles.
 * ``make_icosphere`` and ``make_cow`` build the JAX assets: vertices,
   faces, UV map and baked atlas, bit for bit.
-* ``render_plan`` reports the stream route as JAX does; the binned opt-in,
-  the sharded estimators and images above 2048 raise, naming the route.
+* ``render_plan`` reports the stream route as JAX does; the binned opt-in
+  plans the binned route; the sharded estimators raise, naming the route;
+  images above 2048 take the staged route.
 """
 
 import dataclasses
@@ -245,7 +246,8 @@ def test_render_plan_stream_matches_jax():
 
 
 def test_other_routes_raise_naming_the_route():
-    """Binned (bin_overflow='allow' with F > 8192 at a binnable size) and
+    """Binned (bin_overflow='allow' with F > 8192 at a binnable size)
+    plans the binned route (K12: M = 160 slots, 128-pixel strip tiles);
     sharded estimators raise; 'allow' with fewer faces still streams, as
     in the JAX package; images above 2048 decline to the staged route,
     which runs the MC estimators (K8a-c) and raises only for a sharded
@@ -258,8 +260,11 @@ def test_other_routes_raise_naming_the_route():
         textures=ptt.TexturesVertex(torch.ones(1, 3, 3)))
     allow = ptt.RasterizationSettings(image_size=256, faces_per_pixel=50,
                                       bin_overflow="allow")
-    with pytest.raises(NotImplementedError, match="binned"):
-        tfr._plan(big, cams_l, sr, sa, allow, "phong")
+    cfg, why = tfr._plan(big, cams_l, sr, sa, allow, "phong")
+    assert why == "" and cfg.binned and not cfg.stream
+    assert (cfg.f_pad, cfg.f_real, cfg.p_tile, cfg.tile_w) == (160, 160,
+                                                               128, 0)
+    assert tfr.render_plan(big, cams_l, sr, sa, allow).mode == "binned"
     assert tfr._plan(big, cams_l, sr, sa, dataclasses.replace(
         allow, bin_overflow="warn"), "phong")[0].stream
     cow = ptt.make_cow(device="cpu")
