@@ -105,21 +105,51 @@ line; any failure exits non-zero before a result is printed):
    backward with torch's default algorithms give the same bits; the ops
    that warn under torch.use_deterministic_algorithms (warn only).
 
-Phases 6-8, 11-13, 15, 16, 19 and 20 are the main paths: the launch
+22. K11a / K3e / K11b / K11c — the sample-sharded route's kernels on the
+   cube (256^2, K=50, N=4, GaussianRast + GaussianAgg sharding S_local=4
+   samples per rank) on shard 1's seed words, each fed its plain
+   upstream: K11a's coverage, K3's image and weights with external
+   coverage (MC image rule, per pixel over the rows), K11b's g_zmap and
+   gamma term (1e-3 of max), K11c's tables (1e-3 of max); repeats
+   bit-equal;
+23. sharded = folded / sharded-stream = folded — two gloo ranks spawned
+   on the one card (NCCL refuses two ranks per device; every average
+   stages through the host), each rendering through MeshRenderer.
+   render_loss and back to the poses and sigma / gamma / alpha, against
+   one process at the group's samples: the cube (N=4, S_local 4 vs 8)
+   and the cow (N=2, S_rast 8 on every rank, S_agg 4 vs 8): image atol
+   1e-6, loss rtol 1e-6, pose gradient 1e-6 of its max (the cow's with
+   its thin faces' sorted-table rows, height under 2e-3 of the longest
+   edge, left out of both, as [K6] holds them), sigma / gamma / alpha
+   rtol 1e-5 (the cow 5e-5); the ranks bit-equal;
+24. serve-sharded — 8 requests of N=4 cube poses through MeshRenderer
+   on the two ranks (K11a and K3 with external coverage, no other fused
+   kernel), each request's time split into kernels (CUDA events),
+   collectives and host (host clock, synchronised);
+25. train-sharded — make_sharded_pose_step for 30 steps at N=1 from 20
+   degrees off against the flat HardRast + HardAgg target (K11a, K3e,
+   K11b, K11c once per step), the step's time split likewise, the pose
+   error;
+26. dryrun-sharded — sharding.dryrun_multichip(2, device="cuda"): the
+   cube and the 80-face icosphere phases, finite losses.
+
+Phases 6-8, 11-13, 15, 16, 19, 20, 24 and 25 are the main paths: the
+launch
 counts are reset just before each and read just after, and each must have
 launched its kernels (serve: K1 and K3; render-grad: K3 and K4; train: K2
 once per step; serve-stream: K5; render-grad-stream: K5 and K6;
 train-stream: K7 once per step; target: K9a and no fused kernel;
 staged-softras: K9a, K9b, K10a and K10b and no fused kernel;
 serve-binned: K1 and K12's forward; train-binned: K12's loss-and-grad
-once per step).  Times are CUDA events except the
+once per step; serve-sharded and train-sharded: counted in rank 0).  Times are CUDA events except the
 per-request and per-step times (host clock ending in a device
 synchronisation).  Kernel and plain version are timed in turns (plain,
 kernel, kernel, plain) after a warm-up call.
 
-The last lines are the per-kernel report (one JSON object, fifteen
+The last lines are the per-kernel report (one JSON object, eighteen
 kernels; K12's row gives its loss-and-grad at N=1, the pose step's
-kernel, and every mode under "modes"),
+kernel, and every mode under "modes"; K3's row its external-coverage
+mode under "modes"),
 the card's nvidia-smi name and power limit, then
 {"ok": true, "device": {...}}.
 """
@@ -145,6 +175,7 @@ from pertrenderer_tpu_torch.ops import fused_render as fr
 from pertrenderer_tpu_torch.ops import gather as gk
 from pertrenderer_tpu_torch.ops import interp_gather as ik
 from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+from pertrenderer_tpu_torch.parallel import sharding
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens", "prng_goldens.npz")
@@ -2544,6 +2575,470 @@ def phase_train_binned(dev, smi, report):
                                   start_deg=start_deg, end_deg=end_deg)
 
 
+# ---------------------------------------------------------------------------
+# The sample-sharded route: K11a, K3 with external coverage, K11b, K11c,
+# and SHARDS gloo ranks sharing the card (NCCL refuses two ranks on one
+# device; every average stages through the host).
+# ---------------------------------------------------------------------------
+
+S_LOCAL, SHARDS, SHARD = 4, 2, 1     # samples per rank, ranks, checked rank
+SHARDED_KERNELS = ("fused_prob", "fused_forward", "fused_agg_bwd",
+                   "fused_det_bwd")      # the flat sharded route's wrappers
+
+
+def sharded_renderer(dev, n=N_POSES, s=S_LOCAL, axis=sharding.SAMPLE_AXIS,
+                     s_rast=None):
+    """The headline renderer with GaussianRast (``s_rast`` samples, ``s``
+    by default) + GaussianAgg (``s``) sharding ``axis`` (None: the
+    folded, single-process estimators)."""
+    rend = headline_renderer("gaussian", dev, n)
+    sh = rend.shader
+    return rend.replace(shader=dataclasses.replace(
+        sh, smoothrast=dataclasses.replace(
+            sh.smoothrast, nb_samples=s_rast or s, sample_axis=axis),
+        smoothagg=dataclasses.replace(sh.smoothagg, nb_samples=s,
+                                      sample_axis=axis)))
+
+
+def fields_close(got, want):
+    """mc_close of (N, rows, P) fields, per pixel over the rows."""
+    return mc_close(got.transpose(1, 2), want.transpose(1, 2))
+
+
+def phase_k11(dev, smi, report):
+    """K11a, K3 with external coverage, K11b and K11c at the flagship
+    shapes on shard 1's seed words, each fed its plain upstream."""
+    renderer = sharded_renderer(dev)
+    mesh = posed_cube(torch.Generator().manual_seed(0), dev)
+    base = fr.draw_seeds(N_POSES, torch.Generator().manual_seed(1),
+                         device=dev)
+    cfg, ins = kernel_inputs(renderer, mesh, base)
+    if not cfg.prob_ext or cfg.stream:
+        fail(f"K11: the sharded cube did not plan the flat sharded route "
+             f"{cfg}")
+    ins = (*ins[:6], fr.shard_seeds(cfg, ins[6], SHARD), ins[7])
+    cover = (ins[0], ins[4], ins[5], ins[6], ins[7])
+    n, px = N_POSES, N_POSES * IMAGE * IMAGE
+    w = work(cfg, ins)
+    geom = OPS_GEOM + OPS_CLIP * cfg.clip_bary + (
+        OPS_PERSP * cfg.perspective_correct)
+    shade = OPS_TEXEL[cfg.tex_mode] + OPS_PHONG
+    cover_ops = cfg.s_rast * (w["rast_draw_ops"] + w["cand"] * OPS_COVER)
+    agg_grad_ops = cfg.s_agg * (w["agg_draw_ops_grad"] + w["live"] * OPS_AGG
+                                + w["grad_rows"] * OPS_AGG_BWD)
+    tabs = table_bytes(cfg, n)
+    prob_b, zrows_b = 4 * px * cfg.f_pad, 4 * px * cfg.c_zpad
+
+    def row(name, err, k_ms, p_ms, nbytes, ops):
+        b_ms, b_by = bound(nbytes, ops)
+        report[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+        return f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms, bound {b_ms:.4f} ms " \
+               f"({b_by})"
+
+    prob = fr.fused_prob(cfg, *cover)
+    want_prob = fr.prob_plain(cfg, *cover)
+    torch.cuda.synchronize()
+    ok, dmax, dmean, flips = fields_close(prob, want_prob)
+    same = torch.equal(prob, fr.fused_prob(cfg, *cover))
+    if not ok or not same:
+        fail(f"K11a: max {dmax} mean {dmean} flips {flips}, repeat "
+             f"bit-equal {same}")
+    k_ms, p_ms = timed_pair(lambda: fr.fused_prob(cfg, *cover),
+                            lambda: fr.prob_plain(cfg, *cover), 20)
+    times = row("sharded_prob", dmax, k_ms, p_ms,
+                4 * n * (cfg.f_pad * 10 + 34 + 4) + prob_b,
+                w["faces"] * geom + cover_ops)
+    print(f"[K11a] sharded_prob 256^2 K=50 S_local={S_LOCAL} N=4, shard "
+          f"{SHARD} (f_pad {cfg.f_pad}): max |d| {dmax:.3g}, mean |d| "
+          f"{dmean:.3g}, pixels beyond 1e-4 {flips:.3g}, repeat bit-equal; "
+          f"{times} | {smi}", flush=True)
+
+    img, wts = fr.fused_forward(cfg, *ins, prob=want_prob)
+    want_img, want_w = fr.forward_plain(cfg, *ins, want_prob)
+    again = fr.fused_forward(cfg, *ins, prob=want_prob)
+    torch.cuda.synchronize()
+    ok, dmax, dmean, flips = mc_close(img, want_img)
+    ok_w, wmax, wmean, wflips = fields_close(wts, want_w)
+    same = torch.equal(img, again[0]) and torch.equal(wts, again[1])
+    if not (ok and ok_w and same):
+        fail(f"K3e: image max {dmax} mean {dmean} flips {flips}; weights "
+             f"max {wmax} mean {wmean} flips {wflips}; repeat {same}")
+    k_ms, p_ms = timed_pair(
+        lambda: fr.fused_forward(cfg, *ins, prob=want_prob),
+        lambda: fr.forward_plain(cfg, *ins, want_prob), 20)
+    b_ms, b_by = bound(tabs + prob_b + 16 * px + zrows_b,
+                       forward_ops(cfg, w) - cover_ops)
+    report["fused_forward"]["modes"] = {"prob_ext": dict(
+        max_abs_err=max(dmax, wmax), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by)}
+    print(f"[K3e] fused_forward with external coverage (the sharded "
+          f"route's K3), 256^2 N=4: image max |d| {dmax:.3g} mean {dmean:.3g}"
+          f", weights max |d| {wmax:.3g} mean {wmean:.3g}, repeat "
+          f"bit-equal; {k_ms:.4f} ms vs plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+
+    g_out = torch.randn(n, IMAGE, IMAGE, 4,
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    gz, gg = fr.fused_agg_bwd(cfg, *ins, want_prob, g_out)
+    want_gz, want_gg = fr.agg_bwd_plain(cfg, *ins, want_prob, g_out)
+    again = fr.fused_agg_bwd(cfg, *ins, want_prob, g_out)
+    torch.cuda.synchronize()
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in ((gz, want_gz), (gg, want_gg))]
+    same = torch.equal(gz, again[0]) and torch.equal(gg, again[1])
+    if max(errs) > 1e-3 or not same:
+        fail(f"K11b: g_zmap / gamma term {errs} of max, repeat {same}")
+    k_ms, p_ms = timed_pair(
+        lambda: fr.fused_agg_bwd(cfg, *ins, want_prob, g_out),
+        lambda: fr.agg_bwd_plain(cfg, *ins, want_prob, g_out), 5)
+    times = row("sharded_agg_bwd", max(errs), k_ms, p_ms,
+                tabs + prob_b + 16 * px + zrows_b + 4 * n,
+                w["faces"] * geom + w["cand"] * (shade + OPS_ZMAP)
+                + agg_grad_ops)
+    print(f"[K11b] sharded_agg_bwd 256^2 N=4: g_zmap {errs[0]:.3g} and the "
+          f"gamma term {errs[1]:.3g} of max (tolerance 1e-3), repeat "
+          f"bit-equal; {times} | {smi}", flush=True)
+
+    grads = fr.fused_det_bwd(cfg, *ins, want_prob, want_w, want_gz, g_out)
+    want = fr.det_bwd_plain(cfg, *ins, want_prob, want_w, want_gz, g_out)
+    again = fr.fused_det_bwd(cfg, *ins, want_prob, want_w, want_gz, g_out)
+    torch.cuda.synchronize()
+    ok, err, where = tables_close(grads, want, 1e-3)
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    if not ok or not same:
+        fail(f"K11c: worst table error {err} at {where}, repeat {same}")
+    k_ms, p_ms = timed_pair(
+        lambda: fr.fused_det_bwd(cfg, *ins, want_prob, want_w, want_gz,
+                                 g_out),
+        lambda: fr.det_bwd_plain(cfg, *ins, want_prob, want_w, want_gz,
+                                 g_out), 5)
+    times = row("sharded_det_bwd", err, k_ms, p_ms,
+                2 * tabs + prob_b + 2 * zrows_b + 16 * px,
+                grad_ops(cfg, w, False) - agg_grad_ops)
+    print(f"[K11c] sharded_det_bwd 256^2 N=4: worst table error {err:.3g} "
+          f"of max at {where} (tolerance 1e-3), repeat bit-equal; {times} | "
+          f"{smi}", flush=True)
+
+
+def split_times(fn, reps):
+    """Milliseconds per call of fn: the whole (host clock, synchronised),
+    its kernels (CUDA events around each kernel wrapper), its collectives
+    (host clock around each sharding.axis_mean, synchronised before and
+    after: the host copies and the gloo all-reduce) and the rest (host:
+    Python, preparation, launches).  The synchronisations make these
+    calls slower than unmeasured ones."""
+    events, coll = [], [0.0]
+
+    def kernel(f):
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = f(*a, **k)
+            end.record()
+            events.append((start, end))
+            return out
+        return timed
+
+    axis_mean = sharding.axis_mean
+
+    def timed_mean(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = axis_mean(*a, **k)
+        torch.cuda.synchronize()
+        coll[0] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    saved = {name: getattr(fr, name) for name in SHARDED_KERNELS}
+    for name, f in saved.items():
+        setattr(fr, name, kernel(f))
+    sharding.axis_mean = timed_mean
+    total = 0.0
+    try:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            total += (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, f in saved.items():
+            setattr(fr, name, f)
+        sharding.axis_mean = axis_mean
+    kern = sum(s.elapsed_time(e) for s, e in events)
+    return dict(total=total / reps, kernels=kern / reps,
+                collectives=coll[0] / reps,
+                host=(total - kern - coll[0]) / reps)
+
+
+def split_text(sp):
+    return (f"{sp['total']:.2f} ms measured: kernels {sp['kernels']:.3f}, "
+            f"collectives {sp['collectives']:.3f}, host {sp['host']:.2f}")
+
+
+def sharded_value_and_grads(dev, kind, sharded):
+    """The loss mean((image - target)^2) of ``kind`` ('cube': N=4 at
+    S_local 4 per rank; 'cow': N=2, S_rast 8 on every rank, S_agg 4 per
+    rank) at seeded poses, through MeshRenderer.render_loss, and its
+    gradients with respect to the poses and sigma, gamma, alpha; the
+    image.  ``sharded`` False: one process at the group's samples.  The
+    cow also gives the pose gradient with the thin faces' sorted-table
+    rows (height under 2e-3 of the longest edge, as [K6] holds them) left
+    out: their float32 gradients carry rounding noise that grows as L / h,
+    so two sums of the same samples in another order part there first."""
+    fold = 1 if sharded else SHARDS
+    axis = sharding.SAMPLE_AXIS if sharded else None
+    if kind == "cube":
+        n, base = N_POSES, cube_mesh(dev)
+        renderer = sharded_renderer(dev, n, S_LOCAL * fold, axis)
+    else:
+        n, base = 2, cow_mesh(dev)
+        renderer = sharded_renderer(dev, n, S_LOCAL * fold, axis,
+                                    s_rast=S)
+    gen = torch.Generator().manual_seed(11)
+    log_rot = torch.randn(n, 3, generator=gen).to(dev).requires_grad_()
+    target = torch.rand(n, IMAGE, IMAGE, 3, generator=gen).to(dev)
+    seeds = fr.draw_seeds(n, gen, device=dev)
+    smoothing = [torch.tensor(v, device=dev, requires_grad=True)
+                 for v in (SIGMA, GAMMA, 1.0)]
+    posed = renderer.replace(shader=renderer.shader.update_smoothing(
+        *smoothing))
+    base = base.extend(n)
+    pred = base.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot))
+                              .transform_points(base.verts))
+    plan = renderer.plan(pred)
+    loss = posed.render_loss(pred, target, seeds=seeds)
+    grads = torch.autograd.grad(loss, [log_rot, *smoothing])
+    with torch.no_grad():
+        image = posed(pred, seeds=seeds)
+    held = grads[0]
+    if kind == "cow":
+        pred = base.update_padded(ptt.Rotate(ptt.so3_exp_map(log_rot))
+                                  .transform_points(base.verts))
+        sh, st = posed.shader, posed.rasterizer.raster_settings
+        cfg, _why = fr._plan(pred, sh.lights, sh.smoothrast, sh.smoothagg,
+                             st, "phong")
+        ins = fr._prepare_inputs(cfg, pred, sh.cameras, sh.lights,
+                                 sh.materials, sh.smoothrast, sh.smoothagg,
+                                 sh.blend_params, st, seeds, "phong",
+                                 sample_axis=axis)
+        img = (fr._FusedStreamSharded.apply(cfg, axis, *ins) if sharded
+               else fr._FusedStream.apply(cfg, *ins))
+        (g_tab,) = torch.autograd.grad(
+            torch.mean((img[..., :3] - target) ** 2), [ins[0]])
+        keep = ~checks.thin_rows(ins[0].detach(), 1e-3)
+        (held,) = torch.autograd.grad(ins[0], [log_rot],
+                                      g_tab * keep[..., None])
+    return dict(loss=loss.item(), image=image.cpu(),
+                grads=[g.cpu() for g in grads], held=held.cpu(),
+                plan=(plan.mode, plan.prob_ext))
+
+
+def sharded_serve(dev):
+    """N_REQUESTS requests of N_POSES cube poses (the same poses and seed
+    words on every rank) through MeshRenderer on the sharded route."""
+    gen = torch.Generator().manual_seed(2034)
+    renderer = sharded_renderer(dev)
+    renderer(posed_cube(gen, dev), generator=gen)        # warm
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    reset_counts()
+    lat_ms, sums = [], []
+    t_all = time.perf_counter()
+    for _ in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        img = renderer(posed_cube(gen, dev), generator=gen)
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        if (tuple(img.shape) != (N_POSES, IMAGE, IMAGE, 4)
+                or not bool(torch.isfinite(img).all())):
+            raise RuntimeError(f"serve-sharded: image {tuple(img.shape)}")
+        sums.append(img.double().sum().item())
+    total_s = time.perf_counter() - t_all
+    counts = all_counts()
+    split = split_times(lambda: renderer(posed_cube(gen, dev),
+                                         generator=gen), 3)
+    return dict(lat_ms=lat_ms, total_s=total_s, counts=counts, sums=sums,
+                alpha=(img[..., 3] > 0.5).float().mean().item(), split=split)
+
+
+def sharded_train(dev):
+    """TRAIN_STEPS steps of make_sharded_pose_step (N=1, the headline
+    cube from 20 degrees off, S_local 4 per rank, Adam at TRAIN_LR)
+    against the flat HardRast + HardAgg render of the true pose."""
+    r_true = ptt.random_rotations(1, torch.Generator().manual_seed(2035),
+                                  device="cpu").to(dev)
+    mesh, cams, lights, _r, log_rot0, target = train_setup(dev, r_true, 5)
+    renderer = sharded_renderer(dev, n=1)
+    step = sharding.make_sharded_pose_step(sharding.active_mesh(), mesh,
+                                           cams, lights)
+    log_rot = log_rot0.detach().clone().requires_grad_()
+    opt = torch.optim.Adam([log_rot], lr=TRAIN_LR)
+    gen = torch.Generator().manual_seed(8)
+    targets = target[None]
+    step(log_rot.detach().clone().requires_grad_(), torch.optim.Adam(
+        [torch.zeros(1, 3, device=dev, requires_grad=True)], lr=0.0),
+        targets, fr.draw_seeds(1, gen, device=dev), renderer)     # warm
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    reset_counts()
+    losses, best, best_rot = [], math.inf, log_rot0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        before = log_rot.detach().clone()
+        loss, renderer = step(log_rot, opt, targets,
+                              fr.draw_seeds(1, gen, device=dev), renderer)
+        losses.append(loss.item())
+        if losses[-1] < best:
+            best, best_rot = losses[-1], before
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = all_counts()
+    split = split_times(lambda: step(log_rot, opt, targets, fr.draw_seeds(
+        1, gen, device=dev), renderer), 3)
+    return dict(losses=losses, total_s=total_s, counts=counts, split=split,
+                start_deg=degrees_off(log_rot0, r_true),
+                end_deg=degrees_off(best_rot, r_true),
+                final=log_rot.detach().cpu())
+
+
+def _sharded_rank(rank, init_method, out_dir):
+    torch.distributed.init_process_group("gloo", init_method=init_method,
+                                         world_size=SHARDS, rank=rank)
+    try:
+        dev = torch.device("cuda", 0)
+        sharding.build_mesh(SHARDS, samples_parallel=SHARDS)
+        res = {"flat": sharded_value_and_grads(dev, "cube", True),
+               "stream": sharded_value_and_grads(dev, "cow", True),
+               "serve": sharded_serve(dev), "train": sharded_train(dev)}
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def folded_close(got, want, scalar_rtol):
+    """(ok, image max |d|, loss rel, pose gradient share of max (thin
+    rows held out on the cow), the whole pose gradient's, worst sigma /
+    gamma / alpha rel) of the sharded against the folded run."""
+    di = (got["image"] - want["image"]).abs().max().item()
+    dl = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    share = lambda g, w: ((g - w).abs().max() / w.abs().max()).item()
+    dp = share(got["held"], want["held"])
+    dp_all = share(got["grads"][0], want["grads"][0])
+    ds = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+             for a, b in zip(got["grads"][1:], want["grads"][1:]))
+    ok = di <= 1e-6 and dl <= 1e-6 and dp <= 1e-6 and ds <= scalar_rtol
+    return ok, di, dl, dp, dp_all, ds
+
+
+def phase_sharded(dev, smi, report):
+    """SHARDS gloo ranks sharing the card: [sharded = folded],
+    [sharded-stream = folded], [serve-sharded], [train-sharded]."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        try:
+            torch.multiprocessing.start_processes(
+                _sharded_rank,
+                args=(f"tcp://127.0.0.1:{sharding.free_port()}", out_dir),
+                nprocs=SHARDS, join=True, start_method="spawn")
+        except torch.multiprocessing.ProcessRaisedException as e:
+            fail(f"sharded: a rank failed:\n{e}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                            weights_only=False) for r in range(SHARDS)]
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    for name, kind, rtol, what in (
+            ("flat", "cube", 1e-5, "cube 256^2 K=50 N=4, S_local 4 x 2 "
+                                  "ranks against S 8"),
+            ("stream", "cow", 5e-5, "cow 256^2 K=50 N=2, S_rast 8, S_agg "
+                                    "4 x 2 ranks against 8")):
+        folded = sharded_value_and_grads(dev, kind, False)
+        same = (torch.equal(r0[name]["image"], r1[name]["image"])
+                and all(torch.equal(a, b) for a, b in
+                        zip(r0[name]["grads"], r1[name]["grads"])))
+        ok, di, dl, dp, dp_all, ds = folded_close(r0[name], folded, rtol)
+        want_plan = ("flat" if name == "flat" else "stream", True)
+        if not ok or not same or r0[name]["plan"] != want_plan:
+            fail(f"sharded {name}: image {di}, loss rel {dl}, pose gradient "
+                 f"{dp} of max (all rows {dp_all}), scalars rel {ds} (rtol "
+                 f"{rtol}); ranks bit-equal {same}; plan "
+                 f"{r0[name]['plan']}")
+        tag = "sharded = folded" if name == "flat" else \
+            "sharded-stream = folded"
+        held = "" if name == "flat" else (
+            f" with the thin faces' rows held out ({dp_all:.3g} with "
+            f"them)")
+        print(f"[{tag}] {what} ({SHARDS} gloo ranks on one card, plan "
+              f"{r0[name]['plan']}): image max |d| {di:.3g} (atol 1e-6), loss "
+              f"rel {dl:.3g} (1e-6), pose gradient {dp:.3g} of max (1e-6)"
+              f"{held}, sigma / gamma / alpha rel {ds:.3g} (rtol {rtol}); "
+              f"the ranks bit-equal | {smi}", flush=True)
+
+    sv, c = r0["serve"], r0["serve"]["counts"]
+    if (c["sharded_prob"] != N_REQUESTS or c["fused_forward_ext"]
+            != N_REQUESTS or c["fused_forward"] or c["fused_backward"]
+            or r0["serve"]["sums"] != r1["serve"]["sums"]):
+        fail(f"serve-sharded: launch counts {c}, ranks' image sums "
+             f"{sv['sums']} / {r1['serve']['sums']}")
+    med = statistics.median(sv["lat_ms"][1:])
+    print(f"[serve-sharded] {N_REQUESTS} requests x {N_POSES} cube poses "
+          f"through MeshRenderer, {SHARDS} ranks x S_local {S_LOCAL}: launches "
+          f"(rank 0) {c}; alpha > 0.5 on {sv['alpha']:.3f}; request latency "
+          f"median {med:.2f} ms, {N_REQUESTS * N_POSES / sv['total_s']:.1f} "
+          f"renders/s; a request {split_text(sv['split'])} (gloo stages "
+          f"every average through the host: two ranks sharing one card) | "
+          f"{smi}", flush=True)
+
+    tr, c = r0["train"], r0["train"]["counts"]
+    if any(c[k] != TRAIN_STEPS for k in ("sharded_prob", "fused_forward_ext",
+                                         "sharded_agg_bwd",
+                                         "sharded_det_bwd")) or (
+            c["fused_loss_grad"] or c["fused_backward"]):
+        fail(f"train-sharded: launch counts {c}")
+    if not (np.all(np.isfinite(tr["losses"]))
+            and min(tr["losses"]) < tr["losses"][0]
+            and torch.equal(tr["final"], r1["train"]["final"])):
+        fail(f"train-sharded: losses {tr['losses']}, ranks' poses "
+             f"{tr['final']} / {r1['train']['final']}")
+    print(f"[train-sharded] make_sharded_pose_step {TRAIN_STEPS} steps, N=1, "
+          f"{SHARDS} ranks x S_local {S_LOCAL}, lr {TRAIN_LR}: launches "
+          f"(rank 0) {c}; loss {tr['losses'][0]:.5g} -> best "
+          f"{min(tr['losses']):.5g}; pose error {tr['start_deg']:.2f} -> "
+          f"{tr['end_deg']:.2f} deg; {TRAIN_STEPS / tr['total_s']:.1f} "
+          f"steps/s; a step {split_text(tr['split'])}; the ranks' poses "
+          f"bit-equal; ranks' wall time {ranks_s:.1f} s | {smi}", flush=True)
+    for name, key in (("sharded_prob", "sharded_prob"),
+                      ("sharded_agg_bwd", "sharded_agg_bwd"),
+                      ("sharded_det_bwd", "sharded_det_bwd")):
+        report[name]["launches"] = (r0["serve"]["counts"][key]
+                                    + r0["train"]["counts"][key])
+    report["fused_forward"]["modes"]["prob_ext"]["launches"] = (
+        r0["serve"]["counts"]["fused_forward_ext"]
+        + r0["train"]["counts"]["fused_forward_ext"])
+    report["sharded"] = dict(serve_ms=med, serve_split=sv["split"],
+                             step_ms=tr["total_s"] * 1e3 / TRAIN_STEPS,
+                             step_split=tr["split"])
+
+
+def phase_dryrun_sharded(dev, smi):
+    """sharding.dryrun_multichip(2, device='cuda'): the cube (flat
+    sharded) and the 80-face icosphere (stream sharded) phases."""
+    t0 = time.perf_counter()
+    try:
+        out = sharding.dryrun_multichip(2, device=dev)
+    except torch.multiprocessing.ProcessRaisedException as e:
+        fail(f"dryrun-sharded: a rank failed:\n{e}")
+    if sorted(out) != ["cube", "stream/sphere"] or not all(
+            np.all(np.isfinite(v)) for v in out.values()):
+        fail(f"dryrun-sharded: {out}")
+    print(f"[dryrun-sharded] dryrun_multichip(2, device='cuda'): losses "
+          f"{out}; {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+
 SOURCES = {
     "prng_probe": ("csrc/prng_probe.cu", "ops/fused_render.py:263"),
     "fused_forward": ("csrc/fused_forward.cu", "ops/fused_render.py:799"),
@@ -2566,6 +3061,9 @@ SOURCES = {
     "argmax_mean": ("csrc/perturbed.cu", "ops/perturbed_pallas.py:223"),
     "argmax_grads": ("csrc/perturbed.cu", "ops/perturbed_pallas.py:238"),
     "fused_binned": ("csrc/fused_binned.cu", "ops/fused_render.py:2962"),
+    "sharded_prob": ("csrc/sharded.cu", "ops/fused_render.py:1764"),
+    "sharded_agg_bwd": ("csrc/sharded.cu", "ops/fused_render.py:1804"),
+    "sharded_det_bwd": ("csrc/sharded.cu", "ops/fused_render.py:1861"),
 }
 
 
@@ -2610,6 +3108,9 @@ def main():
     phase_serve_binned(dev, smi, report)
     phase_train_binned(dev, smi, report)
     phase_determinism(dev, smi)
+    phase_k11(dev, smi, report)
+    phase_sharded(dev, smi, report)
+    phase_dryrun_sharded(dev, smi)
 
     kernels = []
     k12 = report["fused_binned"]
@@ -2620,6 +3121,8 @@ def main():
             "forward": k12["launches_forward"], "backward": 0,
             "loss_grad": k12["launches_loss_grad"]},
             "modes": k12["modes"]} if kname == "fused_binned" else {})
+        if kname == "fused_forward":
+            extra = {"modes": r["modes"]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"pertrenderer_tpu_torch/{src}",

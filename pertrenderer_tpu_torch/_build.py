@@ -28,7 +28,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
            "fused_loss_grad.cu", "fused_binned.cu", "stream_forward.cu",
            "stream_backward.cu", "stream_loss_grad.cu", "gather.cu",
-           "interp_gather.cu", "perturbed.cu")
+           "interp_gather.cu", "perturbed.cu", "sharded.cu")
 HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh",
            "stream_grad.cuh", "segment_sum.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -115,6 +115,17 @@ def library() -> ctypes.CDLL:
     # per-tile tables (its scalar rows in the partial buffer's place).
     for fn in (lib.pt_fused_forward, lib.pt_binned_forward):
         fn.argtypes = [ptr] * 8 + config + tiling + [ptr]
+        fn.restype = i32
+    # The sharded route (K3 with external coverage, K11a-c): their tensors,
+    # then the flat kernels' configuration and tiling.
+    lib.pt_fused_forward_ext.argtypes = [ptr] * 10 + config + tiling + [ptr]
+    lib.pt_sharded_prob.argtypes = [ptr] * 5 + config + tiling + [ptr]
+    lib.pt_sharded_agg_bwd.argtypes = ([ptr] * 11 + [i32, ptr] + config
+                                       + tiling + [ptr])
+    lib.pt_sharded_det_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 6
+                                       + config + tiling + [ptr])
+    for fn in (lib.pt_fused_forward_ext, lib.pt_sharded_prob,
+               lib.pt_sharded_agg_bwd, lib.pt_sharded_det_bwd):
         fn.restype = i32
     grads = ([ptr] * 9 + [i32] + [ptr] * 6 + config
              + [i32, ctypes.c_float] + tiling + [ptr])

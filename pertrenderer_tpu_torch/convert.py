@@ -91,19 +91,26 @@ def materials(ambient_color, diffuse_color, specular_color, shininess,
                             f(specular_color), f(shininess))
 
 
-def smoothrast_from(name: str, sigma, nb_samples: int, device="cuda"):
-    """The SmoothRast member ``name`` (the JAX class name)."""
+def smoothrast_from(name: str, sigma, nb_samples: int, device="cuda",
+                    sample_axis=None):
+    """The SmoothRast member ``name`` (the JAX class name); the MC members
+    keep the JAX estimator's ``sample_axis``."""
     cls = getattr(smoothrast, name)
     if cls is smoothrast.HardRast:
         return cls()
-    return dataclasses.replace(cls.create(), sigma=tensor(sigma,
-                                                          device=device),
-                               nb_samples=int(nb_samples))
+    out = dataclasses.replace(cls.create(), sigma=tensor(sigma,
+                                                         device=device),
+                              nb_samples=int(nb_samples))
+    if sample_axis is not None:
+        out = dataclasses.replace(out, sample_axis=sample_axis)
+    return out
 
 
 def smoothagg_from(name: str, gamma, alpha, eps: float, nb_samples: int,
-                   fixed_noise: bool = False, device="cuda"):
-    """The SmoothAgg member ``name`` (the JAX class name)."""
+                   fixed_noise: bool = False, device="cuda",
+                   sample_axis=None):
+    """The SmoothAgg member ``name`` (the JAX class name); the MC members
+    keep the JAX estimator's ``sample_axis``."""
     cls = getattr(smoothagg, name)
     if cls is smoothagg.HardAgg:
         return cls(eps=float(eps))
@@ -113,6 +120,8 @@ def smoothagg_from(name: str, gamma, alpha, eps: float, nb_samples: int,
                               eps=float(eps), nb_samples=int(nb_samples))
     if fixed_noise:
         agg = dataclasses.replace(agg, fixed_noise=True)
+    if sample_axis is not None:
+        agg = dataclasses.replace(agg, sample_axis=sample_axis)
     return agg
 
 
@@ -157,11 +166,13 @@ def from_reference(obj, device="cuda", _memo=None):
         out = materials(obj.ambient_color, obj.diffuse_color,
                         obj.specular_color, obj.shininess, device)
     elif name in _RAST_NAMES:
-        out = smoothrast_from(name, obj.sigma, obj.nb_samples, device)
+        out = smoothrast_from(name, obj.sigma, obj.nb_samples, device,
+                              getattr(obj, "sample_axis", None))
     elif name in _AGG_NAMES:
         out = smoothagg_from(name, obj.gamma, obj.alpha, obj.eps,
                              obj.nb_samples,
-                             getattr(obj, "fixed_noise", False), device)
+                             getattr(obj, "fixed_noise", False), device,
+                             getattr(obj, "sample_axis", None))
     elif name == "BlendParams":
         out = blending.BlendParams(
             float(obj.sigma), float(obj.gamma),

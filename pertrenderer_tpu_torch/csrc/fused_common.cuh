@@ -1,7 +1,7 @@
 // Pieces shared by the fused kernels: the flat route's K3
 // (fused_forward.cu), K4 (fused_backward.cu) and K2 (fused_loss_grad.cu),
-// the binned route's K12 (fused_binned.cu) and the stream route's K5-K7
-// (stream_grad.cuh).
+// the sharded route's K11a-c (sharded.cu), the binned route's K12
+// (fused_binned.cu) and the stream route's K5-K7 (stream_grad.cuh).
 //
 // The packed scalar layout, the launch parameters, the tiling and its
 // activity bits, the shared-memory face tables, the noise draws, det1 —
@@ -72,6 +72,18 @@ struct Params {
   // The binned route's K12: each tile's 34 scalar gradients and loss
   // (N, nt, 35), in double.
   double* pscal64;
+  // The sharded route (channel-major, P = H * W): K11a writes its shard's
+  // coverage mean (N, F, P) to prob_out; K3 with external coverage, K11b
+  // and K11c read the group's mean of it from prob_ext.  K3 writes the
+  // aggregation weights (N, c_zpad, P) to w_out and K11c reads the
+  // group's from w_in; K11b writes g_zmap (N, c_zpad, P) to gz_out and
+  // K11c reads the group's from gz_in; K11b's gamma term per image goes
+  // to g_gamma (N,), from per-warp partials.
+  const float* prob_ext;
+  float* prob_out;
+  float* w_out;
+  const float *w_in, *gz_in;
+  float *gz_out, *g_gamma;
 };
 
 // The static configuration, in the order every C entry takes it (the
@@ -209,11 +221,11 @@ PT_HD void pixel_center(int image_size, int pix, float* px, float* py) {
   *py = (w - 1.0f - 2.0f * (float)(pix / image_size)) / w;
 }
 
-// det1 of slot i at pixel (px, py): signed squared edge distance, depth,
-// candidacy (1 or 0) and the shaded color (masked like the JAX kernel).
-PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
-                        float py, bool live, float* d_out, float* z_out,
-                        float* m_out, float col[3]) {
+// det1's geometry of slot i at pixel (px, py): signed squared edge
+// distance, depth, candidacy (1 or 0) and the final barycentrics.
+PT_HD void face_geometry(const Params& p, const Tables& T, int i, float px,
+                         float py, bool live, float* d_out, float* z_out,
+                         float* m_out, float w_out[3]) {
   const float* sc = T.sc;
   const float* v = T.ndc + i * T.rs_geo;
   const float ax = v[0], ay = v[1], az = v[2], bx = v[3], by = v[4],
@@ -257,7 +269,23 @@ PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
                   : T.valid[i] > 0.5f && fmaxf(fmaxf(az, bz), cz) > 0.0f;
   const bool cand = live && (inside || d <= sc[kBlur]) && !degen && validb &&
                     z > 0.0f;
-  const float m = cand ? 1.0f : 0.0f;
+  *d_out = d;
+  *z_out = z;
+  *m_out = cand ? 1.0f : 0.0f;
+  w_out[0] = w0;
+  w_out[1] = w1;
+  w_out[2] = w2;
+}
+
+// det1 of slot i at pixel (px, py): signed squared edge distance, depth,
+// candidacy (1 or 0) and the shaded color (masked like the JAX kernel).
+PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
+                        float py, bool live, float* d_out, float* z_out,
+                        float* m_out, float col[3]) {
+  const float* sc = T.sc;
+  float m, w[3];
+  face_geometry(p, T, i, px, py, live, d_out, z_out, &m, w);
+  const float w0 = w[0], w1 = w[1], w2 = w[2];
 
   float texel[3];
   const float* t = T.tex + i * T.rs_tex;
@@ -306,54 +334,20 @@ PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
       texel[c] = (ambient + diffuse) * texel[c] + specular;
     }
   }
-  *d_out = d;
-  *z_out = z;
   *m_out = m;
   for (int c = 0; c < 3; ++c) col[c] = texel[c];
 }
 
-// K3's per-pixel pipeline, shared with the binned route's forward (K12,
-// fused_binned.cu): det1 (edge-function geometry, texel select, Phong),
-// coverage (MC perturbed Heaviside or soft / affine / hard), det2 (z_map
-// with the log / gamma-over-alpha scaling and the background channel),
-// aggregation (MC perturbed >=-max one-hots, softmax, or first-wins hard
-// one-hot) and det3 (weighted colors, alpha = 1 - prod(1 - prob)) for
-// row-major pixel `pix` of batch element b over the tables T: RGBA into
-// out[0..3].  A pixel of an inactive tile gives the background, alpha 0.
-// A: the type of the aggregation and the blend's weighted sum (z_inv,
-// z_map, the weights), float for K3 and double for K12, as pixel_grads.
-template <int MAXF, class A = float>
-PT_HD void pixel_forward(const Params& p, const Tables& T, int b, int pix,
-                         float out[4]) {
-  constexpr int MAXC = MAXF + 8;
+// Coverage of the F slots at pixel pos of batch element b: prob = prob_raw
+// * maskf, written over dist[] (MC perturbed Heaviside of -dist + sigma *
+// Z over an f_pad-row noise block, or soft / affine / hard).  K3's and
+// K11a's.
+template <int MAXF>
+PT_HD void coverage(const Params& p, const float* sc, int b, uint32_t pos,
+                    float dist[MAXF], const float maskf[MAXF]) {
   const int F = p.f_pad;
-  const float* sc = T.sc;
-  float px, py;
-  pixel_center(p.image_size, pix, &px, &py);
-  const uint32_t pos = (uint32_t)pix;
-  if (!pixel_active(p, b, pix)) {
-    out[0] = sc[kBg];
-    out[1] = sc[kBg + 1];
-    out[2] = sc[kBg + 2];
-    out[3] = 0.0f;
-    return;
-  }
-
-  // ---- det1: geometry, texel, shading per slot --------------------------
-  float dist[MAXF], zz[MAXF], maskf[MAXF];
-  float col0[MAXF], col1[MAXF], col2[MAXF];
-  for (int i = 0; i < F; ++i) {
-    float c3[3];
-    face_forward(p, T, i, px, py, true, &dist[i], &zz[i], &maskf[i], c3);
-    col0[i] = c3[0];
-    col1[i] = c3[1];
-    col2[i] = c3[2];
-  }
-
-  // ---- coverage: prob = prob_raw * maskf (kept in dist[]) ---------------
   const float sigma = sc[kSigma];
   if (p.rast_kind == kRastMC) {
-    // Heaviside of -dist + sigma * Z over an f_pad-row noise block.
     float nz[MAXF], acc[MAXF];
     for (int i = 0; i < F; ++i) acc[i] = 0.0f;
     const uint32_t s0 = (uint32_t)p.seeds[b * 4 + 0];
@@ -379,10 +373,84 @@ PT_HD void pixel_forward(const Params& p, const Tables& T, int b, int pix,
       dist[i] = pr * maskf[i];
     }
   }
+}
+
+// K11a's pipeline of one pixel: det1's geometry (no colour) and the
+// coverage of the F slots on this shard's coverage samples, zero on an
+// inactive tile.  Reads only the tables' NDC corners, validity and
+// scalars.
+template <int MAXF>
+PT_HD void pixel_prob(const Params& p, const Tables& T, int b, int pix,
+                      float prob[MAXF]) {
+  const int F = p.f_pad;
+  for (int i = 0; i < F; ++i) prob[i] = 0.0f;
+  if (!pixel_active(p, b, pix)) return;
+  float px, py;
+  pixel_center(p.image_size, pix, &px, &py);
+  float maskf[MAXF];
+  for (int i = 0; i < F; ++i) {
+    float z, w[3];
+    face_geometry(p, T, i, px, py, true, &prob[i], &z, &maskf[i], w);
+  }
+  coverage<MAXF>(p, T.sc, b, (uint32_t)pix, prob, maskf);
+}
+
+// K3's per-pixel pipeline, shared with the binned route's forward (K12,
+// fused_binned.cu): det1 (edge-function geometry, texel select, Phong),
+// coverage (MC perturbed Heaviside or soft / affine / hard), det2 (z_map
+// with the log / gamma-over-alpha scaling and the background channel),
+// aggregation (MC perturbed >=-max one-hots, softmax, or first-wins hard
+// one-hot) and det3 (weighted colors, alpha = 1 - prod(1 - prob)) for
+// row-major pixel `pix` of batch element b over the tables T: RGBA into
+// out[0..3].  A pixel of an inactive tile gives the background, alpha 0.
+// A: the type of the aggregation and the blend's weighted sum (z_inv,
+// z_map, the weights), float for K3 and double for K12, as pixel_grads.
+// EXT (the sharded route's K3): the coverage is read from prob_ext (the
+// mean of K11a over the sample group) instead of drawn, and the weights
+// go to w_out as well (the background one-hot on an inactive tile).
+template <int MAXF, class A = float, bool EXT = false>
+PT_HD void pixel_forward(const Params& p, const Tables& T, int b, int pix,
+                         float out[4]) {
+  constexpr int MAXC = MAXF + 8;
+  const int F = p.f_pad, C = p.c_zpad;
+  const size_t npix = (size_t)p.image_size * p.image_size;
+  const float* sc = T.sc;
+  float px, py;
+  pixel_center(p.image_size, pix, &px, &py);
+  const uint32_t pos = (uint32_t)pix;
+  if (!pixel_active(p, b, pix)) {
+    out[0] = sc[kBg];
+    out[1] = sc[kBg + 1];
+    out[2] = sc[kBg + 2];
+    out[3] = 0.0f;
+    if (EXT)
+      for (int r = 0; r < C; ++r)
+        p.w_out[((size_t)b * C + r) * npix + pix] = r == p.bg_row ? 1.0f
+                                                                  : 0.0f;
+    return;
+  }
+
+  // ---- det1: geometry, texel, shading per slot --------------------------
+  float dist[MAXF], zz[MAXF], maskf[MAXF];
+  float col0[MAXF], col1[MAXF], col2[MAXF];
+  for (int i = 0; i < F; ++i) {
+    float c3[3];
+    face_forward(p, T, i, px, py, true, &dist[i], &zz[i], &maskf[i], c3);
+    col0[i] = c3[0];
+    col1[i] = c3[1];
+    col2[i] = c3[2];
+  }
+
+  // ---- coverage: prob = prob_raw * maskf (kept in dist[]) ---------------
+  if (EXT) {
+    for (int i = 0; i < F; ++i)
+      dist[i] = p.prob_ext[((size_t)b * F + i) * npix + pix];
+  } else {
+    coverage<MAXF>(p, sc, b, pos, dist, maskf);
+  }
   const float* prob = dist;
 
   // ---- det2: z_map rows (slots, background, -inf padding) ---------------
-  const int C = p.c_zpad;
   A zmap[MAXC], zinv[MAXF];
   const float zfar = sc[kZfar], znear = sc[kZnear];
   const A zden = (A)zfar - (A)znear;
@@ -439,6 +507,10 @@ PT_HD void pixel_forward(const Params& p, const Tables& T, int b, int pix,
       if (zmap[r] >= mx) first = r;
     for (int r = 0; r < C; ++r) wts[r] = r == first ? 1.0f : 0.0f;
   }
+
+  if (EXT)
+    for (int r = 0; r < C; ++r)
+      p.w_out[((size_t)b * C + r) * npix + pix] = (float)wts[r];
 
   // ---- det3: blend ------------------------------------------------------
   A rgb0 = 0.0f, rgb1 = 0.0f, rgb2 = 0.0f;

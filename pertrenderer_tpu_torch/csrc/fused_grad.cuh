@@ -1,5 +1,8 @@
 // The per-pixel gradient pipeline shared by K4 (fused_backward.cu) and K2
-// (fused_loss_grad.cu), as the JAX kernels share run_pipeline.
+// (fused_loss_grad.cu), as the JAX kernels share run_pipeline, and the
+// sharded route's backward halves (sharded.cu): K11b's aggregation replay
+// (pixel_agg_grads) and K11c, pixel_grads with the coverage, weights and
+// g_zmap given (EXT).
 //
 // One thread per pixel recomputes the forward (det1 -> coverage -> det2 ->
 // aggregation -> blend, exactly as K3), then runs the hand-derived
@@ -367,6 +370,111 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
   gslot[8] = g_vz[2];
 }
 
+// det2 of one pixel: z_map rows (slots, the background, -inf padding)
+// from the coverage prob and the depths, in A; zinv and the unclamped max
+// zmax_raw are kept for the adjoint.
+template <int MAXF, class A>
+PT_HD void z_map_rows(const Params& p, const float* sc, const float* prob,
+                      const float* zz, const float* mk, A zinv[MAXF],
+                      A* zmax_raw_out, A* gal_out, A zmap[MAXF + 8]) {
+  const int F = p.f_pad, C = p.c_zpad;
+  const float zfar = sc[kZfar], znear = sc[kZnear];
+  const A zden = (A)zfar - (A)znear;
+  A zmax_raw = -INFINITY;
+  for (int i = 0; i < F; ++i) {
+    zinv[i] = ((A)zfar - zz[i]) / zden * mk[i];
+    zmax_raw = fmax(zmax_raw, zinv[i]);
+  }
+  const A zmax = fmax(zmax_raw, (A)p.eps_bg);
+  const A gal =
+      p.agg_kind == kAggHard ? (A)1e-6f : (A)sc[kGamma] / (A)sc[kAlpha];
+  for (int i = 0; i < F; ++i) zmap[i] = gal * log((A)prob[i]) + zinv[i] - zmax;
+  for (int r = F; r < C; ++r) zmap[r] = -INFINITY;
+  zmap[p.bg_row] = (A)p.eps_bg - zmax;
+  *zmax_raw_out = zmax_raw;
+  *gal_out = gal;
+}
+
+// Weight cotangent of the (linear) blend, laid out like z_map.
+template <int MAXF, class A>
+PT_HD void blend_cotangent(const Params& p, const float* sc,
+                           const float* col0, const float* col1,
+                           const float* col2, const float g_rgb[3],
+                           A gw[MAXF + 8]) {
+  const int F = p.f_pad, C = p.c_zpad;
+  for (int i = 0; i < F; ++i)
+    gw[i] = (A)col0[i] * g_rgb[0] + (A)col1[i] * g_rgb[1] +
+            (A)col2[i] * g_rgb[2];
+  for (int r = F; r < C; ++r) gw[r] = 0.0f;
+  gw[p.bg_row] = (A)sc[kBg] * g_rgb[0] + (A)sc[kBg + 1] * g_rgb[1] +
+                 (A)sc[kBg + 2] * g_rgb[2];
+}
+
+// First-wins argmax of z_map's C rows (the MC aggregation's VR baseline).
+template <class A>
+PT_HD int first_max(const A* zmap, int C) {
+  A mx = -INFINITY;
+  for (int r = 0; r < C; ++r) mx = fmax(mx, zmap[r]);
+  int first = -1;
+  for (int r = C - 1; r >= 0; --r)
+    if (zmap[r] >= mx) first = r;
+  return first;
+}
+
+// One replay of the MC aggregation noise of batch element b at pixel pos:
+// the weights' sample mean into wts (want_w), and the score-function terms
+// of the aggregation's backward (want_g): g_zmap into gz (zeroed by the
+// caller) and the gamma gradient's term, returned (0 without want_g).  gw:
+// the weights' cotangent; first: the VR baseline's row.
+template <int MAXC, class A>
+PT_HD A mc_agg_replay(const Params& p, const float* sc, int b, uint32_t pos,
+                      const A zmap[MAXC], const A gw[MAXC], int first,
+                      bool want_w, bool want_g, A wts[MAXC], A gz[MAXC]) {
+  const int C = p.c_zpad, bg = p.bg_row;
+  const float gamma = sc[kGamma];
+  const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
+  const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
+  float nz[MAXC];
+  A pert[MAXC];
+  A g_gam = 0.0f;
+  const float phi_comp = (float)(p.k - bg);
+  if (want_w)
+    for (int r = 0; r < C; ++r) wts[r] = 0.0f;
+  for (int s = 0; s < p.s_agg; ++s) {
+    draw_noise<MAXC>(nz, C, p.agg_noise, a0, a1, s, pos);
+    A mx = -INFINITY;
+    for (int r = 0; r < C; ++r) {
+      pert[r] = zmap[r] + (A)gamma * nz[r];
+      mx = fmax(mx, pert[r]);
+    }
+    if (want_w)
+      for (int r = 0; r < C; ++r) wts[r] += pert[r] >= mx ? 1.0f : 0.0f;
+    if (want_g) {
+      // Rows past bg_row are -inf and never win; their noise is masked.
+      A dot = 0.0f;
+      float phi = 0.0f;
+      for (int r = 0; r <= bg; ++r) {
+        const float oh = pert[r] >= mx ? 1.0f : 0.0f;
+        const float w0 = p.agg_vr && r == first ? 1.0f : 0.0f;
+        dot += gw[r] * (oh - w0);
+        phi += score(nz[r], p.agg_noise) * nz[r];
+      }
+      phi += phi_comp;
+      for (int r = 0; r <= bg; ++r)
+        gz[r] += dot * score(nz[r], p.agg_noise);
+      g_gam += dot * (phi - 1.0f);
+    }
+  }
+  if (want_w) {
+    const A inv_s = (A)1 / (A)p.s_agg;
+    for (int r = 0; r < C; ++r) wts[r] = wts[r] * inv_s;
+  }
+  if (!want_g) return 0.0f;
+  const A sg = (A)p.s_agg * (A)gamma;
+  for (int r = 0; r < C; ++r) gz[r] = gz[r] / sg;
+  return g_gam / sg;
+}
+
 // The gradient pipeline of one pixel.  LOSS: K2 (cotangent from the
 // target), else K4 (cotangent g_out).  Sink: the reduction across pixels.
 //
@@ -384,7 +492,12 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
 // pixels: in float its rows miss float64 by up to 16 float32 ulps times
 // L / h of the table's max (the card's thin-row bound), in double by a
 // twentieth of that.
-template <int MAXF, bool LOSS, class Sink, class Acc>
+//
+// EXT (the sharded route's K11c, K4's cotangent): the coverage mean, the
+// weights and g_zmap over the sample group come in (prob_ext, w_in,
+// gz_in); only the coverage's score coefficient is drawn, from this
+// shard's samples.  The aggregation's own gamma term is K11b's.
+template <int MAXF, bool LOSS, class Sink, class Acc, bool EXT = false>
 PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
                        bool live, Sink& sink, Acc& acc) {
   using A = typename Acc::Real;
@@ -446,23 +559,16 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
       prob[i] = pr * mk[i];
     }
   }
+  if (EXT)
+    for (int i = 0; i < F; ++i)
+      prob[i] = p.prob_ext[((size_t)b * F + i) * npix + pix];
 
   // ---- det2: z_map ---------------------------------------------------------
   const float zfar = sc[kZfar], znear = sc[kZnear];
   const A zden = (A)zfar - (A)znear;
-  A zinv[MAXF];
-  A zmax_raw = -INFINITY;
-  for (int i = 0; i < F; ++i) {
-    zinv[i] = ((A)zfar - zz[i]) / zden * mk[i];
-    zmax_raw = fmax(zmax_raw, zinv[i]);
-  }
-  const A zmax = fmax(zmax_raw, (A)p.eps_bg);
   const bool hard_agg = p.agg_kind == kAggHard;
-  const A gal = hard_agg ? (A)1e-6f : (A)sc[kGamma] / (A)sc[kAlpha];
-  A zmap[MAXC];
-  for (int i = 0; i < F; ++i) zmap[i] = gal * log((A)prob[i]) + zinv[i] - zmax;
-  for (int r = F; r < C; ++r) zmap[r] = -INFINITY;
-  zmap[bg] = (A)p.eps_bg - zmax;
+  A zinv[MAXF], zmap[MAXC], zmax_raw, gal;
+  z_map_rows<MAXF, A>(p, sc, prob, zz, mk, zinv, &zmax_raw, &gal, zmap);
 
   // ---- output cotangent (K4) -----------------------------------------------
   // A pixel of an inactive tile has no candidate, so its image is the
@@ -487,72 +593,29 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   // Weight cotangent of the (linear) blend, laid out like z_map.
   A gw[MAXC];
   auto build_gw = [&]() {
-    for (int i = 0; i < F; ++i)
-      gw[i] = (A)col0[i] * g_rgb[0] + (A)col1[i] * g_rgb[1] +
-              (A)col2[i] * g_rgb[2];
-    for (int r = F; r < C; ++r) gw[r] = 0.0f;
-    gw[bg] = (A)sc[kBg] * g_rgb[0] + (A)sc[kBg + 1] * g_rgb[1] +
-             (A)sc[kBg + 2] * g_rgb[2];
+    blend_cotangent<MAXF, A>(p, sc, col0, col1, col2, g_rgb, gw);
   };
 
   // ---- aggregation: weights, and g_zmap ------------------------------------
   const float gamma = sc[kGamma];
   A wts[MAXC], gz[MAXC];
   for (int r = 0; r < C; ++r) gz[r] = 0.0f;
-  int first = -1;                 // first-wins argmax of z_map (VR baseline)
-  {
-    A mx = -INFINITY;
-    for (int r = 0; r < C; ++r) mx = fmax(mx, zmap[r]);
-    for (int r = C - 1; r >= 0; --r)
-      if (zmap[r] >= mx) first = r;
-  }
-  const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
-  const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
-  // One replay of the MC aggregation noise: accumulates the weights
-  // (want_w) and the score-function terms of g_zmap and gamma (want_g).
+  const int first = first_max(zmap, C);   // VR baseline of the MC replay
+  // One replay of the MC aggregation noise: the weights (want_w) and the
+  // score-function terms of g_zmap and gamma (want_g).
   auto mc_agg = [&](bool want_w, bool want_g) {
-    float nz[MAXC];
-    A pert[MAXC];
-    A g_gam = 0.0f;
-    const float phi_comp = (float)(p.k - bg);
-    if (want_w)
-      for (int r = 0; r < C; ++r) wts[r] = 0.0f;
-    for (int s = 0; s < p.s_agg; ++s) {
-      draw_noise<MAXC>(nz, C, p.agg_noise, a0, a1, s, pos);
-      A mx = -INFINITY;
-      for (int r = 0; r < C; ++r) {
-        pert[r] = zmap[r] + (A)gamma * nz[r];
-        mx = fmax(mx, pert[r]);
-      }
-      if (want_w)
-        for (int r = 0; r < C; ++r) wts[r] += pert[r] >= mx ? 1.0f : 0.0f;
-      if (want_g) {
-        // Rows past bg_row are -inf and never win; their noise is masked.
-        A dot = 0.0f;
-        float phi = 0.0f;
-        for (int r = 0; r <= bg; ++r) {
-          const float oh = pert[r] >= mx ? 1.0f : 0.0f;
-          const float w0 = p.agg_vr && r == first ? 1.0f : 0.0f;
-          dot += gw[r] * (oh - w0);
-          phi += score(nz[r], p.agg_noise) * nz[r];
-        }
-        phi += phi_comp;
-        for (int r = 0; r <= bg; ++r)
-          gz[r] += dot * score(nz[r], p.agg_noise);
-        g_gam += dot * (phi - 1.0f);
-      }
-    }
-    if (want_w) {
-      const A inv_s = (A)1 / (A)p.s_agg;
-      for (int r = 0; r < C; ++r) wts[r] = wts[r] * inv_s;
-    }
-    if (want_g) {
-      const A sg = (A)p.s_agg * (A)gamma;
-      for (int r = 0; r < C; ++r) gz[r] = gz[r] / sg;
-      acc.gsc[kGamma] += g_gam / sg;
-    }
+    const A term = mc_agg_replay<MAXC, A>(p, sc, b, pos, zmap, gw, first,
+                                          want_w, want_g, wts, gz);
+    if (want_g) acc.gsc[kGamma] += term;
   };
-  if (p.agg_kind == kAggMC) {
+  if (EXT) {
+    // The sample group's weights and g_zmap (K3 and K11b, averaged).
+    for (int r = 0; r < C; ++r) {
+      const size_t at = ((size_t)b * C + r) * npix + pix;
+      wts[r] = p.w_in[at];
+      gz[r] = act ? p.gz_in[at] : 0.0f;
+    }
+  } else if (p.agg_kind == kAggMC) {
     if (!LOSS) build_gw();
     mc_agg(true, !LOSS);            // K4: forward and backward in one pass
   } else if (p.agg_kind == kAggSoft) {
@@ -604,7 +667,7 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
     build_gw();
     if (p.agg_kind == kAggMC) mc_agg(false, true);   // replay for g_zmap
   }
-  if (p.agg_kind == kAggSoft) {
+  if (!EXT && p.agg_kind == kAggSoft) {
     if (!LOSS) build_gw();
     const A inv_gamma = (A)1 / (A)gamma;
     A sdot = 0.0f;
@@ -698,6 +761,44 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   }
 }
 
+// K11b's pipeline of one pixel (the JAX _agg_bwd_kernel): the MC
+// aggregation's backward alone, on this shard's aggregation samples,
+// given the coverage mean prob_ext over the sample group and K4's output
+// cotangent g_out (extra).  det1 (colours, depths, candidacy), det2
+// (z_map from prob_ext), the blend's weight cotangent, then one replay of
+// the aggregation noise: g_zmap's C rows into gz and the pixel's gamma
+// term, returned.  A pixel of an inactive tile gives zeros (bg_only).
+template <int MAXF>
+PT_HD float pixel_agg_grads(const Params& p, const Tables& T, int b, int pix,
+                            float gz[MAXF + 8]) {
+  constexpr int MAXC = MAXF + 8;
+  const int F = p.f_pad, C = p.c_zpad;
+  const size_t npix = (size_t)p.image_size * p.image_size;
+  for (int r = 0; r < C; ++r) gz[r] = 0.0f;
+  if (!pixel_active(p, b, pix)) return 0.0f;
+  float px, py;
+  pixel_center(p.image_size, pix, &px, &py);
+  float dist[MAXF], zz[MAXF], mk[MAXF], col0[MAXF], col1[MAXF], col2[MAXF];
+  float prob[MAXF];
+  for (int i = 0; i < F; ++i) {
+    float c3[3];
+    face_forward(p, T, i, px, py, true, &dist[i], &zz[i], &mk[i], c3);
+    col0[i] = c3[0];
+    col1[i] = c3[1];
+    col2[i] = c3[2];
+    prob[i] = p.prob_ext[((size_t)b * F + i) * npix + pix];
+  }
+  float zinv[MAXF], zmap[MAXC], zmax_raw, gal;
+  z_map_rows<MAXF, float>(p, T.sc, prob, zz, mk, zinv, &zmax_raw, &gal, zmap);
+  const float* go = p.extra + ((size_t)b * npix + pix) * 4;
+  const float g_rgb[3] = {go[0], go[1], go[2]};
+  float gw[MAXC], wts[MAXC];
+  blend_cotangent<MAXF, float>(p, T.sc, col0, col1, col2, g_rgb, gw);
+  return mc_agg_replay<MAXC, float>(p, T.sc, b, (uint32_t)pix, zmap, gw,
+                                    first_max(zmap, C), false, true, wts,
+                                    gz);
+}
+
 // The thread's last step: scalar gradients and the loss into the sink.
 template <class Sink, class Acc>
 PT_HD void finish_pixels(const Params& p, const Tables& T, Sink& sink,
@@ -747,7 +848,7 @@ struct WarpSink {
   }
 };
 
-template <int MAXF, bool LOSS>
+template <int MAXF, bool LOSS, bool EXT = false>
 __global__ void __launch_bounds__(kThreads)
 fused_grad_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -765,7 +866,8 @@ fused_grad_kernel(const Params p) {
   for (int chunk = blockIdx.x; chunk < chunks; chunk += gridDim.x) {
     const int pix = chunk * kThreads + threadIdx.x;
     const bool live = pix < npix;
-    pixel_grads<MAXF, LOSS>(p, T, b, live ? pix : 0, live, sink, acc);
+    pixel_grads<MAXF, LOSS, WarpSink, PixelAcc, EXT>(p, T, b, live ? pix : 0,
+                                                     live, sink, acc);
   }
   finish_pixels(p, T, sink, acc);
 }
@@ -817,17 +919,17 @@ inline int grad_warps(int n, int image_size, int f_pad, int tex_d) {
   return (int)(blocks * kWarps);
 }
 
-template <int MAXF, bool LOSS>
+template <int MAXF, bool LOSS, bool EXT = false>
 cudaError_t launch_grads(Params p, int n, cudaStream_t st) {
   if (p.warps % kWarps || p.width != grad_width(p.f_pad, p.tex_d))
     return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * table_floats(p);
-  cudaError_t e = allow_smem(fused_grad_kernel<MAXF, LOSS>, smem);
+  cudaError_t e = allow_smem(fused_grad_kernel<MAXF, LOSS, EXT>, smem);
   if (e != cudaSuccess) return e;
   e = cudaMemsetAsync(p.partial, 0,
                       sizeof(float) * (size_t)n * p.warps * p.width, st);
   if (e != cudaSuccess) return e;
-  fused_grad_kernel<MAXF, LOSS>
+  fused_grad_kernel<MAXF, LOSS, EXT>
       <<<dim3(p.warps / kWarps, n), kThreads, smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;

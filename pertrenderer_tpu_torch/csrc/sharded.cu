@@ -1,0 +1,246 @@
+// The sample-sharded route's kernels, K11a-c, one thread per pixel.
+//
+// Under sample-axis sharding each rank of a sample group draws its own
+// slice [d * S, (d + 1) * S) of one sample sequence (the wrappers offset
+// seed word 0), and the render splits at points where the group averages
+// per-rank sample means (ops/fused_render.py _FusedSharded):
+//
+//   forward:  prob    = mean over the group of K11a
+//             (image, weights) = K3 with that prob (fused_forward.cu,
+//             pixel_forward<..., EXT>), each averaged over the group
+//   backward: (g_zmap, g_gamma) = mean of K11b
+//             gradients = mean of K11c, g_gamma added to gamma's column
+//
+// K11a replaces _prob_kernel (pertrenderer_tpu/ops/fused_render.py:1764,
+// pallas_call in _pallas_prob at :1792): this shard's coverage mean
+// (N, F, P) of the perturbed Heaviside, masked to the candidates (pixel_
+// prob, fused_common.cuh).  K11b replaces _agg_bwd_kernel (:1804,
+// pallas_call :1848): the MC aggregation's backward on this shard's
+// aggregation samples, given the group's prob: g_zmap (N, c_zpad, P) and
+// the gamma term per image (pixel_agg_grads, fused_grad.cuh).  K11c
+// replaces _det_bwd_kernel (:1861, pallas_call :1938): K4's pipeline with
+// the group's prob, weights and g_zmap given (pixel_grads<..., EXT>), whose
+// only sample-dependent term is the coverage's score coefficient on this
+// shard's coverage samples; the table gradients (N, F, 9) x 3, (N, F,
+// tex_d) and the 34 scalar gradients go through K4's warp partials and
+// fixed-order reduction.
+//
+// Bound on the H100: compute, as K3 / K4.  K11a draws S_rast * f_pad / 2
+// Box-Muller pairs per pixel and writes f_pad floats; K11b replays S_agg
+// aggregation draws over c_zpad rows and writes c_zpad floats; K11c draws
+// the coverage noise once more and runs the slot adjoints.  Each keeps a
+// pixel's slot arrays in registers / local memory and the tables in
+// shared memory.  K11b's gamma term is summed per warp with a butterfly of
+// shuffles into one partial per warp, and a second kernel adds the
+// partials in warp order: no atomics, the same bits from run to run.
+//
+// Numerics: -fmad=false and no fast math, as K3 / K4, so every threshold
+// and sum rounds as the plain PyTorch versions' separate ops.
+#include <cuda_runtime.h>
+
+#include "fused_grad.cuh"
+
+namespace {
+
+using namespace ptf;
+
+template <int MAXF>
+__global__ void __launch_bounds__(kThreads)
+sharded_prob_kernel(const Params p) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.y, F = p.f_pad;
+  // Only the NDC corners, validity and scalars: K11a takes no colour.
+  float* s_ndc = smem;
+  float* s_valid = smem + F * 9;
+  float* s_sc = smem + F * 10;
+  for (int i = threadIdx.x; i < F * 9; i += blockDim.x)
+    s_ndc[i] = p.fv_ndc[(size_t)b * F * 9 + i];
+  for (int i = threadIdx.x; i < F; i += blockDim.x)
+    s_valid[i] = p.valid[(size_t)b * F + i];
+  for (int i = threadIdx.x; i < kNS; i += blockDim.x)
+    s_sc[i] = p.scal[(size_t)b * kNS + i];
+  __syncthreads();
+  Tables T = {};
+  T.ndc = s_ndc;
+  T.valid = s_valid;
+  T.sc = s_sc;
+  T.rs_geo = 9;
+  T.rs_valid = 1;
+  T.key_valid = false;
+  const int npix = p.image_size * p.image_size;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= npix) return;
+  float prob[MAXF];
+  pixel_prob<MAXF>(p, T, b, pix, prob);
+  for (int i = 0; i < F; ++i)
+    p.prob_out[((size_t)b * F + i) * npix + pix] = prob[i];
+}
+
+template <int MAXF>
+__global__ void __launch_bounds__(kThreads)
+sharded_agg_bwd_kernel(const Params p) {
+  extern __shared__ float smem[];
+  constexpr int MAXC = MAXF + 8;
+  const int b = blockIdx.y, C = p.c_zpad;
+  const Tables T = load_tables(p, smem, b);
+  const int npix = p.image_size * p.image_size;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  float term = 0.0f;
+  if (pix < npix) {
+    float gz[MAXC];
+    term = pixel_agg_grads<MAXF>(p, T, b, pix, gz);
+    for (int r = 0; r < C; ++r)
+      p.gz_out[((size_t)b * C + r) * npix + pix] = gz[r];
+  }
+  term = warp_sum(term);        // every lane of the warp takes part
+  if ((threadIdx.x & 31) == 0)
+    p.partial[(size_t)b * p.warps + blockIdx.x * kWarps +
+              (threadIdx.x >> 5)] = term;
+}
+
+// The gamma term of each image: its warps' partials added in order.
+__global__ void gamma_reduce_kernel(const Params p) {
+  const int b = blockIdx.x;
+  const float* src = p.partial + (size_t)b * p.warps;
+  float s = 0.0f;
+  for (int w = 0; w < p.warps; ++w) s += src[w];
+  p.g_gamma[b] = s;
+}
+
+Params base_params(const void* fv_ndc, const void* fv_world, const void* fn,
+                   const void* tex, const void* valid, const void* scal,
+                   const void* seeds) {
+  Params p = {};
+  p.fv_ndc = (const float*)fv_ndc;
+  p.fv_world = (const float*)fv_world;
+  p.fn = (const float*)fn;
+  p.tex = (const float*)tex;
+  p.valid = (const float*)valid;
+  p.scal = (const float*)scal;
+  p.seeds = (const int*)seeds;
+  return p;
+}
+
+template <int MAXF>
+cudaError_t launch_prob(const Params& p, int n, cudaStream_t st) {
+  const size_t smem = sizeof(float) * ((size_t)p.f_pad * 10 + kNS);
+  const int pixels = p.image_size * p.image_size;
+  sharded_prob_kernel<MAXF>
+      <<<dim3((pixels + kThreads - 1) / kThreads, n), kThreads, smem, st>>>(
+          p);
+  return cudaGetLastError();
+}
+
+template <int MAXF>
+cudaError_t launch_agg_bwd(const Params& p, int n, cudaStream_t st) {
+  const int blocks = (p.image_size * p.image_size + kThreads - 1) / kThreads;
+  if (p.warps != blocks * kWarps) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * table_floats(p);
+  cudaError_t e = allow_smem(sharded_agg_bwd_kernel<MAXF>, smem);
+  if (e != cudaSuccess) return e;
+  sharded_agg_bwd_kernel<MAXF><<<dim3(blocks, n), kThreads, smem, st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  gamma_reduce_kernel<<<n, 1, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K11a: this shard's coverage mean prob (N, f_pad, H * W).
+extern "C" int pt_sharded_prob(
+    const void* fv_ndc, const void* valid, const void* scal,
+    const void* seeds, void* prob, int n, int image_size, int f_pad,
+    int bg_row, int c_zpad, int tex_d, int atlas_r, int rast_kind,
+    int rast_noise, int rast_vr, int s_rast, int agg_kind, int agg_noise,
+    int agg_vr, int s_agg, int k, float eps_bg, int phong, int point_light,
+    int clip, int persp, const void* active, int nt, int p_tile, int tile_w,
+    void* stream) {
+  Params p = base_params(fv_ndc, nullptr, nullptr, nullptr, valid, scal,
+                         seeds);
+  p.prob_out = (float*)prob;
+  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
+             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
+             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
+  set_tiling(p, active, nt, p_tile, tile_w);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f_pad <= 16) return (int)launch_prob<16>(p, n, st);
+  if (f_pad <= 32) return (int)launch_prob<32>(p, n, st);
+  if (f_pad <= 64) return (int)launch_prob<64>(p, n, st);
+  if (f_pad <= 128) return (int)launch_prob<128>(p, n, st);
+  if (f_pad <= 256) return (int)launch_prob<256>(p, n, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11b: g_zmap (N, c_zpad, H * W) and the gamma term g_gamma (N,) of this
+// shard's aggregation samples; partial holds one float per warp (N,
+// warps), warps = 4 per 128-pixel block.
+extern "C" int pt_sharded_agg_bwd(
+    const void* fv_ndc, const void* fv_world, const void* fn, const void* tex,
+    const void* valid, const void* scal, const void* seeds, const void* prob,
+    const void* g_out, void* g_zmap, void* partial, int warps, void* g_gamma,
+    int n, int image_size, int f_pad, int bg_row, int c_zpad, int tex_d,
+    int atlas_r, int rast_kind, int rast_noise, int rast_vr, int s_rast,
+    int agg_kind, int agg_noise, int agg_vr, int s_agg, int k, float eps_bg,
+    int phong, int point_light, int clip, int persp, const void* active,
+    int nt, int p_tile, int tile_w, void* stream) {
+  Params p = base_params(fv_ndc, fv_world, fn, tex, valid, scal, seeds);
+  p.prob_ext = (const float*)prob;
+  p.extra = (const float*)g_out;
+  p.gz_out = (float*)g_zmap;
+  p.partial = (float*)partial;
+  p.warps = warps;
+  p.g_gamma = (float*)g_gamma;
+  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
+             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
+             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
+  set_tiling(p, active, nt, p_tile, tile_w);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f_pad <= 16) return (int)launch_agg_bwd<16>(p, n, st);
+  if (f_pad <= 32) return (int)launch_agg_bwd<32>(p, n, st);
+  if (f_pad <= 64) return (int)launch_agg_bwd<64>(p, n, st);
+  if (f_pad <= 128) return (int)launch_agg_bwd<128>(p, n, st);
+  if (f_pad <= 256) return (int)launch_agg_bwd<256>(p, n, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K11c: the table and scalar gradients given the group's prob, weights and
+// g_zmap (each (N, rows, H * W)) and the output cotangent g_out (N, H, W,
+// 4); partial, warps and loss as K4's (fused_backward.cu).
+extern "C" int pt_sharded_det_bwd(
+    const void* fv_ndc, const void* fv_world, const void* fn, const void* tex,
+    const void* valid, const void* scal, const void* seeds, const void* g_out,
+    const void* prob, const void* weights, const void* g_zmap, void* partial,
+    int warps, void* g_ndc, void* g_world, void* g_fn, void* g_tex,
+    void* g_scal, void* loss, int n, int image_size, int f_pad, int bg_row,
+    int c_zpad, int tex_d, int atlas_r, int rast_kind, int rast_noise,
+    int rast_vr, int s_rast, int agg_kind, int agg_noise, int agg_vr,
+    int s_agg, int k, float eps_bg, int phong, int point_light, int clip,
+    int persp, const void* active, int nt, int p_tile, int tile_w,
+    void* stream) {
+  Params p = base_params(fv_ndc, fv_world, fn, tex, valid, scal, seeds);
+  p.extra = (const float*)g_out;
+  p.prob_ext = (const float*)prob;
+  p.w_in = (const float*)weights;
+  p.gz_in = (const float*)g_zmap;
+  p.partial = (float*)partial;
+  p.warps = warps;
+  p.width = grad_width(f_pad, tex_d);
+  p.g_ndc = (float*)g_ndc;
+  p.g_world = (float*)g_world;
+  p.g_fn = (float*)g_fn;
+  p.g_tex = (float*)g_tex;
+  p.g_scal = (float*)g_scal;
+  p.loss = (float*)loss;
+  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
+             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
+             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
+  set_tiling(p, active, nt, p_tile, tile_w);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f_pad <= 16) return (int)launch_grads<16, false, true>(p, n, st);
+  if (f_pad <= 32) return (int)launch_grads<32, false, true>(p, n, st);
+  if (f_pad <= 64) return (int)launch_grads<64, false, true>(p, n, st);
+  if (f_pad <= 128) return (int)launch_grads<128, false, true>(p, n, st);
+  if (f_pad <= 256) return (int)launch_grads<256, false, true>(p, n, st);
+  return (int)cudaErrorInvalidValue;
+}

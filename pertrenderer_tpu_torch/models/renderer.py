@@ -14,7 +14,10 @@ and configurations the fused kernels decline — takes the staged route:
 ``MeshRasterizer`` (select and derive, kernels K9a / K9b), then the
 shader (texture sampling, Phong shading with K10a / K10b, blending), whose
 Monte-Carlo estimators run as kernels K8a (coverage) and K8b / K8c
-(aggregation).  The sharded route raises ``NotImplementedError``.
+(aggregation).  Estimators with a ``sample_axis`` take the sample-sharded
+flat route (K11a, K3 with external coverage, K11b, K11c) or the stream
+route with the aggregation samples sharded, averaged over the sample
+group (``parallel.sharding``); the staged estimators average themselves.
 """
 
 from __future__ import annotations
@@ -155,9 +158,6 @@ class MeshRenderer(nn.Module):
         shade; the seed words are drawn from ``generator`` when not given,
         as the fused routes draw them."""
         agg = getattr(self.shader, "smoothagg", None)
-        for est in (getattr(self.shader, "smoothrast", None), agg):
-            if est is not None:
-                est.check_staged()
         if agg is not None:         # the perturbed shaders draw MC noise
             self._check_device(meshes.device)
         if seeds is None:
@@ -216,8 +216,9 @@ class MeshRenderer(nn.Module):
         over the RGB channels: ``l2_rgb`` = mean squared error (the pose
         loop's loss), ``l1_rgb`` = mean absolute error.  On the fused
         routes the loss and every gradient come from one launch of K2 (or
-        K7), so ``loss.backward()`` launches nothing more; elsewhere the
-        render is reduced as the reference does.  The target is a
+        K7), so ``loss.backward()`` launches nothing more; elsewhere, the
+        sample-sharded routes included, the render is reduced as the
+        reference does.  The target is a
         constant: it gets no gradient.  ``seeds``, ``generator`` and kwargs
         as for :meth:`forward`."""
         if loss_kind not in fused_render.LOSS_KINDS:
@@ -228,11 +229,13 @@ class MeshRenderer(nn.Module):
             cfg, (cameras, lights, materials, sr, sa, blend, settings), \
                 shade = fused
             self._check_device(meshes.device)
-            return fused_render.try_render_loss(
+            loss = fused_render.try_render_loss(
                 cfg, meshes, cameras, lights, materials, sr, sa, blend,
                 settings, shade, target, loss_kind, seeds=seeds,
                 generator=generator,
                 blur_override=self.rasterizer.blur_override)
+            if loss is not None:
+                return loss
         images = self(meshes, seeds=seeds, generator=generator, **kwargs)
         diff = images[..., :3] - torch.as_tensor(
             target, dtype=torch.float32, device=images.device).detach()

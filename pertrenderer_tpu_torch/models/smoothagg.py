@@ -18,7 +18,8 @@ preamble (``_z_map``):
 The MC members (GaussianAgg, GaussianAgg_wovr, CauchyAgg and the
 forward-only UniformAgg, whose log-prob scaling is the plain product)
 take the perturbed argmax of the z_map (kernels K8b / K8c), keyed by the
-(N, 2) int32 aggregation seed words.
+(N, 2) int32 aggregation seed words, and split their samples over the
+mesh axis ``sample_axis`` names (``parallel.sharding``), if any.
 """
 
 from __future__ import annotations
@@ -78,14 +79,6 @@ class _Agg:
 
     def update_nb_samples(self, nb_samples):
         return dataclasses.replace(self, nb_samples=int(nb_samples))
-
-    def check_staged(self):
-        """Raise NotImplementedError, before any work is done, where the
-        staged route cannot run this estimator: a sharded sample axis."""
-        if getattr(self, "sample_axis", None):
-            raise NotImplementedError(
-                "sharded route is not ported to PyTorch yet: the estimator "
-                f"shards its samples over {self.sample_axis!r}")
 
 
 @dataclasses.dataclass

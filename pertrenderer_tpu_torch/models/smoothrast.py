@@ -9,8 +9,9 @@ estimators on the flat and stream routes; ``rasterize(dists, seeds)`` is
 the staged route's coverage map: the deterministic members' closed forms
 (SoftRast, AffineRast, HardRast) and the MC members' perturbed Heaviside
 (kernel K8a), keyed by the (N, 2) int32 rasterization seed words.
-``sample_axis`` names the sample-sharded route, which the port does not
-run yet.
+``sample_axis`` names the mesh axis over which the MC members split their
+samples (``parallel.sharding``): each rank draws its own slice of one
+sample sequence and the sample group averages the means.
 """
 
 from __future__ import annotations
@@ -56,14 +57,6 @@ class _Rast:
                                    self.nb_samples, self.noise_type,
                                    self.variance_reduction,
                                    getattr(self, "sample_axis", None))
-
-    def check_staged(self):
-        """Raise NotImplementedError, before any work is done, where the
-        staged route cannot run this estimator: a sharded sample axis."""
-        if getattr(self, "sample_axis", None):
-            raise NotImplementedError(
-                "sharded route is not ported to PyTorch yet: the estimator "
-                f"shards its samples over {self.sample_axis!r}")
 
     def _sigma(self, like: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(self.sigma, dtype=torch.float32,

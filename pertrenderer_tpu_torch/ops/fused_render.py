@@ -1,7 +1,7 @@
-"""Fused render with its gradients (PyTorch port of the flat and stream
-routes of ``pertrenderer_tpu/ops/fused_render.py``).
+"""Fused render with its gradients (PyTorch port of the flat, stream and
+sample-sharded routes of ``pertrenderer_tpu/ops/fused_render.py``).
 
-Seven kernels, each with a plain PyTorch version beside it:
+Ten kernels, each with a plain PyTorch version beside it:
 
 * K1 ``prng_probe`` (csrc/prng_probe.cu) — the counter-hash PRNG probe,
   pinned against ``tests/goldens/prng_goldens.npz``;
@@ -16,7 +16,15 @@ Seven kernels, each with a plain PyTorch version beside it:
   each tile walking the chunks its list names — K5 ``fused_stream_forward``
   (csrc/stream_forward.cu), K6 ``fused_stream_backward``
   (csrc/stream_backward.cu) and K7 ``fused_stream_loss_grad``
-  (csrc/stream_loss_grad.cu), sharing csrc/stream_grad.cuh.
+  (csrc/stream_loss_grad.cu), sharing csrc/stream_grad.cuh;
+* sample-sharded flat route (estimators with a ``sample_axis``; each rank
+  of a sample group draws its own slice of one sample sequence): K11a
+  ``fused_prob`` — this shard's coverage mean; K3 with external coverage
+  (``fused_forward(..., prob=)``, which also returns the weights); K11b
+  ``fused_agg_bwd`` — the aggregation's backward on this shard's samples;
+  K11c ``fused_det_bwd`` — K4 given the group's coverage, weights and
+  g_zmap (csrc/sharded.cu).  ``_FusedSharded`` averages over the group
+  (``parallel.sharding.axis_mean``) where the JAX package ``pmean``s.
 
 A wrapper takes its plain version only for tensors on the CPU.  For a CUDA
 tensor it launches its kernel or raises; there is no fallback.
@@ -47,8 +55,8 @@ and kernel wrappers are ``ops/binned.py``.  Where the JAX package's
 ``_plan`` declines (an estimator pair outside the fused menu, an image
 above 2048 pixels, a texture or light the kernels do not take), ``_plan``
 returns no configuration and the reason, and ``MeshRenderer`` takes the
-staged route.  The sharded route raises ``NotImplementedError`` naming
-the route.
+staged route.  Under sample-axis sharding the stream route shards only
+the aggregation samples (K5 / K6 unchanged, ``_FusedStreamSharded``).
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ import numpy as np
 import torch
 
 from pertrenderer_tpu_torch.ops.gather import take_rows_batched
+from pertrenderer_tpu_torch.parallel import sharding
 from pertrenderer_tpu_torch.ops.perturbed import log_corrected, prod_corrected
 from pertrenderer_tpu_torch.ops.rasterize import _face_pixel_geometry, _max
 
@@ -72,7 +81,10 @@ __all__ = ["FusedConfig", "RenderPlan", "render_plan", "try_render",
            "fused_stream_forward", "stream_forward_plain",
            "fused_stream_backward", "stream_backward_plain",
            "fused_stream_loss_grad", "stream_loss_grad_plain",
-           "draw_seeds", "launch_counts", "MAX_SLOTS", "LOSS_KINDS"]
+           "fused_prob", "prob_plain", "fused_agg_bwd", "agg_bwd_plain",
+           "fused_det_bwd", "det_bwd_plain", "shard_seeds", "sample_offset",
+           "draw_seeds",
+           "launch_counts", "MAX_SLOTS", "LOSS_KINDS"]
 
 MAX_SLOTS = 256          # flat-mode face budget (F_pad <= MAX_SLOTS)
 _CAUCHY_CLAMP = 1e7
@@ -109,7 +121,9 @@ launch_counts = {"prng_probe": 0, "fused_forward": 0, "fused_backward": 0,
                  "fused_loss_grad": 0, "fused_stream_forward": 0,
                  "fused_stream_backward": 0, "fused_stream_loss_grad": 0,
                  "fused_binned_forward": 0, "fused_binned_backward": 0,
-                 "fused_binned_loss_grad": 0}
+                 "fused_binned_loss_grad": 0, "fused_forward_ext": 0,
+                 "sharded_prob": 0, "sharded_agg_bwd": 0,
+                 "sharded_det_bwd": 0}
 LOSS_KINDS = ("l2_rgb", "l1_rgb")
 
 
@@ -152,6 +166,9 @@ class FusedConfig:
                                # (N, nt, f_pad, .)
     rw: int = 0                # stream: sorted-table rows, F rounded up to
                                # the chunk; also the background noise row
+    prob_ext: bool = False     # sample-axis sharding: flat, the coverage
+                               # mean comes from the sample group (K11a);
+                               # stream, the aggregation samples shard
 
     @property
     def bg_row(self) -> int:
@@ -498,20 +515,27 @@ def _pixel_coords(image_size: int, device):
     return pos.view(1, 1, -1), px.view(1, 1, -1), py.view(1, 1, -1)
 
 
-def _det1(cfg: FusedConfig, px, py, fv_ndc, fv_world, fn, tex, valid, sc):
-    """Geometry + texturing + shading -> (dist, z, c0, c1, c2, maskf), each
-    (N, F_pad, P).  Colors and interpolants are masked where the slot is
-    not a candidate, as the JAX kernel masks them.  ``maskf`` and the
-    shininess carry no gradient (JAX stop-gradients both)."""
-    col = lambda t, i: t[:, :, i:i + 1]
-    coords = [col(fv_ndc, i) for i in range(9)]
+def _candidates(cfg: FusedConfig, px, py, fv_ndc, valid, sc):
+    """det1's geometry -> (w0, w1, w2, z, dist, maskf), each (N, F_pad, P):
+    the final barycentrics, depth, signed squared edge distance and the
+    candidacy mask (no gradient)."""
+    coords = [fv_ndc[:, :, i:i + 1] for i in range(9)]
     w0, w1, w2, z, dist, inside, degen = _face_pixel_geometry(
         px, py, *coords, cfg.clip_bary, cfg.perspective_correct)
     # Face validity plus the behind-camera cull.
     zmaxf = torch.maximum(torch.maximum(coords[2], coords[5]), coords[8])
     validb = (valid[:, :, None] > 0.5) & (zmaxf > 0)
     cand = ((inside | (dist <= sc(_S_BLUR))) & ~degen & validb & (z > 0))
-    maskf = cand.to(torch.float32).detach()
+    return w0, w1, w2, z, dist, cand.to(torch.float32).detach()
+
+
+def _det1(cfg: FusedConfig, px, py, fv_ndc, fv_world, fn, tex, valid, sc):
+    """Geometry + texturing + shading -> (dist, z, c0, c1, c2, maskf), each
+    (N, F_pad, P).  Colors and interpolants are masked where the slot is
+    not a candidate, as the JAX kernel masks them.  ``maskf`` and the
+    shininess carry no gradient (JAX stop-gradients both)."""
+    col = lambda t, i: t[:, :, i:i + 1]
+    w0, w1, w2, z, dist, maskf = _candidates(cfg, px, py, fv_ndc, valid, sc)
 
     if cfg.tex_mode == "corner":
         texel = [(w0 * col(tex, c) + w1 * col(tex, 3 + c)
@@ -570,30 +594,40 @@ def _score(noise, noise_type: str):
     return 2.0 * noise / (1.0 + noise * noise)          # cauchy
 
 
+def _mc_rast_pass(cfg: FusedConfig, d, sigma, seeds, pos, row_base=0,
+                  want_coeff=True):
+    """One pass over the coverage samples: (mean of H(d + sigma * Z), the
+    score coefficient mean of (H(d + sigma Z) - vr H(d)) score(Z) / sigma,
+    or None without ``want_coeff``) over a noise block of d's rows (f_pad
+    slots, or a stream chunk keyed from ``row_base``)."""
+    s0, s1 = _seed_words(seeds, 0), _seed_words(seeds, 1)
+    h0 = _heaviside(d) if cfg.rast_vr else torch.zeros_like(d)
+    acc = torch.zeros_like(d)
+    acc_c = torch.zeros_like(d)
+    for s in range(cfg.s_rast):
+        z = _draw_block(cfg.rast_noise, s0, s1, s, d.shape[1], pos, row_base)
+        h = _heaviside(d + sigma * z)
+        acc = acc + h
+        if want_coeff:
+            acc_c = acc_c + (h - h0) * _score(z, cfg.rast_noise)
+    coeff = acc_c / (cfg.s_rast * sigma) if want_coeff else None
+    return acc * (1.0 / cfg.s_rast), coeff
+
+
 class _MCRast(torch.autograd.Function):
-    """MC coverage: mean over samples of H(d + sigma * Z), Z over a noise
-    block of d's rows (f_pad slots, or a stream chunk keyed from
-    ``row_base``).  Backward (``_mc_rast_fwd_coeff`` of the JAX
-    package): grad wrt d is coeff * g, and the sigma grad is sum(coeff * g)
-    over slots and pixels — the reference's overwrite quirk, not the true
-    derivative.  The coefficient shares the forward's noise pass."""
+    """MC coverage: mean over samples of H(d + sigma * Z) (``_mc_rast_pass``).
+    Backward (``_mc_rast_fwd_coeff`` of the JAX package): grad wrt d is
+    coeff * g, and the sigma grad is sum(coeff * g) over slots and pixels —
+    the reference's overwrite quirk, not the true derivative.  The
+    coefficient shares the forward's noise pass."""
 
     @staticmethod
     def forward(ctx, cfg, d, sigma, seeds, pos, row_base=0):
-        s0, s1 = _seed_words(seeds, 0), _seed_words(seeds, 1)
         want = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
-        h0 = _heaviside(d) if cfg.rast_vr else torch.zeros_like(d)
-        acc = torch.zeros_like(d)
-        acc_c = torch.zeros_like(d)
-        for s in range(cfg.s_rast):
-            z = _draw_block(cfg.rast_noise, s0, s1, s, d.shape[1], pos,
-                            row_base)
-            h = _heaviside(d + sigma * z)
-            acc = acc + h
-            if want:
-                acc_c = acc_c + (h - h0) * _score(z, cfg.rast_noise)
-        ctx.save_for_backward(acc_c / (cfg.s_rast * sigma))
-        return acc * (1.0 / cfg.s_rast)
+        mean, coeff = _mc_rast_pass(cfg, d, sigma, seeds, pos, row_base,
+                                    want)
+        ctx.save_for_backward(coeff if want else torch.zeros_like(d))
+        return mean
 
     @staticmethod
     def backward(ctx, g):
@@ -674,26 +708,34 @@ class _MCAgg(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_w):
-        cfg = ctx.cfg
         zmap, gamma, seeds, pos = ctx.saved_tensors
-        s0, s1 = _seed_words(seeds, 2), _seed_words(seeds, 3)
-        rows = torch.arange(cfg.c_zpad, device=zmap.device).view(1, -1, 1)
-        cmask = (rows <= cfg.bg_row).to(torch.float32)
-        phi_comp = float(cfg.k - cfg.bg_row)
-        w0 = _first_onehot(zmap) if cfg.agg_vr else torch.zeros_like(zmap)
-        acc_z = torch.zeros_like(zmap)
-        acc_g = torch.zeros_like(zmap[:, :1])
-        for s in range(cfg.s_agg):
-            n = _draw_block(cfg.agg_noise, s0, s1, s, cfg.c_zpad, pos) * cmask
-            diff = (_onehot_ge(zmap + gamma * n) - w0) * cmask
-            dot = torch.sum(g_w * diff, dim=1, keepdim=True)
-            score = _score(n, cfg.agg_noise)
-            acc_z = acc_z + dot * score
-            phi = torch.sum(score * n * cmask, dim=1, keepdim=True) + phi_comp
-            acc_g = acc_g + dot * (phi - 1.0)
-        g_zmap = acc_z / (cfg.s_agg * gamma)
-        g_gamma = torch.sum(acc_g / (cfg.s_agg * gamma), dim=2, keepdim=True)
+        g_zmap, g_gamma = _mc_agg_grads(ctx.cfg, zmap, gamma, seeds, pos, g_w)
         return None, g_zmap, g_gamma, None, None
+
+
+def _mc_agg_grads(cfg: FusedConfig, zmap, gamma, seeds, pos, g_w):
+    """The MC aggregation's backward (``_mc_agg_grads`` of the JAX
+    package) for the weights' cotangent ``g_w``, replaying the forward's
+    noise: (g_zmap like zmap, the gamma gradient summed over the pixels
+    (N, 1, 1))."""
+    s0, s1 = _seed_words(seeds, 2), _seed_words(seeds, 3)
+    rows = torch.arange(cfg.c_zpad, device=zmap.device).view(1, -1, 1)
+    cmask = (rows <= cfg.bg_row).to(torch.float32)
+    phi_comp = float(cfg.k - cfg.bg_row)
+    w0 = _first_onehot(zmap) if cfg.agg_vr else torch.zeros_like(zmap)
+    acc_z = torch.zeros_like(zmap)
+    acc_g = torch.zeros_like(zmap[:, :1])
+    for s in range(cfg.s_agg):
+        n = _draw_block(cfg.agg_noise, s0, s1, s, cfg.c_zpad, pos) * cmask
+        diff = (_onehot_ge(zmap + gamma * n) - w0) * cmask
+        dot = torch.sum(g_w * diff, dim=1, keepdim=True)
+        score = _score(n, cfg.agg_noise)
+        acc_z = acc_z + dot * score
+        phi = torch.sum(score * n * cmask, dim=1, keepdim=True) + phi_comp
+        acc_g = acc_g + dot * (phi - 1.0)
+    g_zmap = acc_z / (cfg.s_agg * gamma)
+    g_gamma = torch.sum(acc_g / (cfg.s_agg * gamma), dim=2, keepdim=True)
+    return g_zmap, g_gamma
 
 
 def _weights(cfg: FusedConfig, zmap, sc, seeds, pos):
@@ -709,47 +751,75 @@ def _weights(cfg: FusedConfig, zmap, sc, seeds, pos):
 
 
 def _render_cm(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-               seeds, active) -> torch.Tensor:
-    """The plain pipeline: (N, 4, P) channel-major RGBA.  Pixels of
-    inactive tiles give the background image, so their only gradient is
-    the background colour's (the JAX kernels' ``bg_only``)."""
+               seeds, active, prob_ext=None):
+    """The plain pipeline: (N, 4, P) channel-major RGBA (with ``prob_ext``,
+    and the weights: ``_render_block``).  Pixels of inactive tiles give
+    the background image, so their only gradient is the background
+    colour's (the JAX kernels' ``bg_only``)."""
     pos, px, py = _pixel_coords(cfg.image_size, fv_ndc.device)
     return _render_block(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                         pos, px, py, _pixel_active(cfg, active))
+                         pos, px, py, _pixel_active(cfg, active),
+                         prob_ext=prob_ext)
+
+
+def _scalar_reader(scal, n: int):
+    """sc(i): scalar column i of (N, 34) scalars as (N, 1, 1), or of one
+    copy per pixel (N, 34, P) as (N, 1, P)."""
+    if scal.dim() == 2:
+        return lambda i: scal[:, i].view(n, 1, 1)
+    return lambda i: scal[:, i:i + 1]
+
+
+def _blend(cfg: FusedConfig, weights, prob, c0, c1, c2, sca, dtype):
+    """det3: (N, 4, P) RGBA, the weighted colours plus the background
+    (rounded to ``dtype``) and alpha = 1 - prod(1 - prob).  In the
+    compacted layout the background row lies inside [:f_pad] but its
+    colors are 0, so the slot sum is unaffected."""
+    wz = weights[:, :cfg.f_pad]
+    wb = weights[:, cfg.bg_row:cfg.bg_row + 1]
+    rgb = [(torch.sum(wz * cc, dim=1, keepdim=True) + wb * sca(_S_BG + c))
+           .to(dtype) for c, cc in enumerate((c0, c1, c2))]
+    ap = torch.ones_like(prob[:, :1])
+    for i in range(cfg.f_pad):
+        ap = ap * (1.0 - prob[:, i:i + 1])
+    return torch.cat(rgb + [1.0 - ap], dim=1)
+
+
+def _bg_weights(cfg: FusedConfig, like) -> torch.Tensor:
+    """(1, c_zpad, 1) weights of a tile with no candidate: the background
+    one-hot (the JAX ``_bg_weights``)."""
+    rows = torch.arange(cfg.c_zpad, device=like.device).view(1, -1, 1)
+    return (rows == cfg.bg_row).to(like.dtype)
 
 
 def _render_block(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds, pos, px, py, act, agg_dtype=None) -> torch.Tensor:
+                  seeds, pos, px, py, act, agg_dtype=None, prob_ext=None):
     """The plain pipeline over a block of B face tables (B, F, .) with
     their scalars (B, 34) and seed words (B, 4), at the pixels pos / px /
     py and activity act ((B or 1, 1, P)): (B, 4, P) RGBA.  ``agg_dtype``
     (float64 for the binned gradients, as K12 computes them) runs the
     aggregation and the blend's weighted sum in that type, the RGB
     rounded back to the tables' type.  Scalars (B, 34, P), one copy per
-    pixel, give each pixel's share of the scalar gradients."""
-    n = fv_ndc.shape[0]
-    if scal.dim() == 2:
-        sc = lambda i: scal[:, i].view(n, 1, 1)
-    else:
-        sc = lambda i: scal[:, i:i + 1]
+    pixel, give each pixel's share of the scalar gradients.  ``prob_ext``
+    (B, F_pad, P): the sample group's coverage in place of the drawn one
+    (K3 with external coverage); the aggregation weights (B, c_zpad, P)
+    are then returned beside the image."""
+    sc = _scalar_reader(scal, fv_ndc.shape[0])
     dist, z, c0, c1, c2, maskf = _det1(cfg, px, py, fv_ndc, fv_world, fn,
                                        tex, valid, sc)
-    prob = _coverage(cfg, dist, sc, seeds, pos) * maskf
+    if prob_ext is None:
+        prob = _coverage(cfg, dist, sc, seeds, pos) * maskf
+    else:
+        prob = prob_ext
     dt = agg_dtype or prob.dtype
     sca = lambda i: sc(i).to(dt)
     weights = _weights(cfg, _zmap(cfg, prob.to(dt), z.to(dt), maskf.to(dt),
                                   sca), sca, seeds, pos)
-    # Blend.  In the compacted layout the background row lies inside
-    # [:f_pad] but its colors are 0, so the slot sum is unaffected.
-    wz = weights[:, :cfg.f_pad]
-    wb = weights[:, cfg.bg_row:cfg.bg_row + 1]
-    rgb = [(torch.sum(wz * cc, dim=1, keepdim=True) + wb * sca(_S_BG + c))
-           .to(prob.dtype) for c, cc in enumerate((c0, c1, c2))]
-    ap = torch.ones_like(prob[:, :1])
-    for i in range(cfg.f_pad):
-        ap = ap * (1.0 - prob[:, i:i + 1])
-    out = torch.cat(rgb + [1.0 - ap], dim=1)
-    return torch.where(act, out, _bg_image(scal, out.shape[-1]))
+    out = _blend(cfg, weights, prob, c0, c1, c2, sca, prob.dtype)
+    out = torch.where(act, out, _bg_image(scal, out.shape[-1]))
+    if prob_ext is None:
+        return out
+    return out, torch.where(act, weights, _bg_weights(cfg, weights))
 
 
 def _bg_image(scal, p: int) -> torch.Tensor:
@@ -761,18 +831,22 @@ def _bg_image(scal, p: int) -> torch.Tensor:
 
 
 def forward_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds, active) -> torch.Tensor:
+                  seeds, active, prob=None):
     """Plain version of K3 on any device: (N, H, W, 4) RGBA.
 
     fv_ndc / fv_world / fn: (N, F_pad, 9); tex: (N, F_pad, tex_d); valid:
     (N, F_pad); scal: (N, 34); seeds: (N, 4) int32 [rast0, rast1, agg0,
     agg1]; active: the tiles' (N, nt) int32 activity bits
     (``_active_tiles``).  :func:`_prepare_inputs` returns them in this
-    order."""
-    out = _render_cm(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                     active)
+    order.  With external coverage (``prob`` (N, F_pad, H * W), the sample
+    group's mean of K11a; the JAX ``_pallas_forward(..., prob=)``):
+    returns (RGBA, the weights (N, c_zpad, H * W))."""
+    res = _render_cm(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                     active, prob)
+    out = res if prob is None else res[0]
     s = cfg.image_size
-    return out.transpose(1, 2).reshape(out.shape[0], s, s, 4)
+    img = out.transpose(1, 2).reshape(out.shape[0], s, s, 4)
+    return img if prob is None else (img, res[1])
 
 
 def _grad_leaves(fv_ndc, fv_world, fn, tex, scal):
@@ -820,6 +894,114 @@ def loss_grad_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
         out = _render_cm(cfg, *leaves[:4], valid, leaves[4], seeds, active)
         loss = _image_loss(loss_kind, out[:, :3], target, lscale)
         return (loss.detach(), *_grads(loss.sum(), leaves))
+
+
+# ---------------------------------------------------------------------------
+# Sample-sharded flat route, plain versions (the reference of K11a, K11b
+# and K11c; K3 with external coverage is ``forward_plain(..., prob=)``).
+# Each rank of a sample group draws its own slice of one sample sequence
+# (``shard_seeds``); the render splits where the group averages per-rank
+# sample means: the coverage before the nonlinear z_map, the image and
+# the weights after the blend, g_zmap after the aggregation's backward
+# and the gradients at the end.  Layout: channel-major (N, rows, H * W).
+# ---------------------------------------------------------------------------
+
+def _image_cm(x) -> torch.Tensor:
+    """(N, H, W, C) -> channel-major (N, C, H * W)."""
+    return x.reshape(x.shape[0], -1, x.shape[-1]).transpose(1, 2)
+
+
+def _blend_cotangent(cfg: FusedConfig, c0, c1, c2, g_rgb, sc):
+    """The blend's weight cotangent laid out like z_map (the JAX
+    ``_build_g_w``): <slot colours, g_rgb> per slot row, <background,
+    g_rgb> in bg_row, zero padding.  g_rgb (N, 3, P)."""
+    g = [g_rgb[:, c:c + 1] for c in range(3)]
+    slots = c0 * g[0] + c1 * g[1] + c2 * g[2]
+    bg = sc(_S_BG) * g[0] + sc(_S_BG + 1) * g[1] + sc(_S_BG + 2) * g[2]
+    if cfg.bg_row < cfg.f_pad:
+        ridx = torch.arange(cfg.f_pad, device=slots.device).view(1, -1, 1)
+        return torch.where(ridx == cfg.bg_row, bg, slots)
+    pad = torch.zeros_like(slots[:, :1]).expand(
+        -1, cfg.c_zpad - cfg.f_pad - 1, -1)
+    return torch.cat([slots, bg, pad], dim=1)
+
+
+def prob_plain(cfg: FusedConfig, fv_ndc, valid, scal, seeds,
+               active) -> torch.Tensor:
+    """Plain version of K11a (the JAX ``_pallas_prob``): this shard's
+    coverage mean (N, F_pad, H * W) over its coverage samples (seed words
+    as ``shard_seeds`` offsets them), masked to the candidates, zero on
+    inactive tiles."""
+    pos, px, py = _pixel_coords(cfg.image_size, fv_ndc.device)
+    sc = _scalar_reader(scal, fv_ndc.shape[0])
+    *_w, dist, maskf = _candidates(cfg, px, py, fv_ndc, valid, sc)
+    prob = _coverage(cfg, dist, sc, seeds, pos) * maskf
+    return torch.where(_pixel_active(cfg, active), prob,
+                       torch.zeros_like(prob))
+
+
+def agg_bwd_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                  seeds, active, prob, g_out):
+    """Plain version of K11b (the JAX ``_pallas_agg_bwd``): the MC
+    aggregation's backward on this shard's aggregation samples, given the
+    group's coverage ``prob`` (N, F_pad, H * W) and the output cotangent
+    ``g_out`` (N, H, W, 4).  Returns (g_zmap (N, c_zpad, H * W), the gamma
+    term (N,)); an inactive tile gives zeros."""
+    n = fv_ndc.shape[0]
+    pos, px, py = _pixel_coords(cfg.image_size, fv_ndc.device)
+    sc = _scalar_reader(scal, n)
+    _dist, z, c0, c1, c2, maskf = _det1(cfg, px, py, fv_ndc, fv_world, fn,
+                                        tex, valid, sc)
+    zmap = _zmap(cfg, prob, z, maskf, sc)
+    g_rgb = torch.where(_pixel_active(cfg, active), _image_cm(g_out)[:, :3],
+                        0.0)
+    g_zmap, g_gamma = _mc_agg_grads(
+        cfg, zmap, sc(_S_GAMMA), seeds, pos,
+        _blend_cotangent(cfg, c0, c1, c2, g_rgb, sc))
+    return g_zmap, g_gamma.view(n)
+
+
+def det_bwd_plain(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                  seeds, active, prob, weights, g_zmap, g_out):
+    """Plain version of K11c (the JAX ``_pallas_det_bwd``): the gradients
+    given the group's coverage ``prob`` (N, F_pad, H * W), weights and
+    g_zmap (N, c_zpad, H * W) and the output cotangent ``g_out`` (N, H, W,
+    4).  det1's adjoint, det2's VJP (g_zmap) and det3's (the blend with
+    the weights held), with the coverage's score coefficient on this
+    shard's coverage samples; an inactive tile gives only the background
+    colour's gradient.  Returns (g_ndc, g_world, g_fn, g_tex, g_scal)
+    shaped like the inputs; the aggregation's own gamma term is
+    K11b's."""
+    n = fv_ndc.shape[0]
+    pos, px, py = _pixel_coords(cfg.image_size, fv_ndc.device)
+    act = _pixel_active(cfg, active)
+    g_cm = _image_cm(g_out)
+    g_in = torch.where(act, g_cm, 0.0)
+    g_z = torch.where(act, g_zmap, 0.0)
+    with torch.enable_grad():
+        leaves = _grad_leaves(fv_ndc, fv_world, fn, tex, scal)
+        sc = _scalar_reader(leaves[4], n)
+        dist, z, c0, c1, c2, maskf = _det1(cfg, px, py, *leaves[:4], valid,
+                                           sc)
+        prob_l = prob.detach().requires_grad_()
+        zmap = _zmap(cfg, prob_l, z, maskf, sc)
+        out = _blend(cfg, weights, prob_l, c0, c1, c2, sc, prob.dtype)
+        (g_prob,) = torch.autograd.grad([out, zmap], [prob_l], [g_in, g_z],
+                                        retain_graph=True)
+        sigma = sc(_S_SIGMA)
+        coeff = _mc_rast_pass(cfg, -dist.detach(), sigma.detach(), seeds,
+                              pos)[1]
+        g_d = (coeff * (g_prob * maskf)).detach()
+        # The coverage's VJP: d dist = -g_d, d sigma = sum(g_d) (the
+        # reference's quirk); an inactive tile's background gradient.
+        bg = sum(torch.sum(torch.where(act, 0.0, g_cm[:, c:c + 1])
+                           * sc(_S_BG + c)) for c in range(3))
+        extra = torch.sum(g_d * (sigma - dist)) + bg
+        grads = torch.autograd.grad([out, zmap, extra], leaves,
+                                    [g_in, g_z, torch.ones_like(extra)],
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads))
 
 
 # ---------------------------------------------------------------------------
@@ -1348,40 +1530,82 @@ def _tiling_args(cfg: FusedConfig):
     return (_n_tiles(cfg), cfg.p_tile, cfg.tile_w)
 
 
+def _check_sharded(cfg: FusedConfig, kernel: str):
+    """Raise unless ``cfg`` is the sample-sharded flat route: an MC / MC
+    pair with the coverage from the sample group (``cfg.prob_ext``)."""
+    if (not cfg.prob_ext or cfg.stream or cfg.binned
+            or cfg.rast_kind != "mc" or cfg.agg_kind != "mc"):
+        raise ValueError(f"{kernel}: the sharded kernels take the flat "
+                         "route's MC / MC pairs under sample-axis sharding "
+                         f"(prob_ext {cfg.prob_ext}, stream {cfg.stream}, "
+                         f"binned {cfg.binned}, rast {cfg.rast_kind}, agg "
+                         f"{cfg.agg_kind})")
+
+
+def _pixel_rows(cfg: FusedConfig, n: int, rows: int):
+    """The shape of a channel-major (N, rows, H * W) field."""
+    return (n, rows, cfg.image_size * cfg.image_size)
+
+
 def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
-                  seeds, active) -> torch.Tensor:
+                  seeds, active, prob=None):
     """K3: the flat fused forward (replaces ``_forward_kernel`` of
     ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
-    :func:`forward_plain`; returns (N, H, W, 4) float32 RGBA."""
+    :func:`forward_plain`; returns (N, H, W, 4) float32 RGBA.  With
+    external coverage (``cfg.prob_ext``, the sharded route): ``prob`` (N,
+    F_pad, H * W) is read in place of the drawn coverage, and the result
+    is (RGBA, the weights (N, c_zpad, H * W))."""
     dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
                         active)
+    n, s = fv_ndc.shape[0], cfg.image_size
+    if cfg.prob_ext:
+        _check_sharded(cfg, "fused_forward")
+        if prob is None:
+            raise ValueError("fused_forward: the sharded route's K3 takes "
+                             "the sample group's coverage prob")
+        _check("fused_forward", fv_ndc, {
+            "prob": (prob, _pixel_rows(cfg, n, cfg.f_pad), torch.float32)})
+    elif prob is not None:
+        raise ValueError("fused_forward: prob is the sharded route's input "
+                         "(cfg.prob_ext)")
     if dev.type == "cpu":
         return forward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                             seeds, active)
+                             seeds, active, prob)
     from pertrenderer_tpu_torch import _build
 
     lib = _build.library()
-    n, s = fv_ndc.shape[0], cfg.image_size
     out = torch.empty((n, s, s, 4), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tables = [t.data_ptr() for t in (fv_ndc, fv_world, fn, tex, valid, scal,
+                                     seeds, out)]
+    if cfg.prob_ext:
+        weights = torch.empty(_pixel_rows(cfg, n, cfg.c_zpad),
+                              dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.pt_fused_forward_ext(
+                *tables, prob.data_ptr(), weights.data_ptr(), n,
+                *_cfg_args(cfg), active.data_ptr(), *_tiling_args(cfg),
+                stream)
+        _build.check(err, "fused_forward (external coverage)")
+        launch_counts["fused_forward_ext"] += 1
+        return out, weights
     with torch.cuda.device(dev):
-        err = lib.pt_fused_forward(
-            fv_ndc.data_ptr(), fv_world.data_ptr(), fn.data_ptr(),
-            tex.data_ptr(), valid.data_ptr(), scal.data_ptr(),
-            seeds.data_ptr(), out.data_ptr(), n, *_cfg_args(cfg),
-            active.data_ptr(), *_tiling_args(cfg), stream)
+        err = lib.pt_fused_forward(*tables, n, *_cfg_args(cfg),
+                                   active.data_ptr(), *_tiling_args(cfg),
+                                   stream)
     _build.check(err, "fused_forward")
     launch_counts["fused_forward"] += 1
     return out
 
 
 def _launch_grads(kernel: str, cfg: FusedConfig, tables, active, extra,
-                  loss_id: int, lscale: float):
-    """Launch K4 (``extra`` = g_out) or K2 (``extra`` = target, loss kind
-    ``LOSS_KINDS[loss_id]``) and return (loss (N,), g_ndc, g_world, g_fn,
-    g_tex, g_scal).  Each warp of the kernel sums its pixels into its own
-    row of ``partial``; a second pass adds the rows in a fixed order, so
-    the gradients are the same bits from run to run."""
+                  loss_args=()):
+    """Launch K4 (``extra`` = (g_out,)), K2 (``extra`` = (target,),
+    ``loss_args`` = (loss id, scale)) or K11c (``extra`` = (g_out, prob,
+    weights, g_zmap)) and return (loss (N,), g_ndc, g_world, g_fn, g_tex,
+    g_scal).  Each warp of the kernel sums its pixels into its own row of
+    ``partial``; a second pass adds the rows in a fixed order, so the
+    gradients are the same bits from run to run."""
     from pertrenderer_tpu_torch import _build
 
     fv_ndc = tables[0]
@@ -1393,15 +1617,16 @@ def _launch_grads(kernel: str, cfg: FusedConfig, tables, active, extra,
     warps = lib.pt_grad_partial_warps(n, cfg.image_size, f, cfg.tex_d)
     partial = new(n, warps, lib.pt_grad_partial_width(f, cfg.tex_d))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fn_c = (lib.pt_fused_backward if kernel == "fused_backward"
-            else lib.pt_fused_loss_grad)
+    fn_c = {"fused_backward": lib.pt_fused_backward,
+            "fused_loss_grad": lib.pt_fused_loss_grad,
+            "sharded_det_bwd": lib.pt_sharded_det_bwd}[kernel]
     with torch.cuda.device(dev):
-        err = fn_c(*(t.data_ptr() for t in tables), extra.data_ptr(),
+        err = fn_c(*(t.data_ptr() for t in tables + tuple(extra)),
                    partial.data_ptr(), warps, g_ndc.data_ptr(),
                    g_world.data_ptr(), g_fn.data_ptr(), g_tex.data_ptr(),
                    g_scal.data_ptr(), loss.data_ptr(), n, *_cfg_args(cfg),
-                   loss_id, ctypes.c_float(lscale), active.data_ptr(),
-                   *_tiling_args(cfg), stream)
+                   *loss_args, active.data_ptr(), *_tiling_args(cfg),
+                   stream)
     _build.check(err, kernel)
     launch_counts[kernel] += 1
     return loss, g_ndc, g_world, g_fn, g_tex, g_scal
@@ -1422,8 +1647,8 @@ def fused_backward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
         return backward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
                               seeds, active, g_out)
     tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
-    return _launch_grads("fused_backward", cfg, tables, active, g_out, 0,
-                         0.0)[1:]
+    return _launch_grads("fused_backward", cfg, tables, active, (g_out,),
+                         (0, ctypes.c_float(0.0)))[1:]
 
 
 def fused_loss_grad(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
@@ -1445,8 +1670,112 @@ def fused_loss_grad(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
         return loss_grad_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
                                seeds, active, target, loss_kind, lscale)
     tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
-    return _launch_grads("fused_loss_grad", cfg, tables, active, target,
-                         LOSS_KINDS.index(loss_kind), lscale)
+    return _launch_grads("fused_loss_grad", cfg, tables, active, (target,),
+                         (LOSS_KINDS.index(loss_kind),
+                          ctypes.c_float(lscale)))
+
+
+def fused_prob(cfg: FusedConfig, fv_ndc, valid, scal, seeds,
+               active) -> torch.Tensor:
+    """K11a: this shard's coverage mean (replaces ``_prob_kernel`` of
+    ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
+    :func:`prob_plain`; returns (N, F_pad, H * W) float32."""
+    _check_sharded(cfg, "sharded_prob")
+    n, f = fv_ndc.shape[0], cfg.f_pad
+    _check("sharded_prob", fv_ndc, {
+        "active": (active, (n, _n_tiles(cfg)), torch.int32),
+        "fv_ndc": (fv_ndc, (n, f, 9), torch.float32),
+        "valid": (valid, (n, f), torch.float32),
+        "scal": (scal, (n, _NS), torch.float32),
+        "seeds": (seeds, (n, 4), torch.int32)})
+    if f > MAX_SLOTS or f % 8 or cfg.f_real > f:
+        raise ValueError(f"sharded_prob: f_pad={f}, f_real={cfg.f_real}")
+    dev = fv_ndc.device
+    if dev.type == "cpu":
+        return prob_plain(cfg, fv_ndc, valid, scal, seeds, active)
+    if dev.type != "cuda":
+        raise ValueError(f"sharded_prob: unsupported device {dev}")
+    from pertrenderer_tpu_torch import _build
+
+    lib = _build.library()
+    prob = torch.empty(_pixel_rows(cfg, n, f), dtype=torch.float32,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.pt_sharded_prob(
+            fv_ndc.data_ptr(), valid.data_ptr(), scal.data_ptr(),
+            seeds.data_ptr(), prob.data_ptr(), n, *_cfg_args(cfg),
+            active.data_ptr(), *_tiling_args(cfg), stream)
+    _build.check(err, "sharded_prob")
+    launch_counts["sharded_prob"] += 1
+    return prob
+
+
+def _check_fields(kernel: str, cfg: FusedConfig, fv_ndc, fields: dict):
+    """_check for the channel-major fields ({name: (tensor, rows)}) and
+    g_out (N, H, W, 4)."""
+    n, s = fv_ndc.shape[0], cfg.image_size
+    want = {k: (t, _pixel_rows(cfg, n, r), torch.float32)
+            for k, (t, r) in fields.items() if k != "g_out"}
+    want["g_out"] = (fields["g_out"][0], (n, s, s, 4), torch.float32)
+    _check(kernel, fv_ndc, want)
+
+
+def fused_agg_bwd(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                  seeds, active, prob, g_out):
+    """K11b: the MC aggregation's backward on this shard's aggregation
+    samples (replaces ``_agg_bwd_kernel`` of
+    ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
+    :func:`agg_bwd_plain`; returns (g_zmap (N, c_zpad, H * W), the gamma
+    term (N,)).  The kernel sums the gamma term per warp into ``partial``
+    and a second pass adds the warps in order."""
+    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                        active, "sharded_agg_bwd")
+    _check_sharded(cfg, "sharded_agg_bwd")
+    _check_fields("sharded_agg_bwd", cfg, fv_ndc, {
+        "prob": (prob, cfg.f_pad), "g_out": (g_out, 4)})
+    if dev.type == "cpu":
+        return agg_bwd_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
+                             seeds, active, prob, g_out)
+    from pertrenderer_tpu_torch import _build
+
+    lib = _build.library()
+    n, hw = fv_ndc.shape[0], cfg.image_size * cfg.image_size
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    warps = -(-hw // 128) * 4
+    g_zmap, partial, g_gamma = (new(*_pixel_rows(cfg, n, cfg.c_zpad)),
+                                new(n, warps), new(n))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.pt_sharded_agg_bwd(
+            *(t.data_ptr() for t in (fv_ndc, fv_world, fn, tex, valid, scal,
+                                     seeds, prob, g_out, g_zmap, partial)),
+            warps, g_gamma.data_ptr(), n, *_cfg_args(cfg), active.data_ptr(),
+            *_tiling_args(cfg), stream)
+    _build.check(err, "sharded_agg_bwd")
+    launch_counts["sharded_agg_bwd"] += 1
+    return g_zmap, g_gamma
+
+
+def fused_det_bwd(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                  seeds, active, prob, weights, g_zmap, g_out):
+    """K11c: the gradients given the sample group's coverage, weights and
+    g_zmap (replaces ``_det_bwd_kernel`` of
+    ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
+    :func:`det_bwd_plain`; returns (g_ndc, g_world, g_fn, g_tex, g_scal)
+    through K4's per-warp partials and fixed-order reduction."""
+    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                        active, "sharded_det_bwd")
+    _check_sharded(cfg, "sharded_det_bwd")
+    _check_fields("sharded_det_bwd", cfg, fv_ndc, {
+        "prob": (prob, cfg.f_pad), "weights": (weights, cfg.c_zpad),
+        "g_zmap": (g_zmap, cfg.c_zpad), "g_out": (g_out, 4)})
+    if dev.type == "cpu":
+        return det_bwd_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
+                             seeds, active, prob, weights, g_zmap, g_out)
+    tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds)
+    return _launch_grads("sharded_det_bwd", cfg, tables, active,
+                         (g_out, prob, weights, g_zmap))[1:]
 
 
 def _kernels(cfg: FusedConfig):
@@ -1501,6 +1830,43 @@ class _FusedLoss(torch.autograd.Function):
         g_ndc, g_world, g_fn, g_tex, g_scal = ctx.saved_tensors
         return (None, None, None, g * g_ndc, g * g_world, g * g_fn,
                 g * g_tex, None, g * g_scal, None, None, None)
+
+
+class _FusedSharded(torch.autograd.Function):
+    """Autograd boundary of the sample-sharded flat route (the JAX
+    ``_fused_core_sharded``): each rank of the sample group ``axis`` draws
+    its own samples, and the group averages (``sharding.axis_mean``, the
+    JAX ``pmean``) K11a's coverage before the nonlinear z_map, K3's image
+    and weights, K11b's g_zmap and gamma term, and K11c's gradients.  Every
+    average is of per-rank sample means, so the result is the folded run
+    over the group's samples, up to the order of float sums."""
+
+    @staticmethod
+    def forward(ctx, cfg, axis, fv_ndc, fv_world, fn, tex, valid, scal,
+                seeds, active):
+        tables = (fv_ndc, fv_world, fn, tex, valid, scal, seeds, active)
+        prob = sharding.axis_mean(
+            fused_prob(cfg, fv_ndc, valid, scal, seeds, active), axis)
+        out, weights = sharding.axis_mean(
+            list(fused_forward(cfg, *tables, prob=prob)), axis)
+        ctx.cfg, ctx.axis = cfg, axis
+        ctx.save_for_backward(*tables, prob, weights)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg, axis = ctx.cfg, ctx.axis
+        *tables, prob, weights = ctx.saved_tensors
+        g = g.contiguous()
+        g_zmap, g_gamma = sharding.axis_mean(
+            list(fused_agg_bwd(cfg, *tables, prob, g)), axis)
+        g_ndc, g_world, g_fn, g_tex, g_scal = sharding.axis_mean(
+            list(fused_det_bwd(cfg, *tables, prob, weights, g_zmap, g)),
+            axis)
+        cols = torch.arange(_NS, device=g_scal.device)
+        g_scal = g_scal + torch.where(cols == _S_GAMMA, g_gamma[:, None], 0.0)
+        return (None, None, g_ndc, g_world, g_fn, g_tex, None, g_scal, None,
+                None)
 
 
 # ---------------------------------------------------------------------------
@@ -1707,6 +2073,29 @@ class _FusedStreamLoss(torch.autograd.Function):
                 None, None)
 
 
+class _FusedStreamSharded(torch.autograd.Function):
+    """Autograd boundary of the stream route under sample-axis sharding
+    (the JAX ``_fused_core_stream_sharded``): only the aggregation samples
+    shard (the coverage seeds are the same on every rank), so K5's image
+    and K6's gradients are each linear in per-rank sample means and the
+    group averages them."""
+
+    @staticmethod
+    def forward(ctx, cfg, axis, tab, scal, rows, count, active, seeds):
+        ctx.cfg, ctx.axis = cfg, axis
+        ctx.save_for_backward(tab, scal, rows, count, active, seeds)
+        return sharding.axis_mean(fused_stream_forward(
+            cfg, tab, rows, count, active, scal, seeds), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        tab, scal, rows, count, active, seeds = ctx.saved_tensors
+        g_tab, g_scal = sharding.axis_mean(list(fused_stream_backward(
+            ctx.cfg, tab, rows, count, active, scal, seeds, g.contiguous())),
+            ctx.axis)
+        return None, None, g_tab, g_scal, None, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # Routing + inputs
 # ---------------------------------------------------------------------------
@@ -1731,11 +2120,6 @@ _AGG_MAP = {
 }
 
 
-def _unsupported(route: str, why: str):
-    raise NotImplementedError(
-        f"{route} route is not ported to PyTorch yet: {why}")
-
-
 def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
           ) -> tuple[Optional[FusedConfig], str]:
     """(config, "") with the static configuration of the fused route the
@@ -1743,7 +2127,10 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
     faces_per_pixel) or binned (F > _COARSE_THRESHOLD with
     ``bin_overflow='allow'`` at a binnable size).  Where the JAX ``_plan``
     declines, (None, the reason): the caller takes the staged route.
-    Raises NotImplementedError naming the sharded route."""
+    Estimators with a ``sample_axis`` plan the sharded route
+    (``prob_ext``): flat for MC / MC pairs sharding one axis, stream with
+    the aggregation samples sharded; the JAX package's reasons decline
+    the rest."""
     from pertrenderer_tpu_torch.lights import DirectionalLights, PointLights
     from pertrenderer_tpu_torch.textures import (TexturesAtlas, TexturesUV,
                                                  TexturesVertex)
@@ -1753,9 +2140,20 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
     if rast_entry is None or agg_entry is None:
         return None, ("estimator pair (%s, %s) is not a fused menu member"
                       % (type(smoothrast).__name__, type(smoothagg).__name__))
-    if (getattr(smoothrast, "sample_axis", None)
-            or getattr(smoothagg, "sample_axis", None)):
-        _unsupported("sharded", "the estimators shard the sample axis")
+    # Sample-axis sharding covers the flat MC / MC pairs and the stream
+    # route with an MC aggregation; both estimators shard one axis.  Other
+    # combinations take the staged route, whose estimators average over the
+    # sample group themselves.
+    ax_r = getattr(smoothrast, "sample_axis", None)
+    ax_a = getattr(smoothagg, "sample_axis", None)
+    sample_axis = ax_r or ax_a
+    if (sample_axis is not None and ax_r is not None and ax_a is not None
+            and ax_r != ax_a):
+        return None, ("sample-axis sharding requires both estimators to "
+                      "shard the same mesh axis")
+    if sample_axis is not None and agg_entry[0] != "mc":
+        return None, ("sample-axis sharding requires an MC aggregation "
+                      "estimator")
     f = int(meshes.max_faces)
     k = int(settings.faces_per_pixel)
     size = int(settings.image_size)
@@ -1771,6 +2169,9 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
         bin_ok = m >= 8 and _BIN_P_TILE < size and size % _BIN_P_TILE == 0
         if (bin_ok and settings.bin_overflow == "allow"
                 and f > _COARSE_THRESHOLD):
+            if sample_axis is not None:
+                return None, ("sharded fused path covers the flat and "
+                              "streaming modes (binned is not sharded)")
             binned = True
             f_pad = f_real = _round_up(m, 8)     # every slot row is live
             p_tile = _BIN_P_TILE
@@ -1784,6 +2185,16 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
                 p_tile = min(_BIN_P_TILE, _round_up(hw, 128))
     if size > 2048:
         return None, "image size above the 2048 fused-kernel limit"
+    if sample_axis is not None and not stream:
+        # Flat sharding averages both estimators' sample means (the
+        # coverage before the nonlinear z_map); the stream route shards
+        # the aggregation samples only.
+        if ax_r != ax_a:
+            return None, ("flat-mode sharding requires both estimators to "
+                          "shard the same mesh axis")
+        if rast_entry[0] != "mc":
+            return None, ("flat-mode sharding covers the MC/MC estimator "
+                          "pairs only")
     if not stream and not binned:
         p_tile = min(2048 if f_pad <= 16 else 1024, _round_up(hw, 128))
         th = p_tile // 64 if p_tile % 64 == 0 else 0
@@ -1831,7 +2242,7 @@ def _plan(meshes, lights, smoothrast, smoothagg, settings, shade: str
         clip_bary=settings.resolve_clip(),
         perspective_correct=bool(settings.perspective_correct),
         p_tile=p_tile, tile_w=tile_w, stream=stream, binned=binned,
-        rw=rw), ""
+        rw=rw, prob_ext=sample_axis is not None), ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1843,7 +2254,8 @@ class RenderPlan:
     (opted in with ``bin_overflow='allow'``; approximate where a tile's
     candidates exceed its slots, which ``capacity_stats`` measures).
     ``staged``: the composed pipeline (rasterize, shade, blend; ``reason``
-    says why the fused routes decline).  The sharded route raises."""
+    says why the fused routes decline).  ``prob_ext``: the flat or stream
+    route under sample-axis sharding."""
 
     mode: str
     reason: str
@@ -1854,12 +2266,12 @@ class RenderPlan:
     tile: tuple = ()
     slots: int = 0          # flat / binned: slot rows
     table_rows: int = 0     # stream: sorted-table rows (chunk multiple)
+    prob_ext: bool = False  # sample-axis sharded
 
 
 def render_plan(meshes, lights, smoothrast, smoothagg, settings,
                 shade: str = "phong") -> RenderPlan:
-    """The route :func:`try_render` takes (``staged`` when it declines);
-    raises NotImplementedError for the sharded route."""
+    """The route :func:`try_render` takes (``staged`` when it declines)."""
     cfg, why = _plan(meshes, lights, smoothrast, smoothagg, settings, shade)
     f = int(meshes.max_faces)
     if cfg is None:
@@ -1872,6 +2284,7 @@ def render_plan(meshes, lights, smoothrast, smoothagg, settings,
         return RenderPlan(
             mode="stream", f=f, k=cfg.k, image_size=cfg.image_size,
             p_tile=cfg.p_tile, tile=tile, table_rows=cfg.rw,
+            prob_ext=cfg.prob_ext,
             reason="F > faces_per_pixel; chunk-streamed y-sorted windows "
                    "(exact at any coverage density)")
     if cfg.binned:
@@ -1884,7 +2297,7 @@ def render_plan(meshes, lights, smoothrast, smoothagg, settings,
                    "overflow)" % cfg.f_pad)
     return RenderPlan(
         mode="flat", f=f, k=cfg.k, image_size=cfg.image_size,
-        p_tile=cfg.p_tile, tile=tile, slots=cfg.f_pad,
+        p_tile=cfg.p_tile, tile=tile, slots=cfg.f_pad, prob_ext=cfg.prob_ext,
         reason="every face holds a slot (F <= faces_per_pixel); exact, no "
                "selection")
 
@@ -1929,6 +2342,30 @@ def draw_seeds(n: int, generator: Optional[torch.Generator] = None,
     return words.to(torch.int32).to(device)
 
 
+def sample_offset(word: torch.Tensor, index: int,
+                  n_samples: int) -> torch.Tensor:
+    """Seed word 0 of a rank ``index`` of a sample group drawing
+    ``n_samples`` each: the hash enters the sample s as seed0 + s *
+    0x9E3779B9, so adding index * S * 0x9E3779B9 gives rank d the samples
+    [d S, (d + 1) S) of one sequence, and the group's draws are one run's
+    at its total sample count.  Computed in int64 and wrapped to int32
+    (the JAX package's int32 arithmetic)."""
+    w = word.to(torch.int64) + index * n_samples * (_C_SAMPLE - (1 << 32))
+    return ((w + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
+def shard_seeds(cfg: FusedConfig, seeds: torch.Tensor,
+                index: int) -> torch.Tensor:
+    """The (N, 4) seed words of rank ``index`` of a sample group
+    (:func:`sample_offset`): flat, the coverage (word 0) and aggregation
+    (word 2) words; stream, the aggregation word only."""
+    out = seeds.to(torch.int32).clone()
+    if not cfg.stream:
+        out[:, 0] = sample_offset(seeds[:, 0], index, cfg.s_rast)
+    out[:, 2] = sample_offset(seeds[:, 2], index, cfg.s_agg)
+    return out.contiguous()
+
+
 def _face_valid(meshes, fv_ndc, settings) -> torch.Tensor:
     """(N, F) bool: the mesh's real faces, less the back faces when the
     settings cull them (by the sign of the NDC area)."""
@@ -1946,13 +2383,15 @@ def _face_valid(meshes, fv_ndc, settings) -> torch.Tensor:
 
 def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
                     smoothrast, smoothagg, blend_params, settings, seeds,
-                    shade: str, blur_override=None):
+                    shade: str, blur_override=None, sample_axis=None):
     """The kernels' tensor inputs.  Flat: face tables, validity, packed
     scalars, seed words and the tiles' activity bits
     (:func:`forward_plain` documents the shapes); binned: the same with
     per-tile tables (N, nt, M, .) and slot validity (N, nt, M)
     (``ops/binned.py``).  Stream: (tab, scal, rows, count, active, seeds),
-    the order of the JAX package (:func:`stream_forward_plain`)."""
+    the order of the JAX package (:func:`stream_forward_plain`).  Under
+    sample-axis sharding (``cfg.prob_ext``) the seed words are this rank's
+    of the group ``sample_axis`` (:func:`shard_seeds`)."""
     from pertrenderer_tpu_torch.textures import TexturesUV, TexturesVertex
 
     n, f, dev = meshes.batch_size, meshes.max_faces, meshes.device
@@ -1989,6 +2428,8 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
         seeds = torch.from_numpy(np.array(seeds, dtype=np.int32))
     seeds = seeds.to(device=dev, dtype=torch.int32)
     seeds = seeds.reshape(n, -1)[:, :4].contiguous()
+    if cfg.prob_ext and sample_axis is not None:
+        seeds = shard_seeds(cfg, seeds, sharding.axis_info(sample_axis).index)
     if cfg.stream:
         merged = torch.cat([fv_ndc, fv_world, fn_world, tex_tab], dim=-1)
         validf = validf.to(torch.float32)
@@ -2013,6 +2454,12 @@ def _prepare_inputs(cfg: FusedConfig, meshes, cameras, lights, materials,
             seeds, active)
 
 
+def _sample_axis(smoothrast, smoothagg) -> Optional[str]:
+    """The mesh axis the estimators shard their samples over, or None."""
+    return (getattr(smoothrast, "sample_axis", None)
+            or getattr(smoothagg, "sample_axis", None))
+
+
 def _inputs_for(cfg, meshes, cameras, lights, materials, smoothrast,
                 smoothagg, blend_params, settings, shade, seeds, generator,
                 blur_override):
@@ -2022,7 +2469,8 @@ def _inputs_for(cfg, meshes, cameras, lights, materials, smoothrast,
                            device=meshes.device)
     return _prepare_inputs(cfg, meshes, cameras, lights, materials,
                            smoothrast, smoothagg, blend_params, settings,
-                           seeds, shade, blur_override=blur_override)
+                           seeds, shade, blur_override=blur_override,
+                           sample_axis=_sample_axis(smoothrast, smoothagg))
 
 
 def try_render(cfg: FusedConfig, meshes, cameras, lights, materials,
@@ -2032,18 +2480,27 @@ def try_render(cfg: FusedConfig, meshes, cameras, lights, materials,
     """Render (N, H, W, 4) RGBA through the flat fused forward (K3, its
     gradients from K4), for F > faces_per_pixel the stream forward (K5, its
     gradients from K6), or binned K12's forward (its gradients from K12's
-    backward, then K9b into the face tables).  ``cfg`` is ``_plan``'s
-    configuration for these arguments (the caller takes the staged route
-    where it has none).
+    backward, then K9b into the face tables).  Under sample-axis sharding
+    (``cfg.prob_ext``): flat K11a, K3 with external coverage, K11b and
+    K11c averaged over the sample group; stream K5 / K6 with the
+    aggregation samples sharded.  ``cfg`` is ``_plan``'s configuration for
+    these arguments (the caller takes the staged route where it has
+    none).
 
     ``seeds``: (N, 4) int32 seed words, or JAX-layout (N, 1, 8) seed rows
     whose first four columns are used; drawn from ``generator`` when
-    None."""
+    None.  Sharded, every rank of a sample group passes the same words
+    (the same generator state); each draws its own samples from them."""
     inputs = _inputs_for(cfg, meshes, cameras, lights, materials, smoothrast,
                          smoothagg, blend_params, settings, shade, seeds,
                          generator, blur_override)
+    axis = _sample_axis(smoothrast, smoothagg)
     if cfg.stream:
+        if cfg.prob_ext:
+            return _FusedStreamSharded.apply(cfg, axis, *inputs)
         return _FusedStream.apply(cfg, *inputs)
+    if cfg.prob_ext:
+        return _FusedSharded.apply(cfg, axis, *inputs)
     return _FusedForward.apply(cfg, *inputs)
 
 
@@ -2051,17 +2508,21 @@ def try_render_loss(cfg: FusedConfig, meshes, cameras, lights, materials,
                     smoothrast, smoothagg, blend_params, settings,
                     shade: str, target, loss_kind: str = "l2_rgb", seeds=None,
                     generator: Optional[torch.Generator] = None,
-                    blur_override=None) -> torch.Tensor:
+                    blur_override=None) -> Optional[torch.Tensor]:
     """Mean image loss (``l2_rgb``: squared, ``l1_rgb``: absolute error
     over the RGB channels of every pixel and batch element) against
     ``target``, with the loss and every gradient from one launch of K2
     (flat), K7 (stream) or K12's loss-and-grad (binned).
 
     ``target`` broadcasts to (N, H, W, 3) and is a constant: it gets no
-    gradient.  ``cfg`` and seeds as for :func:`try_render`."""
+    gradient.  ``cfg`` and seeds as for :func:`try_render`.  None for the
+    sharded route, which has no loss-and-grad kernel (the JAX package's
+    rule): the caller renders and reduces the loss."""
     if loss_kind not in LOSS_KINDS:
         raise ValueError(f"unknown loss_kind {loss_kind!r} (expected "
                          "'l2_rgb' or 'l1_rgb')")
+    if cfg.prob_ext:
+        return None
     inputs = _inputs_for(cfg, meshes, cameras, lights, materials, smoothrast,
                          smoothagg, blend_params, settings, shade, seeds,
                          generator, blur_override)

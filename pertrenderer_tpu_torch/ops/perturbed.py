@@ -14,6 +14,14 @@ Heaviside mean and its backward coefficient), K8b (the argmax mean) and
 K8c (its gradients) of ``ops/perturbed_kernels.py``; the backward redraws
 the forward's noise from the seed words, so no (S, ...) noise tensor is
 kept.  The fused routes' MC estimators live in ``ops/fused_render.py``.
+
+With a ``sample_axis`` (a mesh axis of ``parallel.sharding``) each rank of
+the sample group draws its own slice of one sample sequence: rank d adds
+d * S * 0x9E3779B9 to seed word 0, which gives it samples [d S, (d + 1) S)
+of the counter hash, as the fused routes do (the JAX package instead
+folds the rank into a threefry key).  The forward means and the backward
+coefficients and gradients are averaged over the group, so the group's
+result is one run's at its total sample count.
 """
 
 from __future__ import annotations
@@ -22,7 +30,9 @@ import warnings
 
 import torch
 
+from pertrenderer_tpu_torch.ops import fused_render as _fr  # the offset
 from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+from pertrenderer_tpu_torch.parallel import sharding
 
 __all__ = ["heaviside", "hard_argmax_onehot", "perturbed_heaviside",
            "perturbed_argmax", "log_corrected", "prod_corrected"]
@@ -50,13 +60,10 @@ def _forward_only_grads(noise_type, x, scale, what):
     return torch.zeros_like(x), torch.zeros_like(scale)
 
 
-def _estimator_inputs(what, x, scale, seeds, sample_axis):
+def _estimator_inputs(what, x, scale, seeds, n_samples, sample_axis):
     """(x as contiguous float32, the noise scale as one float32 on x's
-    device, seeds as (N, 2) int32 there)."""
-    if sample_axis is not None:
-        raise NotImplementedError(
-            f"sharded route is not ported to PyTorch yet: {what} shards "
-            f"its samples over {sample_axis!r}")
+    device, seeds as (N, 2) int32 there, this rank's under a sample
+    axis)."""
     if seeds is None:
         raise ValueError(f"{what}: seeds (N, 2) int32 seed words required")
     if isinstance(scale, torch.Tensor):
@@ -65,32 +72,45 @@ def _estimator_inputs(what, x, scale, seeds, sample_axis):
         scale = torch.tensor(float(scale), dtype=torch.float32,
                              device=x.device)
     seeds = torch.as_tensor(seeds, dtype=torch.int32, device=x.device)
+    if sample_axis is not None:      # this rank's samples of the group
+        seeds = seeds.clone()
+        seeds[:, 0] = _fr.sample_offset(
+            seeds[:, 0], sharding.axis_info(sample_axis).index, n_samples)
     return x.to(torch.float32), scale, seeds
+
+
+def _mean(x, sample_axis):
+    """x averaged over the sample group (x itself without one)."""
+    return x if sample_axis is None else sharding.axis_mean(x, sample_axis)
 
 
 class _PerturbedHeaviside(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, d, sigma, seeds, n_samples, noise_type, vr):
+    def forward(ctx, d, sigma, seeds, n_samples, noise_type, vr,
+                sample_axis):
         ctx.save_for_backward(d, sigma, seeds)
-        ctx.cfg = (n_samples, noise_type, vr)
-        return pk.heaviside_mean(d.contiguous(), sigma.reshape(()), seeds,
-                                 n_samples, noise_type)
+        ctx.cfg = (n_samples, noise_type, vr, sample_axis)
+        return _mean(pk.heaviside_mean(d.contiguous(), sigma.reshape(()),
+                                       seeds, n_samples, noise_type),
+                     sample_axis)
 
     @staticmethod
     def backward(ctx, g):
         d, sigma, seeds = ctx.saved_tensors
-        n_samples, noise_type, vr = ctx.cfg
+        n_samples, noise_type, vr, sample_axis = ctx.cfg
         if noise_type not in pk.GRAD_NOISES:
             g_d, g_sigma = _forward_only_grads(noise_type, d, sigma,
                                                "perturbed_heaviside")
         else:
-            coeff = pk.heaviside_coeff(d.contiguous(), sigma.reshape(()),
-                                       seeds, n_samples, noise_type, vr)
+            coeff = _mean(pk.heaviside_coeff(d.contiguous(),
+                                             sigma.reshape(()), seeds,
+                                             n_samples, noise_type, vr),
+                          sample_axis)
             g_d = coeff * g
             # The reference's sigma gradient is sum(grad_d), overwriting
             # its own sigma score (smoothrast.py:58): kept as shipped.
             g_sigma = g_d.sum().reshape(sigma.shape)
-        return g_d, g_sigma, None, None, None, None
+        return g_d, g_sigma, None, None, None, None, None
 
 
 def perturbed_heaviside(distances, noise_intensity, seeds, nb_samples=1,
@@ -102,25 +122,29 @@ def perturbed_heaviside(distances, noise_intensity, seeds, nb_samples=1,
     batch elements.  Backward: grad_d = mean_s[(H(d + sigma Z_s) - vr
     H(d)) score(Z_s)] / sigma * g, grad_sigma = sum(grad_d) (the
     reference's quirk); the logistic, gumbel and uniform families give zero
-    gradients and a warning.  ``sample_axis`` (the sharded route) raises."""
+    gradients and a warning.  ``sample_axis``: ``nb_samples`` per rank of
+    the sample group, the mean and the coefficient averaged over it."""
     d, sigma, seeds = _estimator_inputs("perturbed_heaviside", distances,
-                                        noise_intensity, seeds, sample_axis)
+                                        noise_intensity, seeds,
+                                        int(nb_samples), sample_axis)
     return _PerturbedHeaviside.apply(d, sigma, seeds, int(nb_samples),
-                                     noise_type, bool(variance_reduction))
+                                     noise_type, bool(variance_reduction),
+                                     sample_axis)
 
 
 class _PerturbedArgmax(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z, gamma, seeds, n_samples, noise_type, vr):
+    def forward(ctx, z, gamma, seeds, n_samples, noise_type, vr,
+                sample_axis):
         ctx.save_for_backward(z, gamma, seeds)
-        ctx.cfg = (n_samples, noise_type, vr)
-        return pk.argmax_mean(z.contiguous(), gamma.reshape(()), seeds,
-                              n_samples, noise_type)
+        ctx.cfg = (n_samples, noise_type, vr, sample_axis)
+        return _mean(pk.argmax_mean(z.contiguous(), gamma.reshape(()), seeds,
+                                    n_samples, noise_type), sample_axis)
 
     @staticmethod
     def backward(ctx, g):
         z, gamma, seeds = ctx.saved_tensors
-        n_samples, noise_type, vr = ctx.cfg
+        n_samples, noise_type, vr, sample_axis = ctx.cfg
         if noise_type not in pk.GRAD_NOISES:
             g_z, g_gamma = _forward_only_grads(noise_type, z, gamma,
                                                "perturbed_argmax")
@@ -128,8 +152,9 @@ class _PerturbedArgmax(torch.autograd.Function):
             g_z, gterm = pk.argmax_grads(z.contiguous(), g.contiguous(),
                                          gamma.reshape(()), seeds, n_samples,
                                          noise_type, vr)
-            g_gamma = gterm.sum().reshape(gamma.shape)
-        return g_z, g_gamma, None, None, None, None
+            g_z, g_gamma = _mean([g_z, gterm.sum().reshape(gamma.shape)],
+                                 sample_axis)
+        return g_z, g_gamma, None, None, None, None, None
 
 
 def perturbed_argmax(z, noise_intensity, seeds, nb_samples=1,
@@ -143,11 +168,14 @@ def perturbed_argmax(z, noise_intensity, seeds, nb_samples=1,
     w_s - w0> (phi(Z_s) - 1)] / gamma summed over the pixels, with w0 the
     first-wins one-hot of z under variance reduction (else 0) and phi =
     sum Z^2 (gaussian) or sum score(Z) Z (cauchy); the other families give
-    zero gradients and a warning.  ``sample_axis`` raises."""
+    zero gradients and a warning.  ``sample_axis``: as for
+    :func:`perturbed_heaviside`, grad_z and grad_gamma averaged too."""
     z, gamma, seeds = _estimator_inputs("perturbed_argmax", z,
-                                        noise_intensity, seeds, sample_axis)
+                                        noise_intensity, seeds,
+                                        int(nb_samples), sample_axis)
     return _PerturbedArgmax.apply(z, gamma, seeds, int(nb_samples),
-                                  noise_type, bool(variance_reduction))
+                                  noise_type, bool(variance_reduction),
+                                  sample_axis)
 
 
 class _LogCorrected(torch.autograd.Function):

@@ -8,6 +8,7 @@ This file imports no JAX, so it runs on a machine that has only PyTorch:
 CUDA device every test here skips: a CUDA kernel has no CPU mode.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -277,7 +278,8 @@ def test_render_loss_launches_k2_once(cuda_device):
         "fused_loss_grad": 1, "fused_stream_forward": 0,
         "fused_stream_backward": 0, "fused_stream_loss_grad": 0,
         "fused_binned_forward": 0, "fused_binned_backward": 0,
-        "fused_binned_loss_grad": 0}
+        "fused_binned_loss_grad": 0, "fused_forward_ext": 0,
+        "sharded_prob": 0, "sharded_agg_bwd": 0, "sharded_det_bwd": 0}
     assert torch.isfinite(log_rot.grad).all()
     assert log_rot.grad.abs().max() > 0
 
@@ -427,7 +429,8 @@ def test_stream_route_through_meshrenderer(cuda_device):
         "fused_loss_grad": 0, "fused_stream_forward": 1,
         "fused_stream_backward": 1, "fused_stream_loss_grad": 1,
         "fused_binned_forward": 0, "fused_binned_backward": 0,
-        "fused_binned_loss_grad": 0}
+        "fused_binned_loss_grad": 0, "fused_forward_ext": 0,
+        "sharded_prob": 0, "sharded_agg_bwd": 0, "sharded_det_bwd": 0}
     for g in (g_img, g_loss):
         assert torch.isfinite(g).all() and g.abs().max() > 0
 
@@ -542,7 +545,8 @@ def test_binned_route_through_meshrenderer(cuda_device, monkeypatch):
         "fused_loss_grad": 0, "fused_stream_forward": 0,
         "fused_stream_backward": 0, "fused_stream_loss_grad": 0,
         "fused_binned_forward": 1, "fused_binned_backward": 1,
-        "fused_binned_loss_grad": 1}
+        "fused_binned_loss_grad": 1, "fused_forward_ext": 0,
+        "sharded_prob": 0, "sharded_agg_bwd": 0, "sharded_det_bwd": 0}
     assert gk.launch_counts["scatter_rows_cm"] > scatters
     for g in (g_img, g_loss):
         assert torch.isfinite(g).all() and g.abs().max() > 0
@@ -764,3 +768,77 @@ def test_staged_mc_render_matches_cpu(noise, cuda_device):
     assert (img_c[..., 3] > 0.5).float().mean() > 0.05
     assert_kernel_close(img_g, img_c, mc=True)
     assert ((g_g - g_c).abs().max() / g_c.abs().max()).item() <= 1e-3
+
+
+# The sample-sharded flat route's kernels (K11a, K3 with external
+# coverage, K11b, K11c) on one rank's seed words (shard 1 of a sample
+# group), each fed its plain upstream: the cube (gaussian pair, S=4) at
+# 32^2, and moved up in a 64^2 image whose lower strip is inactive.
+
+
+def sharded_case(device, imsize=32, shift=None, d=1, s=4):
+    """(cfg, inputs with shard d's seed words) of the cube with
+    GaussianRast + GaussianAgg sharding the 'samples' axis."""
+    mesh, renderer = _renderer("gaussian", device, imsize=imsize, s=s,
+                               sigma=1e-3 if shift else 1e-2)
+    if shift is not None:
+        mesh = mesh.offset_verts(torch.tensor(shift, device=device)
+                                 .expand(mesh.verts.shape[1], 3))
+    sh, settings = renderer.shader, renderer.rasterizer.raster_settings
+    sr = dataclasses.replace(sh.smoothrast, sample_axis="samples")
+    sa = dataclasses.replace(sh.smoothagg, sample_axis="samples")
+    cfg, _why = tfr._plan(mesh, sh.lights, sr, sa, settings, "phong")
+    seeds = tfr.shard_seeds(cfg, tfr.draw_seeds(
+        mesh.batch_size, torch.Generator().manual_seed(5), device=device), d)
+    return cfg, tfr._prepare_inputs(cfg, mesh, sh.cameras, sh.lights,
+                                    sh.materials, sr, sa, sh.blend_params,
+                                    settings, seeds, "phong")
+
+
+def assert_fields_close(got, want):
+    """(N, rows, H * W) fields by the MC image rule, per pixel."""
+    assert_kernel_close(got.transpose(1, 2), want.transpose(1, 2), mc=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("imsize,shift", [(32, None),
+                                          (64, (0.0, 2.5, 0.0))])
+def test_sharded_kernels_match_plain(imsize, shift, cuda_device):
+    """K11a's coverage, K3's image and weights with external coverage (MC
+    image rule), K11b's g_zmap and gamma term (1e-3 of max) and K11c's
+    tables (assert_tables_close) against their plain versions on the same
+    inputs; repeated launches bit-equal."""
+    cfg, ins = sharded_case(cuda_device, imsize, shift)
+    assert cfg.prob_ext and not cfg.stream
+    if shift is not None:
+        assert ins[7].tolist() == [[1, 0], [1, 0]]
+    seeds, active = ins[6], ins[7]
+    cover = (ins[0], ins[4], ins[5], seeds, active)
+    prob = tfr.fused_prob(cfg, *cover)
+    want_prob = tfr.prob_plain(cfg, *cover)
+    assert_fields_close(prob, want_prob)
+    assert torch.equal(prob, tfr.fused_prob(cfg, *cover))
+
+    img, w = tfr.fused_forward(cfg, *ins, prob=want_prob)
+    want_img, want_w = tfr.forward_plain(cfg, *ins, want_prob)
+    assert_kernel_close(img, want_img, mc=True)
+    assert_fields_close(w, want_w)
+    again = tfr.fused_forward(cfg, *ins, prob=want_prob)
+    assert torch.equal(img, again[0]) and torch.equal(w, again[1])
+
+    g_out = torch.randn(2, imsize, imsize, 4, generator=torch.Generator()
+                        .manual_seed(1)).to(cuda_device)
+    gz, gg = tfr.fused_agg_bwd(cfg, *ins, want_prob, g_out)
+    want_gz, want_gg = tfr.agg_bwd_plain(cfg, *ins, want_prob, g_out)
+    for got_t, want_t in ((gz, want_gz), (gg, want_gg)):
+        d = (got_t - want_t).abs().max().item()
+        assert d <= 1e-3 * want_t.abs().max().item(), d
+    assert torch.equal(gg, tfr.fused_agg_bwd(cfg, *ins, want_prob,
+                                             g_out)[1])
+
+    grads = tfr.fused_det_bwd(cfg, *ins, want_prob, want_w, want_gz, g_out)
+    assert_tables_close(grads, tfr.det_bwd_plain(cfg, *ins, want_prob,
+                                                 want_w, want_gz, g_out),
+                        True)
+    again = tfr.fused_det_bwd(cfg, *ins, want_prob, want_w, want_gz, g_out)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))

@@ -1,4 +1,4 @@
-"""The gradient kernels' per-pixel arithmetic, compiled for the CPU.
+"""The fused kernels' per-pixel arithmetic, compiled for the CPU.
 
 ``csrc/fused_grad.cuh`` (the pipeline of K4 and K2) keeps its CUDA
 intrinsics inside ``#ifdef __CUDACC__``; with the CUDA keywords defined
@@ -9,9 +9,16 @@ through the plain forward) on the same inputs — the hand-derived adjoints
 are checked without a card.  The sum order differs from the card's warp
 reduction, which only rounds differently.
 
+The sharded route's pipelines are compiled the same way: K11a's coverage
+(``pixel_prob``), K3 with external coverage (``pixel_forward<..., EXT>``),
+K11b (``pixel_agg_grads``) and K11c (``pixel_grads<..., EXT>``), against
+``prob_plain``, ``forward_plain(..., prob=)``, ``agg_bwd_plain`` and
+``det_bwd_plain`` on one shard's seed words.
+
 Tolerances: each gradient table within 1e-4 (deterministic pairs) or
-1e-3 (MC pairs, same noise) of its max |grad|; losses rtol 1e-5.  Skips
-where no g++ is installed."""
+1e-3 (MC pairs, same noise) of its max |grad|; losses rtol 1e-5; MC
+fields (coverage, weights) and images by the MC image rule.  Skips where
+no g++ is installed."""
 
 import ctypes
 import shutil
@@ -124,6 +131,72 @@ void forward(Params& p, int n, bool binned, float* out) {
     }
 }
 
+// The sharded route's pipelines over every pixel of every element (flat
+// tables; tiles of p_tile pixels, 2-D with tile_w): mode 0 K11a's coverage
+// into out (n, F, P); 1 K3 with external coverage, the image into out (n,
+// P, 4) and the weights into out2 (n, C, P); 2 K11b, g_zmap into out (n, C,
+// P) and the gamma term into out2 (n,); 3 K11c's rows into out (n, width)
+// as host_grads.
+template <int MAXF>
+void sharded(Params& p, int n, int mode, float* out, float* out2) {
+  const int F = p.f_pad, C = p.c_zpad, npix = p.image_size * p.image_size;
+  const int width = F * (kGeo + p.tex_d) + kNS + 1;
+  std::vector<float> buf(table_floats(p));
+  p.w_out = out2;
+  for (int b = 0; b < n; ++b) {
+    const Tables T = fill(p, buf, b, b);
+    if (mode == 3) {
+      HostSink sink{out + (size_t)b * width};
+      PixelAcc acc;
+      for (int k = 0; k < kNS; ++k) acc.gsc[k] = 0.0f;
+      acc.g_gal = acc.g_invgam = acc.loss = 0.0f;
+      for (int pix = 0; pix < npix; ++pix)
+        pixel_grads<MAXF, false, HostSink, PixelAcc, true>(p, T, b, pix,
+                                                           true, sink, acc);
+      finish_pixels(p, T, sink, acc);
+      continue;
+    }
+    for (int pix = 0; pix < npix; ++pix) {
+      if (mode == 0) {
+        float prob[MAXF];
+        pixel_prob<MAXF>(p, T, b, pix, prob);
+        for (int i = 0; i < F; ++i)
+          out[((size_t)b * F + i) * npix + pix] = prob[i];
+      } else if (mode == 1) {
+        pixel_forward<MAXF, float, true>(p, T, b, pix,
+                                         out + ((size_t)b * npix + pix) * 4);
+      } else {
+        float gz[MAXF + 8];
+        out2[b] += pixel_agg_grads<MAXF>(p, T, b, pix, gz);
+        for (int r = 0; r < C; ++r)
+          out[((size_t)b * C + r) * npix + pix] = gz[r];
+      }
+    }
+  }
+}
+
+extern "C" void host_sharded(
+    int mode, const float* fv_ndc, const float* fv_world, const float* fn,
+    const float* tex, const float* valid, const float* scal,
+    const int* seeds, const float* g_out, const float* prob,
+    const float* weights, const float* g_zmap, float* out, float* out2,
+    int n, int image_size, int f_pad, int bg_row, int c_zpad, int tex_d,
+    int atlas_r, int rast_kind, int rast_noise, int rast_vr, int s_rast,
+    int agg_kind, int agg_noise, int agg_vr, int s_agg, int k, float eps_bg,
+    int phong, int point_light, int clip, int persp, const int* active,
+    int nt, int p_tile, int tile_w) {
+  Params p = {};
+  p.fv_ndc = fv_ndc; p.fv_world = fv_world; p.fn = fn; p.tex = tex;
+  p.valid = valid; p.scal = scal; p.seeds = seeds; p.extra = g_out;
+  p.prob_ext = prob; p.w_in = weights; p.gz_in = g_zmap;
+  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
+             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
+             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
+  set_tiling(p, active, nt, p_tile, tile_w);
+  if (f_pad <= 16) sharded<16>(p, n, mode, out, out2);
+  else sharded<64>(p, n, mode, out, out2);
+}
+
 // loss: -1 runs the forward into rows (n, H * W, 4), 0 K4's gradients,
 // 1 K2's; binned: the tables are per-tile (n, nt, F, .), with the tiles'
 // activity bits.
@@ -175,6 +248,9 @@ def host_lib(tmp_path_factory):
     lib.host_grads.argtypes = ([i32] + [ptr] * 9 + [i32] * 16
                                + [ctypes.c_float] + [i32] * 5
                                + [ctypes.c_float, i32, ptr, i32, i32])
+    lib.host_sharded.argtypes = ([i32] + [ptr] * 13 + [i32] * 16
+                                 + [ctypes.c_float] + [i32] * 4
+                                 + [ptr, i32, i32, i32])
     return lib
 
 
@@ -320,3 +396,69 @@ def test_binned_pipeline_matches_plain_on_host(noise, host_lib, monkeypatch,
     ok, err, where, _thin, _rep = checks.binned_grads_close(
         cfg, tables[:4], got[1:], want, want64, tol)
     assert ok, (err, where)
+
+
+def host_sharded(lib, cfg, tables, mode, prob=None, weights=None,
+                 g_zmap=None, g_out=None):
+    """Run the host build of a sharded pipeline over flat ``tables`` (the
+    8 kernel inputs): mode 0 K11a -> prob (N, F, P); 1 K3 with external
+    coverage -> (image (N, H, W, 4), weights (N, C, P)); 2 K11b -> (g_zmap
+    (N, C, P), gamma term (N,)); 3 K11c -> (g_ndc, g_world, g_fn, g_tex,
+    g_scal)."""
+    n, f, s = tables[0].shape[0], cfg.f_pad, cfg.image_size
+    hw, c, d = s * s, cfg.c_zpad, 27 + cfg.tex_d
+    none = torch.zeros(1)
+    out = torch.zeros({0: (n, f, hw), 1: (n, hw, 4), 2: (n, c, hw),
+                       3: (n, f * d + 35)}[mode])
+    out2 = torch.zeros((n, c, hw) if mode == 1 else (n,))
+    args = [x if x is not None else none
+            for x in (g_out, prob, weights, g_zmap)]
+    lib.host_sharded(mode, *(t.data_ptr() for t in tables[:7]),
+                     *(t.contiguous().data_ptr() for t in args),
+                     out.data_ptr(), out2.data_ptr(), n,
+                     *tfr._cfg_args(cfg), tables[7].data_ptr(),
+                     *tfr._tiling_args(cfg))
+    if mode == 0:
+        return out
+    if mode == 1:
+        return out.reshape(n, s, s, 4), out2
+    if mode == 2:
+        return out, out2
+    tabs = out[:, :f * d].reshape(n, f, d)
+    return (tabs[..., :9], tabs[..., 9:18], tabs[..., 18:27], tabs[..., 27:],
+            out[:, f * d:f * d + 34])
+
+
+@pytest.mark.parametrize("imsize,shift", [(16, None), (48, (0.0, 2.5, 0.0))])
+def test_sharded_pipelines_match_plain_on_host(imsize, shift, host_lib,
+                                              one_thread):
+    """K11a, K3 with external coverage, K11b and K11c's per-pixel
+    pipelines against their plain versions on shard 1's seed words of the
+    gaussian pair: coverage, image and weights by the MC image rule; g_zmap
+    and the gamma term within 1e-3 of their max; tables as K4's.  At 48^2
+    the cube, moved up, leaves the lower tile inactive."""
+    from test_torch_cuda import sharded_case
+
+    cfg, tables = sharded_case("cpu", imsize, shift)
+    if shift is not None:
+        assert tables[7].tolist() == [[1, 0], [1, 0]]
+    cover = (tables[0], tables[4], tables[5], tables[6], tables[7])
+    prob = tfr.prob_plain(cfg, *cover)
+    assert_fields = lambda a, b: assert_kernel_close(
+        a.transpose(1, 2), b.transpose(1, 2), True)
+    assert_fields(host_sharded(host_lib, cfg, tables, 0), prob)
+    img, w = host_sharded(host_lib, cfg, tables, 1, prob=prob)
+    want_img, want_w = tfr.forward_plain(cfg, *tables, prob)
+    assert_kernel_close(img, want_img, True)
+    assert_fields(w, want_w)
+    g_out = torch.randn(2, imsize, imsize, 4, generator=torch.Generator()
+                        .manual_seed(1))
+    gz, gg = host_sharded(host_lib, cfg, tables, 2, prob=prob, g_out=g_out)
+    want_gz, want_gg = tfr.agg_bwd_plain(cfg, *tables, prob, g_out)
+    for got_t, want_t in ((gz, want_gz), (gg, want_gg)):
+        assert ((got_t - want_t).abs().max()
+                <= 1e-3 * want_t.abs().max()), (got_t, want_t)
+    got = host_sharded(host_lib, cfg, tables, 3, prob=prob, weights=want_w,
+                       g_zmap=want_gz, g_out=g_out)
+    assert_tables_close(got, tfr.det_bwd_plain(cfg, *tables, prob, want_w,
+                                               want_gz, g_out), True)

@@ -68,16 +68,17 @@ def test_render_plan_is_flat():
 
 
 def test_unported_routes_raise():
-    """The sharded route raises; F > faces_per_pixel streams; what the
-    fused planner declines (an image above 2048, a UV texture without an
-    atlas) takes the staged route, whose MC estimators run (K8a-c)."""
+    """F > faces_per_pixel streams; what the fused planner declines (an
+    image above 2048, a UV texture without an atlas, a coverage estimator
+    alone sharding its samples) takes the staged route, whose MC
+    estimators run (K8a-c); a sharded sample axis outside a device mesh
+    raises naming the missing mesh."""
     _posed, _jrend, tmesh, trend = _scene("gaussian")
     few_slots = ptt.MeshRenderer(
         ptt.MeshRasterizer(trend.rasterizer.cameras, dataclasses.replace(
             trend.rasterizer.raster_settings, faces_per_pixel=8)),
         trend.shader)
-    # F = 12 > faces_per_pixel = 8 takes the stream route, which is
-    # ported; the sharded route below is not.
+    # F = 12 > faces_per_pixel = 8 takes the stream route.
     assert few_slots.plan(tmesh).mode == "stream"
     big = ptt.MeshRenderer(ptt.MeshRasterizer(
         trend.rasterizer.cameras, dataclasses.replace(
@@ -87,8 +88,12 @@ def test_unported_routes_raise():
         "staged", "image size above the 2048 fused-kernel limit")
     sharded = dataclasses.replace(trend.shader, smoothrast=dataclasses.replace(
         trend.shader.smoothrast, sample_axis="samples"))
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ptt.MeshRenderer(trend.rasterizer, sharded)(tmesh)
+    half = ptt.MeshRenderer(trend.rasterizer, sharded)
+    assert (half.plan(tmesh).mode, half.plan(tmesh).reason) == (
+        "staged", "flat-mode sharding requires both estimators to shard "
+                  "the same mesh axis")
+    with pytest.raises(RuntimeError, match="no device mesh"):
+        half(tmesh)
     no_atlas = tmesh.with_textures(dataclasses.replace(tmesh.textures,
                                                        atlas_size=0))
     assert trend.plan(no_atlas).mode == "staged"

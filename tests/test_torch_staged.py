@@ -86,9 +86,8 @@ def test_staged_mc_estimators_raise_naming_k8():
     their plain versions on the CPU): a render the fused planner declines
     (a znear override) gives a finite image that its seed words fix, draws
     them from the generator as the fused routes do, and has gradients, also
-    through render_loss's staged fallback;
-    only a sharded sample axis still raises, before any work, naming the
-    route."""
+    through render_loss's staged fallback; a sharded sample axis outside
+    a device mesh raises, naming the missing mesh."""
     mesh, _c, _l, renderer = staged_scene(noise="gaussian", imsize=16)
     trend = convert.from_reference(renderer, device="cpu")
     tmesh = convert.from_reference(mesh, device="cpu")
@@ -115,9 +114,9 @@ def test_staged_mc_estimators_raise_naming_k8():
     assert torch.isfinite(g).all() and g.abs().max() > 0
     sh = dataclasses.replace(trend.shader, smoothrast=dataclasses.replace(
         trend.shader.smoothrast, sample_axis="s"))
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(RuntimeError, match="no device mesh"):
         trend.replace(shader=sh)(tmesh, znear=1.0)
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(RuntimeError, match="no device mesh"):
         ptt.perturbed_argmax(torch.zeros(1, 3), 1e-2, seeds[:1, 2:],
                              sample_axis="s")
 

@@ -247,11 +247,12 @@ def test_render_plan_stream_matches_jax():
 
 def test_other_routes_raise_naming_the_route():
     """Binned (bin_overflow='allow' with F > 8192 at a binnable size)
-    plans the binned route (K12: M = 160 slots, 128-pixel strip tiles);
-    sharded estimators raise; 'allow' with fewer faces still streams, as
-    in the JAX package; images above 2048 decline to the staged route,
-    which runs the MC estimators (K8a-c) and raises only for a sharded
-    sample axis."""
+    plans the binned route (K12: M = 160 slots, 128-pixel strip tiles),
+    and declines sharded estimators with the JAX package's reason; 'allow'
+    with fewer faces still streams, as in the JAX package, sharded too;
+    images above 2048 decline to the staged route, which runs the MC
+    estimators (K8a-c), and a sharded sample axis outside a device mesh
+    raises naming the missing mesh."""
     cams_l = ptt.PointLights.create(location=(0.0, 2.0, -2.0), device="cpu")
     sr = ptt.GaussianRast.create(sigma=1e-3, nb_samples=2)
     sa = ptt.GaussianAgg.create(gamma=1e-2, nb_samples=2)
@@ -269,15 +270,19 @@ def test_other_routes_raise_naming_the_route():
         allow, bin_overflow="warn"), "phong")[0].stream
     cow = ptt.make_cow(device="cpu")
     assert tfr._plan(cow, cams_l, sr, sa, allow, "phong")[0].stream
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tfr._plan(cow, cams_l, dataclasses.replace(sr, sample_axis="s"), sa,
-                  allow, "phong")
+    srs = dataclasses.replace(sr, sample_axis="s")
+    sas = dataclasses.replace(sa, sample_axis="s")
+    cfg = tfr._plan(cow, cams_l, srs, sa, allow, "phong")[0]
+    assert cfg.stream and cfg.prob_ext
+    assert tfr._plan(big, cams_l, srs, sas, allow, "phong") == (
+        None, "sharded fused path covers the flat and streaming modes "
+              "(binned is not sharded)")
     # Above 2048 pixels the fused routes decline, as JAX's _plan does: the
     # render goes staged, whose MC estimators run (K8a-c) unless sharded.
     assert tfr._plan(cow, cams_l, sr, sa, dataclasses.replace(
         allow, image_size=4096), "phong") == (
             None, "image size above the 2048 fused-kernel limit")
-    assert sr.check_staged() is None and sa.check_staged() is None
-    for est in (sr, sa):
-        with pytest.raises(NotImplementedError, match="sharded"):
-            dataclasses.replace(est, sample_axis="s").check_staged()
+    seeds = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no device mesh"):
+        ptt.perturbed_heaviside(torch.zeros(1, 3), 1e-2, seeds,
+                                sample_axis="s")
