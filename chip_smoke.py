@@ -64,7 +64,9 @@ line; any failure exits non-zero before a result is printed):
    bit-exact, K10a within 1 ulp of max |out|, K9b / K10b within 1e-6 of
    the output's max of the nearer of the float32 and float64 plain
    versions; repeated launches bit-equal; index_select (K9a) and
-   index_add_ (K9b) timed as the library calls;
+   index_add_ (K9b) timed as the library calls; K9b's index preparation
+   checked against torch.sort(stable=True) / searchsorted and timed apart
+   from its sum; ptxas's registers / stack of K9b's kernels;
 15. target — harness.init_target('cube', 256), the reference's K=1
    Hard-Phong target on the staged route, and the share of its cube
    pixels equal to [train]'s flat fused HardRast + HardAgg target on the
@@ -88,7 +90,7 @@ line; any failure exits non-zero before a result is printed):
    versions aggregate in double: in float the softras alpha gradient
    misses float64 by 1.5e-4); repeats bit-equal; the
    loss-and-grad equal to the forward's L2 cotangent through the backward
-   (1e-5);
+   (1e-5); ptxas's registers / stack / spills of K12's kernels;
 18. capacity-binned — capacity_stats of tools/oracle_config5.py's scene
    within 1% of artifacts/oracle_config5.json (max_range 12134,
    max_tile_candidates 4954);
@@ -215,6 +217,38 @@ OPS_SLOT_BWD = 534    # per candidate: adjoints of det2, coverage, det1
 OPS_CLIP_BWD = 26     # ... of the clipped barycentrics
 OPS_PERSP_BWD = 41    # ... of the perspective correction
 OPS_LOSS = 12         # per pixel: the image loss and its cotangent
+
+
+def ptxas_report(names):
+    """{name: "R registers, S bytes stack, L bytes spill stores / loads"}
+    from the build's ptxas report (_build/build.log) for the kernels whose
+    mangled names contain each of ``names``."""
+    with open(os.path.join(_build.BUILD_DIR, "build.log")) as f:
+        lines = f.read().splitlines()
+    out, entry, frame = {}, None, ""
+    for line in lines:
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            frame = ""
+        elif entry and "bytes stack frame" in line:
+            frame = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            for name in names:
+                if name in entry:
+                    regs = line.split("Used")[1].split("registers")[0].strip()
+                    out.setdefault(name, []).append(
+                        f"{regs} registers; {frame}")
+            entry = None
+    return out
+
+
+def k9b_per(report, path, units, what):
+    """K9b's launches on a main path's run (the counts reset just before),
+    recorded under report["scatter_rows_cm"]["launches_by_path"]; the text
+    gives them per request or step."""
+    n = gk.launch_counts["scatter_rows_cm"]
+    report.setdefault("k9b_paths", {})[path] = n
+    return f"K9b {n / units:g} per {what}"
 
 
 def fail(msg):
@@ -714,6 +748,7 @@ def phase_serve(dev, smi, report):
         alphas.append((img[..., 3] > 0.5).float().mean().item())
     total_s = time.perf_counter() - t_all
     counts = dict(fr.launch_counts)
+    k9b = k9b_per(report, "serve", N_REQUESTS, "request")
     if counts["fused_forward"] != N_REQUESTS or counts["prng_probe"] < 1:
         fail(f"serve: launch counts {counts}")
     if not all(0.02 < a < 0.6 for a in alphas):
@@ -737,7 +772,7 @@ def phase_serve(dev, smi, report):
              f"flips {flips}")
     med = statistics.median(lat_ms[1:])
     print(f"[serve] {N_REQUESTS} requests x {N_POSES} poses through "
-          f"MeshRenderer: launches {counts}; coverage share alpha>0.5 "
+          f"MeshRenderer: launches {counts}, {k9b}; coverage share alpha>0.5 "
           f"{min(alphas):.3f}-{max(alphas):.3f}; request latency median "
           f"{med:.3f} ms (after the first), "
           f"{N_REQUESTS * N_POSES / total_s:.1f} renders/s; vs CPU plain max "
@@ -844,6 +879,7 @@ def phase_train(dev, smi, report):
         generator=torch.Generator().manual_seed(8), lr_init=TRAIN_LR,
         Niter=TRAIN_STEPS, segment_size=TRAIN_STEPS)
     counts = dict(fr.launch_counts)
+    k9b = k9b_per(report, "train", TRAIN_STEPS, "step")
     if counts["fused_loss_grad"] != TRAIN_STEPS:
         fail(f"train: launch counts {counts}")
     if not (np.all(np.isfinite(res.losses))
@@ -891,7 +927,7 @@ def phase_train(dev, smi, report):
     med = statistics.median(step_ms[1:])
     prep_med = statistics.median(prep_ms[1:])
     print(f"[train] optimize_pose {TRAIN_STEPS} steps, N=1, headline "
-          f"config, lr {TRAIN_LR}: launches {counts}; loss "
+          f"config, lr {TRAIN_LR}: launches {counts}, {k9b}; loss "
           f"{res.losses[0]:.5g} -> best {best:.5g}; pose error "
           f"{start_deg:.2f} -> {end_deg:.2f} deg; "
           f"{steps_s:.1f} steps/s ({res.runtimes['total'][0] * 1e3:.1f} ms "
@@ -1219,6 +1255,7 @@ def phase_train_stream(dev, smi, report):
         generator=torch.Generator().manual_seed(8), lr_init=TRAIN_LR,
         Niter=TRAIN_STEPS, segment_size=TRAIN_STEPS)
     counts = dict(fr.launch_counts)
+    k9b = k9b_per(report, "train-stream", TRAIN_STEPS, "step")
     if (counts["fused_stream_loss_grad"] != TRAIN_STEPS
             or counts["fused_loss_grad"] != 0):
         fail(f"train-stream: launch counts {counts}")
@@ -1262,7 +1299,8 @@ def phase_train_stream(dev, smi, report):
     med = statistics.median(step_ms[1:])
     prep_med = statistics.median(prep_ms[1:])
     print(f"[train-stream] optimize_pose {TRAIN_STEPS} steps, N=1, the cow "
-          f"(5120 faces, stream route), lr {TRAIN_LR}: launches {counts}; "
+          f"(5120 faces, stream route), lr {TRAIN_LR}: launches {counts}, "
+          f"{k9b}; "
           f"loss {res.losses[0]:.5g} -> best {best:.5g}; pose error "
           f"{start_deg:.2f} -> {end_deg:.2f} deg; {steps_s:.1f} steps/s "
           f"({res.runtimes['total'][0] * 1e3:.1f} ms for {TRAIN_STEPS} "
@@ -1385,9 +1423,32 @@ def phase_k9_k10(dev, smi, report):
         if err > 1e-6 or not torch.equal(got, again):
             fail(f"K9b: error {err} (float32 plain {e32}, float64 {e64}), "
                  f"repeat bit-equal {torch.equal(got, again)}")
+    ptx = ptxas_report(("compact_kernel", "digit_count_kernel",
+                        "digit_scan_kernel", "digit_scatter_kernel",
+                        "bounds_kernel", "chunks_kernel", "sum_kernelILb0",
+                        "final_kernel"))
+    print("[K9b] ptxas: " + "; ".join(
+        f"{k} {sorted(set(v))[0]}" for k, v in ptx.items()), flush=True)
     ms, plain_ms = timed_pair(lambda: gk.scatter_rows_cm(g9, idx, rows),
                               lambda: gk.scatter_rows_plain(g9, idx, rows),
                               10)
+    # The preparation alone gives torch.sort's order and searchsorted's
+    # starts; its time and the sum's apart (CUDA events).
+    seg = gk.segments(idx, rows)
+    key = torch.where((idx >= 0) & (idx < rows), idx, rows)
+    sorted_key, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(sorted_key, torch.arange(rows + 1,
+                                                         device=dev))
+    lengths = starts[1:] - starts[:-1]
+    if not (int(seg.num_valid[0]) == filled
+            and torch.equal(seg.order[:filled].long(), order[:filled])
+            and torch.equal((seg.ends - seg.starts).long(), lengths)
+            and torch.equal(seg.starts.long()[lengths > 0],
+                            starts[:-1][lengths > 0])):
+        fail("K9b: the preparation's order or row bounds differ from "
+             "torch.sort(stable=True) / searchsorted")
+    prep_ms = cuda_ms(lambda: gk.segments(idx, rows), 10)
+    sum_ms = cuda_ms(lambda: gk.segment_sum(g9, seg, rows), 10)
     live = idx >= 0
     idx_live, g_live = idx[live], g9[:, live].T.contiguous()
 
@@ -1399,13 +1460,16 @@ def phase_k9_k10(dev, smi, report):
     b_ms, b_by = bound(8 * p + 4 * 9 * filled + 4 * 9 * rows, 9 * filled)
     report["scatter_rows_cm"] = dict(max_abs_err=worst, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib_ms)
+                                     bound_by=b_by, library_ms=lib_ms,
+                                     prep_ms=prep_ms, sum_ms=sum_ms)
     print(f"[K9b] scatter_rows_cm cow staged (9, {p}) into {rows} rows: "
           f"error {worst:.3g} of max (nearer of the float32 / float64 plain "
           f"versions; float32 plain {e32:.3g}, float64 {e64:.3g} on the edge "
-          f"case), repeat bit-equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms, "
-          f"index_add_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | "
-          f"{smi}", flush=True)
+          f"case), repeat bit-equal; preparation = torch.sort(stable) / "
+          f"searchsorted ({gk._sort_passes(rows)} radix passes); {ms:.4f} ms "
+          f"(preparation {prep_ms:.4f} ms + sum {sum_ms:.4f} ms) vs plain "
+          f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
 
     # K10a: positions and normals (D = 6) interpolated at every column.
     for ix in (idx, edge):
@@ -2217,6 +2281,11 @@ def phase_k12(dev, smi, report):
     """K12's forward (N=4), backward and loss-and-grad (N=1) on config 5
     against their plain versions, repeats bit-equal, the dual path."""
     rows = {}
+    names = ("binned_forward_kernelILi160E", "binned_grad_kernelILi160ELb0",
+             "binned_grad_kernelILi160ELb1")
+    for name, lines in ptxas_report(names).items():
+        print(f"[K12] ptxas {name}: {' | '.join(sorted(set(lines)))}",
+              flush=True)
     for noise in ("gaussian", "softras"):
         mc = noise == "gaussian"
         cfg, ins, _rend = binned_inputs(noise, dev, N_POSES)
@@ -2404,6 +2473,7 @@ def phase_serve_binned(dev, smi, report):
         alphas.append((img[..., 3] > 0.5).float().mean().item())
     total_s = time.perf_counter() - t_all
     counts = all_counts()
+    k9b = k9b_per(report, "serve-binned", N_REQUESTS, "request")
     if (counts["fused_binned_forward"] != N_REQUESTS
             or counts["prng_probe"] < 1
             or any(counts[k] for k in OTHER_FUSED + STAGED_KERNELS)):
@@ -2414,7 +2484,7 @@ def phase_serve_binned(dev, smi, report):
         "fused_binned_forward"]
     print(f"[serve-binned] {N_REQUESTS} requests x {N_POSES} poses of config "
           f"5 (81920 faces, 512^2, K=150, binned) through MeshRenderer: "
-          f"launches {counts}; alpha > 0.5 on {min(alphas):.3f}-"
+          f"launches {counts}, {k9b}; alpha > 0.5 on {min(alphas):.3f}-"
           f"{max(alphas):.3f}; request latency median "
           f"{statistics.median(lat_ms[1:]):.1f} ms (after the first), "
           f"{N_REQUESTS * N_POSES / total_s:.2f} renders/s | {smi}",
@@ -2496,6 +2566,7 @@ def phase_train_binned(dev, smi, report):
         generator=torch.Generator().manual_seed(8), lr_init=TRAIN_LR,
         Niter=TRAIN_STEPS, segment_size=TRAIN_STEPS)
     counts = all_counts()
+    k9b = k9b_per(report, "train-binned", TRAIN_STEPS, "step")
     if (counts["fused_binned_loss_grad"] != TRAIN_STEPS
             or any(counts[k] for k in OTHER_FUSED + STAGED_KERNELS)
             or counts["fused_binned_forward"] or len(res.capacity) != 1):
@@ -2546,7 +2617,7 @@ def phase_train_binned(dev, smi, report):
     k9b0 = gk.launch_counts["scatter_rows_cm"]
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         ins[:4], [lr0], g_tabs, retain_graph=True), 5)
-    k9b_per = (gk.launch_counts["scatter_rows_cm"] - k9b0) / 5
+    k9b_bwd = (gk.launch_counts["scatter_rows_cm"] - k9b0) / 5
     st.log_rot.grad = torch.ones_like(st.log_rot)
     adam_ms = cuda_ms(opt.step, 20)
     med, prep_med = statistics.median(step_ms[1:]), statistics.median(
@@ -2554,14 +2625,15 @@ def phase_train_binned(dev, smi, report):
     cap = res.capacity[0]
     print(f"[train-binned] optimize_pose {TRAIN_STEPS} steps, N=1, config 5 "
           f"(81920 faces, 512^2, binned, sigma {C5_TRAIN_SIGMA} gamma "
-          f"{C5_TRAIN_GAMMA}), lr {TRAIN_LR}: launches {counts}; capacity "
+          f"{C5_TRAIN_GAMMA}), lr {TRAIN_LR}: launches {counts}, {k9b}; "
+          f"capacity "
           f"probe at the boundary: {cap['max_tile_candidates']} candidates "
           f"per tile at most, window {cap['max_range']}; loss "
           f"{res.losses[0]:.5g} -> best {best:.5g}; pose error "
           f"{start_deg:.2f} -> {end_deg:.2f} deg; {steps_s:.2f} steps/s; "
           f"synchronised step median {med:.1f} ms: preparation and "
           f"selection {prep_med:.1f} ms (host clock), K12 {k12_ms:.3f} ms, "
-          f"the preparation's backward {bwd_ms:.3f} ms ({k9b_per:g} K9b "
+          f"the preparation's backward {bwd_ms:.3f} ms ({k9b_bwd:g} K9b "
           f"scatters, the slot tables' into the faces' first), Adam "
           f"{adam_ms:.4f} ms (CUDA events), the rest (Python, launches) "
           f"{med - prep_med - k12_ms - bwd_ms - adam_ms:.1f} ms; "
@@ -3115,6 +3187,10 @@ def main():
     kernels = []
     k12 = report["fused_binned"]
     k12["launches"] = k12["launches_forward"] + k12["launches_loss_grad"]
+    k9b = report["scatter_rows_cm"]
+    k9b_paths = dict(report["k9b_paths"], **{"staged-softras":
+                                             k9b["launches"]})
+    k9b["launches"] = sum(k9b_paths.values())
     for kname, (src, replaces) in SOURCES.items():
         r = report[kname]
         extra = ({"launches_by_mode": {
@@ -3123,6 +3199,9 @@ def main():
             "modes": k12["modes"]} if kname == "fused_binned" else {})
         if kname == "fused_forward":
             extra = {"modes": r["modes"]}
+        if kname == "scatter_rows_cm":
+            extra = {"launches_by_path": k9b_paths, "prep_ms": r["prep_ms"],
+                     "sum_ms": r["sum_ms"]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"pertrenderer_tpu_torch/{src}",

@@ -30,7 +30,7 @@ SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
            "stream_backward.cu", "stream_loss_grad.cu", "gather.cu",
            "interp_gather.cu", "perturbed.cu", "sharded.cu")
 HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh",
-           "stream_grad.cuh", "segment_sum.cuh")
+           "binned_warp.cuh", "stream_grad.cuh", "segment_sum.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v")
@@ -147,15 +147,19 @@ def library() -> ctypes.CDLL:
     # column count P (64-bit), the row count F and the width D.
     i64 = ctypes.c_longlong
     lib.pt_gather_rows.argtypes = [ptr] * 3 + [i64, i32, i32, ptr]
-    lib.pt_scatter_rows.argtypes = [ptr] * 6 + [i64, i32, i32, i64, i32,
-                                                ptr]
+    # The segment sums (K9b, K10b's tables): the index preparation's
+    # idx, P, F and workspace; the sums' tensors, P, F, D and the chunk
+    # count.
+    lib.pt_segment_prep.argtypes = [ptr, i64, i32] + [ptr] * 11
+    lib.pt_scatter_rows.argtypes = [ptr] * 7 + [i64, i32, i32, i64, ptr]
     lib.pt_interp_rows.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
-    lib.pt_interp_rows_bwd_tables.argtypes = [ptr] * 9 + [i64, i32, i32,
-                                                          i64, i32, ptr]
+    lib.pt_interp_rows_bwd_tables.argtypes = [ptr] * 10 + [i64, i32, i32,
+                                                           i64, ptr]
     lib.pt_interp_rows_bwd_weights.argtypes = [ptr] * 4 + [i64, i32, i32,
                                                            ptr]
-    for fn in (lib.pt_gather_rows, lib.pt_scatter_rows, lib.pt_interp_rows,
-               lib.pt_interp_rows_bwd_tables, lib.pt_interp_rows_bwd_weights):
+    for fn in (lib.pt_gather_rows, lib.pt_segment_prep, lib.pt_scatter_rows,
+               lib.pt_interp_rows, lib.pt_interp_rows_bwd_tables,
+               lib.pt_interp_rows_bwd_weights):
         fn.restype = i32
     # The staged estimators (ops/perturbed_kernels.py): pointers, then the
     # shape (N or the element count, P, C) and the sampling configuration.

@@ -277,16 +277,12 @@ PT_HD void face_geometry(const Params& p, const Tables& T, int i, float px,
   w_out[2] = w2;
 }
 
-// det1 of slot i at pixel (px, py): signed squared edge distance, depth,
-// candidacy (1 or 0) and the shaded color (masked like the JAX kernel).
-PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
-                        float py, bool live, float* d_out, float* z_out,
-                        float* m_out, float col[3]) {
+// det1's texel select and Phong shading of slot i at final barycentrics
+// w, masked by the candidacy m (1 or 0): the colour into col.
+PT_HD void face_shade(const Params& p, const Tables& T, int i, float m,
+                      const float w[3], float col[3]) {
   const float* sc = T.sc;
-  float m, w[3];
-  face_geometry(p, T, i, px, py, live, d_out, z_out, &m, w);
   const float w0 = w[0], w1 = w[1], w2 = w[2];
-
   float texel[3];
   const float* t = T.tex + i * T.rs_tex;
   if (p.atlas_r == 0) {            // per-corner colors
@@ -334,8 +330,18 @@ PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
       texel[c] = (ambient + diffuse) * texel[c] + specular;
     }
   }
-  *m_out = m;
   for (int c = 0; c < 3; ++c) col[c] = texel[c];
+}
+
+// det1 of slot i at pixel (px, py): signed squared edge distance, depth,
+// candidacy (1 or 0) and the shaded color (masked like the JAX kernel).
+PT_HD void face_forward(const Params& p, const Tables& T, int i, float px,
+                        float py, bool live, float* d_out, float* z_out,
+                        float* m_out, float col[3]) {
+  float m, w[3];
+  face_geometry(p, T, i, px, py, live, d_out, z_out, &m, w);
+  face_shade(p, T, i, m, w, col);
+  *m_out = m;
 }
 
 // Coverage of the F slots at pixel pos of batch element b: prob = prob_raw
@@ -395,8 +401,7 @@ PT_HD void pixel_prob(const Params& p, const Tables& T, int b, int pix,
   coverage<MAXF>(p, T.sc, b, (uint32_t)pix, prob, maskf);
 }
 
-// K3's per-pixel pipeline, shared with the binned route's forward (K12,
-// fused_binned.cu): det1 (edge-function geometry, texel select, Phong),
+// K3's per-pixel pipeline: det1 (edge-function geometry, texel select, Phong),
 // coverage (MC perturbed Heaviside or soft / affine / hard), det2 (z_map
 // with the log / gamma-over-alpha scaling and the background channel),
 // aggregation (MC perturbed >=-max one-hots, softmax, or first-wins hard
@@ -404,7 +409,9 @@ PT_HD void pixel_prob(const Params& p, const Tables& T, int b, int pix,
 // row-major pixel `pix` of batch element b over the tables T: RGBA into
 // out[0..3].  A pixel of an inactive tile gives the background, alpha 0.
 // A: the type of the aggregation and the blend's weighted sum (z_inv,
-// z_map, the weights), float for K3 and double for K12, as pixel_grads.
+// z_map, the weights): float for K3; the CPU tests also run it in double
+// over binned tiles, the reference of K12's warp pipeline
+// (binned_warp.cuh), as pixel_grads.
 // EXT (the sharded route's K3): the coverage is read from prob_ext (the
 // mean of K11a over the sample group) instead of drawn, and the weights
 // go to w_out as well (the background one-hot on an inactive tile).

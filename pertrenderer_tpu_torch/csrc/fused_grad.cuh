@@ -34,8 +34,8 @@ namespace ptf {
 
 // Per-thread sums across a thread's pixels: the 34 scalar gradients, the
 // two reciprocal-scale terms converted once at the end, and the loss; in
-// float (K4, K2, K5-K7) or in double (the binned route's K12).  Real is
-// also the type of pixel_grads' aggregation arithmetic (see there).
+// float (K4, K2, K5-K7) or in double (K12's lanes, binned_warp.cuh).  Real
+// is also the type of pixel_grads' aggregation arithmetic (see there).
 template <class F>
 struct PixelAccT {
   using Real = F;
@@ -114,7 +114,8 @@ PT_HD void normalize_backward(const F v[3], F n_raw, const F g_u[3],
     g_v[c] += n_raw > 0.0f ? g_n * v[c] / n_raw : (F)0;
 }
 
-// det1's adjoint for a candidate slot i, in F (float, or double for K12):
+// det1's adjoint for a candidate slot i, in F (float, or double for K12's
+// warp pipeline):
 // recomputes the geometry and shading of face_forward and pulls (g_dist,
 // g_z, g_col) back to the slot's tables.  gslot: [0, 9) ndc, [9, 18)
 // world, [18, 27) normals, [27, 27 + 9) corner texels (or [27, 30) for a
@@ -208,7 +209,8 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
     const F spec_a = fmax(sa_raw, (F)0);
     const F facing = cosv > 0.0f ? 1.0f : 0.0f;
     const F shin = sc[kShin];               // no gradient (JAX)
-    const F spec_pow = facing * pow(spec_a, shin);
+    const F praw = pow(spec_a, shin);
+    const F spec_pow = facing * praw;
     const F cmax = fmax(cosv, (F)0);
     F g_cmax = 0.0f, g_spow = 0.0f;
     for (int c = 0; c < 3; ++c) {
@@ -231,8 +233,13 @@ PT_HD void face_backward(const Params& p, const Tables& T, int i, float px,
       g_spow += g_spl * ls;
       gsc[kLSpec + c] += g_spl * spec_pow;
     }
+    // In double (K12) pow(a, s - 1) is taken as pow(a, s) / a where a > 0
+    // (one double pow fewer, within an ulp or two); K4 / K2 keep powf.
     const F dpow =
-        shin == 0.0f ? (F)0 : shin * pow(spec_a, shin - (F)1);
+        shin == 0.0f ? (F)0
+                     : shin * (sizeof(F) == 8 && spec_a > (F)0
+                                   ? praw / spec_a
+                                   : pow(spec_a, shin - (F)1));
     const F g_sa = g_spow * facing * dpow * tie_max(sa_raw, (F)0);
     F g_vdu[3], g_refl[3], g_nrm[3], g_tlu[3];
     F g_c2 = 0.0f;
@@ -481,8 +488,10 @@ PT_HD A mc_agg_replay(const Params& p, const float* sc, int b, uint32_t pos,
 // From the aggregation on — z_inv, z_map, the weights, the weight
 // cotangent, g_zmap, the slot's cotangents and det1's adjoint
 // (face_backward) — the arithmetic runs in Acc::Real: float for K4 / K2
-// (the bits of float32 arithmetic), double for K12; det1's forward stays
-// float.  Two sums need it on a large binned scene.  The scalar gradients
+// (the bits of float32 arithmetic); double in the CPU tests' reference of
+// K12 over binned tiles, as K12's warp pipeline (binned_warp.cuh) runs
+// it; det1's forward stays float.  Two sums need it on a large binned
+// scene.  The scalar gradients
 // sum terms over every (slot, pixel) that, under a cotangent of mixed
 // sign, cancel to a small share of their magnitude, and the softmax
 // weights carry z_inv's float32 rounding magnified by 1 / gamma: in float

@@ -15,12 +15,15 @@
 // pallas_call at :160): d_table[f] = sum_{p: idx[p] = f} g[:, p], the VJP
 // of K9a.  The TPU accumulates a transposed one-hot matmul over pixel
 // tiles in a sequential grid; Hopper's blocks run in no order, so the
-// reduction is the deterministic two-pass segment sum of
-// segment_sum.cuh over the host's stable sort of idx.  Bound: bytes — g
-// and idx once, the table gradient once; the reads of g are scattered
-// (a face's pixels lie apart in the (D, P) layout), so each costs a
-// 32-byte sector.
-//
+// reduction is segment_sum.cuh's: the index preparation on the card (the
+// valid columns compacted and radix-sorted by row on only the key bits,
+// the rows' bounds and a chunk -> row table), then a warp per chunk of a
+// row's sorted columns and an in-order pass over the chunks.  Bound:
+// bytes — idx twice, the compacted keys a few times, g at the valid
+// columns once, the table gradient once; the reads of g are scattered (a
+// face's pixels lie apart in the (D, P) layout), so each costs a 32-byte
+// sector.
+
 // Numerics: -fmad=false and no fast math (_build.py).
 #include <cuda_runtime.h>
 
@@ -54,14 +57,27 @@ extern "C" int pt_gather_rows(const void* table, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
+// The index preparation of K9b and K10b (segment_sum.cuh `prepare`).
+extern "C" int pt_segment_prep(const void* idx, long long p, int f,
+                               void* status, void* counts, void* tcount,
+                               void* keys_a, void* pos_a, void* keys_b,
+                               void* pos_b, void* starts, void* ends,
+                               void* chunk_row, void* stream) {
+  if (p == 0) return 0;
+  return ptseg::prepare((const long long*)idx, p, f, (int*)counts,
+                        (unsigned long long*)status, (int*)tcount,
+                        (int*)keys_a, (int*)pos_a, (int*)keys_b,
+                        (int*)pos_b, (int*)starts, (int*)ends,
+                        (int*)chunk_row, (cudaStream_t)stream);
+}
+
 extern "C" int pt_scatter_rows(const void* g, const void* order,
-                               const void* starts, const void* chunk_begin,
-                               void* partial, void* out, long long p, int f,
-                               int d, long long n_chunks, int chunk,
-                               void* stream) {
+                               const void* starts, const void* ends,
+                               const void* chunk_row, void* partial,
+                               void* out, long long p, int f, int d,
+                               long long n_chunks, void* stream) {
   return ptseg::segment_sum<false>(
-      (const float*)g, nullptr, nullptr, nullptr, (const long long*)order,
-      (const long long*)starts, (const long long*)chunk_begin,
-      (float*)partial, (float*)out, p, f, d, n_chunks, chunk,
-      (cudaStream_t)stream);
+      (const float*)g, nullptr, nullptr, nullptr, (const int*)order,
+      (const int*)starts, (const int*)ends, (const int*)chunk_row,
+      (float*)partial, (float*)out, p, f, d, n_chunks, (cudaStream_t)stream);
 }

@@ -17,9 +17,9 @@
 // _bwd_weights_kernel (:127, pallas_call :243):
 //   d_t[f, v] = sum_{p: idx[p] = f} w_v[p] g[:, p]   (segment_sum.cuh)
 //   dw_v[p]   = sum_d t[idx[p], v, d] valid[p] g[d, p]   (one thread per p)
-// The table gradient is the deterministic two-pass segment sum over the
-// host's stable sort of idx; the weight gradient is a gather-dot, one
-// thread per column.  Bound: bytes (g is read scattered by the segment
+// The table gradient is segment_sum.cuh's deterministic segment sum over
+// K9b's index preparation (ops/gather.py `segments`); the weight gradient
+// is a gather-dot, one thread per column.  Bound: bytes (g is read scattered by the segment
 // sum, one 32-byte sector a value).
 //
 // Numerics: -fmad=false and no fast math (_build.py).
@@ -91,14 +91,14 @@ extern "C" int pt_interp_rows(const void* table, const void* idx,
 
 extern "C" int pt_interp_rows_bwd_tables(
     const void* g, const void* w0, const void* w1, const void* w2,
-    const void* order, const void* starts, const void* chunk_begin,
-    void* partial, void* d_table, long long p, int f, int d,
-    long long n_chunks, int chunk, void* stream) {
+    const void* order, const void* starts, const void* ends,
+    const void* chunk_row, void* partial, void* d_table, long long p, int f,
+    int d, long long n_chunks, void* stream) {
   return ptseg::segment_sum<true>(
       (const float*)g, (const float*)w0, (const float*)w1, (const float*)w2,
-      (const long long*)order, (const long long*)starts,
-      (const long long*)chunk_begin, (float*)partial, (float*)d_table, p, f,
-      d, n_chunks, chunk, (cudaStream_t)stream);
+      (const int*)order, (const int*)starts, (const int*)ends,
+      (const int*)chunk_row, (float*)partial, (float*)d_table, p, f, d,
+      n_chunks, (cudaStream_t)stream);
 }
 
 extern "C" int pt_interp_rows_bwd_weights(const void* table, const void* idx,

@@ -20,9 +20,12 @@ reports under the settings' policy.
   segment sum, in place of the JAX package's permutation, window slices
   and one-hot matmul.
 * K12 ``fused_binned_forward`` / ``fused_binned_backward`` /
-  ``fused_binned_loss_grad`` (csrc/fused_binned.cu): K3 / K4 / K2's
-  per-pixel pipelines over the tile's tables, with the aggregation (and
-  the gradients' adjoints) in double, and their plain versions
+  ``fused_binned_loss_grad`` (csrc/fused_binned.cu, csrc/binned_warp.cuh):
+  a warp per pixel with the tile's slots across its lanes, only the
+  pixel's candidates shaded, sampled and differentiated, the tables by
+  one bulk asynchronous copy, inactive tiles left at once; the
+  aggregation (and the gradients' adjoints) in double; and their plain
+  versions
   ``binned_forward_plain`` / ``binned_backward_plain`` /
   ``binned_loss_grad_plain``, which run the flat plain pipeline over blocks
   of tiles with the aggregation in float64.  The noise keys are the
@@ -487,6 +490,12 @@ def _check_binned(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
     return dev
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its storage offset leaves it off the
+    16-byte alignment of K12's bulk table copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_binned_forward(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
                          active) -> torch.Tensor:
     """K12 forward (replaces ``_forward_kernel`` of
@@ -503,6 +512,8 @@ def fused_binned_forward(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
     n, s = fv_ndc.shape[0], cfg.image_size
     out = torch.empty((n, s, s, 4), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    fv_ndc, fv_world, fn, tex, valid = (_aligned(t) for t in (
+        fv_ndc, fv_world, fn, tex, valid))
     with torch.cuda.device(dev):
         err = lib.pt_binned_forward(
             fv_ndc.data_ptr(), fv_world.data_ptr(), fn.data_ptr(),
@@ -518,12 +529,13 @@ def _launch_binned_grads(kernel: str, cfg, tables, active, extra,
                          loss_id: int, lscale: float):
     """Launch K12's backward (``extra`` = g_out) or loss-and-grad
     (``extra`` = target) and return (loss (N,), g_ndc, g_world, g_fn,
-    g_tex, g_scal).  Each block adds its tile's gradients into the tile's
-    own rows and its scalars (in double) into its own (N, nt, 35) row,
-    then a second kernel adds the tiles in order: the same bits from run to
-    run."""
+    g_tex, g_scal).  Each block writes its tile's gradients into the
+    tile's own rows and its scalars (in double) into its own (N, nt, 35)
+    row, then a second kernel adds the tiles in order: the same bits from
+    run to run."""
     from pertrenderer_tpu_torch import _build
 
+    tables = [_aligned(t) for t in tables[:5]] + list(tables[5:])
     fv_ndc = tables[0]
     dev, n = fv_ndc.device, fv_ndc.shape[0]
     lib = _build.library()

@@ -12,13 +12,15 @@ indexed load:
 
 * K9a ``gather_rows_cm`` (csrc/gather.cu) — one thread per output column
   p reads row idx[p] of the row-major (F, D) table;
-* K9b ``scatter_rows_cm`` (csrc/gather.cu) — the VJP, a segment sum
-  ``d_table[f] = sum_{p: idx[p] = f} g[:, p]`` without float atomics: the
-  indices are sorted once (a stable sort, index preparation in torch),
-  each row's columns are cut into chunks of ``SCATTER_CHUNK`` in ascending
-  p, one warp sums a chunk with a fixed butterfly, and a second pass adds
-  a row's chunks in ascending order.  Repeated launches give the same
-  bits.
+* K9b ``scatter_rows_cm`` (csrc/gather.cu, csrc/segment_sum.cuh) — the
+  VJP, a segment sum ``d_table[f] = sum_{p: idx[p] = f} g[:, p]`` without
+  float atomics.  ``segments`` prepares the index on the card: the valid
+  columns compacted and sorted by row with a stable LSD radix sort on
+  only the key bits (the order ``torch.sort(key, stable=True)`` gives),
+  each row's [start, end) and a chunk -> row table; each row's columns are
+  cut into chunks of ``SCATTER_CHUNK`` in ascending p, one warp sums a
+  chunk with a fixed butterfly, and a second pass adds a row's chunks in
+  ascending order.  Repeated launches give the same bits.
 
 ``scatter_rows`` is the scatter as a differentiable function of its
 values (its backward is K9a), which ``Meshes.verts_normals`` sums face
@@ -28,14 +30,20 @@ CPU; for a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = ["take_rows", "take_rows_cm", "take_rows_batched",
            "take_rows_cm_batched", "scatter_rows", "gather_rows_cm",
            "gather_rows_plain", "scatter_rows_cm", "scatter_rows_plain",
-           "segments", "launch_counts", "SCATTER_CHUNK"]
+           "segments", "segments_plain", "segment_sum", "segment_sum_plain",
+           "Segments", "launch_counts", "SCATTER_CHUNK"]
 
 SCATTER_CHUNK = 256      # sorted columns summed by one warp (K9b, K10b)
+_SORT_TILE = 4096        # keys per radix tile (csrc/segment_sum.cuh)
+_COUNTS = 258            # a pass's 256 digit totals, the valid count, the
+                         # compaction's tile counter
 
 launch_counts = {"gather_rows_cm": 0, "scatter_rows_cm": 0}
 
@@ -103,24 +111,186 @@ def gather_rows_cm(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def segments(idx: torch.Tensor, f: int):
-    """Index preparation of the deterministic segment sums (K9b, K10b):
-    (order, starts, chunk_begin, n_chunks).  ``order`` lists the columns
-    p sorted by row, ascending p within a row (a stable sort; invalid
-    indices sort last under the sentinel row f); row r owns
-    order[starts[r]:starts[r + 1]], cut into chunks of SCATTER_CHUNK
-    columns; its chunks are chunk_begin[r]:chunk_begin[r + 1].
-    ``n_chunks`` bounds the chunk count without a device sync."""
-    valid = (idx >= 0) & (idx < f)
-    key = torch.where(valid, idx, torch.full_like(idx, f))
-    sorted_key, order = torch.sort(key, stable=True)
-    starts = torch.searchsorted(
-        sorted_key, torch.arange(f + 1, dtype=torch.int64,
-                                 device=idx.device))
-    per_row = (starts[1:] - starts[:-1] + SCATTER_CHUNK - 1) // SCATTER_CHUNK
-    chunk_begin = torch.cat([per_row.new_zeros(1), torch.cumsum(per_row, 0)])
-    n_chunks = -(-idx.shape[0] // SCATTER_CHUNK) + f
-    return order, starts, chunk_begin, n_chunks
+class Segments(NamedTuple):
+    """The index preparation of the segment sums (K9b, K10b).
+
+    ``order[:num_valid]`` lists the valid columns p (0 <= idx[p] < f)
+    sorted by row, ascending p within a row; row r owns
+    order[starts[r]:ends[r]] (an absent row [0, 0)).  Its columns are cut
+    into chunks of SCATTER_CHUNK from its start; chunk j of row r has the
+    id ``starts[r] // SCATTER_CHUNK + r + j``, increasing in (r, j) and
+    below ``n_chunks = ceil(P / SCATTER_CHUNK) + f``, and
+    ``chunk_row[id] = r + 1`` (0 at the ids no chunk takes).  All int32;
+    ``num_valid`` a one-element tensor (no device sync)."""
+    order: torch.Tensor
+    starts: torch.Tensor
+    ends: torch.Tensor
+    chunk_row: torch.Tensor
+    num_valid: torch.Tensor
+    n_chunks: int
+
+
+def _sort_passes(f: int) -> int:
+    """8-bit LSD passes over the key bits of rows [0, f)."""
+    bits = max(f - 1, 0).bit_length()
+    return max(1, -(-bits // 8))
+
+
+def _n_chunks(p: int, f: int) -> int:
+    return -(-p // SCATTER_CHUNK) + f
+
+
+def _check_prep(idx: torch.Tensor, f: int):
+    if idx.dim() != 1 or idx.dtype != torch.int64:
+        raise ValueError("segments: idx must be a 1-D int64 tensor")
+    if not 1 <= f < 2 ** 31 or idx.shape[0] >= 2 ** 31:
+        raise ValueError(f"segments: {f} rows, {idx.shape[0]} columns")
+
+
+def segments_plain(idx: torch.Tensor, f: int) -> Segments:
+    """Plain version of the card's index preparation, step for step: the
+    valid columns compacted in ascending p, one stable counting sort per
+    8-bit digit of the row (least significant first), the rows' bounds
+    from the boundaries of the sorted keys, and the chunk table."""
+    _check_prep(idx, f)
+    dev = idx.device
+    p = idx.shape[0]
+    pos = torch.nonzero((idx >= 0) & (idx < f)).flatten()
+    key = idx[pos]
+    for q in range(_sort_passes(f)):
+        digit = (key >> (8 * q)) & 255
+        counts = torch.bincount(digit, minlength=256)
+        bucket = torch.cumsum(counts, 0) - counts
+        dest = torch.empty_like(pos)
+        for d in torch.nonzero(counts).flatten().tolist():
+            sel = digit == d
+            dest[sel] = bucket[d] + torch.arange(int(counts[d]), device=dev)
+        pos = torch.empty_like(pos).index_copy_(0, dest, pos)
+        key = torch.empty_like(key).index_copy_(0, dest, key)
+    n = key.shape[0]
+    starts = torch.zeros(f, dtype=torch.int64, device=dev)
+    ends = torch.zeros(f, dtype=torch.int64, device=dev)
+    o = torch.arange(n, device=dev)
+    if n:
+        first = torch.ones(n, dtype=torch.bool, device=dev)
+        first[1:] = key[1:] != key[:-1]
+        last = torch.ones(n, dtype=torch.bool, device=dev)
+        last[:-1] = key[1:] != key[:-1]
+        starts[key[first]] = o[first]
+        ends[key[last]] = o[last] + 1
+    s = starts[key]
+    head = (o - s) % SCATTER_CHUNK == 0
+    ids = s // SCATTER_CHUNK + key + (o - s) // SCATTER_CHUNK
+    chunk_row = torch.zeros(_n_chunks(p, f), dtype=torch.int64, device=dev)
+    chunk_row[ids[head]] = key[head] + 1
+    order = torch.zeros(p, dtype=torch.int64, device=dev)
+    order[:n] = pos
+    i32 = lambda t: t.to(torch.int32)
+    return Segments(i32(order), i32(starts), i32(ends), i32(chunk_row),
+                    torch.tensor([n], dtype=torch.int32, device=dev),
+                    _n_chunks(p, f))
+
+
+def segments(idx: torch.Tensor, f: int) -> Segments:
+    """The index preparation of the deterministic segment sums (K9b,
+    K10b): on the card the kernels of csrc/segment_sum.cuh (the valid
+    columns compacted, one stable radix pass per 8-bit digit of the row,
+    the bounds and the chunk table); on the CPU :func:`segments_plain`.
+    See :class:`Segments`."""
+    _check_prep(idx, f)
+    if idx.device.type == "cpu":
+        return segments_plain(idx, f)
+    from pertrenderer_tpu_torch import _build
+
+    lib = _build.library()
+    dev, p = idx.device, idx.shape[0]
+    n_chunks = _n_chunks(p, f)
+    tiles = -(-p // _SORT_TILE)
+    n32 = _COUNTS + 2 * f + n_chunks
+    # One zeroed buffer: the compaction's look-back words (int64), then the
+    # int32 counts, bounds and chunk table.
+    ws = torch.zeros(tiles + -(-n32 // 2), dtype=torch.int64, device=dev)
+    rest = ws[tiles:].view(torch.int32)
+    counts = rest[:_COUNTS]
+    starts = rest[_COUNTS:_COUNTS + f]
+    ends = rest[_COUNTS + f:_COUNTS + 2 * f]
+    chunk_row = rest[_COUNTS + 2 * f:n32]
+    tcount = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
+    kp = torch.empty((4, p), dtype=torch.int32, device=dev)
+    idx = idx.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.pt_segment_prep(idx.data_ptr(), p, f, ws.data_ptr(),
+                                  counts.data_ptr(), tcount.data_ptr(),
+                                  kp[0].data_ptr(), kp[1].data_ptr(),
+                                  kp[2].data_ptr(), kp[3].data_ptr(),
+                                  starts.data_ptr(), ends.data_ptr(),
+                                  chunk_row.data_ptr(), stream)
+    _build.check(err, "segments")
+    order = kp[3] if _sort_passes(f) % 2 else kp[1]
+    return Segments(order, starts, ends, chunk_row,
+                    counts[256:257],
+                    n_chunks)
+
+
+def segment_sum_plain(g: torch.Tensor, seg: Segments, f: int,
+                      weights=None) -> torch.Tensor:
+    """Plain version of the card's segment sum over ``seg``, in its order:
+    per chunk, lane l adds columns l, l + 32, ... of the chunk, an xor
+    butterfly adds the lanes, and each row adds its chunks in ascending
+    order.  g (D, P) float32; ``weights``: None, or (w0, w1, w2) each (P,)
+    (K10b: (f, 3, D)).  Returns (f, D) or (f, 3, D)."""
+    d, dev = g.shape[0], g.device
+    order = seg.order[:int(seg.num_valid[0])].long()
+    starts, ends = seg.starts.long(), seg.ends.long()
+    ids = torch.nonzero(seg.chunk_row).flatten()
+    rows = seg.chunk_row[ids].long() - 1
+    begin = starts[rows] + (ids - starts[rows] // SCATTER_CHUNK - rows) \
+        * SCATTER_CHUNK
+    at = begin[:, None] + torch.arange(SCATTER_CHUNK, device=dev)[None]
+    inside = at < ends[rows][:, None]
+    cols = order[torch.where(inside, at, 0).clamp(max=max(len(order) - 1,
+                                                          0))]
+    ws = [None] if weights is None else list(weights)
+    out = torch.zeros(f, len(ws), d, dtype=torch.float32, device=dev)
+    for v, w in enumerate(ws):
+        x = g[:, cols]                                   # (D, chunks, 256)
+        if w is not None:
+            x = x * w[cols][None]
+        x = torch.where(inside[None], x, 0.0).view(d, -1, 8, 32)
+        acc = torch.zeros_like(x[:, :, 0])
+        for i in range(8):                               # ascending columns
+            acc = acc + x[:, :, i]
+        for off in (16, 8, 4, 2, 1):                     # the butterfly
+            acc = acc + acc[..., torch.arange(32, device=dev) ^ off]
+        part = acc[..., 0].T                             # (chunks, D)
+        # Rows add their chunks in ascending id: a row's chunk j.
+        j = ids - starts[rows] // SCATTER_CHUNK - rows
+        for jj in range(int(j.max()) + 1 if len(j) else 0):
+            sel = j == jj
+            out[rows[sel], v] = out[rows[sel], v] + part[sel]
+    return out[:, 0] if weights is None else out
+
+
+def segment_sum(g: torch.Tensor, seg: Segments, f: int) -> torch.Tensor:
+    """K9b's sum over a prepared index: (f, D) float32 from g (D, P)
+    contiguous float32 (see :func:`scatter_rows_cm`)."""
+    from pertrenderer_tpu_torch import _build
+
+    lib = _build.library()
+    d, p = g.shape
+    partial = torch.empty((seg.n_chunks, d), dtype=torch.float32,
+                          device=g.device)
+    out = torch.empty((f, d), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    with torch.cuda.device(g.device):
+        err = lib.pt_scatter_rows(g.data_ptr(), seg.order.data_ptr(),
+                                  seg.starts.data_ptr(), seg.ends.data_ptr(),
+                                  seg.chunk_row.data_ptr(),
+                                  partial.data_ptr(), out.data_ptr(), p, f,
+                                  d, seg.n_chunks, stream)
+    _build.check(err, "scatter_rows_cm")
+    return out
 
 
 def scatter_rows_cm(g: torch.Tensor, idx: torch.Tensor,
@@ -136,21 +306,7 @@ def scatter_rows_cm(g: torch.Tensor, idx: torch.Tensor,
                          f"{tuple(idx.shape)}")
     if g.device.type == "cpu":
         return scatter_rows_plain(g, idx, f)
-    from pertrenderer_tpu_torch import _build
-
-    lib = _build.library()
-    d, p = g.shape
-    order, starts, chunk_begin, n_chunks = segments(idx, f)
-    partial = torch.empty((n_chunks, d), dtype=torch.float32,
-                          device=g.device)
-    out = torch.empty((f, d), dtype=torch.float32, device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    with torch.cuda.device(g.device):
-        err = lib.pt_scatter_rows(g.data_ptr(), order.data_ptr(),
-                                  starts.data_ptr(), chunk_begin.data_ptr(),
-                                  partial.data_ptr(), out.data_ptr(), p, f,
-                                  d, n_chunks, SCATTER_CHUNK, stream)
-    _build.check(err, "scatter_rows_cm")
+    out = segment_sum(g, segments(idx, f), f)
     launch_counts["scatter_rows_cm"] += 1
     return out
 

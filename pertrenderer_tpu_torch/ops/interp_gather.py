@@ -14,9 +14,9 @@ the weights:
 * K10a ``interp_rows`` (csrc/interp_gather.cu) — one thread per column
   reads its row's (3, D) corners and writes the D interpolated values;
 * K10b ``interp_rows_backward`` (csrc/interp_gather.cu) — the table
-  gradient as the deterministic segment sum of K9b (ops/gather.py
-  ``segments``) weighted by w_v, and the three weight gradients, one
-  thread per column.
+  gradient as K9b's deterministic segment sum over K9b's index
+  preparation (ops/gather.py ``segments``), weighted by w_v, and the
+  three weight gradients, one thread per column.
 
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises.
@@ -28,8 +28,7 @@ import math
 
 import torch
 
-from pertrenderer_tpu_torch.ops.gather import (SCATTER_CHUNK, batch_index,
-                                               segments)
+from pertrenderer_tpu_torch.ops.gather import batch_index, segments
 
 __all__ = ["interp_rows_cm", "interp_rows_cm_batched", "interp_rows",
            "interp_rows_plain", "interp_rows_backward",
@@ -138,16 +137,17 @@ def interp_rows_backward(table, idx, w0, w1, w2, g, need_table=True,
     d_table = d_ws = None
     with torch.cuda.device(dev):
         if need_table:
-            order, starts, chunk_begin, n_chunks = segments(idx, f)
-            partial = torch.empty((n_chunks, 3 * d), dtype=torch.float32,
-                                  device=dev)
+            seg = segments(idx, f)
+            partial = torch.empty((seg.n_chunks, 3 * d),
+                                  dtype=torch.float32, device=dev)
             d_table = torch.empty((f, 3, d), dtype=torch.float32,
                                   device=dev)
             err = lib.pt_interp_rows_bwd_tables(
                 g.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                order.data_ptr(), starts.data_ptr(), chunk_begin.data_ptr(),
-                partial.data_ptr(), d_table.data_ptr(), p, f, d, n_chunks,
-                SCATTER_CHUNK, stream)
+                seg.order.data_ptr(), seg.starts.data_ptr(),
+                seg.ends.data_ptr(), seg.chunk_row.data_ptr(),
+                partial.data_ptr(), d_table.data_ptr(), p, f, d,
+                seg.n_chunks, stream)
             _build.check(err, "interp_rows_backward")
         if need_weights:
             dw = torch.empty((3, p), dtype=torch.float32, device=dev)

@@ -602,6 +602,62 @@ def test_gather_kernels_match_plain(d, cuda_device):
     assert torch.all(s1[f // 2:f // 2 + 10] == 0.0)
 
 
+def _scatter_edge_idx(kind, f, p, device):
+    g = torch.Generator().manual_seed(5)
+    if kind == "all_invalid":
+        idx = torch.where(torch.rand(p, generator=g) < 0.5, -1, f + 1)
+    elif kind == "pile_up":                   # every column in row 0
+        idx = torch.zeros(p, dtype=torch.int64)
+    else:                                     # 17-bit keys with gaps
+        idx = torch.randint(-1, f + 1, (p,), generator=g)
+        idx[(idx > 1000) & (idx < 40000)] = -1
+    return idx.to(torch.int64).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,f,p", [("all_invalid", 500, 70_000),
+                                      ("pile_up", 300, 300_000),
+                                      ("bits17", 81_920, 400_000)])
+def test_scatter_preparation_edge_cases(kind, f, p, cuda_device):
+    """K9b's index preparation on the card gives the order of
+    torch.sort(stable=True) and the starts of searchsorted; the sum equals
+    segment_sum_plain (the same order, on the CPU) bit for bit and the
+    nearer of the float32 / float64 plain versions within 1e-6 of max
+    (the pile-up within 1e-5: its one row adds 1,172 chunk partials in
+    float32, in order); exact zeros in empty rows; repeats bit-equal."""
+    from pertrenderer_tpu_torch.ops import gather as tg
+
+    idx = _scatter_edge_idx(kind, f, p, cuda_device)
+    cot = torch.randn(3, p, generator=torch.Generator().manual_seed(6)).to(
+        cuda_device)
+    seg = tg.segments(idx, f)
+    valid = (idx >= 0) & (idx < f)
+    key = torch.where(valid, idx, torch.full_like(idx, f))
+    sorted_key, order = torch.sort(key, stable=True)
+    n = int(valid.sum())
+    assert int(seg.num_valid[0]) == n
+    assert torch.equal(seg.order[:n].long(), order[:n])
+    starts = torch.searchsorted(sorted_key, torch.arange(
+        f + 1, device=cuda_device))
+    lengths = starts[1:] - starts[:-1]
+    assert torch.equal((seg.ends - seg.starts).long(), lengths)
+    assert torch.equal(seg.starts.long()[lengths > 0],
+                       starts[:-1][lengths > 0])
+    s1 = tg.scatter_rows_cm(cot, idx, f)
+    s2 = tg.scatter_rows_cm(cot, idx, f)
+    ordered = tg.segment_sum_plain(cot.cpu(), tg.segments_plain(
+        idx.cpu(), f), f)
+    want = tg.scatter_rows_plain(cot, idx, f)
+    want64 = tg.scatter_rows_plain(cot.double(), idx, f)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, s2)
+    assert torch.equal(s1.cpu(), ordered)
+    if n:
+        assert _nearer(s1, want, want64) <= (1e-5 if kind == "pile_up"
+                                             else 1e-6)
+    assert torch.all(s1[lengths == 0] == 0.0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 3, 9])
 def test_interp_kernels_match_plain(d, cuda_device):

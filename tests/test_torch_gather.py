@@ -105,14 +105,15 @@ def test_segments_cover_each_row_in_ascending_columns():
     f, p = 7, 3 * tg.SCATTER_CHUNK + 50
     idx = _idx(rng, (p,), f)
     idx[: tg.SCATTER_CHUNK + 10] = 2            # one row spans two chunks
-    order, starts, chunk_begin, n_chunks = tg.segments(
-        _t(idx, torch.int64), f)
-    order, starts, cb = order.numpy(), starts.numpy(), chunk_begin.numpy()
+    seg = tg.segments(_t(idx, torch.int64), f)
+    order = seg.order.numpy()
+    starts, ends, rows = seg.starts.numpy(), seg.ends.numpy(), \
+        seg.chunk_row.numpy()
     for r in range(f):
-        cols = order[starts[r]:starts[r + 1]]
+        cols = order[starts[r]:ends[r]]
         np.testing.assert_array_equal(cols, np.flatnonzero(idx == r))
-        assert cb[r + 1] - cb[r] == -(-len(cols) // tg.SCATTER_CHUNK)
-    assert cb[-1] <= n_chunks
+        assert (rows == r + 1).sum() == -(-len(cols) // tg.SCATTER_CHUNK)
+    assert len(rows) == seg.n_chunks
 
 
 @pytest.mark.parametrize("batched", [False, True])

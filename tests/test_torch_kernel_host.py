@@ -15,6 +15,14 @@ K11b (``pixel_agg_grads``) and K11c (``pixel_grads<..., EXT>``), against
 ``prob_plain``, ``forward_plain(..., prob=)``, ``agg_bwd_plain`` and
 ``det_bwd_plain`` on one shard's seed words.
 
+K12's warp pipeline (``csrc/binned_warp.cuh``: a pixel's slots across
+the 32 lanes of a warp) is compiled with its lanes emulated: 32 fibers
+on one thread run the same code in lock step, switching at every
+shuffle, ballot and warp barrier, and a block's warps run in turn, each
+into its own slice, added in warp order as on the card.  It is held
+against ``binned_forward_plain`` / ``binned_backward_plain`` /
+``binned_loss_grad_plain``.
+
 Tolerances: each gradient table within 1e-4 (deterministic pairs) or
 1e-3 (MC pairs, same noise) of its max |grad|; losses rtol 1e-5; MC
 fields (coverage, weights) and images by the MC image rule.  Skips where
@@ -231,6 +239,254 @@ extern "C" void host_grads(
 """
 
 
+WARP_HARNESS = r"""
+#include <cstring>
+#include <functional>
+#include "binned_warp.cuh"
+using namespace ptf;
+
+// 32 fibers on one thread, one per lane, run in turn: a lane that reaches
+// a warp barrier hands over to the next, so every lane has reached it
+// when lane 0 resumes (the pipeline's warp primitives are all in
+// converged code, as on the card).
+extern "C" void pt_fiber_switch(void** save, void* load);
+asm(R"(
+.text
+.globl pt_fiber_switch
+.type pt_fiber_switch,@function
+pt_fiber_switch:
+    pushq %rbp
+    pushq %rbx
+    pushq %r12
+    pushq %r13
+    pushq %r14
+    pushq %r15
+    movq %rsp, (%rdi)
+    movq %rsi, %rsp
+    popq %r15
+    popq %r14
+    popq %r13
+    popq %r12
+    popq %rbx
+    popq %rbp
+    ret
+.size pt_fiber_switch,.-pt_fiber_switch
+)");
+
+struct Lanes;
+static Lanes* g_lanes = nullptr;
+
+struct Lanes {
+  static constexpr size_t kStack = 1 << 20;
+  void* sp[32];
+  void* main_sp = nullptr;
+  std::vector<char> stack[32];
+  int cur = 0, finished = 0;
+  std::function<void(int)> body;
+  uint64_t slot[32];
+
+  static void trampoline() {
+    Lanes* L = g_lanes;
+    L->body(L->cur);
+    ++L->finished;
+    const int me = L->cur;
+    if (L->finished == 32) pt_fiber_switch(&L->sp[me], L->main_sp);
+    L->cur = me + 1;
+    pt_fiber_switch(&L->sp[me], L->sp[me + 1]);
+  }
+  void run(std::function<void(int)> fn) {
+    body = fn;
+    finished = 0;
+    for (int l = 0; l < 32; ++l) {
+      stack[l].resize(kStack);
+      uintptr_t top = ((uintptr_t)stack[l].data() + kStack) & ~(uintptr_t)15;
+      void** s = (void**)top;
+      *--s = nullptr;
+      *--s = (void*)&trampoline;
+      for (int r = 0; r < 6; ++r) *--s = nullptr;
+      sp[l] = s;
+    }
+    g_lanes = this;
+    cur = 0;
+    pt_fiber_switch(&main_sp, sp[0]);
+  }
+  void barrier() {
+    const int me = cur, nx = (me + 1) & 31;
+    cur = nx;
+    pt_fiber_switch(&sp[me], sp[nx]);
+  }
+  template <class T> T exch(int lane, T v, int src) {
+    std::memcpy(&slot[lane], &v, sizeof(T));
+    barrier();
+    T r;
+    std::memcpy(&r, &slot[src], sizeof(T));
+    barrier();
+    return r;
+  }
+  unsigned vote(int lane, bool x) {
+    slot[lane] = x ? 1 : 0;
+    barrier();
+    unsigned m = 0;
+    for (int l = 0; l < 32; ++l) m |= (slot[l] ? 1u : 0u) << l;
+    barrier();
+    return m;
+  }
+};
+
+struct HostWarp {
+  int lane;
+  Lanes* L;
+  template <class T> T shfl_xor(T v, int o) { return L->exch(lane, v, lane ^ o); }
+  template <class T> T shfl_up(T v, int d) {
+    return L->exch(lane, v, lane >= d ? lane - d : lane);
+  }
+  template <class T> T shfl_down(T v, int d) {
+    return L->exch(lane, v, lane + d < 32 ? lane + d : lane);
+  }
+  template <class T> T shfl(T v, int s) { return L->exch(lane, v, s); }
+  unsigned ballot(bool x) { return L->vote(lane, x); }
+  void sync() { L->barrier(); }
+};
+
+// Tile bt's tables in K12's shared-memory layout (ndc, world, normals,
+// validity, texels, scalars).
+Tables fill_k12(const Params& p, std::vector<float>& buf, size_t bt, int b) {
+  const int F = p.f_pad, td = p.tex_d;
+  buf.assign((size_t)F * (28 + td) + kNS, 0.0f);
+  float* s = buf.data();
+  std::memcpy(s, p.fv_ndc + bt * F * 9, sizeof(float) * F * 9);
+  std::memcpy(s + F * 9, p.fv_world + bt * F * 9, sizeof(float) * F * 9);
+  std::memcpy(s + F * 18, p.fn + bt * F * 9, sizeof(float) * F * 9);
+  std::memcpy(s + F * 27, p.valid + bt * F, sizeof(float) * F);
+  std::memcpy(s + F * 28, p.tex + bt * F * td, sizeof(float) * F * td);
+  std::memcpy(s + F * (28 + td), p.scal + (size_t)b * kNS,
+              sizeof(float) * kNS);
+  Tables T;
+  T.ndc = s; T.world = s + F * 9; T.fn = s + F * 18; T.valid = s + F * 27;
+  T.tex = s + F * 28; T.sc = s + F * (28 + td);
+  T.rs_geo = 9; T.rs_tex = td; T.rs_valid = 1; T.key_valid = false;
+  return T;
+}
+
+constexpr int kHostWarps = 2;    // warps per block (slices added in order)
+
+// mode -1: K12's forward into out (n, H * W, 4); 0 / 1: K4's / K2's
+// gradients, the slot rows into out (n, nt, F, 27 + tex_d) and the
+// tiles' scalar rows into rows64 (n, nt, 35).
+template <int MAXF>
+void warp_run(Params& p, int n, int mode, float* out, double* rows64) {
+  const int F = p.f_pad, D = kGeo + p.tex_d, npix = p.image_size * p.image_size;
+  std::vector<float> buf;
+  Lanes L;
+  std::vector<double> lg(kMaxLogS + 1);
+  for (int k = 0; k <= p.s_rast && k <= kMaxLogS; ++k)
+    lg[k] = log_prob_mean(k, p.s_rast);
+  const double* lgs = uses_log_table(p) ? lg.data() : nullptr;
+  for (int b = 0; b < n; ++b)
+    for (int t = 0; t < p.nt; ++t) {
+      const size_t bt = (size_t)b * p.nt + t;
+      const float* scg = p.scal + (size_t)b * kNS;
+      const bool act = p.active[bt] > 0;
+      if (!act) {
+        PixelAccT<double> acc;
+        zero_acc(acc);
+        for (int i = 0; i < p.p_tile; ++i) {
+          bool inside;
+          const int pix = tile_pixel(p, t, i, &inside);
+          if (!inside) continue;
+          if (mode < 0) {
+            float* o = out + ((size_t)b * npix + pix) * 4;
+            o[0] = scg[kBg]; o[1] = scg[kBg + 1]; o[2] = scg[kBg + 2]; o[3] = 0.0f;
+          } else if (mode == 0) {
+            background_grads<false>(p, scg, b, pix, acc);
+          } else {
+            background_grads<true>(p, scg, b, pix, acc);
+          }
+        }
+        if (mode >= 0) {
+          for (int k = 0; k < kNS; ++k) rows64[bt * (kNS + 1) + k] = acc.gsc[k];
+          rows64[bt * (kNS + 1) + kNS] = acc.loss;
+        }
+        continue;
+      }
+      const Tables T = fill_k12(p, buf, bt, b);
+      std::vector<float> slices((size_t)kHostWarps * F * D, 0.0f);
+      double stage[kHostWarps][kNS + 1];
+      for (int v = 0; v < kHostWarps; ++v) {
+        std::vector<int> list(F);
+        std::vector<float> nzbuf(p.c_zpad);
+        float* mine = slices.data() + (size_t)v * F * D;
+        GradRows rows;
+        rows.ndc = mine; rows.world = mine + F * 9; rows.fn = mine + F * 18;
+        rows.tex = mine + F * 27; rows.tex_d = p.tex_d;
+        L.run([&](int lane) {
+          HostWarp w{lane, &L};
+          PixelAccT<double> acc;
+          zero_acc(acc);
+          for (int i = v; i < p.p_tile; i += kHostWarps) {
+            bool inside;
+            const int pix = tile_pixel(p, t, i, &inside);
+            if (!inside) continue;
+            if (mode < 0) {
+              float o[4];
+              warp_pixel_forward<MAXF>(p, T, b, pix, w, list.data(),
+                                       nzbuf.data(), lgs, o);
+              if (lane == 0)
+                std::memcpy(out + ((size_t)b * npix + pix) * 4, o, sizeof(o));
+            } else if (mode == 0) {
+              warp_pixel_grads<MAXF, false>(p, T, b, pix, w, list.data(),
+                                            nzbuf.data(), lgs, rows, acc);
+            } else {
+              warp_pixel_grads<MAXF, true>(p, T, b, pix, w, list.data(),
+                                           nzbuf.data(), lgs, rows, acc);
+            }
+          }
+          if (mode >= 0) warp_finish(p, T.sc, acc, w, stage[v]);
+        });
+      }
+      if (mode < 0) continue;
+      // The slices in warp order, from the tables' layout to (F, D) rows.
+      float* dst = out + bt * F * D;
+      for (int e = 0; e < F * D; ++e) {
+        float s = 0.0f;
+        for (int v = 0; v < kHostWarps; ++v) s += slices[(size_t)v * F * D + e];
+        int i, d;
+        if (e < 27 * F) { const int g = e / (9 * F), r = e % (9 * F);
+                          i = r / 9; d = g * 9 + r % 9; }
+        else { const int r = e - 27 * F; i = r / p.tex_d; d = kGeo + r % p.tex_d; }
+        dst[i * D + d] = s;
+      }
+      for (int k = 0; k <= kNS; ++k) {
+        double s = 0.0;
+        for (int v = 0; v < kHostWarps; ++v) s += stage[v][k];
+        rows64[bt * (kNS + 1) + k] = s;
+      }
+    }
+}
+
+extern "C" void host_warp(
+    int mode, const float* fv_ndc, const float* fv_world, const float* fn,
+    const float* tex, const float* valid, const float* scal,
+    const int* seeds, const float* extra, float* out, double* rows64, int n,
+    int image_size, int f_pad, int bg_row, int c_zpad, int tex_d,
+    int atlas_r, int rast_kind, int rast_noise, int rast_vr, int s_rast,
+    int agg_kind, int agg_noise, int agg_vr, int s_agg, int k, float eps_bg,
+    int phong, int point_light, int clip, int persp, int loss_kind,
+    float lscale, const int* active, int nt, int p_tile) {
+  Params p = {};
+  p.fv_ndc = fv_ndc; p.fv_world = fv_world; p.fn = fn; p.tex = tex;
+  p.valid = valid; p.scal = scal; p.seeds = seeds; p.extra = extra;
+  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
+             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
+             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
+  p.loss_kind = loss_kind; p.lscale = mode == 1 ? lscale : 0.0f;
+  set_tiling(p, active, nt, p_tile, 0);
+  if (f_pad <= 32) warp_run<32>(p, n, mode, out, rows64);
+  else warp_run<64>(p, n, mode, out, rows64);
+}
+"""
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -251,6 +507,30 @@ def host_lib(tmp_path_factory):
     lib.host_sharded.argtypes = ([i32] + [ptr] * 13 + [i32] * 16
                                  + [ctypes.c_float] + [i32] * 4
                                  + [ptr, i32, i32, i32])
+    return lib
+
+
+@pytest.fixture(scope="module")
+def warp_lib(tmp_path_factory):
+    """K12's warp pipeline built for the CPU with its lanes emulated (an
+    x86-64 fiber switch)."""
+    import platform
+
+    gxx = shutil.which("g++")
+    if gxx is None or platform.machine() != "x86_64":
+        pytest.skip("needs g++ on x86-64 to emulate the warp's lanes")
+    d = tmp_path_factory.mktemp("host_warp")
+    (d / "stub.h").write_text(STUB)
+    (d / "warp.cpp").write_text(WARP_HARNESS)
+    so = d / "libhost_warp.so"
+    subprocess.run([gxx, "-O1", "-std=c++17", "-shared", "-fPIC",
+                    "-include", str(d / "stub.h"), "-I", _build.CSRC,
+                    str(d / "warp.cpp"), "-o", str(so)], check=True)
+    lib = ctypes.CDLL(str(so))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_warp.argtypes = ([i32] + [ptr] * 10 + [i32] * 16
+                              + [ctypes.c_float] + [i32] * 5
+                              + [ctypes.c_float, ptr, i32, i32])
     return lib
 
 
@@ -387,6 +667,94 @@ def test_binned_pipeline_matches_plain_on_host(noise, host_lib, monkeypatch,
                         .manual_seed(2))
     lscale = 1.0 / (2 * 64 * 64 * 3)
     got = host_grads(host_lib, cfg, tables, target, 0, lscale)
+    w_loss, *want = tbin.binned_loss_grad_plain(cfg, *tables, target,
+                                                "l2_rgb", lscale)
+    _l64, *want64 = tbin.binned_loss_grad_plain(cfg, *tables64,
+                                                target.double(), "l2_rgb",
+                                                lscale)
+    torch.testing.assert_close(got[0], w_loss, rtol=1e-5, atol=0)
+    ok, err, where, _thin, _rep = checks.binned_grads_close(
+        cfg, tables[:4], got[1:], want, want64, tol)
+    assert ok, (err, where)
+
+
+def host_warp(lib, cfg, tables, mode, extra=None, loss_id=0, lscale=0.0):
+    """K12's warp pipeline on the host over per-tile ``tables`` (the 8
+    kernel inputs): mode -1 the forward, (N, H, W, 4); 0 K4's gradients
+    (``extra`` = g_out), 1 K2's (``extra`` = target): (loss (N,), g_ndc,
+    g_world, g_fn, g_tex, g_scal), the tiles' scalar rows added in order
+    in double."""
+    n, f, s = tables[0].shape[0], cfg.f_pad, cfg.image_size
+    nt, d = tfr._n_tiles(cfg), 27 + cfg.tex_d
+    out = torch.zeros((n, s * s, 4) if mode < 0 else (n, nt, f, d))
+    rows64 = torch.zeros(n, nt, 35, dtype=torch.float64)
+    extra = torch.zeros(1) if extra is None else extra.contiguous()
+    lib.host_warp(mode, *(t.data_ptr() for t in tables[:7]),
+                  extra.data_ptr(), out.data_ptr(), rows64.data_ptr(), n,
+                  *tfr._cfg_args(cfg), loss_id, ctypes.c_float(lscale),
+                  tables[7].data_ptr(), nt, cfg.p_tile)
+    if mode < 0:
+        return out.reshape(n, s, s, 4)
+    scal = torch.zeros(n, 35, dtype=torch.float64)
+    for t in range(nt):                      # the tiles in order
+        scal += rows64[:, t]
+    scal = scal.float()
+    return (scal[:, -1] * lscale, out[..., :9], out[..., 9:18],
+            out[..., 18:27], out[..., 27:], scal[:, :34])
+
+
+@pytest.mark.parametrize("noise", ["gaussian", "softras", "cauchy",
+                                   "gaussian_wovr", "hard"])
+def test_binned_warp_pipeline_matches_plain_on_host(noise, warp_lib, host_lib,
+                                                    monkeypatch, one_thread):
+    """K12's warp pipeline (the slots across a warp's lanes, emulated) on
+    the icosphere at 64^2, tiles of 32 pixels, M = 32, against
+    ``binned_forward_plain`` / ``binned_backward_plain`` /
+    ``binned_loss_grad_plain``: images by the MC image rule or atol 2e-5,
+    gradients by ``checks.binned_grads_close`` (1e-3 MC, 1e-4
+    deterministic, thin rows by L / h) against the float32 or float64
+    plain version, losses rtol 1e-5; a second run bit-equal.  Its image
+    equals the per-pixel pipeline's (``pixel_forward<M, double>``) bit for
+    bit wherever the weights are counts or one-hots (all but softras,
+    whose softmax sums in another order): the draws it skips cannot
+    change a result."""
+    import dataclasses
+
+    from pertrenderer_tpu_torch import checks
+    from pertrenderer_tpu_torch.ops import binned as tbin
+
+    monkeypatch.setattr(tfr, "_COARSE_THRESHOLD", 512)
+    monkeypatch.setattr(tfr, "_BIN_P_TILE", 32)
+    mesh, rend = _renderer(noise, "cpu", imsize=64, mesh_kind="icosphere",
+                           sigma=1e-2, gamma=5e-2, s=2)
+    rend.rasterizer.raster_settings = dataclasses.replace(
+        rend.rasterizer.raster_settings, bin_overflow="allow",
+        max_faces_per_bin=32)
+    cfg, tables = _inputs(mesh, rend)
+    assert cfg.binned and cfg.f_pad == 32 and int(tables[7].sum()) > 0
+    assert 0 < int(tables[7].sum()) < tables[7].numel()   # inactive tiles
+    mc = noise in MC_NOISES
+    tol = 1e-3 if mc else 1e-4
+    img = host_warp(warp_lib, cfg, tables, -1)
+    assert torch.equal(img, host_warp(warp_lib, cfg, tables, -1))
+    if noise != "softras":
+        assert torch.equal(img, host_forward(host_lib, cfg, tables))
+    assert_kernel_close(img, tbin.binned_forward_plain(cfg, *tables), mc)
+    tables64 = [t.double() if t.is_floating_point() else t for t in tables]
+    g_out = torch.randn(2, 64, 64, 4, generator=torch.Generator()
+                        .manual_seed(1))
+    got = host_warp(warp_lib, cfg, tables, 0, g_out)
+    want = tbin.binned_backward_plain(cfg, *tables, g_out)
+    want64 = tbin.binned_backward_plain(cfg, *tables64, g_out.double())
+    ok, err, where, _thin, _rep = checks.binned_grads_close(
+        cfg, tables[:4], got[1:], want, want64, tol)
+    assert ok, (err, where)
+    target = torch.rand(2, 3, 64 * 64, generator=torch.Generator()
+                        .manual_seed(2))
+    lscale = 1.0 / (2 * 64 * 64 * 3)
+    got = host_warp(warp_lib, cfg, tables, 1, target, 0, lscale)
+    again = host_warp(warp_lib, cfg, tables, 1, target, 0, lscale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     w_loss, *want = tbin.binned_loss_grad_plain(cfg, *tables, target,
                                                 "l2_rgb", lscale)
     _l64, *want64 = tbin.binned_loss_grad_plain(cfg, *tables64,
