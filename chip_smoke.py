@@ -44,7 +44,10 @@ line; any failure exits non-zero before a result is printed):
    evaluated in float64; the rows of faces too thin for float32 to
    resolve that, height under 2e-3 of their longest edge, within 2e-6 /
    (height / edge)), repeated launches bit-equal, and K7 = K5 + K6 at
-   N=4 (1e-5 of each table's max);
+   N=4 (1e-5 of each table's max); ptxas's registers / stack / spills of
+   the two gradient kernels (csrc/stream_warp.cuh: B1, B2) and their
+   resident blocks per SM at N=1 by the occupancy API (>= 2 blocks or >= 16
+   warps);
 11. serve-stream — 8 render requests of N=4 cow poses through
    MeshRenderer;
 12. render-grad-stream — 4 requests that render N=4 cow poses and take
@@ -1018,11 +1021,43 @@ def phase_k6_k7(dev, smi, report):
     gradients are sums whose terms cancel, and a float32 version of them
     lost digits that the float32 plain version lost too.  Then K7 = K5 +
     K6 at N=4, every row within 1e-5 of each table's max."""
+    stream_grad_shapes(dev, smi)
     for noise, tol in (("gaussian", 1e-3), ("softras", 1e-4)):
         for kname, n in (("fused_stream_backward", N_POSES),
                          ("fused_stream_loss_grad", 1)):
             k6_k7_case(dev, smi, report, noise, tol, kname, n)
     k7_equals_k5_k6(dev, smi)
+
+
+def stream_grad_shapes(dev, smi):
+    """ptxas's registers / stack / spills of K6's and K7's two kernels
+    (csrc/stream_warp.cuh: B1's stream_replay_kernel, B2's
+    stream_adjoint_kernel) and, at the cow's N=1 shapes, their block
+    shapes and resident blocks per SM by the occupancy API: each must hold
+    >= 2 blocks or >= 16 warps per SM."""
+    names = [f"stream_{k}_kernelILb{loss}E" for loss in (0, 1)
+             for k in ("replay", "adjoint")]
+    for name, lines in ptxas_report(names).items():
+        tag = "K6" if "Lb0E" in name else "K7"
+        print(f"[{tag}] ptxas {name}: {' | '.join(sorted(set(lines)))}",
+              flush=True)
+    cfg, args = stream_inputs("gaussian", dev, 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = fr._n_tiles(cfg) * (cfg.p_tile // fr.STREAM_BLOCK_PIX)
+    for kname, tag in (("fused_stream_backward", "K6"),
+                       ("fused_stream_loss_grad", "K7")):
+        sh = fr.stream_grad_shape(kname, cfg, args[0].shape[2], dev)
+        for part, w, per_sm, smem in (
+                ("B1", sh["b1_warps"], sh["b1_blocks_per_sm"], sh["b1_smem"]),
+                ("B2", sh["warps"], sh["blocks_per_sm"], sh["smem"])):
+            if per_sm < 2 and per_sm * w < 16:
+                fail(f"{kname} {part}: {per_sm} resident blocks of {w} "
+                     f"warps per SM")
+            print(f"[{tag}] {kname} {part} kernel on the cow at N=1: "
+                  f"{blocks} blocks of {w} warps ({fr.STREAM_BLOCK_PIX} "
+                  f"pixels each) on {sms} SMs, {per_sm} resident per SM "
+                  f"({per_sm * w} warps), {smem} B of dynamic shared "
+                  f"memory per block | {smi}", flush=True)
 
 
 def k6_k7_case(dev, smi, report, noise, tol, kname, n):
@@ -1852,6 +1887,11 @@ def phase_k8(dev, smi, report):
     accumulations per element and sample; the hash left out) over 67
     TFLOP/s.  No single PyTorch call computes the hashed estimator: no
     library time."""
+    ptx = ptxas_report(tuple(f"argmax_grads_kernelILi{j}E"
+                             for j in (1, 2, 3, 4, 8, 16)))
+    print("[K8c] ptxas (channels per lane J): " + "; ".join(
+        f"J={k[len('argmax_grads_kernelILi'):-1]} {sorted(set(v))[0]}"
+        for k, v in ptx.items()), flush=True)
     d, z, g, sigma, gamma, rs, ags = staged_estimator_inputs(dev)
     nd, nz, npx = d.numel(), z.numel(), z.numel() // z.shape[-1]
     out = {}

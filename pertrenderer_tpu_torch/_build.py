@@ -29,8 +29,9 @@ SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
            "fused_loss_grad.cu", "fused_binned.cu", "stream_forward.cu",
            "stream_backward.cu", "stream_loss_grad.cu", "gather.cu",
            "interp_gather.cu", "perturbed.cu", "sharded.cu")
-HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh",
-           "binned_warp.cuh", "stream_grad.cuh", "segment_sum.cuh")
+HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh", "warp.cuh",
+           "binned_warp.cuh", "stream_grad.cuh", "stream_warp.cuh",
+           "segment_sum.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v")
@@ -140,8 +141,13 @@ def library() -> ctypes.CDLL:
     lib.pt_stream_forward.argtypes = [ptr] * 7 + geometry + config + [ptr]
     lib.pt_stream_forward.restype = i32
     for fn in (lib.pt_stream_backward, lib.pt_stream_loss_grad):
-        fn.argtypes = ([ptr] * 15 + geometry + config
+        fn.argtypes = ([ptr] * 17 + geometry + config
                        + [i32, ctypes.c_float, ptr])
+        fn.restype = i32
+    # The gradient kernels' shapes: dt, tex_d, agg_kind, s_agg, int[7] out.
+    for fn in (lib.pt_stream_backward_occupancy,
+               lib.pt_stream_loss_grad_occupancy):
+        fn.argtypes = [i32] * 4 + [ptr]
         fn.restype = i32
     # The gathers (ops/gather.py, ops/interp_gather.py): pointers, then the
     # column count P (64-bit), the row count F and the width D.
@@ -166,7 +172,7 @@ def library() -> ctypes.CDLL:
     lib.pt_heaviside.argtypes = [ptr] * 4 + [i32, i64, i64] + [i32] * 4 + [
         ptr]
     lib.pt_argmax_mean.argtypes = [ptr] * 5 + [i32, i64] + [i32] * 3 + [ptr]
-    lib.pt_argmax_grads.argtypes = [ptr] * 7 + [i32, i64] + [i32] * 4 + [ptr]
+    lib.pt_argmax_grads.argtypes = [ptr] * 6 + [i32, i64] + [i32] * 4 + [ptr]
     for fn in (lib.pt_heaviside, lib.pt_argmax_mean, lib.pt_argmax_grads):
         fn.restype = i32
     lib.pt_grad_partial_warps.argtypes = [i32] * 4

@@ -35,78 +35,19 @@
 // fused_binned.cu); the per-slot functions are the flat kernels'
 // (face_geometry, face_forward, face_backward).
 //
-// The warp type Wp gives the lane and the warp primitives (shfl_xor,
-// shfl_up, shfl_down, shfl, ballot, sync): CardWarp on the card; the CPU
-// tests compile these functions with the lanes emulated.
+// The warp type Wp gives the lane and the warp primitives (warp.cuh):
+// CardWarp on the card; the CPU tests compile these functions with the
+// lanes emulated.
 #pragma once
 
 #include <limits.h>
 
 #include "fused_grad.cuh"
+#include "warp.cuh"
 
 namespace ptf {
 
-// Phase clocks for tuning (a build with -DPT_PROFILE; fused_binned.cu's
-// pt_binned_profile reads them): cycles per phase summed over the warps'
-// pixels, lane 0's clock.  Without the flag the marks compile to nothing.
-#ifdef PT_PROFILE
-__device__ unsigned long long pt_prof[16];
-#endif
-#if defined(PT_PROFILE) && defined(__CUDA_ARCH__)
-#define PT_MARK(t) long long t = clock64()
-#define PT_PHASE(i, t)                                                   \
-  do {                                                                   \
-    const long long now_ = clock64();                                    \
-    if (w.lane == 0) atomicAdd(&pt_prof[i], (unsigned long long)(now_ - t)); \
-    t = now_;                                                            \
-  } while (0)
-#else
-#define PT_MARK(t)
-#define PT_PHASE(i, t)
-#endif
-
-PT_HD int pt_popc(unsigned x) {
-#ifdef __CUDA_ARCH__
-  return __popc(x);
-#else
-  return __builtin_popcount(x);
-#endif
-}
-
-template <class Wp, class T>
-PT_HD T wsum(Wp& w, T v) {
-  for (int o = 16; o > 0; o >>= 1) v += w.shfl_xor(v, o);
-  return v;
-}
-
-template <class Wp, class T>
-PT_HD T wmax(Wp& w, T v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmax(v, w.shfl_xor(v, o));
-  return v;
-}
-
-template <class Wp>
-PT_HD int wmin(Wp& w, int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, w.shfl_xor(v, o));
-  return v;
-}
-
-template <class Wp>
-PT_HD double wprod(Wp& w, double v) {
-  for (int o = 16; o > 0; o >>= 1) v *= w.shfl_xor(v, o);
-  return v;
-}
-
-// Inclusive product scans over the lanes, from lane 0 up (fwd) or from
-// lane 31 down.
-template <class Wp>
-PT_HD double wscan_mul(Wp& w, double v, bool fwd) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const double u = fwd ? w.shfl_up(v, d) : w.shfl_down(v, d);
-    if (fwd ? w.lane >= d : w.lane + d < 32) v = u * v;
-  }
-  return v;
-}
+using namespace ptw;
 
 // Row `row` of sample s's R-row noise block (draw_noise's value): for a
 // gaussian row only its half of the Box-Muller pair, by gaussian_pair's

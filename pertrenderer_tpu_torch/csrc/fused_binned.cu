@@ -59,29 +59,9 @@ using namespace ptf;
 constexpr int kFwdWarps = 4;        // forward: warps per block
 constexpr int kMaxGradWarps = 8;    // gradients: at most, per block
 
-struct CardWarp {
-  int lane;
-  template <class T>
-  __device__ T shfl_xor(T v, int o) {
-    return __shfl_xor_sync(0xffffffffu, v, o);
-  }
-  template <class T>
-  __device__ T shfl_up(T v, int d) {
-    return __shfl_up_sync(0xffffffffu, v, d);
-  }
-  template <class T>
-  __device__ T shfl_down(T v, int d) {
-    return __shfl_down_sync(0xffffffffu, v, d);
-  }
-  template <class T>
-  __device__ T shfl(T v, int s) {
-    return __shfl_sync(0xffffffffu, v, s);
-  }
-  __device__ unsigned ballot(bool x) {
-    return __ballot_sync(0xffffffffu, x);
-  }
-  __device__ void sync() { __syncwarp(); }
-};
+using ptw::bulk_load;
+using ptw::CardWarp;
+using ptw::smem_addr;
 
 // Floats of a tile's tables in shared memory (K12's layout: ndc, world,
 // normals, validity, texels, then the 34 scalars), rounded up to 16 bytes.
@@ -95,21 +75,6 @@ PT_HOST_HD size_t tile_floats(const Params& p) {
 PT_HOST_HD size_t warp_floats(const Params& p, bool slices) {
   const size_t slice = slices ? (size_t)p.f_pad * (kGeo + p.tex_d) : 0;
   return (slice + p.f_pad + p.c_zpad + 3) & ~(size_t)3;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from device memory into shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // log_prob's table in shared memory (visible after load_tile_async's
@@ -532,9 +497,9 @@ extern "C" int pt_binned_loss_grad(
 #ifdef PT_PROFILE
 // The phase clocks of a profiling build (binned_warp.cuh), read and reset.
 extern "C" int pt_binned_profile(void* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, ptf::pt_prof, sizeof(ptf::pt_prof));
+  cudaError_t e = cudaMemcpyFromSymbol(out, pt_prof, sizeof(pt_prof));
   if (e != cudaSuccess) return (int)e;
   unsigned long long zero[16] = {};
-  return (int)cudaMemcpyToSymbol(ptf::pt_prof, zero, sizeof(zero));
+  return (int)cudaMemcpyToSymbol(pt_prof, zero, sizeof(zero));
 }
 #endif

@@ -64,11 +64,14 @@ struct Params {
   int nt, p_tile, tile_w;
   // The stream route: the sorted table (N, rw, dt), each tile's chunk list
   // (N, nt, nch) and count (N, nt); the gradient kernels' visits (voff,
-  // vstart, vidx: fused_render._stream_visit_index) and scalar partials.
+  // vstart, vidx: fused_render._stream_visit_index), the pixels' records
+  // from B1 to B2 (recs), each visit's nsub blocks' partial rows, their
+  // row masks (pmask) and their scalar rows (pscal64, in double).
   const float* tab;
   const int *rows, *count, *voff, *vstart, *vidx;
-  float *pscal, *g_tab;
-  int nch, rw, dt;
+  float *recs, *g_tab;
+  unsigned long long* pmask;
+  int nch, rw, dt, nsub;
   // The binned route's K12: each tile's 34 scalar gradients and loss
   // (N, nt, 35), in double.
   double* pscal64;

@@ -15,8 +15,9 @@
 // z_map; per live row pair and sample one Box-Muller pair.  Memory sees
 // each visited chunk once per tile (64 x dt floats, staged into shared
 // memory by the whole block) and the image once.  The per-pixel chunk
-// arrays live in local memory; making it fast (registers, cp.async double
-// buffering of the chunks, fewer dead-row draws) is later work.
+// arrays live in local memory; making it fast (the rows across a warp's
+// lanes, as K6 / K7's stream_warp.cuh; cp.async double buffering of the
+// chunks, fewer dead-row draws) is later work.
 //
 // Numerics: -fmad=false and no fast math, as K3, so every threshold and
 // strict-greater test sees the plain version's rounding.
@@ -50,8 +51,7 @@ __global__ void __launch_bounds__(256) stream_forward_kernel(const Params p) {
     for (int q = 0; q < p.count[bt]; ++q) {
       stage_chunk(p, b, list[q], s_blk);
       const Tables T = chunk_tables(p, s_blk, s_sc);
-      chunk_forward<false, false>(p, T, b, list[q], px, py, live, pos, st,
-                                  R);
+      chunk_forward(p, T, b, list[q], px, py, live, pos, st, R);
     }
   }
   if (!live) return;

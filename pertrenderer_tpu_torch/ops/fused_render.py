@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -1874,6 +1875,7 @@ class _FusedSharded(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 MAX_STREAM_SAMPLES = 64       # the stream kernels' per-pixel sample state
+STREAM_BLOCK_PIX = 32         # K6 / K7: pixels of a tile per block
 
 
 def _check_stream(cfg: FusedConfig, tab, rows, count, active, scal, seeds,
@@ -1963,19 +1965,25 @@ def _launch_stream_grads(kernel: str, cfg: FusedConfig, tab, rows, count,
                          active, scal, seeds, extra, loss_id: int,
                          lscale: float):
     """Launch K6 (``extra`` = g_out) or K7 (``extra`` = target) and return
-    (loss (N,), g_tab, g_scal).  Each block writes its visits' per-row sums
-    and its scalar sums to partial buffers (no atomics); two small kernels
-    add them in ascending tile order, so the gradients are the same bits
-    from run to run."""
+    (loss (N,), g_tab, g_scal).  A tile is ``p_tile // STREAM_BLOCK_PIX``
+    blocks; B1's kernel leaves each pixel's record in ``recs``, B2's
+    writes, for each visit, the partial rows that had a candidate and
+    their mask, and each block its scalar sums (no atomics); two small
+    kernels add them in ascending tile order, so the gradients are the same
+    bits from run to run."""
     from pertrenderer_tpu_torch import _build
 
     dev, n = tab.device, tab.shape[0]
     lib = _build.library()
     voff, vstart, vidx, visits = _stream_visit_index(rows, count, active)
-    d = 27 + cfg.tex_d
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    partial = new(max(visits, 1), STREAM_CHUNK, d)
-    pscal = new(n, _n_tiles(cfg), _NS + 1)
+    d, nsub = 27 + cfg.tex_d, cfg.p_tile // STREAM_BLOCK_PIX
+    rec = stream_grad_shape(kernel, cfg, tab.shape[2], dev)["record_floats"]
+    new = lambda *shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device=dev)
+    recs = new(n, _n_tiles(cfg) * cfg.p_tile, rec)
+    partial = new(max(visits, 1) * nsub, STREAM_CHUNK, d)
+    pmask = new(max(visits, 1) * nsub, dtype=torch.int64)
+    pscal = new(n, _n_tiles(cfg) * nsub, _NS + 1, dtype=torch.float64)
     g_tab, g_scal, loss = torch.zeros_like(tab), new(n, _NS), new(n)
     stream = torch.cuda.current_stream(dev).cuda_stream
     fn_c = (lib.pt_stream_backward if kernel == "fused_stream_backward"
@@ -1984,13 +1992,42 @@ def _launch_stream_grads(kernel: str, cfg: FusedConfig, tab, rows, count,
         err = fn_c(tab.data_ptr(), rows.data_ptr(), count.data_ptr(),
                    active.data_ptr(), voff.data_ptr(), vstart.data_ptr(),
                    vidx.data_ptr(), scal.data_ptr(), seeds.data_ptr(),
-                   extra.data_ptr(), partial.data_ptr(), pscal.data_ptr(),
-                   g_tab.data_ptr(), g_scal.data_ptr(), loss.data_ptr(), n,
+                   extra.data_ptr(), recs.data_ptr(), partial.data_ptr(),
+                   pmask.data_ptr(), pscal.data_ptr(), g_tab.data_ptr(),
+                   g_scal.data_ptr(), loss.data_ptr(), n,
                    *_stream_args(cfg, tab), *_cfg_args(cfg), loss_id,
                    ctypes.c_float(lscale), stream)
     _build.check(err, kernel)
     launch_counts[kernel] += 1
     return loss, g_tab, g_scal
+
+
+def stream_grad_shape(kernel: str, cfg: FusedConfig, dt: int, device=None):
+    """The shapes of K6's (``fused_stream_backward``) or K7's two kernels at
+    this configuration (needs the card): B2's warps per block, resident
+    blocks per SM (the occupancy API) and dynamic shared memory in bytes,
+    the same of B1's, and the floats of a pixel's record."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(zip(("warps", "blocks_per_sm", "smem", "b1_warps",
+                     "b1_blocks_per_sm", "b1_smem", "record_floats"),
+                    _stream_shape(kernel, dt, cfg.tex_d,
+                                  _AGG_IDS[cfg.agg_kind], cfg.s_agg,
+                                  dev.index or 0)))
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_shape(kernel, dt, tex_d, agg_id, s_agg, device_index):
+    from pertrenderer_tpu_torch import _build
+
+    lib = _build.library()
+    fn_c = (lib.pt_stream_backward_occupancy
+            if kernel == "fused_stream_backward"
+            else lib.pt_stream_loss_grad_occupancy)
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device_index):
+        _build.check(fn_c(dt, tex_d, agg_id, s_agg, ctypes.addressof(out)),
+                     kernel)
+    return tuple(out)
 
 
 def fused_stream_backward(cfg: FusedConfig, tab, rows, count, active, scal,

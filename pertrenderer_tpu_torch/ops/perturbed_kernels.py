@@ -43,6 +43,7 @@ __all__ = ["heaviside_mean", "heaviside_coeff", "argmax_mean",
 NOISE_IDS = {"gaussian": 0, "cauchy": 1, "logistic": 2, "gumbel": 3,
              "uniform": 4}
 GRAD_NOISES = ("gaussian", "cauchy")   # the families with a score function
+MAX_GRAD_CHANNELS = 512   # K8c on the card: 16 channels per lane at most
 
 launch_counts = {"heaviside_mean": 0, "heaviside_coeff": 0,
                  "argmax_mean": 0, "argmax_grads": 0}
@@ -280,13 +281,17 @@ def argmax_grads(z, g, gamma, seeds, n_samples: int,
     """K8c: (grad_z like z, the per-pixel gamma term z.shape[:-1]) of the
     perturbed argmax's cotangent ``g`` from the forward's noise (replaces
     ``_pa_grads_kernel``); grad_gamma is the gamma term's sum.  Gaussian
-    and cauchy only."""
+    and cauchy only.  On the card, one warp per pixel with the channels
+    across its lanes (at most ``MAX_GRAD_CHANNELS``)."""
     _check("argmax_grads", z, gamma, seeds, n_samples, noise_type, g)
     _check_grad_noise("argmax_grads", noise_type)
     if z.device.type == "cpu":
         plain_calls["argmax_grads"] += 1
         return argmax_grads_plain(z, g, gamma, seeds, n_samples, noise_type,
                                   variance_reduction)
+    if z.shape[-1] > MAX_GRAD_CHANNELS:
+        raise ValueError(f"argmax_grads: {z.shape[-1]} channels, the kernel "
+                         f"takes at most {MAX_GRAD_CHANNELS}")
     from pertrenderer_tpu_torch import _build
 
     z, g = z.contiguous(), g.contiguous()
@@ -295,9 +300,7 @@ def argmax_grads(z, g, gamma, seeds, n_samples: int,
     gz = torch.empty_like(z)
     gterm = torch.empty(z.shape[:-1], dtype=torch.float32, device=z.device)
     if z.numel():
-        scratch = torch.empty((n_samples, n * p), dtype=torch.float32,
-                              device=z.device)
         _launch("argmax_grads", _build.library().pt_argmax_grads, z, g,
-                gamma, seeds, gz, gterm, scratch, n, p, c, n_samples,
+                gamma, seeds, gz, gterm, n, p, c, n_samples,
                 NOISE_IDS[noise_type], int(variance_reduction))
     return gz, gterm

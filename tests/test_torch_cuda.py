@@ -796,6 +796,40 @@ def test_staged_estimator_kernels_match_plain(noise, vr, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,s", [(51, 8), (51, 13), (33, 8), (101, 13)])
+@pytest.mark.parametrize("noise,vr", [
+    ("gaussian", True), ("gaussian", False), ("cauchy", True)])
+def test_argmax_grads_kernel_channels_and_samples(noise, vr, c, s,
+                                                  cuda_device):
+    """K8c (a warp per pixel, the channels across its lanes) against its
+    plain version at the main path's C = 51 (two channels per lane) and at
+    the odd C = 33 and 101 (two and four per lane, the last lane group
+    ragged), at S = 8 and at S = 13 (above the sample batch of 4, the last
+    batch ragged): grad_z and the gamma term within 1e-3 of their max, two
+    launches bit-equal; pixel 0 has every channel tied, pixel 1 two
+    channels tied at its max."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    gen = torch.Generator().manual_seed(13)
+    z = torch.randn(2, 19, 23, c, generator=gen)
+    z[:, 0, 0] = 0.5
+    z[:, 0, 1, c // 3] = z[:, 0, 1, c - 2] = z[:, 0, 1].max() + 1.0
+    z = z.to(cuda_device)
+    g = torch.randn(z.shape, generator=gen).to(cuda_device)
+    seeds = torch.tensor([[9, -10], [11, 12]], dtype=torch.int32,
+                         device=cuda_device)
+    gamma = torch.tensor(0.5, device=cuda_device)
+    got = pk.argmax_grads(z, g, gamma, seeds, s, noise, vr)
+    again = pk.argmax_grads(z, g, gamma, seeds, s, noise, vr)
+    want = pk.argmax_grads_plain(z, g, gamma, seeds, s, noise, vr)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert torch.isfinite(a).all()
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("noise", ["gaussian", "cauchy"])
 def test_staged_mc_render_matches_cpu(noise, cuda_device):
     """A staged MC render of the cube (a znear override sends it staged)

@@ -239,11 +239,14 @@ extern "C" void host_grads(
 """
 
 
-WARP_HARNESS = r"""
+# A warp on the CPU: 32 fibers on one thread, one per lane (an x86-64
+# context switch), with the warp type of csrc/warp.cuh.  Shared by the
+# host builds of the warp pipelines (K12 here, K6 / K7 in
+# test_torch_stream_host.py, K8c in test_torch_perturbed_goldens.py).
+FIBERS = r"""
 #include <cstring>
 #include <functional>
-#include "binned_warp.cuh"
-using namespace ptf;
+#include <vector>
 
 // 32 fibers on one thread, one per lane, run in turn: a lane that reaches
 // a warp barrier hands over to the next, so every lane has reached it
@@ -347,6 +350,12 @@ struct HostWarp {
   unsigned ballot(bool x) { return L->vote(lane, x); }
   void sync() { L->barrier(); }
 };
+
+"""
+
+WARP_HARNESS = FIBERS + r"""
+#include "binned_warp.cuh"
+using namespace ptf;
 
 // Tile bt's tables in K12's shared-memory layout (ndc, world, normals,
 // validity, texels, scalars).

@@ -35,7 +35,7 @@ import torch
 
 from pertrenderer_tpu_torch import _build
 from pertrenderer_tpu_torch.models.smoothagg import _z_map
-from test_torch_kernel_host import STUB
+from test_torch_kernel_host import FIBERS, STUB
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens",
                        "reference_goldens.npz")
@@ -44,9 +44,8 @@ THREADS = 4
 SEEDS = np.array([[123456789, -987654321]], np.int32)
 FAMILY = {"gaussian": 0, "cauchy": 1}
 
-HARNESS = r"""
+HARNESS = FIBERS + r"""
 #include <thread>
-#include <vector>
 #include "perturbed.cu"
 using namespace ptk;
 
@@ -122,14 +121,43 @@ extern "C" void mc_argmax(const float* z, const float* g, float gamma,
   });
 }
 
-// The kernels' own per-element / per-pixel functions over an (N, P, C)
+// K8c's warp function at one pixel with its 32 lanes on fibers, at the
+// card's channels per lane (ceil(C / 32) rounded up to 1, 2, 3, 4, 8, 16).
+template <int J>
+static float grads_warp(Lanes& L, const float* z, const float* g, float* gz,
+                        float gamma, uint32_t s0, uint32_t s1, uint32_t p,
+                        int C, int S, int fam, bool vr) {
+  float t = 0.0f;
+  L.run([&](int lane) {
+    HostWarp w{lane, &L};
+    const float v = argmax_grads_warp<J>(w, z, g, gz, gamma, s0, s1, p, C,
+                                         S, fam, vr);
+    if (lane == 0) t = v;
+  });
+  return t;
+}
+
+static float grads_pixel(Lanes& L, const float* z, const float* g,
+                         float* gz, float gamma, uint32_t s0, uint32_t s1,
+                         uint32_t p, int C, int S, int fam, bool vr) {
+  const int J = (C + 31) / 32;
+  if (J <= 1) return grads_warp<1>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
+  if (J == 2) return grads_warp<2>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
+  if (J == 3) return grads_warp<3>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
+  if (J == 4) return grads_warp<4>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
+  if (J <= 8) return grads_warp<8>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
+  return grads_warp<16>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
+}
+
+// The kernels' own per-element and per-pixel functions over an (N, P, C)
 // input: which 0 heaviside mean, 1 its coefficient, 2 argmax mean, 3
-// argmax grads (out2: the gamma term per pixel).
+// argmax grads (K8c's warp function; out2: the gamma term per pixel).
 extern "C" void host_k8(int which, const float* x, const float* g,
                         float scale, const int* seeds, float* out,
                         float* out2, int n, int P, int C, int S, int fam,
                         int vr) {
   std::vector<float> scratch(S);
+  Lanes L;
   for (int b = 0; b < n; ++b)
     for (int p = 0; p < P; ++p) {
       const size_t q = (size_t)b * P + p;
@@ -142,9 +170,8 @@ extern "C" void host_k8(int which, const float* x, const float* g,
         argmax_mean_pixel(x + q * C, out + q * C, scale, s0, s1, p, C, S,
                           fam, scratch.data(), 1);
       } else {
-        out2[q] = argmax_grads_pixel(x + q * C, g + q * C, out + q * C,
-                                     scale, s0, s1, p, C, S, fam, vr != 0,
-                                     scratch.data(), 1);
+        out2[q] = grads_pixel(L, x + q * C, g + q * C, out + q * C, scale,
+                              s0, s1, p, C, S, fam, vr != 0);
       }
     }
 }
@@ -273,8 +300,8 @@ def test_port_gaussianagg_chain_matches_reference(G, host_mc):
     ("gaussian", True), ("gaussian", False), ("cauchy", True),
     ("logistic", True), ("gumbel", True), ("uniform", True)])
 def test_kernel_functions_match_plain_on_host(host_mc, noise, vr):
-    """K8a-c's per-element and per-pixel functions (what each CUDA thread
-    runs) against the plain versions on the same seeds: forwards within
+    """K8a-c's per-element and per-pixel functions (what each CUDA thread,
+    or for K8c each warp, runs) against the plain versions on the same seeds: forwards within
     the MC tolerance of the card (mean |d| <= 1e-5, 99.9% within 1e-4:
     g++'s libm and torch round log / cos / tan apart in the last place, so
     a threshold may flip), gradients within 1e-3 of their max |grad|; a
@@ -319,4 +346,37 @@ def test_kernel_functions_match_plain_on_host(host_mc, noise, vr):
             *zip(host(3, z, gamma),
                  pk.argmax_grads_plain(z, g, tg, seeds, s, noise, vr))):
         err = (got - want).abs().max() / want.abs().max()
+        assert torch.isfinite(got).all() and err <= 1e-3, err
+
+
+@pytest.mark.parametrize("c,s", [(7, 3), (51, 8), (70, 13)])
+@pytest.mark.parametrize("noise,vr", [
+    ("gaussian", True), ("gaussian", False), ("cauchy", True),
+    ("cauchy", False)])
+def test_k8c_warp_matches_plain_on_host(host_mc, noise, vr, c, s):
+    """K8c's warp function (a pixel's channels across the 32 emulated
+    lanes: ceil(C / 32) = 1, 2, 3 channels per lane; S below, at twice and
+    above three times the sample batch, with a ragged last batch) against
+    ``argmax_grads_plain`` on the same seeds: grad_z and the gamma term
+    within 1e-3 of their max |grad|.  Pixel 0 has every channel tied and
+    pixel 1 two channels tied at its max, so the first-wins baseline and
+    the >=-max one-hots meet exact ties."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    rng = np.random.default_rng(11)
+    n, p = 2, 12
+    z = torch.from_numpy(rng.standard_normal((n, p, c)).astype(np.float32))
+    z[:, 0] = 0.25
+    z[:, 1, c // 3] = z[:, 1, c - 2] = z[:, 1].max() + 1.0
+    g = torch.from_numpy(rng.standard_normal((n, p, c)).astype(np.float32))
+    seeds = torch.tensor([[31, -32], [33, 34]], dtype=torch.int32)
+    gamma = 0.5
+    gz, gterm = torch.zeros(n, p, c), torch.zeros(n, p)
+    host_mc.host_k8(3, z.data_ptr(), g.data_ptr(), gamma, seeds.data_ptr(),
+                    gz.data_ptr(), gterm.data_ptr(), n, p, c, s,
+                    pk.NOISE_IDS[noise], int(vr))
+    want = pk.argmax_grads_plain(z, g, torch.tensor(gamma), seeds, s, noise,
+                                 vr)
+    for got, w in zip((gz, gterm), want):
+        err = (got - w).abs().max() / w.abs().max()
         assert torch.isfinite(got).all() and err <= 1e-3, err
