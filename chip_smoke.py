@@ -47,7 +47,12 @@ line; any failure exits non-zero before a result is printed):
    N=4 (1e-5 of each table's max); ptxas's registers / stack / spills of
    the two gradient kernels (csrc/stream_warp.cuh: B1, B2) and their
    resident blocks per SM at N=1 by the occupancy API (>= 2 blocks or >= 16
-   warps);
+   warps); then [stream S=128]: the gaussian pair at S = 128 (two passes
+   of 64 samples over the chunk list) on the cow at 64^2, N=1: K5, K6 and
+   K7 against their plain versions at the same tolerances, repeats
+   bit-equal, through MeshRenderer.forward and render_loss, and K7 = K5 +
+   K6; then K5 / K6 at N=4 and K7 at N=1 on the cow at 256^2, S = 64
+   beside S = 128, timed, finite, repeats bit-equal;
 11. serve-stream — 8 render requests of N=4 cow poses through
    MeshRenderer;
 12. render-grad-stream — 4 requests that render N=4 cow poses and take
@@ -498,15 +503,15 @@ def scene(device):
     return r, t, lights
 
 
-def headline_renderer(noise, device, n=N_POSES, size=None):
+def headline_renderer(noise, device, n=N_POSES, size=None, s=S):
     """The headline scene's renderer (cameras, light, estimators), at
-    ``size``^2 (IMAGE by default)."""
+    ``size``^2 (IMAGE by default), ``s`` samples per estimator."""
     r, t, lights = scene(device)
     cams = ptt.PerspectiveCameras.create(
         R=r.expand(n, 3, 3), T=t.expand(n, 3), fov=60.0, device=device)
     if noise == "gaussian":
-        sr = ptt.GaussianRast.create(sigma=SIGMA, nb_samples=S)
-        sa = ptt.GaussianAgg.create(gamma=GAMMA, nb_samples=S)
+        sr = ptt.GaussianRast.create(sigma=SIGMA, nb_samples=s)
+        sa = ptt.GaussianAgg.create(gamma=GAMMA, nb_samples=s)
     else:
         sr, sa = ptt.SoftRast.create(sigma=SIGMA), ptt.SoftAgg.create(
             gamma=GAMMA)
@@ -541,9 +546,9 @@ def posed_cow(generator, device, n=N_POSES, log_rot=None):
     return cow.update_padded(ptt.Rotate(rot).transform_points(cow.verts))
 
 
-def stream_inputs(noise, dev, n, size=None):
+def stream_inputs(noise, dev, n, size=None, s=S):
     """(cfg, K5-K7 arguments) of the cow at n random poses."""
-    renderer = headline_renderer(noise, dev, n, size)
+    renderer = headline_renderer(noise, dev, n, size, s)
     mesh = posed_cow(torch.Generator().manual_seed(0), dev, n)
     seeds = fr.draw_seeds(n, torch.Generator().manual_seed(1), device=dev)
     cfg, (tab, scal, rows, count, active, seeds) = kernel_inputs(
@@ -943,6 +948,10 @@ def phase_train(dev, smi, report):
 
 
 def phase_k5(dev, smi, report):
+    lines = ptxas_report(("stream_forward_kernel",)).get(
+        "stream_forward_kernel", ["not in the build log"])
+    print(f"[K5] ptxas stream_forward_kernel: {' | '.join(sorted(set(lines)))}",
+          flush=True)
     for noise in ("gaussian", "softras"):
         cfg, args = stream_inputs(noise, dev, N_POSES)
         count, active = args[2], args[3]
@@ -1137,10 +1146,10 @@ def staged_softras_cotangent(dev):
     return w * (p2f[..., K - 1] < 0)[..., None].float()
 
 
-def k7_equals_k5_k6(dev, smi):
+def k7_equals_k5_k6(dev, smi, n=N_POSES, size=IMAGE, s=S):
     """K7 = K5 + K6 at N=4: every row within 1e-5 of each table's max."""
-    cfg, args = stream_inputs("gaussian", dev, N_POSES)
-    n, hw = N_POSES, IMAGE * IMAGE
+    cfg, args = stream_inputs("gaussian", dev, n, size, s)
+    hw = size * size
     target = torch.rand(n, 3, hw,
                         generator=torch.Generator().manual_seed(3)).to(dev)
     lscale = 1.0 / (n * hw * 3)
@@ -1148,7 +1157,7 @@ def k7_equals_k5_k6(dev, smi):
                                            lscale)
     img = fr.fused_stream_forward(cfg, *args)
     d = img[..., :3].reshape(n, hw, 3).transpose(1, 2) - target
-    g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(n, IMAGE, IMAGE, 3)
+    g_rgb = (2.0 * d * lscale).transpose(1, 2).reshape(n, size, size, 3)
     g_out = torch.cat([g_rgb, torch.zeros_like(g_rgb[..., :1])], dim=-1)
     dual = fr.fused_stream_backward(cfg, *args, g_out.contiguous())
     dual_loss = torch.sum(d * d, dim=(1, 2)) * lscale
@@ -1158,8 +1167,119 @@ def k7_equals_k5_k6(dev, smi):
     if not ok or dlerr > 1e-5:
         fail(f"K7 vs K5 + K6: worst table error {derr} at {dwhere}, loss "
              f"rel error {dlerr}")
-    print(f"[K7 = K5 + K6] gaussian cow {IMAGE}^2 N=4: worst table error "
-          f"{derr:.3g} at {dwhere}, loss rel error {dlerr:.3g} | {smi}",
+    print(f"[K7 = K5 + K6] gaussian cow {size}^2 N={n} S={s}: worst table "
+          f"error {derr:.3g} at {dwhere}, loss rel error {dlerr:.3g} | "
+          f"{smi}", flush=True)
+
+
+STREAM_S128 = 128     # optimize_pose's anneal_sample_cap
+STREAM_S128_IMAGE = 64
+
+
+def phase_stream_s128(dev, smi):
+    """The stream route above 64 aggregation samples (K5, K6 / K7's B1 in
+    passes of 64): the gaussian pair at S = 128 on the cow at 64^2, K=50,
+    N=1.  A render (K5) at the MC tolerance of its plain version, and K6
+    and K7 (a pose step's loss and gradients) within 1e-3 of the nearer of
+    the float32 and float64 plain versions (``checks.stream_grads_close``),
+    each repeat bit-equal; K7 = K5 + K6 (1e-5).  The render goes through
+    MeshRenderer.forward and the step through render_loss as well, with
+    the launch counts read around them."""
+    size, s = STREAM_S128_IMAGE, STREAM_S128
+    cfg, args = stream_inputs("gaussian", dev, 1, size, s)
+    got = fr.fused_stream_forward(cfg, *args)
+    again = fr.fused_stream_forward(cfg, *args)
+    want = fr.stream_forward_plain(cfg, *args)
+    torch.cuda.synchronize()
+    ok, dmax, dmean, flips = mc_close(got, want)
+    if not ok or not torch.equal(got, again):
+        fail(f"stream S={s} K5: max {dmax} mean {dmean} flips {flips}, "
+             f"repeat bit-equal {torch.equal(got, again)}")
+    k5_ms = cuda_ms(lambda: fr.fused_stream_forward(cfg, *args), 3)
+    texts = [f"K5 max |d| {dmax:.3g}, mean |d| {dmean:.3g}, pixels beyond "
+             f"1e-4 {flips:.3g}, {k5_ms:.3f} ms"]
+    args64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    for kname in ("fused_stream_backward", "fused_stream_loss_grad"):
+        kern, plain = stream_grad_calls(cfg, args, size)[kname]
+        got, again, want = kern(), kern(), plain()
+        want64 = stream_grad_calls(cfg, args64, size)[kname][1]()
+        torch.cuda.synchronize()
+        ok, err, where, n_thin, bins = checks.stream_grads_close(
+            cfg, args[0], got[1:], want[1:], want64[1:], 1e-3)
+        same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+        lerr = 0.0
+        if got[0] is not None:
+            lerr = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
+        if not ok or not same or lerr > 1e-5:
+            fail(f"stream S={s} {kname}: worst error {err} at {where}, thin "
+                 f"rows {checks.witness_text(bins)}, repeat bit-equal "
+                 f"{same}, loss rel {lerr}")
+        ms = cuda_ms(kern, 3)
+        texts.append(f"{'K7' if got[0] is not None else 'K6'} worst error "
+                     f"{err:.3g} of max |grad| at {where} outside {n_thin} "
+                     f"thin rows, loss rel {lerr:.3g}, {ms:.3f} ms")
+    rend = headline_renderer("gaussian", dev, 1, size, s)
+    mesh = posed_cow(torch.Generator().manual_seed(0), dev, 1)
+    target = torch.rand(1, size, size, 3,
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    gen = torch.Generator().manual_seed(6)
+    reset_counts()
+    img = rend(mesh, generator=gen)
+    loss = rend.render_loss(mesh, target, generator=gen)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    if (rend.plan(mesh).mode != "stream" or counts["fused_stream_forward"] < 1
+            or counts["fused_stream_loss_grad"] < 1
+            or not bool(torch.isfinite(img).all())
+            or not bool(torch.isfinite(loss).all())):
+        fail(f"stream S={s} through MeshRenderer: plan "
+             f"{rend.plan(mesh).mode}, launches {counts}")
+    print(f"[stream S={s}] gaussian cow {size}^2 K={K} N=1: "
+          + "; ".join(texts)
+          + f"; repeats bit-equal; MeshRenderer.forward and render_loss "
+          f"launch K5 {counts['fused_stream_forward']}, K7 "
+          f"{counts['fused_stream_loss_grad']} | {smi}", flush=True)
+    k7_equals_k5_k6(dev, smi, 1, size, s)
+    stream_sample_scaling(dev, smi)
+
+
+def stream_sample_scaling(dev, smi):
+    """K5 and K6 at N=4 and K7 at N=1 (the pose step's shape) on the cow at
+    256^2, S = 64 (one pass over the chunk list) beside S = 128 (two),
+    timed in turns (64, 128, 128, 64); each output finite and its repeat
+    bit-equal."""
+    texts = []
+    for kname, n in (("fused_stream_forward", N_POSES),
+                     ("fused_stream_backward", N_POSES),
+                     ("fused_stream_loss_grad", 1)):
+        calls = {}
+        for s in (64, STREAM_S128):
+            cfg, args = stream_inputs("gaussian", dev, n, IMAGE, s)
+            if kname == "fused_stream_forward":
+                kern = (lambda cfg=cfg, args=args:
+                        (fr.fused_stream_forward(cfg, *args),))
+            else:
+                kern = stream_grad_calls(cfg, args, IMAGE)[kname][0]
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            outs = [(a, b) for a, b in zip(got, again) if a is not None]
+            if not all(bool(torch.isfinite(a).all()) and torch.equal(a, b)
+                       for a, b in outs):
+                fail(f"{kname} at S={s}, cow {IMAGE}^2 N={n}: not finite "
+                     f"or a repeat differs")
+            calls[s] = kern
+        t64 = cuda_ms(calls[64], 3)
+        t128 = cuda_ms(calls[STREAM_S128], 3)
+        t128 = (t128 + cuda_ms(calls[STREAM_S128], 3)) / 2
+        t64 = (t64 + cuda_ms(calls[64], 3)) / 2
+        tag = {"fused_stream_forward": "K5", "fused_stream_backward": "K6",
+               "fused_stream_loss_grad": "K7"}[kname]
+        texts.append(f"{tag} N={n} S=64 {t64:.3f} ms, S={STREAM_S128} "
+                     f"{t128:.3f} ms ({t128 / t64:.3f}x)")
+        del calls
+        torch.cuda.empty_cache()
+    print(f"[stream S={STREAM_S128}] gaussian cow {IMAGE}^2 K={K}: "
+          + "; ".join(texts) + f"; finite, repeats bit-equal | {smi}",
           flush=True)
 
 
@@ -1878,50 +1998,80 @@ def phase_k8(dev, smi, report):
     """K8a, K8b and K8c against their plain versions on the card at the
     cow's staged shapes (256^2, K=50, N=4, S=8: 13.1 M coverage slots, a
     (4, 65536, 51) z_map), with the gaussian, cauchy and uniform families
-    (uniform is forward-only): forwards at the MC tolerance on shared
-    noise (``estimator_close``), gradients within 1e-3 of their max, two
-    launches bit-equal.  Times in CUDA events (plain, kernel, kernel,
-    plain); the bound is the larger of the bytes (each input read once,
-    each output written once) over 3.35 TB/s and the float32 operations
-    the function needs (a draw, the threshold or argmax and the
-    accumulations per element and sample; the hash left out) over 67
+    (uniform is forward-only): outside K8a's band (``heaviside_band``) and
+    K8b's candidates (``argmax_candidates``, and every channel of a pixel
+    with one candidate), which the kernels write without a draw, bit-equal;
+    the rest of a forward at the MC tolerance on shared noise
+    (``estimator_close``), gradients within 1e-3 of their max, two
+    launches bit-equal.  Beside each time: the band's share of the
+    elements and the candidates per pixel (mean, p99, the share of pixels
+    with one).  Times in CUDA events (plain, kernel, kernel, plain); the
+    bound is the larger of the bytes (each input read once, each output
+    written once) over 3.35 TB/s and the float32 operations this run's
+    data needs (a draw, the threshold or argmax and the accumulations per
+    drawn element or candidate and sample; the hash left out) over 67
     TFLOP/s.  No single PyTorch call computes the hashed estimator: no
-    library time."""
+    library time.  Then K8c at C = 600 (above 16 channels per lane: the
+    wide path), within 1e-3 of its plain version's max, repeats
+    bit-equal."""
     ptx = ptxas_report(tuple(f"argmax_grads_kernelILi{j}E"
-                             for j in (1, 2, 3, 4, 8, 16)))
-    print("[K8c] ptxas (channels per lane J): " + "; ".join(
-        f"J={k[len('argmax_grads_kernelILi'):-1]} {sorted(set(v))[0]}"
-        for k, v in ptx.items()), flush=True)
+                             for j in (1, 2, 3, 4, 8, 16, 0)))
+    print("[K8c] ptxas (channels per lane J; J=0 the wide path above 512 "
+          "channels): " + "; ".join(
+              f"J={k[len('argmax_grads_kernelILi'):-1]} {sorted(set(v))[0]}"
+              for k, v in ptx.items()), flush=True)
+    for tag, name in (("K8a", "heaviside_kernel"),
+                      ("K8b", "argmax_mean_kernel")):
+        lines = ptxas_report((name,)).get(name, ["not in the build log"])
+        print(f"[{tag}] ptxas {name}: {' | '.join(sorted(set(lines)))}",
+              flush=True)
     d, z, g, sigma, gamma, rs, ags = staged_estimator_inputs(dev)
     nd, nz, npx = d.numel(), z.numel(), z.numel() // z.shape[-1]
     out = {}
     for noise in STAGED_NOISES:
         grads = noise in pk.GRAD_NOISES
+        band = pk.heaviside_band(d, sigma, noise)
+        cand = pk.argmax_candidates(z, gamma, noise)
+        per_px = cand.sum(-1)
+        single = (per_px == 1)[..., None]
+        exact_z = ~cand | single
+        n_band = int(band.sum())
+        n_drawn = int((cand & ~single).sum())
+        band_text = (f"band |d| <= sigma B holds {n_band / nd:.4f} of the "
+                     f"elements")
+        cand_text = (f"candidates per pixel mean "
+                     f"{per_px.float().mean().item():.3f}, p99 "
+                     f"{torch.quantile(per_px.float().flatten(), 0.99).item():g}"
+                     f", one candidate on {single.float().mean().item():.4f}"
+                     f" of pixels")
         calls = {"heaviside_mean": (
             lambda: pk.heaviside_mean(d, sigma, rs, S, noise),
             lambda: pk.heaviside_mean_plain(d, sigma, rs, S, noise),
-            8 * nd, nd * S * (OPS_DRAW[noise] + OPS_COVER))}
+            8 * nd, n_band * S * (OPS_DRAW[noise] + OPS_COVER), band)}
         if grads:
             calls["heaviside_coeff"] = (
                 lambda: pk.heaviside_coeff(d, sigma, rs, S, noise),
                 lambda: pk.heaviside_coeff_plain(d, sigma, rs, S, noise,
                                                  True),
-                8 * nd, nd * S * (OPS_DRAW[noise] + OPS_COVER
-                                  + OPS_COVER_BWD))
+                8 * nd, n_band * S * (OPS_DRAW[noise] + OPS_COVER
+                                      + OPS_COVER_BWD), band)
         calls["argmax_mean"] = (
             lambda: pk.argmax_mean(z, gamma, ags, S, noise),
             lambda: pk.argmax_mean_plain(z, gamma, ags, S, noise),
-            8 * nz, nz * S * (OPS_DRAW[noise] + OPS_AGG))
+            8 * nz, n_drawn * S * (OPS_DRAW[noise] + OPS_AGG), ~exact_z)
         if grads:
             calls["argmax_grads"] = (
                 lambda: pk.argmax_grads(z, g, gamma, ags, S, noise),
                 lambda: pk.argmax_grads_plain(z, g, gamma, ags, S, noise,
                                               True),
                 12 * nz + 4 * npx,
-                nz * S * (OPS_DRAW[noise] + OPS_AGG + OPS_AGG_BWD))
-        for kname, (kern, plain, nbytes, ops) in calls.items():
+                nz * S * (OPS_DRAW[noise] + OPS_AGG + OPS_AGG_BWD), None)
+        for kname, (kern, plain, nbytes, ops, drawn) in calls.items():
             got, again, want = kern(), kern(), plain()
             torch.cuda.synchronize()
+            exact = True
+            if drawn is not None:
+                exact = torch.equal(got[~drawn], want[~drawn])
             if kname == "argmax_grads":
                 oks = [grad_close(a, b) for a, b in zip(got, want)]
                 ok, err = all(o for o, _ in oks), max(e for _, e in oks)
@@ -1930,14 +2080,18 @@ def phase_k8(dev, smi, report):
             elif kname == "heaviside_coeff":
                 ok, err = grad_close(got, want)
                 same = torch.equal(got, again)
-                text = f"within {err:.3g} of max"
+                text = (f"within {err:.3g} of max, bit-equal outside the "
+                        f"band; {band_text}")
             else:
                 ok, err, dmean, flips = estimator_close(got, want)
                 same = torch.equal(got, again)
                 text = (f"max |d| {err:.3g}, mean |d| {dmean:.3g}, elements "
-                        f"beyond 1e-4 {flips:.3g}")
-            if not ok or not same:
-                fail(f"{kname} {noise}: {text}, repeat bit-equal {same}")
+                        f"beyond 1e-4 {flips:.3g}, bit-equal outside the "
+                        + (f"band; {band_text}" if drawn is band else
+                           f"candidates; {cand_text}"))
+            if not ok or not same or not exact:
+                fail(f"{kname} {noise}: {text}, repeat bit-equal {same}, "
+                     f"bit-equal where no draw is made {exact}")
             k_ms, p_ms = timed_pair(kern, plain, 10, 1)
             b_ms, b_by = bound(nbytes, ops)
             out[(kname, noise)] = (err, k_ms, p_ms, b_ms, b_by)
@@ -1948,6 +2102,7 @@ def phase_k8(dev, smi, report):
                   f"{text} vs plain on shared noise, repeat bit-equal; "
                   f"{k_ms:.4f} ms vs plain {p_ms:.2f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+    k8c_wide(dev, smi)
     # The kernels line: K8a is the forward and its backward coefficient
     # together (both entry points), K8b and K8c one call each; gaussian.
     mean, coeff = out[("heaviside_mean", "gaussian")], \
@@ -1960,6 +2115,37 @@ def phase_k8(dev, smi, report):
         err, k_ms, p_ms, b_ms, b_by = out[(kname, "gaussian")]
         report[kname] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+K8C_WIDE = 600      # channels of [K8c]'s wide case (16 per lane is 512)
+
+
+def k8c_wide(dev, smi):
+    """K8c at C = 600 (argmax_grads_wide: the lane's channels sample by
+    sample) on a seeded (2, 4096, 600) z and cotangent, gaussian, S=8,
+    with and without variance reduction: within 1e-3 of the plain
+    version's max, repeats bit-equal."""
+    gen = torch.Generator().manual_seed(12)
+    z = torch.randn(2, 4096, K8C_WIDE, generator=gen).to(dev)
+    g = torch.randn(2, 4096, K8C_WIDE, generator=gen).to(dev)
+    gamma = torch.tensor(0.5, device=dev)
+    seeds = fr.draw_seeds(2, gen, device=dev)[:, 2:].contiguous()
+    for vr in (True, False):
+        kern = lambda: pk.argmax_grads(z, g, gamma, seeds, S, "gaussian", vr)
+        got, again = kern(), kern()
+        want = pk.argmax_grads_plain(z, g, gamma, seeds, S, "gaussian", vr)
+        torch.cuda.synchronize()
+        oks = [grad_close(a, b) for a, b in zip(got, want)]
+        err = max(e for _, e in oks)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not all(o for o, _ in oks) or not same:
+            fail(f"K8c C={K8C_WIDE} vr={vr}: within {err} of max, repeat "
+                 f"bit-equal {same}")
+        k_ms = cuda_ms(kern, 3)
+        print(f"[K8c] argmax_grads gaussian C={K8C_WIDE} (wide path) "
+              f"{tuple(z.shape)} S={S} variance reduction {vr}: grad_z and "
+              f"gamma term within {err:.3g} of max vs plain, repeat "
+              f"bit-equal; {k_ms:.4f} ms | {smi}", flush=True)
 
 
 MC_PAIRS = {"gaussian": (ptt.GaussianRast, ptt.GaussianAgg),
@@ -3205,6 +3391,7 @@ def main():
     phase_train(dev, smi, report)
     phase_k5(dev, smi, report)
     phase_k6_k7(dev, smi, report)
+    phase_stream_s128(dev, smi)
     phase_serve_stream(dev, smi, report)
     phase_render_grad_stream(dev, smi, report)
     phase_train_stream(dev, smi, report)

@@ -171,7 +171,7 @@ def library() -> ctypes.CDLL:
     # shape (N or the element count, P, C) and the sampling configuration.
     lib.pt_heaviside.argtypes = [ptr] * 4 + [i32, i64, i64] + [i32] * 4 + [
         ptr]
-    lib.pt_argmax_mean.argtypes = [ptr] * 5 + [i32, i64] + [i32] * 3 + [ptr]
+    lib.pt_argmax_mean.argtypes = [ptr] * 4 + [i32, i64] + [i32] * 3 + [ptr]
     lib.pt_argmax_grads.argtypes = [ptr] * 6 + [i32, i64] + [i32] * 4 + [ptr]
     for fn in (lib.pt_heaviside, lib.pt_argmax_mean, lib.pt_argmax_grads):
         fn.restype = i32

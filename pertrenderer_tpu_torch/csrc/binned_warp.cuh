@@ -67,10 +67,10 @@ PT_HD float row_draw(int noise, uint32_t s0, uint32_t s1, int s, int row,
   return ptt::cauchy_draw(ptt::hash_words(s0, s1, s, row, pos));
 }
 
-// A bound on |gaussian draw|: u1 >= 2^-24, so r <= sqrt(-2 ln 2^-24) =
-// 5.76812; with a margin for rounding.  A coverage test -d + sigma n >= 0
-// with |d| above sigma * kNzMax has the same outcome for every draw.
-constexpr double kNzMax = 5.78;
+// A bound on |gaussian draw| (either half; hash_prng.cuh's table).  A
+// coverage test -d + sigma n >= 0 with |d| above sigma * kNzMax has the
+// same outcome for every draw.
+constexpr double kNzMax = ptt::kBoundGaussian;
 
 // Lane l's rows among `want` (per list pass u) compacted, in list order,
 // into the warp's `items`; returns their count (every lane).

@@ -40,13 +40,18 @@ __device__ __forceinline__ float uniform01(uint32_t h) {
   return ((float)(h & 0x7FFFFFu) + 0.5f) * 1.1920928955078125e-07f;
 }
 
+// The Box-Muller radius of u1: both halves are r cos and r sin.
+__device__ __forceinline__ float gaussian_radius(float u1) {
+  return sqrtf(-2.0f * logf(u1));
+}
+
 // Both Box-Muller outputs of one hash word: the cos half goes to row r,
 // the sin half to row r + c/2 of a c-row block.
 __device__ __forceinline__ void gaussian_pair(uint32_t x, float* cos_half,
                                               float* sin_half) {
   const float u1 = uniform01(x);
   const float u2 = uniform01(mix(x + 0xBB67AE85u));
-  const float r = sqrtf(-2.0f * logf(u1));
+  const float r = gaussian_radius(u1);
   const float th = 6.2831854820251465f * u2;   // float32(2 pi)
   *cos_half = r * cosf(th);
   *sin_half = r * sinf(th);
@@ -56,10 +61,14 @@ __device__ __forceinline__ float uniform_draw(uint32_t x) {
   return uniform01(mix(x + 0x6A09E667u));
 }
 
-// Standard cauchy, clamped to +-1e7.
-__device__ __forceinline__ float cauchy_draw(uint32_t x) {
-  const float t = tanf(3.1415927410125732f * (uniform_draw(x) - 0.5f));
+// Standard cauchy of the uniform u, clamped to +-1e7.
+__device__ __forceinline__ float cauchy_value(float u) {
+  const float t = tanf(3.1415927410125732f * (u - 0.5f));
   return fminf(fmaxf(t, -1e7f), 1e7f);
+}
+
+__device__ __forceinline__ float cauchy_draw(uint32_t x) {
+  return cauchy_value(uniform_draw(x));
 }
 
 // The staged estimators' families (K8a-c, csrc/perturbed.cu): one value
@@ -72,20 +81,48 @@ enum Family { kFamGaussian = 0, kFamCauchy, kFamLogistic, kFamGumbel,
 __device__ __forceinline__ float gaussian_draw(uint32_t x) {
   const float u1 = uniform01(x);
   const float u2 = uniform01(mix(x + 0xBB67AE85u));
-  return sqrtf(-2.0f * logf(u1)) * cosf(6.2831854820251465f * u2);
+  return gaussian_radius(u1) * cosf(6.2831854820251465f * u2);
+}
+
+// The other families' maps of one uniform u (uniform_draw's).
+__device__ __forceinline__ float uniform_value(int family, float u) {
+  switch (family) {
+    case kFamCauchy: return cauchy_value(u);
+    case kFamLogistic: return logf(u) - log1pf(-u);
+    case kFamGumbel: return -logf(-logf(u));
+    default: return u - 0.5f;
+  }
+}
+
+// Bounds on |family_draw(family, x)| over every hash word x, one table
+// for the kernels that skip the draws whose outcome no draw can change
+// (K12's coverage, csrc/binned_warp.cuh; K8a / K8b, csrc/perturbed.cu):
+// gaussian sqrt(-2 ln 2^-24) = 5.76812 (u1 >= 2^-24; either Box-Muller
+// half), uniform 0.5 (|u - 0.5| <= 0.5 - 2^-24), logistic and gumbel
+// ln 2^24 = 16.6355, cauchy its clamp (which prunes only what is 1e7
+// gamma below the top, such as masked -inf slots), each with a margin for
+// rounding.  tests/test_torch_perturbed_goldens.py evaluates each map
+// (gaussian_radius, uniform_value) at every 23-bit uniform and holds its
+// maximum below the bound.
+constexpr float kBoundGaussian = 5.78f;
+constexpr float kBoundCauchy = 1e7f;
+constexpr float kBoundLogistic = 16.7f;
+constexpr float kBoundGumbel = 16.7f;
+constexpr float kBoundUniform = 0.5f;
+
+__device__ __forceinline__ float family_bound(int family) {
+  switch (family) {
+    case kFamGaussian: return kBoundGaussian;
+    case kFamCauchy: return kBoundCauchy;
+    case kFamLogistic: return kBoundLogistic;
+    case kFamGumbel: return kBoundGumbel;
+    default: return kBoundUniform;
+  }
 }
 
 __device__ __forceinline__ float family_draw(int family, uint32_t x) {
-  switch (family) {
-    case kFamGaussian: return gaussian_draw(x);
-    case kFamCauchy: return cauchy_draw(x);
-    case kFamLogistic: {
-      const float u = uniform_draw(x);
-      return logf(u) - log1pf(-u);
-    }
-    case kFamGumbel: return -logf(-logf(uniform_draw(x)));
-    default: return uniform_draw(x) - 0.5f;
-  }
+  return family == kFamGaussian ? gaussian_draw(x)
+                                : uniform_value(family, uniform_draw(x));
 }
 
 }  // namespace ptt

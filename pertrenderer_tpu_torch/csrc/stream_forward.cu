@@ -29,6 +29,9 @@ namespace {
 
 using namespace ptf;
 
+// MULTI: above kMaxS aggregation samples, one pass over the chunk list
+// per kMaxS samples; without it one pass, every sample at once.
+template <bool MULTI>
 __global__ void __launch_bounds__(256) stream_forward_kernel(const Params p) {
   extern __shared__ float smem[];
   float* s_blk = smem;
@@ -44,19 +47,22 @@ __global__ void __launch_bounds__(256) stream_forward_kernel(const Params p) {
   const uint32_t pos = (uint32_t)pix;
   const int bt = b * p.nt + t;
   StreamState st;
-  state_init(p, s_sc, b, pos, st);
-  if (p.active[bt] > 0) {
-    ChunkRows R;
-    const int* list = p.rows + (size_t)bt * p.nch;
-    for (int q = 0; q < p.count[bt]; ++q) {
+  ChunkRows R;
+  const int* list = p.rows + (size_t)bt * p.nch;
+  const int nq = p.active[bt] > 0 ? p.count[bt] : 0;
+  const int passes = MULTI ? stream_passes(p) : 1;
+  for (int k = 0; k < passes; ++k) {
+    state_init<MULTI>(p, s_sc, b, pos, k, st);
+    for (int q = 0; q < nq; ++q) {
       stage_chunk(p, b, list[q], s_blk);
       const Tables T = chunk_tables(p, s_blk, s_sc);
-      chunk_forward(p, T, b, list[q], px, py, live, pos, st, R);
+      chunk_forward<MULTI>(p, T, b, list[q], px, py, live, pos, st, R);
     }
+    if (MULTI) state_pass_end(p, st);
   }
   if (!live) return;
   float rgb[3];
-  state_rgb(p, st, rgb);
+  state_rgb<MULTI>(p, st, rgb);
   reinterpret_cast<float4*>(p.out)[(size_t)b * p.image_size * p.image_size +
                                    pix] =
       make_float4(rgb[0], rgb[1], rgb[2], 1.0f - st.alpha);
@@ -86,12 +92,18 @@ extern "C" int pt_stream_forward(
   p.nch = nch;
   p.rw = rw;
   p.dt = dt;
-  if (p_tile % 32 || p_tile > 256 || dt % 4 || agg_samples(p) > kMaxS)
+  if (p_tile % 32 || p_tile > 256 || dt % 4)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)kChunk * dt + kNS);
-  cudaError_t e = allow_smem(stream_forward_kernel, smem);
+  const bool multi = stream_passes(p) > 1;
+  cudaError_t e = multi ? allow_smem(stream_forward_kernel<true>, smem)
+                        : allow_smem(stream_forward_kernel<false>, smem);
   if (e != cudaSuccess) return (int)e;
-  stream_forward_kernel<<<dim3(nt, n), p_tile, smem, (cudaStream_t)stream>>>(
-      p);
+  if (multi)
+    stream_forward_kernel<true>
+        <<<dim3(nt, n), p_tile, smem, (cudaStream_t)stream>>>(p);
+  else
+    stream_forward_kernel<false>
+        <<<dim3(nt, n), p_tile, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,11 @@
 // thread per pixel.  The tile's chunk list (ascending chunk ids) names the
 // 64-row blocks of the sorted face table that can reach it; the block
 // stages each into shared memory and every thread runs the chunk's 64 rows
-// for its pixel.  Per pixel the state carries across chunks: the alpha
+// for its pixel.  Above kMaxS aggregation samples the block walks the
+// list once per kMaxS samples (the alpha product in the first pass only),
+// each pass adding its samples' colours to the pixel's running sum in s
+// order, so every sample's draws and the image's sum order are those of a
+// single pass.  Per pixel the state carries across chunks: the alpha
 // product and, per aggregation sample, a running first-wins argmax (a
 // later chunk wins only when strictly greater; the background row, set
 // first, wins ties) or an online softmax.
@@ -31,7 +35,10 @@ namespace ptf {
 
 constexpr int kChunk = 64;
 constexpr int kHalf = kChunk / 2;
-constexpr int kMaxS = 64;        // fused_render.MAX_STREAM_SAMPLES
+// Aggregation samples per pass: K5 and K6 / K7's replay hold the running
+// argmax of at most kMaxS samples per pixel and run more in passes of
+// kMaxS over the chunk list, in s order (stream_passes).
+constexpr int kMaxS = 64;
 
 // A staged chunk (64 rows of dt floats: ndc 9 | world 9 | fn 9 | tex tex_d
 // | key | padding) as face tables.
@@ -90,6 +97,11 @@ PT_HD float bg_start(const Params& p, const float* sc, uint32_t a0,
 
 PT_HOST_HD int agg_samples(const Params& p) {
   return p.agg_kind == kAggMC ? p.s_agg : 1;
+}
+
+// Passes over the chunk list: pass k runs samples [k kMaxS, (k + 1) kMaxS).
+PT_HOST_HD int stream_passes(const Params& p) {
+  return (agg_samples(p) + kMaxS - 1) / kMaxS;
 }
 
 // Rows h (k = 0) and h + 32 (k = 1) of a chunk at one pixel: det1,
@@ -194,27 +206,52 @@ PT_HD void chunk_rows(const Params& p, const Tables& T, int b, int cid,
   }
 }
 
-// The per-pixel state carried across chunks.
+// The per-pixel state carried across chunks: the deterministic part
+// (pass 0 only), the pass's samples s0 .. s0 + ns - 1, and the colours of
+// the earlier passes' samples summed in s order.
 struct StreamState {
   float alpha;                             // alpha product
   float m, den, num[3];                    // online softmax
   float runmax[kMaxS], winc[kMaxS][3];     // per-sample running argmax
+  int s0, ns;                              // the pass's samples (MULTI)
+  float sum[3];                            // earlier passes' colours
 };
 
-// The state before the first chunk: the background channel alone.
+// The state before the first chunk of pass k: the background channel
+// alone.  MULTI: the kernel runs more than one pass (stream_passes > 1);
+// without it the state holds every sample, s0 = 0.
+template <bool MULTI>
 PT_HD void state_init(const Params& p, const float* sc, int b, uint32_t pos,
-                      StreamState& st) {
-  st.alpha = 1.0f;
-  for (int c = 0; c < 3; ++c) st.num[c] = sc[kBg + c];
-  st.m = p.eps_bg * (1.0f / sc[kGamma]);
-  st.den = 1.0f;
+                      int k, StreamState& st) {
+  if (!MULTI || k == 0) {
+    st.alpha = 1.0f;
+    for (int c = 0; c < 3; ++c) st.num[c] = sc[kBg + c];
+    st.m = p.eps_bg * (1.0f / sc[kGamma]);
+    st.den = 1.0f;
+    if (MULTI)
+      for (int c = 0; c < 3; ++c) st.sum[c] = 0.0f;
+  }
+  const int s0 = MULTI ? k * kMaxS : 0;
+  const int ns = MULTI ? min(kMaxS, agg_samples(p) - s0) : agg_samples(p);
+  if (MULTI) {
+    st.s0 = s0;
+    st.ns = ns;
+  }
   const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
   const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
-  for (int s = 0; s < agg_samples(p); ++s) {
+  for (int i = 0; i < ns; ++i) {
     float phi;
-    st.runmax[s] = bg_start(p, sc, a0, a1, s, pos, &phi);
-    for (int c = 0; c < 3; ++c) st.winc[s][c] = sc[kBg + c];
+    st.runmax[i] = bg_start(p, sc, a0, a1, s0 + i, pos, &phi);
+    for (int c = 0; c < 3; ++c) st.winc[i][c] = sc[kBg + c];
   }
+}
+
+// After a pass of a MULTI kernel: its samples' colours into the running
+// sum, in s order.
+PT_HD void state_pass_end(const Params& p, StreamState& st) {
+  if (p.agg_kind == kAggSoft) return;
+  for (int c = 0; c < 3; ++c)
+    for (int i = 0; i < st.ns; ++i) st.sum[c] += st.winc[i][c];
 }
 
 // Rows 0..63 in order: a row takes over the running winner only when
@@ -229,15 +266,20 @@ PT_HD void scan_rows(const float (&val)[kChunk], float* cur, int* win) {
     }
 }
 
-// One chunk of K5's forward at one pixel.
+// One chunk of K5's forward at one pixel, for the pass's samples (and the
+// alpha product and the softmax in pass 0).
+template <bool MULTI>
 PT_HD void chunk_forward(const Params& p, const Tables& T, int b, int cid,
                          float px, float py, bool live, uint32_t pos,
                          StreamState& st, ChunkRows& R) {
   const float* sc = T.sc;
+  const int s0 = MULTI ? st.s0 : 0, ns = MULTI ? st.ns : agg_samples(p);
   chunk_rows(p, T, b, cid, px, py, live, pos, R);
-  float q[kChunk];
-  for (int r = 0; r < kChunk; ++r) q[r] = 1.0f - R.prob[r];
-  st.alpha = st.alpha * prod_rows(q);
+  if (s0 == 0) {
+    float q[kChunk];
+    for (int r = 0; r < kChunk; ++r) q[r] = 1.0f - R.prob[r];
+    st.alpha = st.alpha * prod_rows(q);
+  }
   const float gamma = sc[kGamma];
   if (p.agg_kind == kAggSoft) {
     const float inv_g = 1.0f / gamma;
@@ -262,7 +304,8 @@ PT_HD void chunk_forward(const Params& p, const Tables& T, int b, int cid,
   const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
   const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
   const uint32_t base = (uint32_t)(cid * kChunk);
-  for (int s = 0; s < agg_samples(p); ++s) {
+  for (int i = 0; i < ns; ++i) {
+    const int s = s0 + i;
     float val[kChunk];
     if (p.agg_kind == kAggHard) {
       for (int r = 0; r < kChunk; ++r) val[r] = R.zmap[r];
@@ -277,12 +320,15 @@ PT_HD void chunk_forward(const Params& p, const Tables& T, int b, int cid,
       }
     }
     int win = -1;
-    scan_rows(val, &st.runmax[s], &win);
+    scan_rows(val, &st.runmax[i], &win);
     if (win >= 0)
-      for (int c = 0; c < 3; ++c) st.winc[s][c] = R.col[win][c];
+      for (int c = 0; c < 3; ++c) st.winc[i][c] = R.col[win][c];
   }
 }
 
+// The pixel's colour once every pass is done (one pass: its samples'
+// colours summed in s order here).
+template <bool MULTI>
 PT_HD void state_rgb(const Params& p, const StreamState& st, float rgb[3]) {
   if (p.agg_kind == kAggSoft) {
     for (int c = 0; c < 3; ++c) rgb[c] = st.num[c] / st.den;
@@ -290,8 +336,9 @@ PT_HD void state_rgb(const Params& p, const StreamState& st, float rgb[3]) {
   }
   const int S = agg_samples(p);
   for (int c = 0; c < 3; ++c) {
-    float sum = 0.0f;
-    for (int s = 0; s < S; ++s) sum += st.winc[s][c];
+    float sum = MULTI ? st.sum[c] : 0.0f;
+    if (!MULTI)
+      for (int s = 0; s < S; ++s) sum += st.winc[s][c];
     rgb[c] = sum / (float)S;
   }
 }

@@ -67,7 +67,9 @@ constexpr int kStreamWarps = 4;      // warps per block, at most
 
 // A pixel's record: the head, then 7 arrays of S floats (S = agg_samples):
 // running max, winner row (exact in float below 2^24), winner colour (3),
-// phi and dot.
+// phi and dot.  Above kMaxS samples (stream_passes > 1) the record in
+// device memory holds every sample and B1's shared memory a window of
+// kMaxS: the head and pass k's samples.
 enum RecHead {
   kRAlpha = 0, kRZcnt, kRPnz, kRM, kRDen, kRNum, kRRm0 = kRNum + 3, kRW0c,
   kRNreal = kRW0c + 3, kRGrgb, kRGalpha = kRGrgb + 3, kRDotw, kRHead
@@ -77,21 +79,71 @@ PT_HOST_HD int rec_floats(const Params& p) {
   return kRHead + 7 * agg_samples(p);
 }
 
+// A record in shared memory: the whole record in one pass, else a window.
+PT_HOST_HD int rec_window_floats(const Params& p) {
+  return kRHead + 7 * min(agg_samples(p), kMaxS);
+}
+
+// A record's per-sample arrays (each S long; winc 3 of them) hold samples
+// s0 .. s0 + ns - 1.
 struct Rec {
-  float *h, *runmax, *winid, *winc, *phi, *dot;   // winc: 3 arrays of S
-  int S;
+  float *h, *runmax, *winid, *winc, *phi, *dot;
+  int S, s0, ns;
 };
 
-PT_HD Rec rec_at(const Params& p, float* base) {
+PT_HD Rec rec_at(const Params& p, float* base, int S) {
   Rec r;
-  r.S = agg_samples(p);
+  r.S = r.ns = S;
+  r.s0 = 0;
   r.h = base;
   r.runmax = base + kRHead;
-  r.winid = r.runmax + r.S;
-  r.winc = r.winid + r.S;
-  r.phi = r.winc + 3 * r.S;
-  r.dot = r.phi + r.S;
+  r.winid = r.runmax + S;
+  r.winc = r.winid + S;
+  r.phi = r.winc + 3 * S;
+  r.dot = r.phi + S;
   return r;
+}
+
+PT_HD Rec rec_at(const Params& p, float* base) {
+  return rec_at(p, base, agg_samples(p));
+}
+
+// Pass k's window of a record in shared memory (kMaxS per-sample slots).
+PT_HD Rec rec_window(const Params& p, float* base, int k) {
+  Rec r = rec_at(p, base, min(agg_samples(p), kMaxS));
+  r.s0 = k * kMaxS;
+  r.ns = min(kMaxS, agg_samples(p) - r.s0);
+  return r;
+}
+
+// MULTI: the kernels run more than one pass (stream_passes > 1).  Pass
+// k's record in shared memory at `base`: without MULTI the whole record,
+// else its window.
+template <bool MULTI>
+PT_HD Rec rec_pass(const Params& p, float* base, int k) {
+  return MULTI ? rec_window(p, base, k) : rec_at(p, base);
+}
+
+// A pixel's whole record: without MULTI in shared memory at `base`, else
+// in device memory at `drec` with its head in shared memory at `base`.
+template <bool MULTI>
+PT_HD Rec rec_whole(const Params& p, float* base, float* drec) {
+  if (!MULTI) return rec_at(p, base);
+  Rec r = rec_at(p, drec);
+  r.h = base;
+  return r;
+}
+
+// The window's samples into the whole record (lanes of warp w).
+template <class Wp>
+PT_HD void rec_window_out(const Rec& win, const Rec& all, Wp& w) {
+  for (int i = w.lane; i < win.ns; i += 32) {
+    const int s = win.s0 + i;
+    all.runmax[s] = win.runmax[i];
+    all.winid[s] = win.winid[i];
+    for (int c = 0; c < 3; ++c) all.winc[c * all.S + s] = win.winc[c * win.S + i];
+    all.phi[s] = win.phi[i];
+  }
 }
 
 // A lane's float sums over a visit (face_backward's PixelAcc), folded into
@@ -140,11 +192,12 @@ PT_HD void stream_finish(const Params& p, const float* sc, StreamAcc& acc) {
   }
 }
 
-// The pixel's record before the first chunk: the background channel alone.
+// The pixel's record before the first chunk: the background channel alone
+// (the head only for the first of its samples).
 template <class Wp>
 PT_HD void warp_state_init(const Params& p, const float* sc, int b,
                            uint32_t pos, Wp& w, const Rec& R) {
-  if (w.lane == 0) {
+  if (w.lane == 0 && R.s0 == 0) {
     float* h = R.h;
     h[kRAlpha] = h[kRPnz] = 1.0f;
     h[kRZcnt] = 0.0f;
@@ -156,10 +209,10 @@ PT_HD void warp_state_init(const Params& p, const float* sc, int b,
   }
   const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
   const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
-  for (int s = w.lane; s < R.S; s += 32) {
-    R.runmax[s] = bg_start(p, sc, a0, a1, s, pos, &R.phi[s]);
-    R.winid[s] = (float)p.rw;
-    for (int c = 0; c < 3; ++c) R.winc[c * R.S + s] = sc[kBg + c];
+  for (int i = w.lane; i < R.ns; i += 32) {
+    R.runmax[i] = bg_start(p, sc, a0, a1, R.s0 + i, pos, &R.phi[i]);
+    R.winid[i] = (float)p.rw;
+    for (int c = 0; c < 3; ++c) R.winc[c * R.S + i] = sc[kBg + c];
   }
 }
 
@@ -192,16 +245,60 @@ PT_HD void warp_row_colour(Wp& w, const PairRows& Q, int r, float col[3]) {
     col[c] = w.shfl(r >= kHalf ? Q.col[1][c] : Q.col[0][c], r & (kHalf - 1));
 }
 
-// One chunk of B1 at one pixel: the forward replay, with the exclusion
-// track when TRACK_ALPHA (K6), the control variate, winner rows, phi and
-// nreal.  scr: the warp's scratch of 4 x 64 floats (the softmax's sums).
-template <bool TRACK_ALPHA, class Wp>
+// R's samples at one chunk of B1: phi and the running argmax of each.
+template <class Wp>
+PT_HD void warp_chunk_samples(const Params& p, const float* sc, int b,
+                              int cid, uint32_t pos, Wp& w, const Rec& R,
+                              const PairRows& Q) {
+  const float gamma = sc[kGamma];
+  const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
+  const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
+  const uint32_t base = (uint32_t)(cid * kChunk);
+  const bool mc = p.agg_kind == kAggMC;
+  for (int i = 0; i < R.ns; ++i) {
+    const int s = R.s0 + i;
+    float v0 = Q.zmap[0], v1 = Q.zmap[1];
+    if (mc) {
+      float n0, n1;
+      noise_pair(p.agg_noise, a0, a1, s, base, w.lane, pos, &n0, &n1);
+      v0 = Q.zmap[0] + gamma * n0;
+      v1 = Q.zmap[1] + gamma * n1;
+      const float ph =
+          wsum(w, noise_phi(n0, p.agg_noise) + noise_phi(n1, p.agg_noise));
+      if (w.lane == (i & 31)) R.phi[i] += ph;
+    }
+    // A row takes sample s over only when strictly above its running max:
+    // most chunks have none, and skip the reduction.
+    const float rm = R.runmax[i];
+    if (w.ballot(v0 > rm || v1 > rm) == 0) continue;
+    float sm, sc3[3];
+    const int sw = warp_first_max(w, v0, v1, &sm);
+    warp_row_colour(w, Q, sw, sc3);
+    w.sync();
+    if (w.lane == (i & 31)) {
+      R.runmax[i] = sm;
+      R.winid[i] = (float)(cid * kChunk + sw);
+      for (int c = 0; c < 3; ++c) R.winc[c * R.S + i] = sc3[c];
+    }
+  }
+  w.sync();
+}
+
+// One chunk of B1 at one pixel: the forward replay of R's samples, with
+// (for the record's first samples) the alpha product, the exclusion track
+// when TRACK_ALPHA (K6), the softmax, the control variate and nreal.  scr:
+// the warp's scratch of 4 x 64 floats (the softmax's sums).
+template <bool TRACK_ALPHA, bool MULTI, class Wp>
 PT_HD void warp_chunk_forward(const Params& p, const Tables& T, int b,
                               int cid, float px, float py, bool live,
                               uint32_t pos, Wp& w, const Rec& R, float* scr) {
   const float* sc = T.sc;
   PairRows Q;
   pair_rows(p, T, b, cid, w.lane, px, py, live, pos, false, false, Q);
+  if (MULTI && R.s0 > 0) {
+    warp_chunk_samples(p, sc, b, cid, pos, w, R, Q);
+    return;
+  }
   float* h = R.h;
   const float alpha =
       h[kRAlpha] * warp_prod_rows(w, 1.0f - Q.prob[0], 1.0f - Q.prob[1]);
@@ -255,36 +352,7 @@ PT_HD void warp_chunk_forward(const Params& p, const Tables& T, int b,
   const bool cv = w.ballot(Q.zmap[0] > rm0 || Q.zmap[1] > rm0) != 0;
   if (cv) warp_row_colour(w, Q, warp_first_max(w, Q.zmap[0], Q.zmap[1], &mx),
                           col);
-  const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
-  const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
-  const uint32_t base = (uint32_t)(cid * kChunk);
-  const bool mc = p.agg_kind == kAggMC;
-  for (int s = 0; s < R.S; ++s) {
-    float v0 = Q.zmap[0], v1 = Q.zmap[1];
-    if (mc) {
-      float n0, n1;
-      noise_pair(p.agg_noise, a0, a1, s, base, w.lane, pos, &n0, &n1);
-      v0 = Q.zmap[0] + gamma * n0;
-      v1 = Q.zmap[1] + gamma * n1;
-      const float ph =
-          wsum(w, noise_phi(n0, p.agg_noise) + noise_phi(n1, p.agg_noise));
-      if (w.lane == (s & 31)) R.phi[s] += ph;
-    }
-    // A row takes sample s over only when strictly above its running max:
-    // most chunks have none, and skip the reduction.
-    const float rm = R.runmax[s];
-    if (w.ballot(v0 > rm || v1 > rm) == 0) continue;
-    float sm, sc3[3];
-    const int sw = warp_first_max(w, v0, v1, &sm);
-    warp_row_colour(w, Q, sw, sc3);
-    w.sync();
-    if (w.lane == (s & 31)) {
-      R.runmax[s] = sm;
-      R.winid[s] = (float)(cid * kChunk + sw);
-      for (int c = 0; c < 3; ++c) R.winc[c * R.S + s] = sc3[c];
-    }
-  }
-  w.sync();
+  warp_chunk_samples(p, sc, b, cid, pos, w, R, Q);
   if (w.lane == 0) {
     h[kRAlpha] = alpha;
     if (TRACK_ALPHA) {
@@ -548,17 +616,20 @@ PT_HD void warp_chunk_grads(const Params& p, const Tables& T, int b, int cid,
 PT_HOST_HD int slice_stride(const Params& p) { return (kGeo + p.tex_d) | 1; }
 
 // Shared memory of the two kernels in floats.  B1's: two chunk buffers,
-// the scalars and the pixels' records; B2's with `warps` warps per block:
-// the chunk buffer, the warps' slices, the scalars and the records.
+// the scalars and the pixels' records (windows above kMaxS samples); B2's
+// with `warps` warps per block: the chunk buffer, the warps' slices, the
+// scalars and the records (above kMaxS samples their heads: B2 reads the
+// per-sample arrays from device memory).
 PT_HOST_HD size_t replay_floats(const Params& p) {
   return 2 * (size_t)kChunk * p.dt + ((kNS + 3) & ~3) +
-         (size_t)kStreamWarps * 4 * kChunk + (size_t)kBlockPix * rec_floats(p);
+         (size_t)kStreamWarps * 4 * kChunk +
+         (size_t)kBlockPix * rec_window_floats(p);
 }
 
 PT_HOST_HD size_t adjoint_floats(const Params& p, int warps) {
   return (size_t)kChunk * p.dt +
          (((size_t)warps * kChunk * slice_stride(p) + 3) & ~(size_t)3) +
-         ((kNS + 3) & ~3) + (size_t)kBlockPix * rec_floats(p);
+         ((kNS + 3) & ~3) + (size_t)kBlockPix * rec_window_floats(p);
 }
 
 #ifdef __CUDACC__
@@ -593,7 +664,7 @@ struct StreamBlock {
 // records go to device memory for B2, the post step's scalar sums (its
 // warps in order) to the block's scalar row.  No slices: a smaller block
 // than B2's, so more of them are resident on an SM.
-template <bool LOSS>
+template <bool LOSS, bool MULTI>
 __global__ void __launch_bounds__(kStreamWarps * 32, 4)
 stream_replay_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -617,32 +688,51 @@ stream_replay_kernel(const Params p) {
   }
   __syncthreads();
   const unsigned cbytes = (unsigned)(chunk * sizeof(float));
+  const int passes = MULTI ? stream_passes(p) : 1;
+  const int rw = MULTI ? rec_window_floats(p) : rf;
+  auto window = [&](int i, int k) {
+    return rec_pass<MULTI>(p, recs + i * rw, k);
+  };
+  auto whole = [&](int i) {
+    return rec_whole<MULTI>(p, recs + i * rw, B.recs + (size_t)i * rf);
+  };
   PT_MARK(clk);
-  // The warp's pixels: i = warp, warp + nw, ... of the block's 32.
-  for (int i = warp; i < kBlockPix; i += nw) {
-    bool live;
-    const int pix = B.pixel(p, i, &live);
-    warp_state_init(p, s_sc, B.b, (uint32_t)pix, w, rec_at(p, recs + i * rf));
-  }
-  if (B.n > 0 && tid == 0) bulk_fetch(smem, B.chunk(p, 0), cbytes, &bar[0]);
-  for (int q = 0; q < B.n; ++q) {
-    const int cur = q & 1;
-    if (q + 1 < B.n && tid == 0)
-      bulk_fetch(cur ? smem : smem + chunk, B.chunk(p, q + 1), cbytes,
-                 &bar[cur ^ 1]);
-    mbar_wait(&bar[cur], (q >> 1) & 1);     // buffer cur's (q / 2)-th fill
-    const Tables T = chunk_tables(p, cur ? smem + chunk : smem, s_sc);
+  // Visits v = k n + q: pass k's chunk q, double-buffered across passes.
+  const int visits = passes * B.n;
+  if (visits > 0 && tid == 0)
+    bulk_fetch(smem, B.chunk(p, 0), cbytes, &bar[0]);
+  for (int k = 0; k < passes; ++k) {
+    // The warp's pixels: i = warp, warp + nw, ... of the block's 32.
     for (int i = warp; i < kBlockPix; i += nw) {
       bool live;
       const int pix = B.pixel(p, i, &live);
-      if (!live) continue;
-      float px, py;
-      pixel_center(p.image_size, pix, &px, &py);
-      warp_chunk_forward<!LOSS>(p, T, B.b, B.list[q], px, py, live,
-                                (uint32_t)pix, w, rec_at(p, recs + i * rf),
-                                scr);
+      warp_state_init(p, s_sc, B.b, (uint32_t)pix, w, window(i, k));
     }
-    __syncthreads();
+    for (int q = 0; q < B.n; ++q) {
+      const int v = k * B.n + q, cur = v & 1;
+      if (v + 1 < visits && tid == 0)
+        bulk_fetch(cur ? smem : smem + chunk,
+                   B.chunk(p, MULTI ? (v + 1) % B.n : v + 1), cbytes,
+                   &bar[cur ^ 1]);
+      mbar_wait(&bar[cur], (v >> 1) & 1);   // buffer cur's (v / 2)-th fill
+      const Tables T = chunk_tables(p, cur ? smem + chunk : smem, s_sc);
+      for (int i = warp; i < kBlockPix; i += nw) {
+        bool live;
+        const int pix = B.pixel(p, i, &live);
+        if (!live) continue;
+        float px, py;
+        pixel_center(p.image_size, pix, &px, &py);
+        warp_chunk_forward<!LOSS, MULTI>(p, T, B.b, B.list[q], px, py, live,
+                                         (uint32_t)pix, w, window(i, k),
+                                         scr);
+      }
+      __syncthreads();
+    }
+    if (MULTI) {
+      for (int i = warp; i < kBlockPix; i += nw)
+        rec_window_out(window(i, k), whole(i), w);
+      __syncthreads();
+    }
   }
   PT_PHASE(0, clk);
   PixelAcc acc;
@@ -651,13 +741,19 @@ stream_replay_kernel(const Params p) {
     bool live;
     const int pix = B.pixel(p, i, &live);
     if (live && w.lane == 0)
-      warp_post<LOSS>(p, s_sc, B.b, pix, B.active, rec_at(p, recs + i * rf),
-                      acc);
+      warp_post<LOSS>(p, s_sc, B.b, pix, B.active, whole(i), acc);
   }
   __syncwarp();
   warp_fold(w, acc, wtot[warp]);
   __syncthreads();
-  for (int k = tid; k < kBlockPix * rf; k += blockDim.x) B.recs[k] = recs[k];
+  // The records to device memory: whole in one pass, else their heads.
+  if (MULTI) {
+    for (int k = tid; k < kBlockPix * kRHead; k += blockDim.x)
+      B.recs[(size_t)(k / kRHead) * rf + k % kRHead] =
+          recs[(k / kRHead) * rw + k % kRHead];
+  } else {
+    for (int k = tid; k < kBlockPix * rf; k += blockDim.x) B.recs[k] = recs[k];
+  }
   if (tid <= kNS) {
     double s = 0.0;
     for (int v = 0; v < nw; ++v) s += wtot[v][tid < kNS ? tid : kNS + 2];
@@ -670,7 +766,7 @@ stream_replay_kernel(const Params p) {
 // bulk copy while the block adds the warps' slices into the visit's
 // partial rows.  Then the block's scalar row: B1's, B2's warps in order,
 // stream_finish.
-template <bool LOSS>
+template <bool LOSS, bool MULTI>
 __global__ void __launch_bounds__(kStreamWarps * 32, 2)
 stream_adjoint_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -679,6 +775,7 @@ stream_adjoint_kernel(const Params p) {
   __shared__ unsigned long long wmask[kStreamWarps];
   const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
   const int tid = threadIdx.x, rf = rec_floats(p), ds = slice_stride(p);
+  const int rw = MULTI ? rec_window_floats(p) : rf;
   CardWarp w{tid & 31};
   const StreamBlock B(p, rf);
   double* row = p.pscal64 + ((size_t)B.bt * p.nsub + B.sub) * (kNS + 1);
@@ -691,8 +788,21 @@ stream_adjoint_kernel(const Params p) {
     s_sc[k] = p.scal[(size_t)B.b * kNS + k];
   for (int k = tid; k < kStreamWarps * kTot; k += blockDim.x)
     wtot[k / kTot][k % kTot] = 0.0;
-  if (B.n > 0)
-    for (int k = tid; k < kBlockPix * rf; k += blockDim.x) recs[k] = B.recs[k];
+  // The records: whole in one pass, else their heads (the per-sample
+  // arrays stay in device memory).
+  auto rec = [&](int i) {
+    return rec_whole<MULTI>(p, recs + i * rw, B.recs + (size_t)i * rf);
+  };
+  if (B.n > 0) {
+    if (MULTI) {
+      for (int k = tid; k < kBlockPix * kRHead; k += blockDim.x)
+        recs[(k / kRHead) * rw + k % kRHead] =
+            B.recs[(size_t)(k / kRHead) * rf + k % kRHead];
+    } else {
+      for (int k = tid; k < kBlockPix * rf; k += blockDim.x)
+        recs[k] = B.recs[k];
+    }
+  }
   if (tid == 0) mbar_init(&bar);
   __syncthreads();
   const unsigned cbytes = (unsigned)(chunk * sizeof(float));
@@ -715,8 +825,7 @@ stream_adjoint_kernel(const Params p) {
       float px, py;
       pixel_center(p.image_size, pix, &px, &py);
       warp_chunk_grads<!LOSS>(p, T, B.b, B.list[q], px, py, live,
-                              (uint32_t)pix, w, rec_at(p, recs + i * rf),
-                              slice, ds, acc, any);
+                              (uint32_t)pix, w, rec(i), slice, ds, acc, any);
     }
     const unsigned lo = w.ballot(any[0]), hi = w.ballot(any[1]);
     if (w.lane == 0)
@@ -793,7 +902,7 @@ static __global__ void stream_scal_reduce(const Params p) {
 // The two kernels' shapes: shape[0] B2's warps per block (4, fewer where a
 // large atlas's slices do not fit), shape[1] its dynamic shared memory in
 // bytes, shape[2] B1's; their attributes raised to match.
-template <bool LOSS>
+template <bool LOSS, bool MULTI>
 static cudaError_t stream_shapes(const Params& p, size_t shape[3]) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -801,8 +910,10 @@ static cudaError_t stream_shapes(const Params& p, size_t shape[3]) {
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes a1, a2;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a1, stream_replay_kernel<LOSS>);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a2, stream_adjoint_kernel<LOSS>);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&a1, stream_replay_kernel<LOSS, MULTI>);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&a2, stream_adjoint_kernel<LOSS, MULTI>);
   if (e != cudaSuccess) return e;
   shape[0] = 0;
   for (int v = kStreamWarps; v >= 1; v >>= 1) {
@@ -816,13 +927,29 @@ static cudaError_t stream_shapes(const Params& p, size_t shape[3]) {
   shape[2] = sizeof(float) * replay_floats(p);
   if (shape[0] == 0 || shape[2] + a1.sharedSizeBytes > (size_t)optin)
     return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(stream_adjoint_kernel<LOSS>,
+  e = cudaFuncSetAttribute(stream_adjoint_kernel<LOSS, MULTI>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)shape[1]);
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(stream_replay_kernel<LOSS>,
+  return cudaFuncSetAttribute(stream_replay_kernel<LOSS, MULTI>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)shape[2]);
+}
+
+// B1's kernel and B2's.
+template <bool LOSS, bool MULTI>
+static cudaError_t stream_launch(const Params& p, int n, cudaStream_t st) {
+  size_t shape[3];
+  cudaError_t e = stream_shapes<LOSS, MULTI>(p, shape);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.nt * p.nsub, n);
+  stream_replay_kernel<LOSS, MULTI>
+      <<<grid, kStreamWarps * 32, shape[2], st>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  stream_adjoint_kernel<LOSS, MULTI>
+      <<<grid, (int)shape[0] * 32, shape[1], st>>>(p);
+  return cudaGetLastError();
 }
 
 // The C entries' body: fills Params, launches B1's kernel, B2's and the
@@ -865,19 +992,12 @@ static int stream_grads_entry(
   p.nsub = p_tile / kBlockPix;
   p.loss_kind = loss_kind;
   p.lscale = LOSS ? lscale : 0.0f;
-  if (p_tile % kBlockPix || dt % 4 || ((uintptr_t)tab & 15) ||
-      agg_samples(p) > kMaxS)
+  if (p_tile % kBlockPix || dt % 4 || ((uintptr_t)tab & 15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  size_t shape[3];
-  cudaError_t e = stream_shapes<LOSS>(p, shape);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid(nt * p.nsub, n);
-  stream_replay_kernel<LOSS><<<grid, kStreamWarps * 32, shape[2], st>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  stream_adjoint_kernel<LOSS><<<grid, (int)shape[0] * 32, shape[1], st>>>(p);
-  e = cudaGetLastError();
+  cudaError_t e = stream_passes(p) > 1
+                      ? stream_launch<LOSS, true>(p, n, st)
+                      : stream_launch<LOSS, false>(p, n, st);
   if (e != cudaSuccess) return (int)e;
   const size_t cells = (size_t)rw * (kGeo + tex_d);
   stream_chunk_reduce<<<dim3((unsigned)((cells + 255) / 256), n), 256, 0,
@@ -893,23 +1013,17 @@ static int stream_grads_entry(
 // its dynamic shared memory in bytes; out[3..5] the same of B1's kernel;
 // out[6] the floats of a pixel's record (the records' buffer holds N nt
 // p_tile of them).
-template <bool LOSS>
-static int stream_grads_occupancy(int dt, int tex_d, int agg_kind, int s_agg,
-                                  int* out) {
-  Params p = {};
-  p.dt = dt;
-  p.tex_d = tex_d;
-  p.agg_kind = agg_kind;
-  p.s_agg = s_agg;
+template <bool LOSS, bool MULTI>
+static int stream_occupancy(const Params& p, int* out) {
   size_t shape[3];
-  cudaError_t e = stream_shapes<LOSS>(p, shape);
+  cudaError_t e = stream_shapes<LOSS, MULTI>(p, shape);
   if (e != cudaSuccess) return (int)e;
   int b2 = 0, b1 = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &b2, stream_adjoint_kernel<LOSS>, (int)shape[0] * 32, shape[1]);
+      &b2, stream_adjoint_kernel<LOSS, MULTI>, (int)shape[0] * 32, shape[1]);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &b1, stream_replay_kernel<LOSS>, kStreamWarps * 32, shape[2]);
+        &b1, stream_replay_kernel<LOSS, MULTI>, kStreamWarps * 32, shape[2]);
   out[0] = (int)shape[0];
   out[1] = b2;
   out[2] = (int)shape[1];
@@ -918,6 +1032,18 @@ static int stream_grads_occupancy(int dt, int tex_d, int agg_kind, int s_agg,
   out[5] = (int)shape[2];
   out[6] = rec_floats(p);
   return (int)e;
+}
+
+template <bool LOSS>
+static int stream_grads_occupancy(int dt, int tex_d, int agg_kind, int s_agg,
+                                  int* out) {
+  Params p = {};
+  p.dt = dt;
+  p.tex_d = tex_d;
+  p.agg_kind = agg_kind;
+  p.s_agg = s_agg;
+  return stream_passes(p) > 1 ? stream_occupancy<LOSS, true>(p, out)
+                              : stream_occupancy<LOSS, false>(p, out);
 }
 #endif
 

@@ -1,9 +1,11 @@
-"""Where K9b's, K12's, K8c's and K7's time goes on the card (a tuning
+"""Where K9b's, K12's, K8a-c's and K7's time goes on the card (a tuning
 tool).
 
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k9b
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k12
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k8c
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k8b
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k8a
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k7
 
 ``k9b``: the row scatter at the cow's staged shapes (chip_smoke.py's
@@ -21,21 +23,28 @@ softras), then the loss-and-grad at the pose step's sigma 6e-3 / gamma
 6e-2; each line gives the call's time (CUDA events, profiling build) and
 each phase's share of the clocks.
 
-``k8c``: K8c (``argmax_grads``) and K8b (``argmax_mean``, 2 S C draws
-per pixel) at the cow's staged shapes (chip_smoke.py's [K8c]: a (4,
+``k8c``: K8c (``argmax_grads``) and K8b (``argmax_mean``) at the cow's staged shapes (chip_smoke.py's [K8c]: a (4,
 65536, 51) z_map, S = 8, gaussian), timed with CUDA events; with
 ``--profile``, in a build with ``-DPT_PROFILE`` whose K8c marks its
 phases (csrc/perturbed.cu), the share of lane 0's clocks in the draws
 against the rest (maxima, sums, loads and stores).
 
-``k7``: K7 at N=1 (the pose step's shape) and K6 at N=4 on the cow at
-256^2 (chip_smoke.py's [K6] / [K7]), timed with CUDA events; with
+``k8b``: K8b (``argmax_mean``) at the cow's staged shapes (chip_smoke.py's
+[K8b]), gaussian, cauchy and uniform, timed with CUDA events, with the
+candidates per pixel where the package has ``argmax_candidates``.
+``k8a``: K8a's mean and coefficient (``heaviside_mean`` /
+``heaviside_coeff``) at [K8a]'s shapes, gaussian and cauchy, with the band's
+share where the package has ``heaviside_band``.
+
+``k7``: K7 at N=1 (the pose step's shape), K6 and K5 at N=4 on the cow
+at 256^2 (chip_smoke.py's [K5] / [K6] / [K7]), timed with CUDA events; with
 ``--profile``, the share of K7's clocks (lane 0 of each warp, summed
 over the warps, barrier waits included) in B1 (the replay), the post
 step (both in the first kernel) and B2 (the adjoints and the slices'
 sums, the second).
 
-``k9b``, ``k8c`` and ``k7`` only call the package's entry points, so they
+``k9b``, ``k8a``, ``k8b``, ``k8c`` and ``k7`` only call the package's
+entry points, so they
 also time an older checkout of it: run this file by its path from that
 checkout's root with ``--root .`` (without ``--profile`` where that
 checkout has no phase marks).  Each prints the card's name and power
@@ -209,9 +218,58 @@ def k8c(root: str, profile: bool) -> None:
         torch.cuda.synchronize()
         text = "; K8c's clocks: " + read(("draws", "the rest"))
     print(f"[K8c split] {os.path.abspath(root)}: z {tuple(z.shape)} S="
-          f"{cs.S}: argmax_grads (K8c) {g_ms:.4f} ms, argmax_mean (K8b, "
-          f"2 S C draws) {m_ms:.4f} ms{' (profiling build)' if read else ''}"
+          f"{cs.S}: argmax_grads (K8c) {g_ms:.4f} ms, argmax_mean (K8b) "
+          f"{m_ms:.4f} ms{' (profiling build)' if read else ''}"
           f"{text} | {_smi()}", flush=True)
+
+
+def k8b(root: str) -> None:
+    _profiled(root, False, "")
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    dev = torch.device("cuda", 0)
+    _d, z, _g, _sigma, gamma, _rs, ags = cs.staged_estimator_inputs(dev)
+    for noise in ("gaussian", "cauchy", "uniform"):
+        call = lambda: pk.argmax_mean(z, gamma, ags, cs.S, noise)
+        ms = (_cuda_ms(call, 10) + _cuda_ms(call, 10)) / 2
+        text = ""
+        if hasattr(pk, "argmax_candidates"):
+            per = pk.argmax_candidates(z, gamma, noise).sum(-1).float()
+            text = (f" ({per.mean().item():.3f} candidates per pixel, one "
+                    f"on {(per == 1).float().mean().item():.4f} of pixels)")
+        print(f"[K8b split] {os.path.abspath(root)}: argmax_mean {noise} z "
+              f"{tuple(z.shape)} S={cs.S}: {ms:.4f} ms{text} | {_smi()}",
+              flush=True)
+
+
+def k8a(root: str) -> None:
+    _profiled(root, False, "")
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    dev = torch.device("cuda", 0)
+    d, _z, _g, sigma, _gamma, rs, _ags = cs.staged_estimator_inputs(dev)
+
+    def timed(noise):
+        mean = lambda: pk.heaviside_mean(d, sigma, rs, cs.S, noise)
+        coeff = lambda: pk.heaviside_coeff(d, sigma, rs, cs.S, noise)
+        return ((_cuda_ms(mean, 10) + _cuda_ms(mean, 10)) / 2,
+                (_cuda_ms(coeff, 10) + _cuda_ms(coeff, 10)) / 2)
+
+    for noise in ("gaussian", "cauchy"):
+        m_ms, c_ms = timed(noise)
+        text = ""
+        if hasattr(pk, "heaviside_band"):
+            text = (f" (band share "
+                    f"{pk.heaviside_band(d, sigma, noise).float().mean().item():.4f})")
+        print(f"[K8a split] {os.path.abspath(root)}: {noise} d "
+              f"{tuple(d.shape)} S={cs.S}: heaviside_mean {m_ms:.4f} ms, "
+              f"heaviside_coeff {c_ms:.4f} ms{text} | {_smi()}", flush=True)
 
 
 def k7(root: str, profile: bool) -> None:
@@ -237,14 +295,20 @@ def k7(root: str, profile: bool) -> None:
         print(f"[K7 split] {os.path.abspath(root)}: {kname} cow "
               f"{cs.IMAGE}^2 N={n}: {ms:.4f} ms{tag}{text} | {_smi()}",
               flush=True)
+    cfg, args = cs.stream_inputs("gaussian", dev, cs.N_POSES)
+    ms = _cuda_ms(lambda: fr.fused_stream_forward(cfg, *args), 10)
+    print(f"[K7 split] {os.path.abspath(root)}: fused_stream_forward (K5) "
+          f"cow {cs.IMAGE}^2 N={cs.N_POSES}: {ms:.4f} ms{tag} | {_smi()}",
+          flush=True)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("k9b", "k12", "k8c", "k7"))
+    ap.add_argument("what", choices=("k9b", "k12", "k8c", "k8b", "k8a",
+                                     "k7"))
     ap.add_argument("--root", default=os.getcwd(),
                     help="checkout whose package and chip_smoke.py to use "
-                         "(k9b, k8c, k7)")
+                         "(k9b, k8a, k8b, k8c, k7)")
     ap.add_argument("--profile", action="store_true",
                     help="k8c, k7: build with -DPT_PROFILE and print the "
                          "phases' shares of the clocks")
@@ -253,6 +317,10 @@ def main(argv=None) -> None:
         k9b(args.root)
     elif args.what == "k8c":
         k8c(args.root, args.profile)
+    elif args.what == "k8b":
+        k8b(args.root)
+    elif args.what == "k8a":
+        k8a(args.root)
     elif args.what == "k7":
         k7(args.root, args.profile)
     else:

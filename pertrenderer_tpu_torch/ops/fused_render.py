@@ -1874,7 +1874,6 @@ class _FusedSharded(torch.autograd.Function):
 # Stream route, kernel wrappers (K5, K6, K7) and autograd
 # ---------------------------------------------------------------------------
 
-MAX_STREAM_SAMPLES = 64       # the stream kernels' per-pixel sample state
 STREAM_BLOCK_PIX = 32         # K6 / K7: pixels of a tile per block
 
 
@@ -1895,9 +1894,6 @@ def _check_stream(cfg: FusedConfig, tab, rows, count, active, scal, seeds,
                          f"Dt={dt}, tex_d={cfg.tex_d})")
     if cfg.tex_mode == "atlas" and not 1 <= cfg.atlas_r <= 8:
         raise ValueError(f"{kernel}: atlas_r={cfg.atlas_r}")
-    if cfg.agg_kind == "mc" and cfg.s_agg > MAX_STREAM_SAMPLES:
-        raise ValueError(f"{kernel}: s_agg={cfg.s_agg} above "
-                         f"{MAX_STREAM_SAMPLES}")
     if cfg.p_tile % 32 or cfg.p_tile > 256:
         raise ValueError(f"{kernel}: p_tile={cfg.p_tile}")
     dev = tab.device

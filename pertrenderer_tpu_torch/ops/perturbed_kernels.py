@@ -20,6 +20,13 @@ forward's noise from the same key, so no (S, ...) noise tensor is kept.
   sum_s dot_s (phi_s - 1) / (S gamma) with phi = sum_c Z^2 (gaussian) or
   sum_c score(Z) Z (cauchy).
 
+The kernels draw only where a draw can change the result: every family's
+draws are bounded, |Z| <= ``NOISE_BOUNDS[noise]`` (``csrc/hash_prng.cuh``'s
+table), so K8a writes the elements outside the band |d| <= sigma B
+(``heaviside_band``) and K8b the channels that cannot reach a sample's max
+(``argmax_candidates``) without a draw, by the plain versions' own
+expressions and bits.
+
 Each plain version is a draw (``draws``) and an estimator that takes the
 noise as an iterable of per-sample tensors shaped like the input (an
 (S, ...) tensor works), so a test can feed it other noise.  A wrapper runs
@@ -37,13 +44,17 @@ __all__ = ["heaviside_mean", "heaviside_coeff", "argmax_mean",
            "argmax_grads", "heaviside_mean_plain", "heaviside_coeff_plain",
            "argmax_mean_plain", "argmax_grads_plain", "heaviside_mean_est",
            "heaviside_coeff_est", "argmax_mean_est", "argmax_grads_est",
-           "draws", "score", "NOISE_IDS", "GRAD_NOISES", "launch_counts",
+           "draws", "score", "heaviside_band", "argmax_candidates",
+           "NOISE_IDS", "NOISE_BOUNDS", "GRAD_NOISES", "launch_counts",
            "plain_calls"]
 
 NOISE_IDS = {"gaussian": 0, "cauchy": 1, "logistic": 2, "gumbel": 3,
              "uniform": 4}
 GRAD_NOISES = ("gaussian", "cauchy")   # the families with a score function
-MAX_GRAD_CHANNELS = 512   # K8c on the card: 16 channels per lane at most
+# |draw| <= bound for every hash word: csrc/hash_prng.cuh's family_bound
+# (cauchy: its clamp).
+NOISE_BOUNDS = {"gaussian": 5.78, "cauchy": 1e7, "logistic": 16.7,
+                "gumbel": 16.7, "uniform": 0.5}
 
 launch_counts = {"heaviside_mean": 0, "heaviside_coeff": 0,
                  "argmax_mean": 0, "argmax_grads": 0}
@@ -76,6 +87,31 @@ def draws(noise_type: str, seeds: torch.Tensor, n_samples: int, shape):
     for s in range(n_samples):
         yield _fr._draw_values(noise_type, s0, s1, s, rows, pos).expand(
             n, p, c).reshape(shape)
+
+
+def _scaled_bound(scale: torch.Tensor, noise_type: str) -> torch.Tensor:
+    """fl(|scale| B) in float32, as the kernels round it."""
+    return scale.abs() * torch.tensor(NOISE_BOUNDS[noise_type],
+                                      dtype=torch.float32,
+                                      device=scale.device)
+
+
+def heaviside_band(d, sigma, noise_type: str, draw_above: bool = False):
+    """The elements of d whose K8a outcome a draw can change: |d| <=
+    fl(|sigma| B) (and NaN), with ``draw_above`` also every element above
+    the band (the coefficient without variance reduction).  The others are
+    certain: H(d + sigma Z) is the same for every draw."""
+    sb = _scaled_bound(sigma, noise_type)
+    return ~(d < -sb) & (~(d > sb) | draw_above)
+
+
+def argmax_candidates(z, gamma, noise_type: str):
+    """The channels of z (N, ..., C) that K8b draws: those whose
+    fl(z_c + gb) is not below fl(max z - gb), gb = fl(|gamma| B).  No other
+    channel reaches a sample's max of z + gamma Z, whatever the draws."""
+    gb = _scaled_bound(gamma, noise_type)
+    top = torch.amax(z, dim=-1, keepdim=True)
+    return ~(z + gb < top - gb)
 
 
 def heaviside_mean_est(d, sigma, noise, n_samples: int) -> torch.Tensor:
@@ -264,14 +300,10 @@ def argmax_mean(z, gamma, seeds, n_samples: int,
     from pertrenderer_tpu_torch import _build
 
     z, gamma, seeds = z.contiguous(), gamma.contiguous(), seeds.contiguous()
-    n, p, c = _npc(z)
     out = torch.empty_like(z)
     if z.numel():
-        scratch = torch.empty((n_samples, n * p), dtype=torch.float32,
-                              device=z.device)
         _launch("argmax_mean", _build.library().pt_argmax_mean, z, gamma,
-                seeds, out, scratch, n, p, c, n_samples,
-                NOISE_IDS[noise_type])
+                seeds, out, *_npc(z), n_samples, NOISE_IDS[noise_type])
     return out
 
 
@@ -282,16 +314,13 @@ def argmax_grads(z, g, gamma, seeds, n_samples: int,
     perturbed argmax's cotangent ``g`` from the forward's noise (replaces
     ``_pa_grads_kernel``); grad_gamma is the gamma term's sum.  Gaussian
     and cauchy only.  On the card, one warp per pixel with the channels
-    across its lanes (at most ``MAX_GRAD_CHANNELS``)."""
+    across its lanes."""
     _check("argmax_grads", z, gamma, seeds, n_samples, noise_type, g)
     _check_grad_noise("argmax_grads", noise_type)
     if z.device.type == "cpu":
         plain_calls["argmax_grads"] += 1
         return argmax_grads_plain(z, g, gamma, seeds, n_samples, noise_type,
                                   variance_reduction)
-    if z.shape[-1] > MAX_GRAD_CHANNELS:
-        raise ValueError(f"argmax_grads: {z.shape[-1]} channels, the kernel "
-                         f"takes at most {MAX_GRAD_CHANNELS}")
     from pertrenderer_tpu_torch import _build
 
     z, g = z.contiguous(), g.contiguous()

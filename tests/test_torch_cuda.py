@@ -321,10 +321,10 @@ def test_flat_kernels_take_background_only_on_inactive_tiles(noise,
 STREAM_SCENES = {"icosphere": (64, 2), "cow": (128, 1)}
 
 
-def _stream_case(noise, kind, device):
+def _stream_case(noise, kind, device, s=4):
     size, n = STREAM_SCENES[kind]
     mesh, renderer = _renderer(noise, device, imsize=size, n=n,
-                               mesh_kind=kind, sigma=1e-3, gamma=1e-2, s=4)
+                               mesh_kind=kind, sigma=1e-3, gamma=1e-2, s=s)
     cfg, (tab, scal, rows, count, active, seeds) = _inputs(mesh, renderer)
     assert cfg.stream
     return cfg, (tab, rows, count, active, scal, seeds), size, n
@@ -343,14 +343,17 @@ def assert_stream_grads_close(cfg, tab, got, want, want64, mc: bool):
 @pytest.mark.parametrize("noise", NOISE_MENU)
 def test_stream_forward_kernel_matches_plain(noise, kind, cuda_device):
     cfg, args, _size, _n = _stream_case(noise, kind, cuda_device)
+    check_stream_forward(cfg, args, noise in MC_NOISES)
+
+
+def check_stream_forward(cfg, args, mc):
     before = tfr.launch_counts["fused_stream_forward"]
     got = tfr.fused_stream_forward(cfg, *args)
     again = tfr.fused_stream_forward(cfg, *args)
     torch.cuda.synchronize()
     assert tfr.launch_counts["fused_stream_forward"] == before + 2
     assert torch.equal(got, again)
-    assert_kernel_close(got, tfr.stream_forward_plain(cfg, *args),
-                        noise in MC_NOISES)
+    assert_kernel_close(got, tfr.stream_forward_plain(cfg, *args), mc)
 
 
 @pytest.mark.cuda
@@ -362,7 +365,10 @@ def test_stream_gradient_kernels_match_plain(noise, kind, cuda_device):
     the L2 loss fed through K6 (tables and scalars within 1e-5 of their
     max: the same kernels' arithmetic on both sides)."""
     cfg, args, size, n = _stream_case(noise, kind, cuda_device)
-    mc = noise in MC_NOISES
+    check_stream_grads(cfg, args, size, n, noise in MC_NOISES, cuda_device)
+
+
+def check_stream_grads(cfg, args, size, n, mc, cuda_device):
     g_out = torch.randn(n, size, size, 4, generator=torch.Generator()
                         .manual_seed(1)).to(cuda_device)
     before = dict(tfr.launch_counts)
@@ -400,6 +406,19 @@ def test_stream_gradient_kernels_match_plain(noise, kind, cuda_device):
     errors = table_errors(checks.split_stream(cfg, *lg),
                           checks.split_stream(cfg, *dual))
     assert all(e <= 1e-5 for _n, e in errors), errors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["gaussian", "cauchy"])
+def test_stream_kernels_at_128_samples_match_plain(noise, cuda_device):
+    """Above 64 aggregation samples (S = 128: two passes of K5 and of B1
+    over the chunk list) on the icosphere at 64^2, N=2: K5, K6 and K7 as
+    the two tests above hold them, repeats bit-equal and K7 = K5 + K6."""
+    cfg, args, size, n = _stream_case(noise, "icosphere", cuda_device,
+                                      s=128)
+    assert cfg.s_agg == 128
+    check_stream_forward(cfg, args, True)
+    check_stream_grads(cfg, args, size, n, True, cuda_device)
 
 
 @pytest.mark.cuda
@@ -746,7 +765,9 @@ def test_staged_estimator_kernels_match_plain(noise, vr, cuda_device):
     tolerance (mean |d| <= 1e-5, 99.9% of elements within 1e-4), the
     gradients of gaussian and cauchy within 1e-3 of their max, two
     launches bit-equal, one launch counted per call; a pixel of exact
-    ties counts every tied channel."""
+    ties counts every tied channel.  The elements the kernels write
+    without a draw (outside K8a's band, outside K8b's candidates and in
+    pixels with one candidate) are bit-equal to the plain versions."""
     from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
 
     gen = torch.Generator().manual_seed(12)
@@ -765,14 +786,20 @@ def test_staged_estimator_kernels_match_plain(noise, vr, cuda_device):
         assert dd.mean().item() <= 1e-5
         assert (dd <= 1e-4).float().mean().item() >= 0.999
 
+    cand = pk.argmax_candidates(z, gamma, noise)
+    certain = {"heaviside_mean": ~pk.heaviside_band(d, sigma, noise),
+               "argmax_mean": ~cand | (cand.sum(-1, keepdim=True) == 1)}
     before = dict(pk.launch_counts)
     for fn, plain, x, scale in (
             (pk.heaviside_mean, pk.heaviside_mean_plain, d, sigma),
             (pk.argmax_mean, pk.argmax_mean_plain, z, gamma)):
         got, again = fn(x, scale, seeds, 8, noise), fn(x, scale, seeds, 8,
                                                        noise)
+        want = plain(x, scale, seeds, 8, noise)
         assert torch.equal(got, again)
-        mc_close(got, plain(x, scale, seeds, 8, noise))
+        mc_close(got, want)
+        keep = certain[fn.__name__]
+        assert torch.equal(got[keep], want[keep])
     tied = pk.argmax_mean(z, gamma, seeds, 8, noise)[0, 0, 0]
     assert tied.sum().item() >= 1.0
     if noise in pk.GRAD_NOISES:
@@ -780,6 +807,8 @@ def test_staged_estimator_kernels_match_plain(noise, vr, cuda_device):
         want = pk.heaviside_coeff_plain(d, sigma, seeds, 8, noise, vr)
         assert torch.equal(got, pk.heaviside_coeff(d, sigma, seeds, 8,
                                                    noise, vr))
+        keep = ~pk.heaviside_band(d, sigma, noise, draw_above=not vr)
+        assert torch.equal(got[keep], want[keep])
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
         got = pk.argmax_grads(z, g, gamma, seeds, 8, noise, vr)
         want = pk.argmax_grads_plain(z, g, gamma, seeds, 8, noise, vr)
@@ -822,6 +851,31 @@ def test_argmax_grads_kernel_channels_and_samples(noise, vr, c, s,
     got = pk.argmax_grads(z, g, gamma, seeds, s, noise, vr)
     again = pk.argmax_grads(z, g, gamma, seeds, s, noise, vr)
     want = pk.argmax_grads_plain(z, g, gamma, seeds, s, noise, vr)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert torch.isfinite(a).all()
+        assert ((a - w).abs().max() / w.abs().max()).item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise,vr", [("gaussian", True),
+                                      ("cauchy", False)])
+def test_argmax_grads_kernel_above_512_channels(noise, vr, cuda_device):
+    """K8c at C = 600 (above 16 channels per lane: the wide path) against
+    its plain version: grad_z and the gamma term within 1e-3 of their max,
+    two launches bit-equal."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    gen = torch.Generator().manual_seed(14)
+    z = torch.randn(2, 7, 9, 600, generator=gen).to(cuda_device)
+    g = torch.randn(z.shape, generator=gen).to(cuda_device)
+    seeds = torch.tensor([[15, -16], [17, 18]], dtype=torch.int32,
+                         device=cuda_device)
+    gamma = torch.tensor(0.5, device=cuda_device)
+    got = pk.argmax_grads(z, g, gamma, seeds, 5, noise, vr)
+    again = pk.argmax_grads(z, g, gamma, seeds, 5, noise, vr)
+    want = pk.argmax_grads_plain(z, g, gamma, seeds, 5, noise, vr)
     torch.cuda.synchronize()
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)

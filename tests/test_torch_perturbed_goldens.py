@@ -122,7 +122,8 @@ extern "C" void mc_argmax(const float* z, const float* g, float gamma,
 }
 
 // K8c's warp function at one pixel with its 32 lanes on fibers, at the
-// card's channels per lane (ceil(C / 32) rounded up to 1, 2, 3, 4, 8, 16).
+// card's channels per lane (ceil(C / 32) rounded up to 1, 2, 3, 4, 8, 16;
+// argmax_grads_wide above 512 channels).
 template <int J>
 static float grads_warp(Lanes& L, const float* z, const float* g, float* gz,
                         float gamma, uint32_t s0, uint32_t s1, uint32_t p,
@@ -146,34 +147,67 @@ static float grads_pixel(Lanes& L, const float* z, const float* g,
   if (J == 3) return grads_warp<3>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
   if (J == 4) return grads_warp<4>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
   if (J <= 8) return grads_warp<8>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
-  return grads_warp<16>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
+  if (J <= 16) return grads_warp<16>(L, z, g, gz, gamma, s0, s1, p, C, S, fam, vr);
+  float t = 0.0f;
+  L.run([&](int lane) {
+    HostWarp w{lane, &L};
+    const float v = argmax_grads_wide(w, z, g, gz, gamma, s0, s1, p, C, S,
+                                      fam, vr);
+    if (lane == 0) t = v;
+  });
+  return t;
 }
 
-// The kernels' own per-element and per-pixel functions over an (N, P, C)
-// input: which 0 heaviside mean, 1 its coefficient, 2 argmax mean, 3
-// argmax grads (K8c's warp function; out2: the gamma term per pixel).
+// The kernels' own warp functions over an (N, P, C) input, the 32 lanes
+// on fibers: which 0 heaviside mean, 1 its coefficient (K8a's strips of
+// kStripLines 32-element lines over the flat input, their element indices
+// split with 32-bit and 64-bit division in turn), 2 argmax mean (K8b), 3
+// argmax grads (K8c; out2: the gamma term per pixel).
 extern "C" void host_k8(int which, const float* x, const float* g,
                         float scale, const int* seeds, float* out,
                         float* out2, int n, int P, int C, int S, int fam,
                         int vr) {
-  std::vector<float> scratch(S);
   Lanes L;
+  if (which < 2) {
+    const long long total = (long long)n * P * C, strip = 32ll * kStripLines;
+    for (long long e0 = 0; e0 < total; e0 += strip)
+      for (int lane = 0; lane < 32; ++lane)
+        heaviside_strip(lane, which, x, out, scale, seeds, e0,
+                        std::min(total, e0 + strip), P, C, S, fam, vr != 0,
+                        (e0 / strip) % 2 == 0);
+    return;
+  }
+  int list[32];
   for (int b = 0; b < n; ++b)
     for (int p = 0; p < P; ++p) {
       const size_t q = (size_t)b * P + p;
       const uint32_t s0 = seeds[2 * b], s1 = seeds[2 * b + 1];
-      if (which < 2) {
-        for (int c = 0; c < C; ++c)
-          out[q * C + c] = heaviside_elem(which, x[q * C + c], scale, s0, s1,
-                                          c, p, S, fam, vr != 0);
-      } else if (which == 2) {
-        argmax_mean_pixel(x + q * C, out + q * C, scale, s0, s1, p, C, S,
-                          fam, scratch.data(), 1);
+      if (which == 2) {
+        L.run([&](int lane) {
+          HostWarp w{lane, &L};
+          argmax_mean_warp(w, x + q * C, out + q * C, scale, s0, s1, p, C, S,
+                           fam, list);
+        });
       } else {
         out2[q] = grads_pixel(L, x + q * C, g + q * C, out + q * C, scale,
                               s0, s1, p, C, S, fam, vr != 0);
       }
     }
+}
+
+// The largest |value| of a family's map over every 23-bit uniform
+// (gaussian: the Box-Muller radius, which bounds both halves), and the
+// kernels' bound for it.
+extern "C" void draw_extent(int fam, float* max_abs, float* bound) {
+  float m = 0.0f;
+  for (uint32_t k = 0; k < (1u << 23); ++k) {
+    const float u = ptt::uniform01(k);
+    const float v = fam == ptt::kFamGaussian ? ptt::gaussian_radius(u)
+                                             : ptt::uniform_value(fam, u);
+    m = std::max(m, std::fabs(v));
+  }
+  *max_abs = m;
+  *bound = ptt::family_bound(fam);
 }
 """
 
@@ -203,6 +237,7 @@ def host_mc(tmp_path_factory):
     lib.mc_argmax.argtypes = ([ptr, ptr, f32, ptr, i32, i32,
                                ctypes.c_longlong, i32] + [ptr] * 3 + [i32])
     lib.host_k8.argtypes = [i32, ptr, ptr, f32] + [ptr] * 3 + [i32] * 6
+    lib.draw_extent.argtypes = [i32, ptr, ptr]
     return lib
 
 
@@ -300,8 +335,8 @@ def test_port_gaussianagg_chain_matches_reference(G, host_mc):
     ("gaussian", True), ("gaussian", False), ("cauchy", True),
     ("logistic", True), ("gumbel", True), ("uniform", True)])
 def test_kernel_functions_match_plain_on_host(host_mc, noise, vr):
-    """K8a-c's per-element and per-pixel functions (what each CUDA thread,
-    or for K8c each warp, runs) against the plain versions on the same seeds: forwards within
+    """K8a-c's warp functions (what each warp of the kernels runs) against
+    the plain versions on the same seeds: forwards within
     the MC tolerance of the card (mean |d| <= 1e-5, 99.9% within 1e-4:
     g++'s libm and torch round log / cos / tan apart in the last place, so
     a threshold may flip), gradients within 1e-3 of their max |grad|; a
@@ -380,3 +415,187 @@ def test_k8c_warp_matches_plain_on_host(host_mc, noise, vr, c, s):
     for got, w in zip((gz, gterm), want):
         err = (got - w).abs().max() / w.abs().max()
         assert torch.isfinite(got).all() and err <= 1e-3, err
+
+
+def host_run(lib, which, x, scale, seeds, s, noise, vr=True, g=None):
+    """(out, out2) of ``host_k8`` on x (N, P, C)."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    n, p, c = x.shape
+    g = torch.zeros_like(x) if g is None else g
+    out, out2 = torch.full_like(x, float("nan")), torch.zeros(n, p)
+    lib.host_k8(which, x.data_ptr(), g.data_ptr(), scale, seeds.data_ptr(),
+                out.data_ptr(), out2.data_ptr(), n, p, c, s,
+                pk.NOISE_IDS[noise], int(vr))
+    return out, out2
+
+
+def assert_mc_close(got, want):
+    """The card's MC forward tolerance (see
+    test_kernel_functions_match_plain_on_host)."""
+    d = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert d.mean() <= 1e-5 and (d <= 1e-4).float().mean() >= 0.999, d.max()
+
+
+@pytest.mark.parametrize("noise", ["gaussian", "cauchy", "logistic",
+                                   "gumbel", "uniform"])
+def test_draw_bounds_hold_for_every_uniform(host_mc, noise):
+    """Every family's map over all 2^23 uniforms the hash can give stays
+    strictly below the bound that K8a / K8b (and K12, gaussian) prune by
+    (cauchy's is its clamp, which holds on any libm), and the Python table
+    (``NOISE_BOUNDS``) is the kernels' own."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    m, b = ctypes.c_float(), ctypes.c_float()
+    host_mc.draw_extent(pk.NOISE_IDS[noise], ctypes.byref(m),
+                        ctypes.byref(b))
+    assert b.value == np.float32(pk.NOISE_BOUNDS[noise])
+    assert 0.0 < m.value < b.value
+
+
+def _argmax_scene(rng, n, p, c, gamma, noise):
+    """z (n, p, c): pixels of every kind K8b meets, at the spread of its
+    family's bound gb = |gamma| B: one candidate far above the rest; a few
+    within gb of the top; -inf (masked) channels; every channel -inf; 40
+    and 150 channels near the top where c allows."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    gb = abs(gamma) * pk.NOISE_BOUNDS[noise]
+    z = rng.standard_normal((n, p, c)) * 20.0 * gb
+    z[:, 0] = -np.inf
+    z[:, 0, 0] = 1.0                                  # one finite channel
+    z[:, 1] = -np.inf                                 # every channel masked
+    z[:, 2, c // 2] = z[:, 2].max() + 10.0 * gb       # one far above
+    z[:, 3, :5] = z[:, 3].max() + rng.random((n, 5)) * gb   # a few near
+    z[:, 4, 1::2] = -np.inf
+    for q, k in ((5, 40), (6, 150)):                  # > 32, > 128 near
+        if c >= k:
+            z[:, q, :k] = (z[:, q].max(-1, keepdims=True) + 1.0
+                           + rng.random((n, k)) * gb)
+    return torch.from_numpy(z.astype(np.float32))
+
+
+@pytest.mark.parametrize("c,noise", [
+    (7, "gaussian"), (51, "gaussian"), (51, "cauchy"), (51, "logistic"),
+    (51, "gumbel"), (51, "uniform"), (70, "gaussian"), (200, "gaussian"),
+    (200, "uniform")])
+def test_k8b_warp_matches_plain_on_host(host_mc, c, noise):
+    """K8b's warp function (32 emulated lanes) against
+    ``argmax_mean_plain``: every channel outside the candidates
+    (``argmax_candidates``) and every channel of a pixel with one candidate
+    bit-equal; the rest within the MC tolerance on shared noise.  The
+    scene has single-candidate pixels, -inf channels, a pixel with every
+    channel -inf, and (C = 70, 200) 40 and 150 channels near the top,
+    more than a warp's lanes, which take the layout over the lane's own
+    channels."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    rng = np.random.default_rng(13)
+    n, p, s, gamma = 2, 24, 8, 0.05
+    z = _argmax_scene(rng, n, p, c, gamma, noise)
+    seeds = torch.tensor([[41, -42], [43, 44]], dtype=torch.int32)
+    got = host_run(host_mc, 2, z, gamma, seeds, s, noise)[0]
+    want = pk.argmax_mean_plain(z, torch.tensor(gamma), seeds, s, noise)
+    cand = pk.argmax_candidates(z, torch.tensor(gamma), noise)
+    single = (cand.sum(-1, keepdim=True) == 1).expand_as(cand)
+    exact = ~cand | single
+    assert torch.equal(got[exact], want[exact])
+    assert_mc_close(got, want)
+    assert (cand.sum(-1) == 1).any() and (cand.sum(-1) > 1).any()
+    if c >= 150:
+        assert cand[:, 5].sum(-1).min() > 32 and cand[:, 6].sum(-1).min() > 128
+
+
+def test_k8b_warp_counts_every_tied_channel_on_host(host_mc):
+    """An exact tie at the max: at gamma 1e-12 every perturbed value
+    rounds back to z, the tied channels are the candidates and every one
+    of them reaches every sample's max (1.0 each), as in the plain
+    version."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    z = torch.zeros(1, 3, 9)
+    z[0, 0, [1, 4, 7]] = 1.0
+    z[0, 1, :] = 2.0
+    z[0, 2, [0, 8]] = -1.0
+    seeds = torch.tensor([[5, 6]], dtype=torch.int32)
+    got = host_run(host_mc, 2, z, 1e-12, seeds, 8, "gaussian")[0]
+    want = pk.argmax_mean_plain(z, torch.tensor(1e-12), seeds, 8, "gaussian")
+    assert torch.equal(got, want)
+    assert torch.equal(got[0, 0], (z[0, 0] == 1.0).float())
+    assert torch.equal(got[0, 1], torch.ones(9))
+
+
+def _band_scene(rng, n, p, c, sigma, noise):
+    """d (n, p, c): random in and around the band |d| <= sb = fl(|sigma|
+    B) (within 12 sigma for cauchy), the elements one ulp either side of
+    +-sb, empty slots at +1 and -1, and a dense run of band elements (whole
+    lines drawn)."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    sb = np.float32(abs(sigma)) * np.float32(pk.NOISE_BOUNDS[noise])
+    spread = min(float(sb), 6.0 * sigma)      # cauchy's band is 1e7 sigma
+    d = (rng.standard_normal((n, p, c)) * 2.0 * spread).astype(np.float32)
+    edge = np.array([sb, -sb], np.float32)
+    ulps = np.concatenate([np.nextafter(edge, np.float32(np.inf)),
+                           np.nextafter(edge, np.float32(-np.inf)), edge])
+    flat = d.reshape(-1)
+    flat[:ulps.size] = ulps
+    flat[ulps.size:ulps.size + 40] = 1.0
+    flat[ulps.size + 40:ulps.size + 50] = -1.0
+    flat[200:300] = (rng.random(100) - 0.5) * spread
+    return torch.from_numpy(d)
+
+
+@pytest.mark.parametrize("noise,vr", [
+    ("gaussian", True), ("gaussian", False), ("cauchy", True),
+    ("cauchy", False), ("uniform", True), ("logistic", True)])
+def test_k8a_strip_matches_plain_on_host(host_mc, noise, vr):
+    """K8a's strip function (its 32 lanes in turn, strips of 4 lines
+    crossing pixels and batch elements) against both plain versions, with elements
+    one ulp inside and outside +-sigma B: outside the band
+    (``heaviside_band``) bit-equal; inside, the mean within the MC
+    tolerance and the coefficient within 1e-3 of its max; variance
+    reduction on and off."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    rng = np.random.default_rng(17)
+    n, p, c, s, sigma = 2, 30, 11, 8, 1e-2
+    d = _band_scene(rng, n, p, c, sigma, noise)
+    seeds = torch.tensor([[51, -52], [53, 54]], dtype=torch.int32)
+    ts = torch.tensor(sigma)
+    band = pk.heaviside_band(d, ts, noise)
+    assert band.any() and (~band).any()
+    got = host_run(host_mc, 0, d, sigma, seeds, s, noise)[0]
+    want = pk.heaviside_mean_plain(d, ts, seeds, s, noise)
+    assert torch.equal(got[~band], want[~band])
+    assert_mc_close(got, want)
+    if noise not in pk.GRAD_NOISES:
+        return
+    got = host_run(host_mc, 1, d, sigma, seeds, s, noise, vr)[0]
+    want = pk.heaviside_coeff_plain(d, ts, seeds, s, noise, vr)
+    drawn = pk.heaviside_band(d, ts, noise, draw_above=not vr)
+    assert torch.equal(got[~drawn], want[~drawn])
+    err = (got - want).abs().max() / want.abs().max()
+    assert torch.isfinite(got).all() and err <= 1e-3, err
+
+
+@pytest.mark.parametrize("noise,vr", [("gaussian", True),
+                                      ("cauchy", False)])
+def test_k8c_wide_matches_plain_on_host(host_mc, noise, vr):
+    """K8c above 16 channels per lane (C = 600, argmax_grads_wide) against
+    ``argmax_grads_plain``: grad_z and the gamma term within 1e-3 of their
+    max |grad|."""
+    from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
+
+    rng = np.random.default_rng(19)
+    n, p, c, s, gamma = 1, 3, 600, 5, 0.5
+    z = torch.from_numpy(rng.standard_normal((n, p, c)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((n, p, c)).astype(np.float32))
+    seeds = torch.tensor([[61, -62]], dtype=torch.int32)
+    got = host_run(host_mc, 3, z, gamma, seeds, s, noise, vr, g=g)
+    want = pk.argmax_grads_plain(z, g, torch.tensor(gamma), seeds, s, noise,
+                                 vr)
+    for a, b in zip(got, want):
+        err = (a - b).abs().max() / b.abs().max()
+        assert torch.isfinite(a).all() and err <= 1e-3, err

@@ -66,7 +66,9 @@ static void fill(Params& p, const float* tab, const int* rows,
   p.loss_kind = loss_kind; p.lscale = lscale;
 }
 
-// K5's per-thread forward, pixel by pixel, into out (N, H, W, 4).
+// K5's per-thread forward, pixel by pixel, into out (N, H, W, 4) (MULTI:
+// the kernel's instantiation above kMaxS samples).
+template <bool MULTI>
 static void forward(const Params& p, int n, float* out) {
   std::vector<ChunkRows> Rv(1);
   std::vector<StreamState> Sv(1);
@@ -82,14 +84,17 @@ static void forward(const Params& p, int n, float* out) {
         const int pix = tile_pixel(p, t, i, &live);
         float px, py;
         pixel_center(p.image_size, pix, &px, &py);
-        state_init(p, sc, b, (uint32_t)pix, st);
-        if (p.active[bt] > 0)
-          for (int q = 0; q < p.count[bt]; ++q)
-            chunk_forward(p, chunk_tables(p, p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt, sc),
-                          b, list[q], px, py, live, (uint32_t)pix, st, R);
+        for (int k = 0; k < (MULTI ? stream_passes(p) : 1); ++k) {
+          state_init<MULTI>(p, sc, b, (uint32_t)pix, k, st);
+          if (p.active[bt] > 0)
+            for (int q = 0; q < p.count[bt]; ++q)
+              chunk_forward<MULTI>(p, chunk_tables(p, p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt, sc),
+                                   b, list[q], px, py, live, (uint32_t)pix, st, R);
+          if (MULTI) state_pass_end(p, st);
+        }
         if (!live) continue;
         float rgb[3];
-        state_rgb(p, st, rgb);
+        state_rgb<MULTI>(p, st, rgb);
         float* o = out + ((size_t)b * p.image_size * p.image_size + pix) * 4;
         o[0] = rgb[0]; o[1] = rgb[1]; o[2] = rgb[2]; o[3] = 1.0f - st.alpha;
       }
@@ -98,18 +103,40 @@ static void forward(const Params& p, int n, float* out) {
 
 constexpr int kHostWarps = kStreamWarps;
 
+// The block's records as the card keeps them: windows (the whole record
+// in one pass) in `recs`, above kMaxS samples (MULTI) the whole records
+// in `drecs` with the windows' heads.
+template <bool MULTI>
+struct HostRecs {
+  const Params& p;
+  int rf, rw, passes;
+  std::vector<float> recs, drecs;
+  explicit HostRecs(const Params& q)
+      : p(q), rf(rec_floats(q)), rw(rec_window_floats(q)),
+        passes(MULTI ? stream_passes(q) : 1), recs((size_t)kBlockPix * rw),
+        drecs((size_t)kBlockPix * rf) {}
+  Rec window(int i, int k) {
+    return rec_pass<MULTI>(p, recs.data() + (size_t)i * rw, k);
+  }
+  Rec whole(int i) {
+    return rec_whole<MULTI>(p, recs.data() + (size_t)i * rw,
+                            drecs.data() + (size_t)i * rf);
+  }
+};
+
 // K6 (LOSS false) / K7 as the card runs them: per block (32 pixels of a
 // tile) kHostWarps warps of 32 fibers, each warp's pixels i = v, v + 4,
-// ...; B1 and the post step (the card's first kernel), then B2 (its
-// second); each visit's slices added in warp order into the chunk's rows,
-// the scalars as the block's row (the post step's warps, then B2's), the
-// tiles and their blocks in ascending order, as the card's reductions.
-template <bool LOSS>
+// ...; B1 (in passes of kMaxS samples) and the post step (the card's
+// first kernel), then B2 (its second); each visit's slices added in warp
+// order into the chunk's rows, the scalars as the block's row (the post
+// step's warps, then B2's), the tiles and their blocks in ascending
+// order, as the card's reductions.
+template <bool LOSS, bool MULTI>
 static void grads(const Params& p, int n, float* g_rows, float* g_scal,
                   float* loss) {
-  const int D = kGeo + p.tex_d, rf = rec_floats(p), ds = slice_stride(p);
+  const int D = kGeo + p.tex_d, ds = slice_stride(p);
   Lanes L;
-  std::vector<float> recs((size_t)kBlockPix * rf);
+  HostRecs<MULTI> H(p);
   std::vector<float> slices((size_t)kHostWarps * kChunk * ds);
   std::vector<float> scratch((size_t)kHostWarps * 4 * kChunk);
   for (int b = 0; b < n; ++b) {
@@ -122,7 +149,7 @@ static void grads(const Params& p, int n, float* g_rows, float* g_scal,
       const int* list = p.rows + (size_t)bt * p.nch;
       for (int sub = 0; sub < p.nsub; ++sub) {
         double wpost[kHostWarps][kTot] = {}, wtot[kHostWarps][kTot] = {};
-        auto rec = [&](int i) { return rec_at(p, recs.data() + (size_t)i * rf); };
+        auto rec = [&](int i) { return H.whole(i); };
         auto each = [&](int v, HostWarp& w, auto&& fn) {
           for (int i = v; i < kBlockPix; i += kHostWarps) {
             bool live;
@@ -130,27 +157,37 @@ static void grads(const Params& p, int n, float* g_rows, float* g_scal,
             fn(i, pix, live);
           }
         };
-        for (int v = 0; v < kHostWarps; ++v)
-          L.run([&](int lane) {
-            HostWarp w{lane, &L};
-            each(v, w, [&](int i, int pix, bool) {
-              warp_state_init(p, sc, b, (uint32_t)pix, w, rec(i));
-            });
-          });
-        for (int q = 0; q < nq; ++q) {
-          const Tables T = chunk_tables(p, p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt, sc);
+        for (int k = 0; k < H.passes; ++k) {
           for (int v = 0; v < kHostWarps; ++v)
             L.run([&](int lane) {
               HostWarp w{lane, &L};
-              each(v, w, [&](int i, int pix, bool live) {
-                if (!live) return;
-                float px, py;
-                pixel_center(p.image_size, pix, &px, &py);
-                warp_chunk_forward<!LOSS>(p, T, b, list[q], px, py, live,
-                                          (uint32_t)pix, w, rec(i),
-                                          scratch.data() + (size_t)v * 4 * kChunk);
+              each(v, w, [&](int i, int pix, bool) {
+                warp_state_init(p, sc, b, (uint32_t)pix, w, H.window(i, k));
               });
             });
+          for (int q = 0; q < nq; ++q) {
+            const Tables T = chunk_tables(p, p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt, sc);
+            for (int v = 0; v < kHostWarps; ++v)
+              L.run([&](int lane) {
+                HostWarp w{lane, &L};
+                each(v, w, [&](int i, int pix, bool live) {
+                  if (!live) return;
+                  float px, py;
+                  pixel_center(p.image_size, pix, &px, &py);
+                  warp_chunk_forward<!LOSS, MULTI>(p, T, b, list[q], px, py, live,
+                                                   (uint32_t)pix, w, H.window(i, k),
+                                                   scratch.data() + (size_t)v * 4 * kChunk);
+                });
+              });
+          }
+          if (MULTI)
+            for (int v = 0; v < kHostWarps; ++v)
+              L.run([&](int lane) {
+                HostWarp w{lane, &L};
+                each(v, w, [&](int i, int, bool) {
+                  rec_window_out(H.window(i, k), H.whole(i), w);
+                });
+              });
         }
         for (int v = 0; v < kHostWarps; ++v)
           L.run([&](int lane) {
@@ -221,11 +258,11 @@ static void grads(const Params& p, int n, float* g_rows, float* g_scal,
 }
 
 // B1's replay (K6's) into out (N, H, W, 4): each pixel's colour and alpha
-// from its record once the tile's chunks are done.
+// from its record once the tile's chunks are done, in every pass.
+template <bool MULTI>
 static void replay(const Params& p, int n, float* out) {
-  const int rf = rec_floats(p);
   Lanes L;
-  std::vector<float> recs((size_t)kBlockPix * rf);
+  HostRecs<MULTI> H(p);
   std::vector<float> scratch((size_t)kHostWarps * 4 * kChunk);
   for (int b = 0; b < n; ++b) {
     const float* sc = p.scal + b * kNS;
@@ -240,17 +277,21 @@ static void replay(const Params& p, int n, float* out) {
             for (int i = v; i < kBlockPix; i += kHostWarps) {
               bool live;
               const int pix = tile_pixel(p, t, sub * kBlockPix + i, &live);
-              const Rec R = rec_at(p, recs.data() + (size_t)i * rf);
-              warp_state_init(p, sc, b, (uint32_t)pix, w, R);
-              for (int q = 0; q < nq; ++q) {
-                const Tables T = chunk_tables(p, p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt, sc);
-                float px, py;
-                pixel_center(p.image_size, pix, &px, &py);
-                warp_chunk_forward<true>(p, T, b, list[q], px, py, live,
-                                         (uint32_t)pix, w, R,
-                                         scratch.data() + (size_t)v * 4 * kChunk);
+              for (int k = 0; k < H.passes; ++k) {
+                const Rec W = H.window(i, k);
+                warp_state_init(p, sc, b, (uint32_t)pix, w, W);
+                for (int q = 0; q < nq; ++q) {
+                  const Tables T = chunk_tables(p, p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt, sc);
+                  float px, py;
+                  pixel_center(p.image_size, pix, &px, &py);
+                  warp_chunk_forward<true, MULTI>(p, T, b, list[q], px, py, live,
+                                                  (uint32_t)pix, w, W,
+                                                  scratch.data() + (size_t)v * 4 * kChunk);
+                }
+                if (MULTI) rec_window_out(W, H.whole(i), w);
+                w.sync();
               }
-              w.sync();
+              const Rec R = H.whole(i);
               if (!live || lane != 0) continue;
               float rgb[3];
               rec_rgb(p, R, rgb);
@@ -274,14 +315,17 @@ extern "C" void host_stream(
   Params p = {};
   fill(p, tab, rows, count, active, scal, seeds, extra, nt, nch, p_tile,
        tile_w, rw, dt, cfg, eps_bg, loss_kind, lscale);
+  const bool multi = stream_passes(p) > 1;
   if (mode == 0)
-    forward(p, n, out);
+    multi ? forward<true>(p, n, out) : forward<false>(p, n, out);
   else if (mode == 3)
-    replay(p, n, out);
+    multi ? replay<true>(p, n, out) : replay<false>(p, n, out);
   else if (mode == 1)
-    grads<false>(p, n, g_tab, g_scal, loss);
+    multi ? grads<false, true>(p, n, g_tab, g_scal, loss)
+          : grads<false, false>(p, n, g_tab, g_scal, loss);
   else
-    grads<true>(p, n, g_tab, g_scal, loss);
+    multi ? grads<true, true>(p, n, g_tab, g_scal, loss)
+          : grads<true, false>(p, n, g_tab, g_scal, loss);
 }
 """
 
@@ -346,9 +390,23 @@ CASES = ([(n, "cube", 16, "uv") for n in ("softras", "gaussian",
 @pytest.mark.parametrize("noise,kind,imsize,textures", CASES)
 def test_stream_pipeline_matches_plain_on_host(noise, kind, imsize, textures,
                                                host_lib):
+    check_pipeline(host_lib, noise, kind, imsize, textures, 2)
+
+
+@pytest.mark.parametrize("noise", ["gaussian", "cauchy"])
+def test_stream_pipeline_at_128_samples_matches_plain_on_host(noise,
+                                                              host_lib):
+    """Above kMaxS = 64 aggregation samples K5 and B1 run two passes over
+    the chunk list (B1's records in windows of 64, the whole in device
+    memory): K5's image, the replay's bits and K6 / K7's gradients as at
+    S = 2."""
+    check_pipeline(host_lib, noise, "cube", 16, "uv", 128)
+
+
+def check_pipeline(host_lib, noise, kind, imsize, textures, s):
     cube = kind == "cube"
     mesh, _cams, _lights, renderer = build(
-        noise, imsize=imsize, k=4 if cube else 50, s=2, mesh_kind=kind,
+        noise, imsize=imsize, k=4 if cube else 50, s=s, mesh_kind=kind,
         textures=textures, sigma=1e-2 if cube else 1e-3,
         gamma=5e-1 if cube else 1e-2)
     jcfg, jin = jax_inputs(mesh, renderer)
