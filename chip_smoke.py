@@ -22,9 +22,13 @@ line; any failure exits non-zero before a result is printed):
    and softras.  Each gradient table, and each of the 34 scalar gradients
    on its own, within 1e-3 (MC: shared noise, threshold flips only) or
    1e-4 (softras) of its max |grad|, and the same bits on a second launch;
+   the pixel kernel's ptxas line and resident warps per SM (occupancy
+   API), and the call's device time at N=1 and N=4 split by kernel
+   (torch.profiler: memset, pixel kernel, reduction);
 5. K2 — the fused loss-and-grad against its plain version (loss rtol
    1e-5, tables as K4), and the dual path: K2 equals K3 + K4 fed the L2
-   cotangent (tables and scalars within 1e-5 of their max);
+   cotangent (tables and scalars within 1e-5 of their max); ptxas,
+   occupancy and the split as K4's;
 6. serve — 8 render requests of N=4 poses through MeshRenderer;
 7. render-grad — 4 requests that render N=4 poses through MeshRenderer
    and take the gradient of an image objective with respect to the poses;
@@ -36,7 +40,9 @@ line; any failure exits non-zero before a result is printed):
 
 9. K5 — the stream forward on the config-3 cow (5120 faces, centred and
    scaled to 3 / max |v|) at 256^2, N=4, against its plain version at
-   full width (tolerances as K3), repeated launches bit-equal;
+   full width (tolerances as K3), repeated launches bit-equal; its ptxas
+   line and resident warps per SM, and a counting build's share of the
+   coverage and aggregation draws skipped (its image bit-equal);
 10. K6 / K7 — the stream backward (N=4) and loss-and-grad (N=1) of the
    gaussian pair against their plain versions on the cow at 256^2 (each
    row within 1e-3 of its table's max, each scalar within 1e-3 of its
@@ -121,7 +127,7 @@ line; any failure exits non-zero before a result is printed):
    upstream: K11a's coverage, K3's image and weights with external
    coverage (MC image rule, per pixel over the rows), K11b's g_zmap and
    gamma term (1e-3 of max), K11c's tables (1e-3 of max); repeats
-   bit-equal;
+   bit-equal; K11c also timed at N=1, [train-sharded]'s shape;
 23. sharded = folded / sharded-stream = folded — two gloo ranks spawned
    on the one card (NCCL refuses two ranks per device; every average
    stages through the host), each rendering through MeshRenderer.
@@ -220,6 +226,7 @@ OPS_AGG = 5           # per live row and sample: perturb, max, test
 OPS_AGG_BWD = 8       # ... plus one-hot difference, dot, score, phi
 OPS_SOFTMAX = 6       # per live row, forward or backward
 OPS_BLEND = 8         # per candidate: weighted colour, alpha product
+OPS_ALPHA = 2         # ... of which the alpha product: 1 - prob, multiply
 OPS_BG = 7            # per pixel: background blend, alpha
 OPS_SLOT_BWD = 534    # per candidate: adjoints of det2, coverage, det1
 OPS_CLIP_BWD = 26     # ... of the clipped barycentrics
@@ -248,6 +255,88 @@ def ptxas_report(names):
                         f"{regs} registers; {frame}")
             entry = None
     return out
+
+
+def grad_kernel_text(kname, cfg, dev):
+    """K4's or K2's pixel kernel at cfg's slot bucket: its ptxas line and
+    its resident warps per SM (the occupancy API)."""
+    bucket = next(b for b in (16, 32, 64, 128, 256) if cfg.f_pad <= b)
+    key = (f"fused_grad_kernelILi{bucket}ELb"
+           f"{int(kname == 'fused_loss_grad')}ELb0E")
+    line = " | ".join(sorted(set(ptxas_report((key,)).get(
+        key, ["not in the build log"]))))
+    shape = fr.grad_kernel_shape(kname, cfg, dev)
+    return (f"ptxas fused_grad_kernel<{bucket}>: {line}; "
+            f"{shape['blocks_per_sm'] * 4} resident warps per SM "
+            f"({shape['blocks_per_sm']} blocks of 128 threads)")
+
+
+def grad_call(kname, cfg, ins, dev):
+    """A call of K4 (``fused_backward``, on a seeded cotangent) or K2
+    (``fused_loss_grad``, on a seeded target) on ``ins``."""
+    n, size = ins[0].shape[0], cfg.image_size
+    if kname == "fused_loss_grad":
+        target = torch.rand(n, 3, size * size, generator=torch.Generator()
+                            .manual_seed(3)).to(dev)
+        return lambda: fr.fused_loss_grad(cfg, *ins, target, "l2_rgb",
+                                          1.0 / (3 * n * size * size))
+    g_out = torch.randn(n, size, size, 4,
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    return lambda: fr.fused_backward(cfg, *ins, g_out)
+
+
+def device_split(fn, reps):
+    """{kernel name: device ms per call} of fn()'s launches, from
+    torch.profiler's CUDA activity (empty where the profiler sees no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t and t > 0:
+            out[e.key] = out.get(e.key, 0.0) + t / 1e3 / reps
+    return out
+
+
+def kernel_split_text(split):
+    """A device split's kernels in three groups: memsets, reductions (names
+    with "reduce") and the rest."""
+    if not split:
+        return "no device time in the profile"
+    groups = {"memset": 0.0, "main": 0.0, "reduction": 0.0}
+    names = {"memset": [], "main": [], "reduction": []}
+    for name, ms in split.items():
+        g = ("memset" if "memset" in name.lower() else
+             "reduction" if "reduce" in name else "main")
+        groups[g] += ms
+        short = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+        names[g].append(f"{short} {ms:.4f}")
+    return ", ".join(f"{g} {groups[g]:.4f} ms ({'; '.join(names[g]) or '-'})"
+                     for g in groups)
+
+
+def grad_split_text(kname, cfg, ins, dev):
+    """K4's or K2's time per call (CUDA events) and its device time split by
+    kernel (torch.profiler: the memset, the pixel kernel, the reduction) on
+    the first element of ins (N=1) and on all of them."""
+    texts = []
+    for n in (1, ins[0].shape[0]):
+        call = grad_call(kname, cfg, tuple(t[:n].contiguous() for t in ins),
+                         dev)
+        call()
+        ms = cuda_ms(call, 10)
+        texts.append(f"N={n} {ms:.4f} ms per call, device: "
+                     + kernel_split_text(device_split(call, 10)))
+    return "; ".join(texts)
 
 
 def k9b_per(report, path, units, what):
@@ -444,10 +533,11 @@ def stream_work(cfg, args):
 
 
 def stream_forward_ops(cfg, w):
-    """Float32 operations of the stream forward on the ``stream_work``
-    counts: geometry per visited pair; texel, shading, z_map, blend and
-    coverage per candidate; the aggregation over the candidates and the
-    background row (one draw per pixel and sample)."""
+    """Float32 operations of the stream forward as K6 / K7 replay it, on
+    the ``stream_work`` counts: geometry per visited pair; texel, shading,
+    z_map, blend and coverage per candidate (every candidate's draws); the
+    aggregation over the candidates and the background row (one draw per
+    pixel and sample)."""
     geom = OPS_GEOM + OPS_CLIP * cfg.clip_bary + (
         OPS_PERSP * cfg.perspective_correct)
     shade = OPS_TEXEL[cfg.tex_mode] + (
@@ -464,6 +554,38 @@ def stream_forward_ops(cfg, w):
                             + live * OPS_AGG)
     elif cfg.agg_kind == "soft":
         ops += live * OPS_SOFTMAX
+    return ops
+
+
+def k5_ops(cfg, w, counts):
+    """Float32 operations that K5's image needs, on the ``stream_work``
+    counts and this run's counting launch (``counts``:
+    fr.stream_forward_counts): geometry per visited pair; z_map and the
+    alpha factor per candidate; the texel and shading per candidate for the
+    softmax, and for the argmax aggregations only per pixel's distinct
+    winner (``winners``); only the noise draws that can change the image
+    (``cover_drawn`` / ``agg_drawn`` pairs, each counted as one draw, one
+    perturbed test and no more); the background row's draw and test per
+    pixel and sample."""
+    geom = OPS_GEOM + OPS_CLIP * cfg.clip_bary + (
+        OPS_PERSP * cfg.perspective_correct)
+    shade = OPS_TEXEL[cfg.tex_mode] + (
+        OPS_PHONG if cfg.shade == "phong" else 0)
+    ops = (w["visited"] * geom + w["pixels"] * OPS_BG
+           + w["cand"] * (OPS_ZMAP + OPS_ALPHA))
+    if cfg.agg_kind == "soft":
+        ops += (w["cand"] * (shade + OPS_BLEND - OPS_ALPHA)
+                + (w["cand"] + w["pixels"]) * OPS_SOFTMAX)
+    else:
+        ops += counts["winners"] * shade
+    draw = lambda noise: OPS_PAIR if noise == "gaussian" else OPS_CAUCHY
+    if cfg.rast_kind == "mc":
+        ops += counts["cover_drawn"] * (draw(cfg.rast_noise) + OPS_COVER)
+    else:
+        ops += w["cand"] * OPS_SOFT_COVER
+    if cfg.agg_kind == "mc":
+        ops += (counts["agg_drawn"] * (draw(cfg.agg_noise) + OPS_AGG)
+                + cfg.s_agg * w["pixels"] * (draw(cfg.agg_noise) + OPS_AGG))
     return ops
 
 
@@ -681,6 +803,10 @@ def phase_k4(dev, smi, report):
               f"{w['live']} live z_map rows; {k_ms:.4f} "
               f"ms vs plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | "
               f"{smi}", flush=True)
+        if noise == "gaussian":
+            print(f"[K4] {grad_kernel_text('fused_backward', cfg, dev)}; "
+                  f"{grad_split_text('fused_backward', cfg, ins, dev)} | "
+                  f"{smi}", flush=True)
 
 
 def phase_k2(dev, smi, report):
@@ -729,6 +855,10 @@ def phase_k2(dev, smi, report):
               f"{tol}); vs K3 + K4 {derr:.3g}; {k_ms:.4f} ms vs plain "
               f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}",
               flush=True)
+        if noise == "gaussian":
+            print(f"[K2] {grad_kernel_text('fused_loss_grad', cfg, dev)}; "
+                  f"{grad_split_text('fused_loss_grad', cfg, ins, dev)} | "
+                  f"{smi}", flush=True)
 
 
 def phase_serve(dev, smi, report):
@@ -948,15 +1078,29 @@ def phase_train(dev, smi, report):
 
 
 def phase_k5(dev, smi, report):
-    lines = ptxas_report(("stream_forward_kernel",)).get(
-        "stream_forward_kernel", ["not in the build log"])
-    print(f"[K5] ptxas stream_forward_kernel: {' | '.join(sorted(set(lines)))}",
-          flush=True)
+    key = "stream_forward_kernelILb0ELb0E"       # one pass, no counting
+    lines = ptxas_report((key,)).get(key, ["not in the build log"])
     for noise in ("gaussian", "softras"):
         cfg, args = stream_inputs(noise, dev, N_POSES)
         count, active = args[2], args[3]
+        shape = fr.stream_forward_shape(cfg, args[0].shape[2], dev)
+        print(f"[K5] {noise}: ptxas stream_forward_kernel<one pass>: "
+              f"{' | '.join(sorted(set(lines)))}; "
+              f"{shape['blocks_per_sm'] * shape['warps']} resident warps per "
+              f"SM ({shape['blocks_per_sm']} blocks of {shape['warps']} "
+              f"warps, {shape['smem']} bytes of shared memory, "
+              f"{shape['registers']} registers) | {smi}", flush=True)
         got = fr.fused_stream_forward(cfg, *args)
         again = fr.fused_stream_forward(cfg, *args)
+        # The counting build: the same image, and the work it did, which
+        # the bound counts.
+        counted, counts = fr.stream_forward_counts(cfg, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(counted, got):
+            fail(f"K5 {noise}: the counting build's image differs")
+        skip = {kind: (1.0 - counts[f"{kind}_drawn"] / counts[f"{kind}_need"]
+                       if counts[f"{kind}_need"] else 0.0)
+                for kind in ("cover", "agg")}
         want = fr.stream_forward_plain(cfg, *args)
         torch.cuda.synchronize()
         if noise == "gaussian":
@@ -973,11 +1117,24 @@ def phase_k5(dev, smi, report):
                                 10, 1)
         w = stream_work(cfg, args)
         b_ms, b_by = bound(tensor_bytes(args) + 16 * w["pixels"],
-                           stream_forward_ops(cfg, w))
+                           k5_ops(cfg, w, counts))
+        full_ms, _ = bound(0, stream_forward_ops(cfg, w))
         if noise == "gaussian":
             report["fused_stream_forward"] = dict(
                 max_abs_err=dmax, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, draws_skipped={
+                    "coverage": skip["cover"], "aggregation": skip["agg"]},
+                winners_shaded=counts["winners"])
+        print(f"[K5] {noise}: draws skipped over the call (Box-Muller "
+              f"pairs): coverage {counts['cover_need'] - counts['cover_drawn']}"
+              f" of {counts['cover_need']} ({skip['cover']:.4f}), aggregation "
+              f"{counts['agg_need'] - counts['agg_drawn']} of "
+              f"{counts['agg_need']} ({skip['agg']:.4f}); "
+              f"{counts['winners']} distinct winners shaded (argmax); the "
+              f"counting build's image bit-equal; the bound counts only "
+              f"these draws and shadings: {b_ms:.4f} ms, against "
+              f"{full_ms:.4f} ms with every candidate drawn and shaded | "
+              f"{smi}", flush=True)
         visits = int((count * active).sum())
         idle = int(((active == 0) & (count > 0)).sum())
         print(f"[K5] fused_stream_forward {noise} cow 5120 faces 256^2 K=50 "
@@ -3014,9 +3171,16 @@ def phase_k11(dev, smi, report):
     times = row("sharded_det_bwd", err, k_ms, p_ms,
                 2 * tabs + prob_b + 2 * zrows_b + 16 * px,
                 grad_ops(cfg, w, False) - agg_grad_ops)
+    # N=1: the shape [train-sharded] launches it at.
+    one = lambda t: t[:1].contiguous()
+    ins1 = tuple(one(t) for t in ins)
+    det1 = (one(want_prob), one(want_w), one(want_gz), one(g_out))
+    ms1 = cuda_ms(lambda: fr.fused_det_bwd(cfg, *ins1, *det1), 10)
+    ms1 = (ms1 + cuda_ms(lambda: fr.fused_det_bwd(cfg, *ins1, *det1), 10)) / 2
+    report["sharded_det_bwd"]["ms_n1"] = ms1
     print(f"[K11c] sharded_det_bwd 256^2 N=4: worst table error {err:.3g} "
-          f"of max at {where} (tolerance 1e-3), repeat bit-equal; {times} | "
-          f"{smi}", flush=True)
+          f"of max at {where} (tolerance 1e-3), repeat bit-equal; {times}; "
+          f"N=1 ([train-sharded]'s shape) {ms1:.4f} ms | {smi}", flush=True)
 
 
 def split_times(fn, reps):
@@ -3426,6 +3590,10 @@ def main():
             "modes": k12["modes"]} if kname == "fused_binned" else {})
         if kname == "fused_forward":
             extra = {"modes": r["modes"]}
+        if kname == "fused_stream_forward":
+            extra = {"draws_skipped": r["draws_skipped"]}
+        if kname == "sharded_det_bwd":
+            extra = {"ms_n1": r["ms_n1"]}
         if kname == "scatter_rows_cm":
             extra = {"launches_by_path": k9b_paths, "prep_ms": r["prep_ms"],
                      "sum_ms": r["sum_ms"]}

@@ -138,7 +138,10 @@ def library() -> ctypes.CDLL:
     # tile_w, rw, dt; fused_render._stream_args) and the configuration
     # (`config` counts n among its leading ints).
     geometry = [i32] * 6
-    lib.pt_stream_forward.argtypes = [ptr] * 7 + geometry + config + [ptr]
+    # K5 also takes its pass buffers (voff, zbuf, zmask; null in one pass)
+    # and its counters (null, or 5 int64 on the card: the counting build).
+    lib.pt_stream_forward.argtypes = ([ptr] * 7 + geometry + config
+                                      + [ptr] * 5)
     lib.pt_stream_forward.restype = i32
     for fn in (lib.pt_stream_backward, lib.pt_stream_loss_grad):
         fn.argtypes = ([ptr] * 17 + geometry + config
@@ -146,7 +149,8 @@ def library() -> ctypes.CDLL:
         fn.restype = i32
     # The gradient kernels' shapes: dt, tex_d, agg_kind, s_agg, int[7] out.
     for fn in (lib.pt_stream_backward_occupancy,
-               lib.pt_stream_loss_grad_occupancy):
+               lib.pt_stream_loss_grad_occupancy,
+               lib.pt_stream_forward_occupancy):
         fn.argtypes = [i32] * 4 + [ptr]
         fn.restype = i32
     # The gathers (ops/gather.py, ops/interp_gather.py): pointers, then the
@@ -179,6 +183,11 @@ def library() -> ctypes.CDLL:
     lib.pt_grad_partial_warps.restype = i32
     lib.pt_grad_partial_width.argtypes = [i32] * 2
     lib.pt_grad_partial_width.restype = i32
+    # K4's and K2's pixel kernels' shapes: f_pad, tex_d, int[4] out.
+    for fn in (lib.pt_fused_backward_occupancy,
+               lib.pt_fused_loss_grad_occupancy):
+        fn.argtypes = [i32, i32, ptr]
+        fn.restype = i32
     lib.pt_error_string.argtypes = [i32]
     lib.pt_error_string.restype = ctypes.c_char_p
     _lib = lib

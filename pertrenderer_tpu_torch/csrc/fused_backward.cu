@@ -1,4 +1,5 @@
-// K4: flat fused backward render, one thread per pixel.
+// K4: flat fused backward render, one thread per pixel; a warp of pixels
+// without a candidate slot stops after det1 (fused_grad.cuh).
 //
 // Replaces _backward_kernel (pertrenderer_tpu/ops/fused_render.py:873,
 // pallas_call in _pallas_backward at :1694) in flat, unsharded, unpacked
@@ -14,10 +15,10 @@
 // S_rast * f_pad / 2 + S_agg * c_zpad / 2 Box-Muller pairs (the MC
 // aggregation forward and backward share one noise pass) plus the slot
 // adjoints.  Device memory sees the tables once per block, g_out once and
-// one partial row per warp: each warp sums its lanes' per-slot gradients
-// with shuffles (dead slots of the whole warp are skipped) and adds them
-// to its own row; a second small kernel adds the rows in a fixed order,
-// so the result is the same bits on every run.
+// one partial row per warp: each warp zeroes its own row, sums its lanes'
+// per-slot gradients with shuffles (dead slots of the whole warp are
+// skipped) and adds them to the row; a second kernel adds the rows in a
+// fixed two-level order, so the result is the same bits on every run.
 //
 // Numerics: -fmad=false and no fast math, as K3, so the replayed forward
 // takes the plain version's thresholds.
@@ -51,4 +52,9 @@ extern "C" int pt_grad_partial_warps(int n, int image_size, int f_pad,
 
 extern "C" int pt_grad_partial_width(int f_pad, int tex_d) {
   return ptf::grad_width(f_pad, tex_d);
+}
+
+// K4's pixel kernel's shape (fused_grad.cuh: grads_occupancy).
+extern "C" int pt_fused_backward_occupancy(int f_pad, int tex_d, int* out) {
+  return ptf::grads_occupancy<false>(f_pad, tex_d, out);
 }

@@ -72,6 +72,10 @@ struct Params {
   float *recs, *g_tab;
   unsigned long long* pmask;
   int nch, rw, dt, nsub;
+  // K5 above kMaxS samples: each visit's pixels' z_map rows and candidacy
+  // masks from the first pass, read by the later ones (zbuf, zmask).
+  float* zbuf;
+  unsigned long long* zmask;
   // The binned route's K12: each tile's 34 scalar gradients and loss
   // (N, nt, 35), in double.
   double* pscal64;

@@ -21,14 +21,21 @@
 // K2, which needs the rendered RGB before its cotangent, replays the
 // aggregation noise in a second pass instead of stashing it.
 //
+// A warp whose 32 pixels have no candidate slot (most of an image: the
+// flat cube covers 9% of its pixels) leaves after det1 with what JAX's
+// bg_only gives it, the background colour's gradient and the loss; only
+// warps with a candidate run the coverage, aggregation and adjoints.
+//
 // Reduction: a Sink adds each slot's table gradient across the pixels.
 // On the card (WarpSink) a warp sums its 32 lanes with a butterfly of
-// shuffles and adds the sum to the warp's own row of a partial buffer;
-// a second kernel adds the rows in a fixed order.  No atomics, so the
+// shuffles and adds the sum to the warp's own row of a partial buffer,
+// which the warp zeroes first; a second kernel adds the rows in a fixed
+// two-level order, many threads per column.  No atomics, so the
 // gradients are the same bits from run to run.
 #pragma once
 
 #include "fused_common.cuh"
+#include "warp.cuh"
 
 namespace ptf {
 
@@ -518,14 +525,67 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   pixel_center(p.image_size, pix, &px, &py);
   const uint32_t pos = (uint32_t)pix;
 
-  // ---- det1 ----------------------------------------------------------------
+  PT_MARK(clk);
+  // ---- det1 (a slot that is not a candidate is not shaded: colour 0) -------
   float dist[MAXF], zz[MAXF], mk[MAXF], col0[MAXF], col1[MAXF], col2[MAXF];
+  bool dead = true;
   for (int i = 0; i < F; ++i) {
-    float c3[3];
-    face_forward(p, T, i, px, py, live, &dist[i], &zz[i], &mk[i], c3);
+    float c3[3] = {0.0f, 0.0f, 0.0f}, w3[3];
+    face_geometry(p, T, i, px, py, live, &dist[i], &zz[i], &mk[i], w3);
+    if (mk[i] != 0.0f) {
+      face_shade(p, T, i, mk[i], w3, c3);
+      dead = false;
+    }
     col0[i] = c3[0];
     col1[i] = c3[1];
     col2[i] = c3[2];
+  }
+  PT_PHASE_AT(0, clk, sink.lane_id());
+
+  // ---- a warp whose pixels have no candidate ------------------------------
+  // Each pixel's image is the background: the background wins every
+  // sample (z_map 0 against -inf), or takes the softmax's whole weight, so
+  // the blend's background weight wb is S fl(1 / S) (MC; the sample mean's
+  // own expression), 1 (softmax, hard) or the sample group's (EXT).  Its
+  // only gradients are the background colour's and (K2) the loss; the
+  // rest of the pipeline adds zeros.  Without variance reduction the MC
+  // aggregation's gamma term is not 0 there, so that pair runs the
+  // pipeline.
+  if (!(p.agg_kind == kAggMC && !p.agg_vr && !EXT) && sink.all(dead)) {
+    A wb = (A)1;
+    if (EXT) {
+      wb = live ? (A)p.w_in[((size_t)b * C + bg) * npix + pix] : (A)0;
+    } else if (p.agg_kind == kAggMC) {
+      A hits = 0.0f;
+      for (int s = 0; s < p.s_agg; ++s) hits += 1.0f;
+      wb = hits * ((A)1 / (A)p.s_agg);
+    }
+    if (live) {
+      const bool act = pixel_active(p, b, pix);
+      float g_rgb[3];
+      if (LOSS) {
+        const float* tg = p.extra + (size_t)b * 3 * npix + pix;
+        for (int c = 0; c < 3; ++c) {
+          const A rgb = (A)0 + wb * sc[kBg + c];
+          const float d = (float)rgb - tg[(size_t)c * npix];
+          if (p.loss_kind == kL2) {
+            acc.loss += d * d;
+            g_rgb[c] = 2.0f * d * p.lscale;
+          } else {
+            acc.loss += fabsf(d);
+            g_rgb[c] = (d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f)) *
+                       p.lscale;
+          }
+        }
+      } else {
+        const float* go = p.extra + ((size_t)b * npix + pix) * 4;
+        for (int c = 0; c < 3; ++c) g_rgb[c] = go[c];
+      }
+      for (int c = 0; c < 3; ++c)
+        acc.gsc[kBg + c] += act ? wb * g_rgb[c] : g_rgb[c];
+    }
+    PT_PHASE_AT(5, clk, sink.lane_id());
+    return;
   }
 
   // ---- coverage (+ the MC score coefficient, same noise pass) --------------
@@ -571,6 +631,7 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   if (EXT)
     for (int i = 0; i < F; ++i)
       prob[i] = p.prob_ext[((size_t)b * F + i) * npix + pix];
+  PT_PHASE_AT(1, clk, sink.lane_id());
 
   // ---- det2: z_map ---------------------------------------------------------
   const float zfar = sc[kZfar], znear = sc[kZnear];
@@ -657,6 +718,8 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
   const A wb = wts[bg];
   for (int c = 0; c < 3; ++c) rgb[c] = rgb[c] + wb * sc[kBg + c];
 
+  PT_PHASE_AT(2, clk, sink.lane_id());
+
   // ---- image loss and its cotangent (K2) -----------------------------------
   if (LOSS) {
     if (live) {
@@ -690,6 +753,8 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
     }
   }
   for (int c = 0; c < 3; ++c) acc.gsc[kBg + c] += wb * g_rgb[c];
+
+  PT_PHASE_AT(3, clk, sink.lane_id());
 
   // ---- det2 adjoint, shared part: the z_inv_max clamp ----------------------
   A sum_gz = 0.0f;
@@ -768,6 +833,7 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
     for (int d = kGeo; d < kGeo + dense; ++d) sink.add(row, d, gslot[d]);
     if (p.atlas_r > 1) sink.add_cell(row + kGeo, cand, cell, gcell);
   }
+  PT_PHASE_AT(4, clk, sink.lane_id());
 }
 
 // K11b's pipeline of one pixel (the JAX _agg_bwd_kernel): the MC
@@ -834,7 +900,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 struct WarpSink {
   float* part;
   int lane;
+  __device__ int lane_id() const { return lane; }
   __device__ bool any(bool x) { return __ballot_sync(0xffffffffu, x) != 0; }
+  __device__ bool all(bool x) { return __all_sync(0xffffffffu, x) != 0; }
   __device__ float* row(int off) { return part + off; }
   __device__ void add(float* row, int d, float v) {
     v = warp_sum(v);
@@ -866,6 +934,9 @@ fused_grad_kernel(const Params p) {
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
   WarpSink sink{p.partial + ((size_t)b * p.warps + warp) * p.width,
                 (int)(threadIdx.x & 31)};
+  // The warp's row starts at zero (no memset of the buffer).
+  for (int d = sink.lane; d < p.width; d += 32) sink.part[d] = 0.0f;
+  __syncwarp();
   PixelAcc acc;
   for (int k = 0; k < kNS; ++k) acc.gsc[k] = 0.0f;
   acc.g_gal = acc.g_invgam = acc.loss = 0.0f;
@@ -881,16 +952,32 @@ fused_grad_kernel(const Params p) {
   finish_pixels(p, T, sink, acc);
 }
 
-// Adds the warps' partial rows in a fixed order and scatters the sums to
-// the gradient tables, the scalar row and the loss.  (static: K4's and
-// K2's translation units each have their own copy.)
-static __global__ void grad_reduce_kernel(const Params p) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= p.width) return;
-  const float* src = p.partial + (size_t)b * p.warps * p.width + j;
+// Adds the warps' partial rows and scatters the sums to the gradient
+// tables, the scalar row and the loss.  A block takes 32 columns of one
+// batch element with kRedRows x 32 threads: thread (x, y) adds the rows of
+// its y-th segment in order, then row y = 0 adds the kRedRows segment sums
+// in order, a fixed two-level tree.  (static: K4's, K2's and K11c's
+// translation units each have their own copy.)
+constexpr int kRedRows = 32;
+
+static __global__ void __launch_bounds__(32 * kRedRows)
+grad_reduce_kernel(const Params p) {
+  __shared__ float seg_sum[kRedRows][33];
+  const int b = blockIdx.y, x = threadIdx.x, y = threadIdx.y;
+  const int j = blockIdx.x * 32 + x;
+  const int seg = (p.warps + kRedRows - 1) / kRedRows;
   float s = 0.0f;
-  for (int w = 0; w < p.warps; ++w) s += src[(size_t)w * p.width];
+  if (j < p.width) {
+    const float* src = p.partial + (size_t)b * p.warps * p.width + j;
+    const int w1 = min(p.warps, (y + 1) * seg);
+#pragma unroll 8
+    for (int w = y * seg; w < w1; ++w) s += src[(size_t)w * p.width];
+  }
+  seg_sum[y][x] = s;
+  __syncthreads();
+  if (y != 0 || j >= p.width) return;
+  s = 0.0f;
+  for (int k = 0; k < kRedRows; ++k) s += seg_sum[k][x];
   const int F = p.f_pad, D = kGeo + p.tex_d;
   if (j < F * D) {
     const int f = j / D, d = j % D;
@@ -935,15 +1022,48 @@ cudaError_t launch_grads(Params p, int n, cudaStream_t st) {
   const size_t smem = sizeof(float) * table_floats(p);
   cudaError_t e = allow_smem(fused_grad_kernel<MAXF, LOSS, EXT>, smem);
   if (e != cudaSuccess) return e;
-  e = cudaMemsetAsync(p.partial, 0,
-                      sizeof(float) * (size_t)n * p.warps * p.width, st);
-  if (e != cudaSuccess) return e;
   fused_grad_kernel<MAXF, LOSS, EXT>
       <<<dim3(p.warps / kWarps, n), kThreads, smem, st>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  grad_reduce_kernel<<<dim3((p.width + 127) / 128, n), 128, 0, st>>>(p);
+  grad_reduce_kernel<<<dim3((p.width + 31) / 32, n), dim3(32, kRedRows), 0,
+                       st>>>(p);
   return cudaGetLastError();
+}
+
+// The pixel kernel's shape for f_pad slots and tex_d texel columns: out[0]
+// resident blocks of kThreads per SM (the occupancy API), out[1] registers
+// and out[2] local memory bytes per thread, out[3] dynamic shared memory
+// bytes.
+template <int MAXF, bool LOSS>
+int grads_shape(int f_pad, int tex_d, int* out) {
+  Params p = {};
+  p.f_pad = f_pad;
+  p.tex_d = tex_d;
+  const size_t smem = sizeof(float) * table_floats(p);
+  cudaError_t e = allow_smem(fused_grad_kernel<MAXF, LOSS>, smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, fused_grad_kernel<MAXF, LOSS>);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fused_grad_kernel<MAXF, LOSS>, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = (int)smem;
+  return 0;
+}
+
+template <bool LOSS>
+int grads_occupancy(int f_pad, int tex_d, int* out) {
+  if (f_pad <= 16) return grads_shape<16, LOSS>(f_pad, tex_d, out);
+  if (f_pad <= 32) return grads_shape<32, LOSS>(f_pad, tex_d, out);
+  if (f_pad <= 64) return grads_shape<64, LOSS>(f_pad, tex_d, out);
+  if (f_pad <= 128) return grads_shape<128, LOSS>(f_pad, tex_d, out);
+  if (f_pad <= 256) return grads_shape<256, LOSS>(f_pad, tex_d, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The C entry's body: fills Params and picks the slot bucket.

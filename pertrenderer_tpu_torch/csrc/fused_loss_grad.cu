@@ -1,4 +1,5 @@
-// K2: fused image loss and gradients, one thread per pixel.
+// K2: fused image loss and gradients, one thread per pixel; a warp of
+// pixels without a candidate slot stops after det1 (fused_grad.cuh).
 //
 // Replaces _loss_grad_kernel (pertrenderer_tpu/ops/fused_render.py:2962,
 // pallas_call in _pallas_loss_grad at :3169) in flat, unsharded, unpacked
@@ -14,6 +15,10 @@
 // counter hash (bit-identical noise) instead of stashing S * c_zpad
 // floats per pixel as the TPU kernel's VMEM stash does.  Reads the
 // target once; the reduction is K4's (per-warp rows, fixed-order sum).
+// Why the early exit and the two-level reduction (fused_grad.cuh): on
+// an H100 (cube, 256^2, N=1; experiments/kernel_splits.py k2) most warps
+// hold no candidate, and adding 2048 warp rows with one thread per column
+// took a quarter of the call.
 #include <cuda_runtime.h>
 
 #include "fused_grad.cuh"
@@ -35,3 +40,20 @@ extern "C" int pt_fused_loss_grad(
       agg_kind, agg_noise, agg_vr, s_agg, k, eps_bg, phong, point_light, clip,
       persp, loss_kind, lscale, active, nt, p_tile, tile_w, stream);
 }
+
+// K2's pixel kernel's shape (fused_grad.cuh: grads_occupancy).
+extern "C" int pt_fused_loss_grad_occupancy(int f_pad, int tex_d, int* out) {
+  return ptf::grads_occupancy<true>(f_pad, tex_d, out);
+}
+
+#ifdef PT_PROFILE
+// K2's phase clocks of a profiling build (det1; coverage; the aggregation
+// forward and the blend; the loss and the aggregation's backward replay;
+// the slots' adjoints and the sink; a dead warp's exit), read and reset.
+extern "C" int pt_grads_profile(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, pt_prof, sizeof(pt_prof));
+  if (e != cudaSuccess) return (int)e;
+  unsigned long long zero[16] = {};
+  return (int)cudaMemcpyToSymbol(pt_prof, zero, sizeof(zero));
+}
+#endif

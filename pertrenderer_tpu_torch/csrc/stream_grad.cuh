@@ -1,29 +1,20 @@
 // The stream route's per-row arithmetic, shared by K5 (stream_forward.cu)
-// and the gradient kernels K6 / K7 (stream_warp.cuh), and K5's per-pixel
-// forward, as the JAX kernels share _stream_chunk_det, _stream_zmap and
-// _stream_grad_impl (pertrenderer_tpu/ops/fused_render.py:2083-2636).
+// and the gradient kernels K6 / K7 (stream_warp.cuh), as the JAX kernels
+// share _stream_chunk_det, _stream_zmap and _stream_grad_impl
+// (pertrenderer_tpu/ops/fused_render.py:2083-2636).
 //
-// K5: a block is one JAX stream tile (8 x 32 pixels, or a strip), one
-// thread per pixel.  The tile's chunk list (ascending chunk ids) names the
-// 64-row blocks of the sorted face table that can reach it; the block
-// stages each into shared memory and every thread runs the chunk's 64 rows
-// for its pixel.  Above kMaxS aggregation samples the block walks the
-// list once per kMaxS samples (the alpha product in the first pass only),
-// each pass adding its samples' colours to the pixel's running sum in s
-// order, so every sample's draws and the image's sum order are those of a
-// single pass.  Per pixel the state carries across chunks: the alpha
-// product and, per aggregation sample, a running first-wins argmax (a
-// later chunk wins only when strictly greater; the background row, set
-// first, wins ties) or an online softmax.
+// A chunk is 64 rows of the sorted face table (fused_render._stream_tables);
+// the kernels put a chunk's rows across the 32 lanes of a warp, lane h
+// owning rows h and h + 32 at one pixel (PairRows).
 //
 // Noise keys on the absolute sorted row (row_base = chunk id * 64) and the
 // absolute pixel: Gaussian rows h and h + 32 of a chunk are the cos and sin
 // halves of hash(row_base + h), so rows are drawn in pairs (pair_rows: det1,
 // coverage and z_map of rows h and h + 32 at one pixel), but every scan
-// that picks a winner walks rows 0..63 in order.  The background draws a
+// that picks a winner takes rows 0..63 in order.  The background draws a
 // 2-row block at row rw and keeps row 0 (the cos half of hash(rw)).
 //
-// The functions outside the __CUDACC__ block use no CUDA intrinsics: with
+// The functions outside the __CUDACC__ blocks use no CUDA intrinsics: with
 // the CUDA keywords defined away they compile with a host compiler, which
 // is how the tests hold this arithmetic against the plain PyTorch version
 // without a card.
@@ -115,10 +106,9 @@ struct PairRows {
   float prob[2], coeff[2], zmap[2];
 };
 
-PT_HD void pair_rows(const Params& p, const Tables& T, int b, int cid, int h,
-                     float px, float py, bool live, uint32_t pos,
-                     bool want_coeff, bool shade_all, PairRows& R) {
-  const float* sc = T.sc;
+// det1 of rows h and h + 32: distance, depth, candidacy, colour.
+PT_HD void pair_geometry(const Params& p, const Tables& T, int h, float px,
+                         float py, bool live, bool shade_all, PairRows& R) {
   for (int k = 0; k < 2; ++k) {
     float w[3];
     face_geometry(p, T, h + k * kHalf, px, py, live, &R.dist[k], &R.z[k],
@@ -128,26 +118,14 @@ PT_HD void pair_rows(const Params& p, const Tables& T, int b, int cid, int h,
     else
       R.col[k][0] = R.col[k][1] = R.col[k][2] = 0.0f;
   }
+}
+
+// Coverage and z_map of rows h and h + 32 from their counts of hits in
+// R.prob (MC) or their det1 (deterministic): prob = hits fl(1 / S) mk,
+// the score coefficient over S sigma, z_map = gal log(prob) + z_inv.
+PT_HD void pair_finish(const Params& p, const float* sc, PairRows& R) {
   const float sigma = sc[kSigma];
   if (p.rast_kind == kRastMC) {
-    for (int k = 0; k < 2; ++k) R.prob[k] = R.coeff[k] = 0.0f;
-    if (R.mk[0] != 0.0f || R.mk[1] != 0.0f) {
-      const uint32_t s0 = (uint32_t)p.seeds[b * 4 + 0];
-      const uint32_t s1 = (uint32_t)p.seeds[b * 4 + 1];
-      const uint32_t base = (uint32_t)(cid * kChunk);
-      for (int s = 0; s < p.s_rast; ++s) {
-        float nz[2];
-        noise_pair(p.rast_noise, s0, s1, s, base, h, pos, &nz[0], &nz[1]);
-        for (int k = 0; k < 2; ++k) {
-          const float hv = -R.dist[k] + sigma * nz[k] >= 0.0f ? 1.0f : 0.0f;
-          R.prob[k] += hv;
-          if (want_coeff) {
-            const float h0 = p.rast_vr && -R.dist[k] >= 0.0f ? 1.0f : 0.0f;
-            R.coeff[k] += (hv - h0) * score(nz[k], p.rast_noise);
-          }
-        }
-      }
-    }
     const float inv_s = 1.0f / (float)p.s_rast;
     const float ss = (float)p.s_rast * sigma;
     for (int k = 0; k < 2; ++k) {
@@ -176,186 +154,40 @@ PT_HD void pair_rows(const Params& p, const Tables& T, int b, int cid, int h,
   }
 }
 
-// ---- K5: one thread per pixel --------------------------------------------
-
-// Product of q[0..63] by successive halving (the JAX _prod_rows order).
-PT_HD float prod_rows(float (&q)[kChunk]) {
-  for (int half = kHalf; half >= 1; half >>= 1)
-    for (int i = 0; i < half; ++i) q[i] = q[i] * q[i + half];
-  return q[0];
-}
-
-// One chunk's rows at one pixel: candidacy, colour, coverage and z_map.
-struct ChunkRows {
-  float mk[kChunk], col[kChunk][3], prob[kChunk], zmap[kChunk];
-};
-
-PT_HD void chunk_rows(const Params& p, const Tables& T, int b, int cid,
-                      float px, float py, bool live, uint32_t pos,
-                      ChunkRows& R) {
-  for (int h = 0; h < kHalf; ++h) {
-    PairRows Q;
-    pair_rows(p, T, b, cid, h, px, py, live, pos, false, true, Q);
-    for (int k = 0; k < 2; ++k) {
-      const int r = h + k * kHalf;
-      R.mk[r] = Q.mk[k];
-      R.prob[r] = Q.prob[k];
-      R.zmap[r] = Q.zmap[k];
-      for (int c = 0; c < 3; ++c) R.col[r][c] = Q.col[k][c];
-    }
-  }
-}
-
-// The per-pixel state carried across chunks: the deterministic part
-// (pass 0 only), the pass's samples s0 .. s0 + ns - 1, and the colours of
-// the earlier passes' samples summed in s order.
-struct StreamState {
-  float alpha;                             // alpha product
-  float m, den, num[3];                    // online softmax
-  float runmax[kMaxS], winc[kMaxS][3];     // per-sample running argmax
-  int s0, ns;                              // the pass's samples (MULTI)
-  float sum[3];                            // earlier passes' colours
-};
-
-// The state before the first chunk of pass k: the background channel
-// alone.  MULTI: the kernel runs more than one pass (stream_passes > 1);
-// without it the state holds every sample, s0 = 0.
-template <bool MULTI>
-PT_HD void state_init(const Params& p, const float* sc, int b, uint32_t pos,
-                      int k, StreamState& st) {
-  if (!MULTI || k == 0) {
-    st.alpha = 1.0f;
-    for (int c = 0; c < 3; ++c) st.num[c] = sc[kBg + c];
-    st.m = p.eps_bg * (1.0f / sc[kGamma]);
-    st.den = 1.0f;
-    if (MULTI)
-      for (int c = 0; c < 3; ++c) st.sum[c] = 0.0f;
-  }
-  const int s0 = MULTI ? k * kMaxS : 0;
-  const int ns = MULTI ? min(kMaxS, agg_samples(p) - s0) : agg_samples(p);
-  if (MULTI) {
-    st.s0 = s0;
-    st.ns = ns;
-  }
-  const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
-  const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
-  for (int i = 0; i < ns; ++i) {
-    float phi;
-    st.runmax[i] = bg_start(p, sc, a0, a1, s0 + i, pos, &phi);
-    for (int c = 0; c < 3; ++c) st.winc[i][c] = sc[kBg + c];
-  }
-}
-
-// After a pass of a MULTI kernel: its samples' colours into the running
-// sum, in s order.
-PT_HD void state_pass_end(const Params& p, StreamState& st) {
-  if (p.agg_kind == kAggSoft) return;
-  for (int c = 0; c < 3; ++c)
-    for (int i = 0; i < st.ns; ++i) st.sum[c] += st.winc[i][c];
-}
-
-// Rows 0..63 in order: a row takes over the running winner only when
-// strictly greater, so within the chunk the first row reaching the max
-// wins and across chunks an equal later max loses (the JAX
-// _first_hot_rows + `m > runmax`).
-PT_HD void scan_rows(const float (&val)[kChunk], float* cur, int* win) {
-  for (int r = 0; r < kChunk; ++r)
-    if (val[r] > *cur) {
-      *cur = val[r];
-      *win = r;
-    }
-}
-
-// One chunk of K5's forward at one pixel, for the pass's samples (and the
-// alpha product and the softmax in pass 0).
-template <bool MULTI>
-PT_HD void chunk_forward(const Params& p, const Tables& T, int b, int cid,
-                         float px, float py, bool live, uint32_t pos,
-                         StreamState& st, ChunkRows& R) {
-  const float* sc = T.sc;
-  const int s0 = MULTI ? st.s0 : 0, ns = MULTI ? st.ns : agg_samples(p);
-  chunk_rows(p, T, b, cid, px, py, live, pos, R);
-  if (s0 == 0) {
-    float q[kChunk];
-    for (int r = 0; r < kChunk; ++r) q[r] = 1.0f - R.prob[r];
-    st.alpha = st.alpha * prod_rows(q);
-  }
-  const float gamma = sc[kGamma];
-  if (p.agg_kind == kAggSoft) {
-    const float inv_g = 1.0f / gamma;
-    float x[kChunk], mc = -INFINITY;
-    for (int r = 0; r < kChunk; ++r) {
-      x[r] = R.zmap[r] * inv_g;
-      mc = fmaxf(mc, x[r]);
-    }
-    const float m_new = fmaxf(st.m, mc);
-    const float scale = expf(st.m - m_new);
-    float den = 0.0f, num[3] = {0.0f, 0.0f, 0.0f};
-    for (int r = 0; r < kChunk; ++r) {
-      const float e = expf(x[r] - m_new);
-      den += e;
-      for (int c = 0; c < 3; ++c) num[c] += e * R.col[r][c];
-    }
-    st.den = st.den * scale + den;
-    for (int c = 0; c < 3; ++c) st.num[c] = st.num[c] * scale + num[c];
-    st.m = m_new;
-    return;
-  }
-  const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
-  const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
-  const uint32_t base = (uint32_t)(cid * kChunk);
-  for (int i = 0; i < ns; ++i) {
-    const int s = s0 + i;
-    float val[kChunk];
-    if (p.agg_kind == kAggHard) {
-      for (int r = 0; r < kChunk; ++r) val[r] = R.zmap[r];
-    } else {
-      for (int h = 0; h < kHalf; ++h) {
-        // Pairs of dead rows are not drawn: a z_map of -inf never wins.
-        float nz[2] = {0.0f, 0.0f};
-        if (R.mk[h] != 0.0f || R.mk[h + kHalf] != 0.0f)
-          noise_pair(p.agg_noise, a0, a1, s, base, h, pos, &nz[0], &nz[1]);
-        val[h] = R.zmap[h] + gamma * nz[0];
-        val[h + kHalf] = R.zmap[h + kHalf] + gamma * nz[1];
+// Coverage (with the MC score coefficient when asked) and z_map of rows h
+// and h + 32 from their det1: the lane draws its pair's S_rast samples
+// when either row is a candidate.
+PT_HD void pair_coverage(const Params& p, const float* sc, int b, int cid,
+                         int h, uint32_t pos, bool want_coeff, PairRows& R) {
+  if (p.rast_kind == kRastMC) {
+    const float sigma = sc[kSigma];
+    for (int k = 0; k < 2; ++k) R.prob[k] = R.coeff[k] = 0.0f;
+    if (R.mk[0] != 0.0f || R.mk[1] != 0.0f) {
+      const uint32_t s0 = (uint32_t)p.seeds[b * 4 + 0];
+      const uint32_t s1 = (uint32_t)p.seeds[b * 4 + 1];
+      const uint32_t base = (uint32_t)(cid * kChunk);
+      for (int s = 0; s < p.s_rast; ++s) {
+        float nz[2];
+        noise_pair(p.rast_noise, s0, s1, s, base, h, pos, &nz[0], &nz[1]);
+        for (int k = 0; k < 2; ++k) {
+          const float hv = -R.dist[k] + sigma * nz[k] >= 0.0f ? 1.0f : 0.0f;
+          R.prob[k] += hv;
+          if (want_coeff) {
+            const float h0 = p.rast_vr && -R.dist[k] >= 0.0f ? 1.0f : 0.0f;
+            R.coeff[k] += (hv - h0) * score(nz[k], p.rast_noise);
+          }
+        }
       }
     }
-    int win = -1;
-    scan_rows(val, &st.runmax[i], &win);
-    if (win >= 0)
-      for (int c = 0; c < 3; ++c) st.winc[i][c] = R.col[win][c];
   }
+  pair_finish(p, sc, R);
 }
 
-// The pixel's colour once every pass is done (one pass: its samples'
-// colours summed in s order here).
-template <bool MULTI>
-PT_HD void state_rgb(const Params& p, const StreamState& st, float rgb[3]) {
-  if (p.agg_kind == kAggSoft) {
-    for (int c = 0; c < 3; ++c) rgb[c] = st.num[c] / st.den;
-    return;
-  }
-  const int S = agg_samples(p);
-  for (int c = 0; c < 3; ++c) {
-    float sum = MULTI ? st.sum[c] : 0.0f;
-    if (!MULTI)
-      for (int s = 0; s < S; ++s) sum += st.winc[s][c];
-    rgb[c] = sum / (float)S;
-  }
+PT_HD void pair_rows(const Params& p, const Tables& T, int b, int cid, int h,
+                     float px, float py, bool live, uint32_t pos,
+                     bool want_coeff, bool shade_all, PairRows& R) {
+  pair_geometry(p, T, h, px, py, live, shade_all, R);
+  pair_coverage(p, T.sc, b, cid, h, pos, want_coeff, R);
 }
-
-#ifdef __CUDACC__
-// Stages chunk cid of batch element b into shared memory (the caller
-// synchronises before the next stage overwrites it).
-__device__ __forceinline__ void stage_chunk(const Params& p, int b, int cid,
-                                            float* s_blk) {
-  __syncthreads();
-  const float4* src = reinterpret_cast<const float4*>(
-      p.tab + ((size_t)b * p.rw + (size_t)cid * kChunk) * p.dt);
-  float4* dst = reinterpret_cast<float4*>(s_blk);
-  for (int k = threadIdx.x; k < kChunk * p.dt / 4; k += blockDim.x)
-    dst[k] = src[k];
-  __syncthreads();
-}
-#endif
 
 }  // namespace ptf

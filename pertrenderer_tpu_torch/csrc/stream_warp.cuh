@@ -1,7 +1,9 @@
 // K6 / K7's gradient pipeline (stream_backward.cu, stream_loss_grad.cu):
 // the stream route's two sweeps with a chunk's rows across the lanes of a
 // warp, as the JAX kernels' _stream_grad_impl
-// (pertrenderer_tpu/ops/fused_render.py:2283).
+// (pertrenderer_tpu/ops/fused_render.py:2283); and K5's forward
+// (stream_forward.cu: warp_forward_chunk, B1's layout without the
+// gradients' state, below).
 //
 // Work: a block takes 32 pixels of one JAX stream tile (a pixel row of an
 // 8 x 32 tile, a quarter of a 128-pixel strip), so a tile is p_tile / 32
@@ -245,6 +247,34 @@ PT_HD void warp_row_colour(Wp& w, const PairRows& Q, int r, float col[3]) {
     col[c] = w.shfl(r >= kHalf ? Q.col[1][c] : Q.col[0][c], r & (kHalf - 1));
 }
 
+// The online softmax's step at one chunk (K5, B1): from the running max m
+// of x = z_map / gamma, the new max, the old sums' scale and the chunk's
+// sums of e = exp(x - m_new) and of e times each colour channel over rows
+// 0..63 in order (the per-row walk's order, which keeps its bits): the
+// terms go through the warp's scratch of 4 x 64 floats and lanes 0..3
+// each add one sum.  Every lane gets the results.
+template <class Wp>
+PT_HD void warp_softmax_chunk(Wp& w, const PairRows& Q, float gamma, float m,
+                              float* scr, float* m_new, float* scale,
+                              float sums[4]) {
+  const float inv_g = 1.0f / gamma;
+  const float x0 = Q.zmap[0] * inv_g, x1 = Q.zmap[1] * inv_g;
+  *m_new = fmaxf(m, wmax(w, fmaxf(x0, x1)));
+  *scale = expf(m - *m_new);
+  for (int k = 0; k < 2; ++k) {
+    const int r = w.lane + k * kHalf;
+    const float e = expf((k ? x1 : x0) - *m_new);
+    scr[r] = e;
+    for (int c = 0; c < 3; ++c) scr[(c + 1) * kChunk + r] = e * Q.col[k][c];
+  }
+  w.sync();
+  float sum = 0.0f;
+  if (w.lane < 4)
+    for (int r = 0; r < kChunk; ++r) sum += scr[w.lane * kChunk + r];
+  for (int c = 0; c < 4; ++c) sums[c] = w.shfl(sum, c);
+  w.sync();
+}
+
 // R's samples at one chunk of B1: phi and the running argmax of each.
 template <class Wp>
 PT_HD void warp_chunk_samples(const Params& p, const float* sc, int b,
@@ -311,37 +341,17 @@ PT_HD void warp_chunk_forward(const Params& p, const Tables& T, int b,
   }
   const float gamma = sc[kGamma];
   if (p.agg_kind == kAggSoft) {
-    const float inv_g = 1.0f / gamma;
-    const float x0 = Q.zmap[0] * inv_g, x1 = Q.zmap[1] * inv_g;
-    const float m = h[kRM];
-    const float m_new = fmaxf(m, wmax(w, fmaxf(x0, x1)));
-    const float scale = expf(m - m_new);
-    // The chunk's sums over rows 0..63 in order, as K5's chunk_forward
-    // takes them, so the replay keeps K5's bits: the terms go through the
-    // warp's scratch (e, then e times each colour channel, 64 rows each)
-    // and lanes 0..3 each add one of the four sums.
-    for (int k = 0; k < 2; ++k) {
-      const int r = w.lane + k * kHalf;
-      const float e = expf((k ? x1 : x0) - m_new);
-      scr[r] = e;
-      for (int c = 0; c < 3; ++c) scr[(c + 1) * kChunk + r] = e * Q.col[k][c];
-    }
-    w.sync();
-    float sum = 0.0f;
-    if (w.lane < 4)
-      for (int r = 0; r < kChunk; ++r) sum += scr[w.lane * kChunk + r];
-    const float den = w.shfl(sum, 0);
-    float num[3];
-    for (int c = 0; c < 3; ++c) num[c] = w.shfl(sum, c + 1);
-    w.sync();
+    float m_new, scale, sums[4];
+    warp_softmax_chunk(w, Q, gamma, h[kRM], scr, &m_new, &scale, sums);
     if (w.lane == 0) {
       h[kRAlpha] = alpha;
       if (TRACK_ALPHA) {
         h[kRZcnt] = zcnt;
         h[kRPnz] = pnz;
       }
-      h[kRDen] = h[kRDen] * scale + den;
-      for (int c = 0; c < 3; ++c) h[kRNum + c] = h[kRNum + c] * scale + num[c];
+      h[kRDen] = h[kRDen] * scale + sums[0];
+      for (int c = 0; c < 3; ++c)
+        h[kRNum + c] = h[kRNum + c] * scale + sums[c + 1];
       h[kRM] = m_new;
     }
     return;
@@ -378,6 +388,390 @@ PT_HD void rec_rgb(const Params& p, const Rec& R, float rgb[3]) {
     for (int s = 0; s < R.S; ++s) sum += R.winc[c * R.S + s];
     rgb[c] = sum / (float)R.S;
   }
+}
+
+// ---- K5: the forward alone (stream_forward.cu) ----------------------------
+//
+// B1 without what only the gradients need: no phi, no coverage score
+// coefficient, no exclusion track, no control variate, no record in
+// device memory.  A pixel's state (Fwd) sits in shared memory: the head
+// (alpha product, online softmax, the colour sums of the passes done)
+// and, per aggregation sample of the pass, the running max and the
+// winner's sorted row (lane l keeps samples l and l + 32).  The argmax
+// aggregations shade no row during the sweep: at the end of a pass each
+// sample's winner is shaded once, from the table in device memory
+// (fwd_pass_end), by the same face_geometry / face_shade as the sweep
+// would, so its colour has the same bits.
+//
+// Noise is drawn only where a draw can change the image (PRUNE; the host
+// tests also build K5 without it and compare the bits), and the draws a
+// warp needs are packed across its lanes.  Coverage: a candidate row with
+// |d| > fl(|sigma| B) (B = noise_bound) hits in every sample (d < 0) or in
+// none, since fl(sigma n) lies within +-fl(|sigma| B) and rounding is
+// monotone; it takes that count, the float sum its draws give.  The
+// (pair, sample) draws of the rows in the band are listed and spread over
+// the lanes (warp_coverage); each hit adds 1 to its row's integer count.
+// Aggregation: with gb = fl(|gamma| B), row r's perturbed value fl(z_r +
+// fl(gamma n)) lies in [fl(z_r - gb), fl(z_r + gb)].  So a row with
+// fl(z_r + gb) <= the sample's running max can never take the sample over
+// (the winner must be strictly greater), and one with fl(z_r + gb) < lim
+// = max_r' fl(z_r' - gb) stays below the chunk's max, which is at least
+// lim: it can be neither the chunk's first max nor change whether the
+// chunk beats the running max.  A lane's pair is drawn for a sample only
+// if one of its rows passes both tests; the (pair, sample) draws of
+// kAggBatch samples are listed and spread over the lanes, their values
+// left in the warp's scratch.  A live pair left undrawn takes -inf, which
+// changes neither the max nor its first row; a pair with no candidate
+// keeps z_map + gamma 0, as the per-row rule gives it.  The winner rule
+// stays the per-row scan's: strictly greater across chunks, first row
+// within a chunk.
+//
+// Above kMaxS samples the first pass leaves each visited pixel's z_map
+// rows and candidacy in device memory (p.zbuf, p.zmask); the later passes
+// read them instead of recomputing det1 and the coverage.
+// Counts of K5's counting build (stream_forward.cu) for a lane: draws in
+// Box-Muller pairs (Cauchy: pairs of draws), those the rule "every pair
+// with a candidate row, every sample, once" takes (need) and those taken
+// (drawn); and the rows the argmax aggregations must shade, each pixel's
+// distinct winners of a pass (fwd_count_winners).
+struct DrawCounts {
+  unsigned long long cover_need, cover_drawn, agg_need, agg_drawn, winners;
+};
+
+// A bound on |noise| for every hash word (hash_prng.cuh's table): a
+// perturbed comparison whose margin exceeds it has one outcome for every
+// draw.
+PT_HD float noise_bound(int noise) {
+  return noise == kGaussian ? ptt::kBoundGaussian : ptt::kBoundCauchy;
+}
+
+enum FwdHead { kFAlpha = 0, kFM, kFDen, kFNum, kFSum = kFNum + 3,
+               kFHead = kFSum + 3 };
+constexpr int kAggBatch = 4;   // samples whose draws are packed together
+
+// A pixel's state in floats: the head and 2 per sample of a pass.
+PT_HOST_HD int fwd_floats(const Params& p) {
+  return kFHead + 2 * min(agg_samples(p), kMaxS);
+}
+
+// A warp's scratch in 4-byte words: the packed list, the rows' coverage
+// hit counts, and the sampled values (also the softmax's sums and the
+// winners' colours).
+constexpr int kFwdList = kAggBatch * 32;
+constexpr int kFwdScratch = kFwdList + kChunk + kAggBatch * kChunk;
+
+struct FwdScratch {
+  int *list, *hits;
+  float* vals;
+};
+
+PT_HD FwdScratch fwd_scratch(float* base) {
+  FwdScratch s;
+  s.list = reinterpret_cast<int*>(base);
+  s.hits = s.list + kFwdList;
+  s.vals = base + kFwdList + kChunk;
+  return s;
+}
+
+// Pass k's view of a pixel's state at `base`: samples s0 .. s0 + ns - 1.
+struct Fwd {
+  float *h, *runmax, *win;
+  int W, s0, ns;
+};
+
+PT_HD Fwd fwd_at(const Params& p, float* base, int k) {
+  Fwd r;
+  r.W = min(agg_samples(p), kMaxS);
+  r.h = base;
+  r.runmax = base + kFHead;
+  r.win = r.runmax + r.W;
+  r.s0 = k * kMaxS;
+  r.ns = min(kMaxS, agg_samples(p) - r.s0);
+  return r;
+}
+
+// The state before the pass's first chunk: the background channel alone
+// (the head in the first pass only).
+template <class Wp>
+PT_HD void fwd_init(const Params& p, const float* sc, int b, uint32_t pos,
+                    Wp& w, const Fwd& R) {
+  if (w.lane == 0 && R.s0 == 0) {
+    float* h = R.h;
+    h[kFAlpha] = 1.0f;
+    h[kFM] = p.eps_bg * (1.0f / sc[kGamma]);
+    h[kFDen] = 1.0f;
+    for (int c = 0; c < 3; ++c) {
+      h[kFNum + c] = sc[kBg + c];
+      h[kFSum + c] = 0.0f;
+    }
+  }
+  const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
+  const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
+  for (int i = w.lane; i < R.ns; i += 32) {
+    float phi;
+    R.runmax[i] = bg_start(p, sc, a0, a1, R.s0 + i, pos, &phi);
+    R.win[i] = -1.0f;
+  }
+  w.sync();
+}
+
+// After a pass: each sample's winner shaded (row win from the sorted table
+// in device memory; the background where no row won), then the colours
+// added to the sums in s order (lane 0).
+template <class Wp>
+PT_HD void fwd_pass_end(const Params& p, const float* sc, int b, float px,
+                        float py, Wp& w, const Fwd& R, const FwdScratch& S) {
+  if (p.agg_kind != kAggSoft) {
+    for (int i = w.lane; i < R.ns; i += 32) {
+      const int r = (int)R.win[i];
+      float col[3] = {sc[kBg], sc[kBg + 1], sc[kBg + 2]};
+      if (r >= 0) {
+        const Tables T = chunk_tables(
+            p, p.tab + ((size_t)b * p.rw + (size_t)(r - r % kChunk)) * p.dt,
+            sc);
+        float d, z, m, w3[3];
+        face_geometry(p, T, r % kChunk, px, py, true, &d, &z, &m, w3);
+        face_shade(p, T, r % kChunk, m, w3, col);
+      }
+      for (int c = 0; c < 3; ++c) S.vals[c * kMaxS + i] = col[c];
+    }
+    w.sync();
+    if (w.lane == 0)
+      for (int c = 0; c < 3; ++c)
+        for (int i = 0; i < R.ns; ++i) R.h[kFSum + c] += S.vals[c * kMaxS + i];
+  }
+  w.sync();
+}
+
+// The pass's distinct winning rows of the pixel (the background left
+// out) into the lanes' dc.winners: the shading the argmax aggregations
+// need, whatever the order of the samples.  Call after fwd_pass_end.
+template <class Wp>
+PT_HD void fwd_count_winners(const Params& p, Wp& w, const Fwd& R,
+                             DrawCounts& dc) {
+  if (p.agg_kind == kAggSoft) return;
+  for (int i = w.lane; i < R.ns; i += 32) {
+    const float r = R.win[i];
+    bool first = r >= 0.0f;
+    for (int j = 0; j < i && first; ++j) first = R.win[j] != r;
+    dc.winners += first ? 1 : 0;
+  }
+  w.sync();
+}
+
+// The pixel's RGBA once every pass is done (lane 0).
+PT_HD void fwd_rgba(const Params& p, const Fwd& R, float out[4]) {
+  for (int c = 0; c < 3; ++c)
+    out[c] = p.agg_kind == kAggSoft ? R.h[kFNum + c] / R.h[kFDen]
+                                    : R.h[kFSum + c] / (float)agg_samples(p);
+  out[3] = 1.0f - R.h[kFAlpha];
+}
+
+// Coverage and z_map of the lane's rows h and h + 32, the MC draws packed
+// across the warp (PRUNE: only the rows in the band draw; else every
+// candidate row).  S.hits is zero on entry and on exit.
+template <bool PRUNE, bool COUNT, class Wp>
+PT_HD void warp_coverage(const Params& p, const float* sc, int b, int cid,
+                         uint32_t pos, Wp& w, PairRows& R,
+                         const FwdScratch& S, DrawCounts& dc) {
+  if (p.rast_kind == kRastMC) {
+    const float sigma = sc[kSigma];
+    bool draw[2];
+    for (int k = 0; k < 2; ++k) {
+      R.prob[k] = R.coeff[k] = 0.0f;
+      draw[k] = R.mk[k] != 0.0f;
+    }
+    if (COUNT && (draw[0] || draw[1])) dc.cover_need += p.s_rast;
+    if (PRUNE) {
+      const float sb = fabsf(sigma) * noise_bound(p.rast_noise);
+      for (int k = 0; k < 2; ++k) {
+        if (!draw[k]) continue;
+        if (-R.dist[k] > sb) {
+          draw[k] = false;
+          R.prob[k] = (float)p.s_rast;
+        } else if (R.dist[k] > sb) {
+          draw[k] = false;
+        }
+      }
+    }
+    if (COUNT && (draw[0] || draw[1])) dc.cover_drawn += p.s_rast;
+    const int nd = warp_append(w, draw[0] || draw[1], w.lane, S.list, 0);
+    w.sync();
+    const uint32_t s0 = (uint32_t)p.seeds[b * 4 + 0];
+    const uint32_t s1 = (uint32_t)p.seeds[b * 4 + 1];
+    const uint32_t base = (uint32_t)(cid * kChunk);
+    const int mine = (draw[0] ? 1 : 0) | (draw[1] ? 2 : 0);
+    // Draw j: pair list[j % nd], sample j / nd.
+    const int total = nd * p.s_rast;
+    for (int j0 = 0; j0 < total; j0 += 32) {
+      const int j = j0 + w.lane;
+      const bool on = j < total;
+      const int h = on ? S.list[j % nd] : 0;
+      const float d0 = w.shfl(R.dist[0], h), d1 = w.shfl(R.dist[1], h);
+      const int e = w.shfl(mine, h);
+      if (on) {
+        float nz[2];
+        noise_pair(p.rast_noise, s0, s1, j / nd, base, h, pos, &nz[0],
+                   &nz[1]);
+        if ((e & 1) && -d0 + sigma * nz[0] >= 0.0f)
+          pt_atomic_add(&S.hits[h], 1);
+        if ((e & 2) && -d1 + sigma * nz[1] >= 0.0f)
+          pt_atomic_add(&S.hits[h + kHalf], 1);
+      }
+    }
+    w.sync();
+    for (int k = 0; k < 2; ++k) {
+      int* hit = &S.hits[w.lane + k * kHalf];
+      if (draw[k]) R.prob[k] = (float)*hit;
+      *hit = 0;
+    }
+  }
+  pair_finish(p, sc, R);
+}
+
+// One chunk of K5 at one pixel: the pass's samples, with (in the first
+// pass) the alpha product and the softmax.  zb / zm: the pixel's z_map
+// rows and candidacy mask for this visit in device memory (MULTI: written
+// in the first pass, read in the later ones, which need no table).  dc:
+// the lane's draw counts (COUNT).  Phases of a -DPT_PROFILE build: 0 det1
+// (and shading for the softmax), 1 coverage and z_map, 2 aggregation
+// draws, 3 the rest (alpha, softmax, winner scans).
+template <bool MULTI, bool PRUNE, bool COUNT, class Wp>
+PT_HD void warp_forward_chunk(const Params& p, const Tables& T, int b,
+                              int cid, float px, float py, uint32_t pos,
+                              Wp& w, const Fwd& R, const FwdScratch& S,
+                              DrawCounts& dc, float* zb,
+                              unsigned long long* zm) {
+  const float* sc = T.sc;
+  PT_MARK(clk);
+  const bool soft = p.agg_kind == kAggSoft;
+  const bool first = !MULTI || R.s0 == 0;
+  PairRows Q;
+  float alpha = 0.0f;
+  float* h = R.h;
+  if (first) {
+    if (soft) {
+      pair_geometry(p, T, w.lane, px, py, true, false, Q);
+    } else {
+      for (int k = 0; k < 2; ++k) {
+        float w3[3];
+        face_geometry(p, T, w.lane + k * kHalf, px, py, true, &Q.dist[k],
+                      &Q.z[k], &Q.mk[k], w3);
+      }
+    }
+    PT_PHASE(0, clk);
+    warp_coverage<PRUNE, COUNT>(p, sc, b, cid, pos, w, Q, S, dc);
+    if (MULTI) {
+      zb[w.lane] = Q.zmap[0];
+      zb[w.lane + kHalf] = Q.zmap[1];
+      const unsigned lo = w.ballot(Q.mk[0] != 0.0f);
+      const unsigned hi = w.ballot(Q.mk[1] != 0.0f);
+      if (w.lane == 0)
+        *zm = (unsigned long long)lo | ((unsigned long long)hi << 32);
+    }
+    alpha = h[kFAlpha] * warp_prod_rows(w, 1.0f - Q.prob[0],
+                                        1.0f - Q.prob[1]);
+  } else {
+    const unsigned long long m = *zm;
+    Q.zmap[0] = zb[w.lane];
+    Q.zmap[1] = zb[w.lane + kHalf];
+    Q.mk[0] = (m >> w.lane) & 1ull ? 1.0f : 0.0f;
+    Q.mk[1] = (m >> (w.lane + kHalf)) & 1ull ? 1.0f : 0.0f;
+  }
+  PT_PHASE(1, clk);
+  const float gamma = sc[kGamma];
+  if (soft) {
+    float m_new, scale, sums[4];
+    warp_softmax_chunk(w, Q, gamma, h[kFM], S.vals, &m_new, &scale, sums);
+    if (w.lane == 0) {
+      h[kFAlpha] = alpha;
+      h[kFDen] = h[kFDen] * scale + sums[0];
+      for (int c = 0; c < 3; ++c)
+        h[kFNum + c] = h[kFNum + c] * scale + sums[c + 1];
+      h[kFM] = m_new;
+    }
+    PT_PHASE(3, clk);
+    return;
+  }
+  const bool mc = p.agg_kind == kAggMC;
+  const bool live = Q.mk[0] != 0.0f || Q.mk[1] != 0.0f;
+  const uint32_t a0 = (uint32_t)p.seeds[b * 4 + 2];
+  const uint32_t a1 = (uint32_t)p.seeds[b * 4 + 3];
+  const uint32_t base = (uint32_t)(cid * kChunk);
+  // The pruning bounds: each row's highest value, and lim.
+  float top0 = Q.zmap[0], top1 = Q.zmap[1];
+  bool may0 = true, may1 = true;
+  if (PRUNE && mc) {
+    const float gb = fabsf(gamma) * noise_bound(p.agg_noise);
+    top0 = Q.zmap[0] + gb;
+    top1 = Q.zmap[1] + gb;
+    const float lim = wmax(w, fmaxf(Q.zmap[0] - gb, Q.zmap[1] - gb));
+    may0 = !(top0 < lim);
+    may1 = !(top1 < lim);
+  }
+  PT_PHASE(3, clk);
+  for (int i0 = 0; i0 < R.ns; i0 += kAggBatch) {
+    const int nb = min(kAggBatch, R.ns - i0);
+    unsigned drawn = 0;          // bit t: the lane's pair drawn for i0 + t
+    if (mc) {
+      int items = 0;
+      for (int t = 0; t < nb; ++t) {
+        const float rm = R.runmax[i0 + t];
+        bool draw = live;
+        if (PRUNE)
+          draw = live && ((may0 && !(top0 <= rm)) || (may1 && !(top1 <= rm)));
+        if (COUNT) {
+          dc.agg_need += live ? 1 : 0;
+          dc.agg_drawn += draw ? 1 : 0;
+        }
+        drawn |= (draw ? 1u : 0u) << t;
+        items += warp_append(w, draw, t * 32 + w.lane, S.list, items);
+      }
+      w.sync();
+      // Item j: (sample i0 + t, pair h), its two values into vals.
+      for (int j0 = 0; j0 < items; j0 += 32) {
+        const int j = j0 + w.lane;
+        const int code = j < items ? S.list[j] : 0;
+        const int t = code >> 5, hh = code & 31;
+        const float z0 = w.shfl(Q.zmap[0], hh), z1 = w.shfl(Q.zmap[1], hh);
+        if (j < items) {
+          float n0, n1;
+          noise_pair(p.agg_noise, a0, a1, R.s0 + i0 + t, base, hh, pos, &n0,
+                     &n1);
+          S.vals[t * kChunk + hh] = z0 + gamma * n0;
+          S.vals[t * kChunk + hh + kHalf] = z1 + gamma * n1;
+        }
+      }
+      w.sync();
+      PT_PHASE(2, clk);
+    }
+    for (int t = 0; t < nb; ++t) {
+      const int i = i0 + t;
+      const float rm = R.runmax[i];
+      float v0 = Q.zmap[0], v1 = Q.zmap[1];
+      if (mc) {
+        if ((drawn >> t) & 1u) {
+          v0 = S.vals[t * kChunk + w.lane];
+          v1 = S.vals[t * kChunk + w.lane + kHalf];
+        } else if (PRUNE && live) {
+          v0 = v1 = -INFINITY;
+        } else {
+          v0 = Q.zmap[0] + gamma * 0.0f;
+          v1 = Q.zmap[1] + gamma * 0.0f;
+        }
+      }
+      if (w.ballot(v0 > rm || v1 > rm) == 0) continue;
+      float sm;
+      const int sw = warp_first_max(w, v0, v1, &sm);
+      if (w.lane == (i & 31)) {
+        R.runmax[i] = sm;
+        R.win[i] = (float)(cid * kChunk + sw);
+      }
+    }
+    w.sync();
+    PT_PHASE(3, clk);
+  }
+  if (first && w.lane == 0) h[kFAlpha] = alpha;
 }
 
 // Between the sweeps, lane 0 at one live pixel: the output cotangent (K6:
@@ -649,7 +1043,8 @@ struct StreamBlock {
     active = p.active[bt] > 0;
     n = active ? p.count[bt] : 0;
     list = p.rows + (size_t)bt * p.nch;
-    recs = p.recs + ((size_t)bt * p.nsub + sub) * kBlockPix * rf;
+    recs = p.recs ? p.recs + ((size_t)bt * p.nsub + sub) * kBlockPix * rf
+                  : nullptr;
   }
   __device__ const float* chunk(const Params& p, int q) const {
     return p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt;

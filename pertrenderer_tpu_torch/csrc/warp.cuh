@@ -16,7 +16,8 @@
 // Phase clocks for tuning (a build with -DPT_PROFILE): cycles per phase
 // summed over a kernel's warps, lane 0's clock64, in the including
 // translation unit's own pt_prof (read through its C entry:
-// pt_binned_profile, pt_stream_profile, pt_k8c_profile).  Without the
+// pt_binned_profile, pt_stream_profile, pt_stream_forward_profile,
+// pt_k8c_profile, pt_grads_profile).  Without the
 // flag the marks compile to nothing.
 #ifdef PT_PROFILE
 static __device__ unsigned long long pt_prof[16];
@@ -29,9 +30,18 @@ static __device__ unsigned long long pt_prof[16];
     if (w.lane == 0) atomicAdd(&pt_prof[i], (unsigned long long)(now_ - t)); \
     t = now_;                                                            \
   } while (0)
+// The same mark where the lane is `lane` (code without a warp object).
+#define PT_PHASE_AT(i, t, lane)                                          \
+  do {                                                                   \
+    const long long now_ = clock64();                                    \
+    if ((lane) == 0)                                                     \
+      atomicAdd(&pt_prof[i], (unsigned long long)(now_ - t));            \
+    t = now_;                                                            \
+  } while (0)
 #else
 #define PT_MARK(t)
 #define PT_PHASE(i, t)
+#define PT_PHASE_AT(i, t, lane)
 #endif
 
 namespace ptw {
@@ -51,6 +61,25 @@ __device__ __forceinline__ int pt_ffs(unsigned x) {
 #else
   return __builtin_ctz(x);
 #endif
+}
+
+// An integer add into shared memory by several lanes (exact in any order).
+__device__ __forceinline__ void pt_atomic_add(int* a, int v) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(a, v);
+#else
+  *a += v;
+#endif
+}
+
+// Lanes with `flag` append `val` to list[base ...] in lane order; returns
+// how many did (every lane).
+template <class Wp>
+__device__ __forceinline__ int warp_append(Wp& w, bool flag, int val,
+                                           int* list, int base) {
+  const unsigned m = w.ballot(flag);
+  if (flag) list[base + pt_popc(m & ((1u << w.lane) - 1u))] = val;
+  return pt_popc(m);
 }
 
 template <class Wp, class T>

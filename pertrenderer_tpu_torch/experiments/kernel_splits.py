@@ -1,5 +1,5 @@
-"""Where K9b's, K12's, K8a-c's and K7's time goes on the card (a tuning
-tool).
+"""Where K9b's, K12's, K8a-c's, K7's, K5's and K2's time goes on the card
+(a tuning tool).
 
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k9b
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k12
@@ -7,6 +7,8 @@ tool).
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k8b
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k8a
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k7
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k5
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k2
 
 ``k9b``: the row scatter at the cow's staged shapes (chip_smoke.py's
 [K9b]: 13.1 M columns into 20,480 rows, D = 9), the index preparation
@@ -43,11 +45,31 @@ over the warps, barrier waits included) in B1 (the replay), the post
 step (both in the first kernel) and B2 (the adjoints and the slices'
 sums, the second).
 
-``k9b``, ``k8a``, ``k8b``, ``k8c`` and ``k7`` only call the package's
-entry points, so they
-also time an older checkout of it: run this file by its path from that
+``k5``: K5 (``fused_stream_forward``) on the cow at 256^2, N=4 (chip_smoke.py's
+[K5]), gaussian and softras at S = 8, and gaussian at S = 64 beside
+S = 128, timed with CUDA events; with ``--profile``, in a build with
+``-DPT_PROFILE`` whose K5 marks its phases (csrc/stream_warp.cuh's
+``warp_forward_chunk``), the share of lane 0's clocks in geometry (det1
+and shading), coverage draws (and z_map), aggregation draws and the rest
+(alpha, softmax, winner scans).  With ``--save PATH`` it saves the images,
+so two checkouts' runs can be compared bit for bit.
+
+``k2``: K2 (``fused_loss_grad``) and K4 (``fused_backward``) on the cube
+at 256^2 (chip_smoke.py's [K2] / [K4] scene), gaussian, at N=1 (the pose
+step's shape) and N=4: each call timed with CUDA events, and its device
+time split by kernel (torch.profiler: the memset, the pixel kernel, the
+reduction), both by chip_smoke.py's ``grad_split_text``; their ptxas
+lines with the resident blocks per SM those registers and that shared
+memory allow.  With ``--profile`` (a build with ``-DPT_PROFILE``,
+csrc/fused_grad.cuh) the share of lane 0's clocks in the forward (det1,
+coverage, z_map, aggregation, blend), the adjoints and the sink.
+
+``k9b``, ``k8a``, ``k8b``, ``k8c``, ``k7``, ``k5`` and ``k2`` only call the
+package's entry points and the checkout's chip_smoke.py, so they also
+time an older checkout of it: run this file by its path from that
 checkout's root with ``--root .`` (without ``--profile`` where that
-checkout has no phase marks).  Each prints the card's name and power
+checkout has no phase marks; ``k2`` needs a chip_smoke.py with
+``grad_split_text`` and ``grad_call``).  Each prints the card's name and power
 limit.  They need a CUDA card.
 """
 
@@ -302,16 +324,122 @@ def k7(root: str, profile: bool) -> None:
           flush=True)
 
 
+def _blocks_per_sm(regs, threads):
+    """Resident blocks per SM on an H100 that ``regs`` registers a thread
+    (allocated 256 a warp at a time) and ``threads`` a block allow."""
+    warps = (threads + 31) // 32
+    per_warp = -(-regs * 32 // 256) * 256
+    return max(0, min(65536 // (per_warp * warps), 32, 64 // warps))
+
+
+def k5(root: str, profile: bool, save: str = "") -> None:
+    lib, read = _profiled(root, profile, "pt_stream_forward_profile")
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import fused_render as fr
+
+    dev = torch.device("cuda", 0)
+    tag = " (profiling build)" if read else ""
+    smi = _smi()
+    lines = cs.ptxas_report(("stream_forward",)).get("stream_forward",
+                                                      ["?"])
+    print(f"[K5 split] {os.path.abspath(root)}: ptxas "
+          f"{' | '.join(sorted(set(lines)))}", flush=True)
+    cases = [("gaussian", cs.S), ("softras", cs.S), ("gaussian", 64),
+             ("gaussian", 128)]
+    times, images = {}, {}
+    for noise, s in cases:
+        cfg, args = cs.stream_inputs(noise, dev, cs.N_POSES, cs.IMAGE, s)
+        call = lambda: fr.fused_stream_forward(cfg, *args)
+        images[f"{noise}_S{s}"] = call().cpu()
+        if hasattr(fr, "stream_forward_counts"):
+            c = fr.stream_forward_counts(cfg, *args)[1]
+            print(f"[K5 split] {os.path.abspath(root)}: {noise} S={s}: "
+                  f"coverage pairs drawn {c['cover_drawn']} of "
+                  f"{c['cover_need']}, aggregation pairs drawn "
+                  f"{c['agg_drawn']} of {c['agg_need']}, distinct winners "
+                  f"shaded {c['winners']}", flush=True)
+        ms = (_cuda_ms(call, 5) + _cuda_ms(call, 5)) / 2
+        times[(noise, s)] = ms
+        text = ""
+        if read is not None:
+            read(())
+            call()
+            torch.cuda.synchronize()
+            text = "; clocks: " + read(("geometry", "coverage draws",
+                                        "aggregation draws", "the rest"))
+        print(f"[K5 split] {os.path.abspath(root)}: fused_stream_forward "
+              f"{noise} S={s} cow {cs.IMAGE}^2 N={cs.N_POSES}: {ms:.4f} ms"
+              f"{tag}{text} | {smi}", flush=True)
+    print(f"[K5 split] {os.path.abspath(root)}: S=128 / S=64 "
+          f"{times[('gaussian', 128)] / times[('gaussian', 64)]:.3f}x | "
+          f"{smi}", flush=True)
+    if save:
+        torch.save(images, save)
+
+
+def k2(root: str, profile: bool) -> None:
+    lib, read = _profiled(root, profile, "pt_grads_profile")
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import fused_render as fr
+
+    dev = torch.device("cuda", 0)
+    tag = " (profiling build)" if read else ""
+    smi = _smi()
+    renderer = cs.headline_renderer("gaussian", dev)
+    mesh = cs.posed_cube(torch.Generator().manual_seed(0), dev)
+    seeds = fr.draw_seeds(cs.N_POSES, torch.Generator().manual_seed(1),
+                          device=dev)
+    cfg, ins4 = cs.kernel_inputs(renderer, mesh, seeds)
+    bucket = next(b for b in (16, 32, 64, 128, 256) if cfg.f_pad <= b)
+    keys = {f"fused_grad_kernelILi{bucket}ELb{int(loss)}ELb0E": name
+            for loss, name in ((True, "K2"), (False, "K4"))}
+    keys["grad_reduce"] = "the reduction"
+    for key, lines in sorted(cs.ptxas_report(tuple(keys)).items()):
+        for line in sorted(set(lines)):
+            blocks = ("" if key == "grad_reduce" else
+                      f"; {_blocks_per_sm(int(line.split()[0]), 128)} "
+                      f"blocks of 128 threads per SM by registers")
+            print(f"[K2 split] {os.path.abspath(root)}: ptxas {keys[key]}: "
+                  f"{line}{blocks}", flush=True)
+    for kname in ("fused_loss_grad", "fused_backward"):
+        print(f"[K2 split] {os.path.abspath(root)}: {kname} cube "
+              f"{cfg.image_size}^2 gaussian (f_pad {cfg.f_pad}){tag}: "
+              f"{cs.grad_split_text(kname, cfg, ins4, dev)} | {smi}",
+              flush=True)
+    if read is None:
+        return
+    for n in (1, cs.N_POSES):
+        call = cs.grad_call("fused_loss_grad", cfg,
+                            tuple(t[:n].contiguous() for t in ins4), dev)
+        call()
+        read(())
+        call()
+        torch.cuda.synchronize()
+        print(f"[K2 split] {os.path.abspath(root)}: fused_loss_grad N={n} "
+              f"clocks: " + read((
+                  "det1", "coverage", "aggregation forward and blend",
+                  "loss and aggregation backward", "slot adjoints and sink",
+                  "dead warps' exit")) + f" | {smi}", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("k9b", "k12", "k8c", "k8b", "k8a",
-                                     "k7"))
+                                     "k7", "k5", "k2"))
     ap.add_argument("--root", default=os.getcwd(),
                     help="checkout whose package and chip_smoke.py to use "
-                         "(k9b, k8a, k8b, k8c, k7)")
+                         "(k9b, k8a, k8b, k8c, k7, k5, k2)")
+    ap.add_argument("--save", default="",
+                    help="k5: save the images it rendered (a dict of CPU "
+                         "tensors) to this path, to compare two checkouts' "
+                         "bits")
     ap.add_argument("--profile", action="store_true",
-                    help="k8c, k7: build with -DPT_PROFILE and print the "
-                         "phases' shares of the clocks")
+                    help="k8c, k7, k5, k2: build with -DPT_PROFILE and print "
+                         "the phases' shares of the clocks")
     args = ap.parse_args(argv)
     if args.what == "k9b":
         k9b(args.root)
@@ -323,6 +451,10 @@ def main(argv=None) -> None:
         k8a(args.root)
     elif args.what == "k7":
         k7(args.root, args.profile)
+    elif args.what == "k5":
+        k5(args.root, args.profile, args.save)
+    elif args.what == "k2":
+        k2(args.root, args.profile)
     else:
         sys.path.insert(0, os.getcwd())
         k12()

@@ -93,6 +93,7 @@ MAX_BIN_SLOTS = 160      # the JAX binned route's per-tile slot budget
 _BIN_P_TILE = 128        # its tile width, also the stream strip width
 _COARSE_THRESHOLD = 8192  # F above which an opted-in mesh bins
 STREAM_CHUNK = 64        # stream: sorted-table rows per chunk
+STREAM_PASS_S = 64       # stream kernels: aggregation samples per pass
 _STREAM_BUCKET_ROWS = 16  # stream: y-bucket height (px) of the sort key
 _STREAM_TILE = (8, 32)   # stream: 2-D tile (rows, columns)
 _BIG_LO = 1e30           # stream: sort key of invalid and padding rows
@@ -1605,8 +1606,8 @@ def _launch_grads(kernel: str, cfg: FusedConfig, tables, active, extra,
     ``loss_args`` = (loss id, scale)) or K11c (``extra`` = (g_out, prob,
     weights, g_zmap)) and return (loss (N,), g_ndc, g_world, g_fn, g_tex,
     g_scal).  Each warp of the kernel sums its pixels into its own row of
-    ``partial``; a second pass adds the rows in a fixed order, so the
-    gradients are the same bits from run to run."""
+    ``partial`` (zeroed by the warp); a second pass adds the rows in a
+    fixed order, so the gradients are the same bits from run to run."""
     from pertrenderer_tpu_torch import _build
 
     fv_ndc = tables[0]
@@ -1631,6 +1632,25 @@ def _launch_grads(kernel: str, cfg: FusedConfig, tables, active, extra,
     _build.check(err, kernel)
     launch_counts[kernel] += 1
     return loss, g_ndc, g_world, g_fn, g_tex, g_scal
+
+
+def grad_kernel_shape(kernel: str, cfg: FusedConfig, device=None):
+    """The pixel kernel's shape of K4 (``fused_backward``) or K2
+    (``fused_loss_grad``) at this configuration (needs the card): resident
+    blocks of 128 threads per SM (the occupancy API), registers and local
+    memory bytes per thread, dynamic shared memory bytes."""
+    from pertrenderer_tpu_torch import _build
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    lib = _build.library()
+    fn_c = {"fused_backward": lib.pt_fused_backward_occupancy,
+            "fused_loss_grad": lib.pt_fused_loss_grad_occupancy}[kernel]
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(dev):
+        _build.check(fn_c(cfg.f_pad, cfg.tex_d, ctypes.addressof(out)),
+                     kernel)
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "smem"),
+                    tuple(out)))
 
 
 def fused_backward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
@@ -1919,18 +1939,60 @@ def fused_stream_forward(cfg: FusedConfig, tab, rows, count, active, scal,
     if dev.type == "cpu":
         return stream_forward_plain(cfg, tab, rows, count, active, scal,
                                     seeds)
+    return _launch_stream_forward(cfg, (tab, rows, count, active, scal,
+                                        seeds), dev, None)
+
+
+def stream_forward_counts(cfg: FusedConfig, tab, rows, count, active, scal,
+                          seeds):
+    """K5's counting build on the card, a diagnostic: (the image, which is
+    :func:`fused_stream_forward`'s, and a dict of the work it did).
+    ``cover_need`` / ``agg_need``: the coverage / aggregation noise draws
+    the rule "every pair of rows with a candidate, every sample, once"
+    takes, in Box-Muller pairs (Cauchy: pairs of draws); ``cover_drawn`` /
+    ``agg_drawn``: those the kernel took, only where a draw can change the
+    image; ``winners``: the rows the argmax aggregations shaded, each
+    pixel's distinct winners of a pass of 64 samples."""
+    dev = _check_stream(cfg, tab, rows, count, active, scal, seeds,
+                        "stream_forward_counts")
+    if dev.type == "cpu":
+        raise ValueError("stream_forward_counts: K5's counting build runs "
+                         "on the card only")
+    counts = torch.zeros(5, dtype=torch.int64, device=dev)
+    out = _launch_stream_forward(cfg, (tab, rows, count, active, scal,
+                                       seeds), dev, counts)
+    keys = ("cover_need", "cover_drawn", "agg_need", "agg_drawn", "winners")
+    return out, dict(zip(keys, counts.tolist()))
+
+
+def _launch_stream_forward(cfg: FusedConfig, args, dev, counts):
+    """Launch K5 (``counts``: None, or 5 zeroed int64 counters on the card
+    for its counting build) and return the image."""
     from pertrenderer_tpu_torch import _build
 
+    tab, rows, count, active, scal, seeds = args
     lib = _build.library()
     n, s = tab.shape[0], cfg.image_size
     out = torch.empty((n, s, s, 4), dtype=torch.float32, device=dev)
+    # Above 64 aggregation samples the kernel's first pass leaves each
+    # visited pixel's z_map rows for the later passes.
+    passes = None
+    if cfg.agg_kind == "mc" and cfg.s_agg > STREAM_PASS_S:
+        voff, _vstart, _vidx, visits = _stream_visit_index(rows, count,
+                                                           active)
+        slots = max(visits, 1) * (cfg.p_tile // 32) * 32
+        passes = (voff, torch.empty((slots, STREAM_CHUNK),
+                                    dtype=torch.float32, device=dev),
+                  torch.empty(slots, dtype=torch.int64, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.pt_stream_forward(
             tab.data_ptr(), rows.data_ptr(), count.data_ptr(),
             active.data_ptr(), scal.data_ptr(), seeds.data_ptr(),
             out.data_ptr(), n, *_stream_args(cfg, tab), *_cfg_args(cfg),
-            stream)
+            *((None,) * 3 if passes is None
+              else (t.data_ptr() for t in passes)),
+            None if counts is None else counts.data_ptr(), stream)
     _build.check(err, "fused_stream_forward")
     launch_counts["fused_stream_forward"] += 1
     return out
@@ -1998,6 +2060,18 @@ def _launch_stream_grads(kernel: str, cfg: FusedConfig, tab, rows, count,
     return loss, g_tab, g_scal
 
 
+def stream_forward_shape(cfg: FusedConfig, dt: int, device=None):
+    """K5's shape at this configuration (needs the card): warps per block,
+    resident blocks per SM (the occupancy API), dynamic shared memory in
+    bytes, registers and local memory bytes per thread."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    return dict(zip(("warps", "blocks_per_sm", "smem", "registers",
+                     "local_bytes"),
+                    _stream_shape("fused_stream_forward", dt, cfg.tex_d,
+                                  _AGG_IDS[cfg.agg_kind], cfg.s_agg,
+                                  dev.index or 0)))
+
+
 def stream_grad_shape(kernel: str, cfg: FusedConfig, dt: int, device=None):
     """The shapes of K6's (``fused_stream_backward``) or K7's two kernels at
     this configuration (needs the card): B2's warps per block, resident
@@ -2016,9 +2090,10 @@ def _stream_shape(kernel, dt, tex_d, agg_id, s_agg, device_index):
     from pertrenderer_tpu_torch import _build
 
     lib = _build.library()
-    fn_c = (lib.pt_stream_backward_occupancy
-            if kernel == "fused_stream_backward"
-            else lib.pt_stream_loss_grad_occupancy)
+    fn_c = {"fused_stream_forward": lib.pt_stream_forward_occupancy,
+            "fused_stream_backward": lib.pt_stream_backward_occupancy,
+            "fused_stream_loss_grad": lib.pt_stream_loss_grad_occupancy}[
+                kernel]
     out = (ctypes.c_int * 7)()
     with torch.cuda.device(device_index):
         _build.check(fn_c(dt, tex_d, agg_id, s_agg, ctypes.addressof(out)),

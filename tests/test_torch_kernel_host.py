@@ -63,6 +63,7 @@ using namespace ptf;
 struct HostSink {
   float* part;
   bool any(bool x) { return x; }
+  bool all(bool x) { return x; }
   float* row(int off) { return part + off; }
   void add(float* row, int d, float v) { row[d] += v; }
   void add_cell(float* row, bool has, int cell, const float g[3]) {
@@ -545,15 +546,13 @@ def warp_lib(tmp_path_factory):
 
 def _host_call(lib, cfg, tables, extra, mode, rows, loss_id=0, lscale=0.0):
     """Run the host build: ``mode`` -1 the forward, 0 K4's pipeline, 1
-    K2's; binned configurations take the tables per tile and the tiles'
-    activity bits (``tables[7]``)."""
+    K2's, with the tiles' activity bits (``tables[7]``); binned
+    configurations take the tables per tile."""
     n = tables[0].shape[0]
-    active = tables[7] if cfg.binned else torch.zeros(1, dtype=torch.int32)
     lib.host_grads(mode, *(t.data_ptr() for t in tables[:7]),
                    extra.data_ptr(), rows.data_ptr(), n, *tfr._cfg_args(cfg),
                    loss_id, ctypes.c_float(lscale), int(cfg.binned),
-                   active.data_ptr() if cfg.binned else None,
-                   tfr._n_tiles(cfg), cfg.p_tile)
+                   tables[7].data_ptr(), tfr._n_tiles(cfg), cfg.p_tile)
     return rows
 
 
@@ -605,6 +604,35 @@ def test_kernel_pipeline_matches_plain_on_host(noise, kw, host_lib):
 
     target = torch.rand(2, 3, 256, generator=torch.Generator().manual_seed(2))
     lscale = 1.0 / (2 * 256 * 3)
+    for loss_id, kind in enumerate(tfr.LOSS_KINDS):
+        got = host_grads(host_lib, cfg, tables, target, loss_id, lscale)
+        want = tfr.loss_grad_plain(cfg, *tables, target, kind, lscale)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+        assert_tables_close(got[1:], want[1:], mc)
+
+
+@pytest.mark.parametrize("noise", ["gaussian", "gaussian_wovr", "softras",
+                                   "hard"])
+def test_kernel_pipeline_with_inactive_tiles_on_host(noise, host_lib):
+    """K4 and K2 on the cube moved up at 48^2 (sigma 1e-3): the lower tile
+    is inactive and most pixels have no candidate, so they take the
+    pipeline's early exit (on the card a warp of them; here each such
+    pixel): the background colour's gradient and the loss.  Without
+    variance reduction the MC aggregation's gamma term runs on.  Against
+    the plain versions as above."""
+    mesh, renderer = _renderer(noise, "cpu", imsize=48, sigma=1e-3)
+    mesh = mesh.offset_verts(torch.tensor((0.0, 2.5, 0.0))
+                             .expand(mesh.verts.shape[1], 3))
+    cfg, tables = _inputs(mesh, renderer)
+    assert tables[7].tolist() == [[1, 0], [1, 0]]
+    mc = noise in MC_NOISES
+    g_out = torch.randn(2, 48, 48, 4, generator=torch.Generator()
+                        .manual_seed(1))
+    got = host_grads(host_lib, cfg, tables, g_out)
+    assert_tables_close(got[1:], tfr.backward_plain(cfg, *tables, g_out), mc)
+    target = torch.rand(2, 3, 48 * 48,
+                        generator=torch.Generator().manual_seed(2))
+    lscale = 1.0 / (2 * 48 * 48 * 3)
     for loss_id, kind in enumerate(tfr.LOSS_KINDS):
         got = host_grads(host_lib, cfg, tables, target, loss_id, lscale)
         want = tfr.loss_grad_plain(cfg, *tables, target, kind, lscale)

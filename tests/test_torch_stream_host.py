@@ -1,16 +1,17 @@
 """The stream kernels' per-pixel arithmetic, compiled for the CPU.
 
-``csrc/stream_grad.cuh`` (K5's per-thread forward and the rows shared
-with the gradients) and ``csrc/stream_warp.cuh`` (K6 / K7's warp
-pipeline) keep their CUDA intrinsics inside ``#ifdef __CUDACC__``; with
-the CUDA keywords defined away, g++ compiles them.  A host loop runs K5's
-``chunk_forward`` tile by tile and pixel by pixel; K6 / K7 run as the
-card runs them, with the 32 lanes of each warp emulated as fibers
-(``FIBERS``): per block of 32 pixels of a tile, four warps each taking
-every fourth pixel, B1 (``warp_chunk_forward``) over the tile's chunk
-list, the post step, then B2 (``warp_chunk_grads``) adding each warp's
-rows into its slice and the slices in warp order into the sorted table,
-the tiles and their blocks in ascending order.  The results must equal
+``csrc/stream_grad.cuh`` (the rows shared by the stream kernels) and
+``csrc/stream_warp.cuh`` (K5's and K6 / K7's warp pipelines) keep their
+CUDA intrinsics inside ``#ifdef __CUDACC__``; with the CUDA keywords
+defined away, g++ compiles them.  K5, K6 and K7 run as the card runs
+them, with the 32 lanes of each warp emulated as fibers (``FIBERS``): per
+block of 32 pixels of a tile, four warps each taking every fourth pixel;
+K5 (``warp_forward_chunk``) over the tile's chunk list; B1
+(``warp_chunk_forward``) over it, the post step, then B2
+(``warp_chunk_grads``) adding each warp's rows into its slice and the
+slices in warp order into the sorted table, the tiles and their blocks in
+ascending order.  K5 draws only where a draw can change the image; the
+same code built with every draw taken gives the same bits.  The results must equal
 the plain versions (``stream_forward_plain``, ``stream_backward_plain``,
 ``stream_loss_grad_plain``) on the same inputs: the hand-derived adjoints
 are checked without a card.  The sum order differs from the plain
@@ -66,42 +67,108 @@ static void fill(Params& p, const float* tab, const int* rows,
   p.loss_kind = loss_kind; p.lscale = lscale;
 }
 
-// K5's per-thread forward, pixel by pixel, into out (N, H, W, 4) (MULTI:
-// the kernel's instantiation above kMaxS samples).
-template <bool MULTI>
-static void forward(const Params& p, int n, float* out) {
-  std::vector<ChunkRows> Rv(1);
-  std::vector<StreamState> Sv(1);
-  ChunkRows& R = Rv[0];
-  StreamState& st = Sv[0];
-  for (int b = 0; b < n; ++b)
+constexpr int kHostWarps = kStreamWarps;
+
+// K5 as the card runs it (PRUNE: the card's build; without it every pair
+// with a candidate row draws), into out (N, H, W, 4): per block of 32
+// pixels of a tile, kHostWarps warps of 32 fibers, each warp's pixels i =
+// v, v + 4, ...; the chunk list once per pass of kMaxS samples, the first
+// pass leaving the z_map rows for the later ones.  counts: the lanes'
+// counts summed (coverage draws needed, drawn; aggregation draws needed,
+// drawn; winners shaded).
+template <bool MULTI, bool PRUNE>
+static void forward(Params p, int n, float* out, unsigned long long* counts) {
+  Lanes L;
+  const int ff = fwd_floats(p);
+  std::vector<float> states((size_t)kBlockPix * ff);
+  std::vector<float> scratch((size_t)kHostWarps * kFwdScratch, 0.0f);
+  std::vector<DrawCounts> dcs(32, DrawCounts{0, 0, 0, 0, 0});
+  const int passes = MULTI ? stream_passes(p) : 1;
+  // The visits of the active tiles in (b, t) order, as the wrapper's voff.
+  std::vector<int> voff((size_t)n * p.nt);
+  int visits = 0;
+  for (int bt = 0; bt < n * p.nt; ++bt) {
+    voff[bt] = visits;
+    visits += p.active[bt] > 0 ? p.count[bt] : 0;
+  }
+  std::vector<float> zbuf((size_t)visits * p.nsub * kBlockPix * kChunk);
+  std::vector<unsigned long long> zmask((size_t)visits * p.nsub * kBlockPix);
+  p.voff = voff.data();
+  p.zbuf = zbuf.data();
+  p.zmask = zmask.data();
+  for (int b = 0; b < n; ++b) {
+    const float* sc = p.scal + b * kNS;
     for (int t = 0; t < p.nt; ++t) {
       const int bt = b * p.nt + t;
+      const int nq = p.active[bt] > 0 ? p.count[bt] : 0;
       const int* list = p.rows + (size_t)bt * p.nch;
-      const float* sc = p.scal + b * kNS;
-      for (int i = 0; i < p.p_tile; ++i) {
-        bool live;
-        const int pix = tile_pixel(p, t, i, &live);
-        float px, py;
-        pixel_center(p.image_size, pix, &px, &py);
-        for (int k = 0; k < (MULTI ? stream_passes(p) : 1); ++k) {
-          state_init<MULTI>(p, sc, b, (uint32_t)pix, k, st);
-          if (p.active[bt] > 0)
-            for (int q = 0; q < p.count[bt]; ++q)
-              chunk_forward<MULTI>(p, chunk_tables(p, p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt, sc),
-                                   b, list[q], px, py, live, (uint32_t)pix, st, R);
-          if (MULTI) state_pass_end(p, st);
+      for (int sub = 0; sub < p.nsub; ++sub) {
+        auto state = [&](int i, int k) {
+          return fwd_at(p, states.data() + (size_t)i * ff, k);
+        };
+        auto each = [&](int v, auto&& fn) {
+          for (int i = v; i < kBlockPix; i += kHostWarps) {
+            bool live;
+            const int pix = tile_pixel(p, t, sub * kBlockPix + i, &live);
+            float px, py;
+            pixel_center(p.image_size, pix, &px, &py);
+            fn(i, pix, live, px, py);
+          }
+        };
+        auto zrow = [&](int q, int i) {
+          return ((size_t)(p.voff[bt] + q) * p.nsub + sub) * kBlockPix + i;
+        };
+        for (int k = 0; k < passes; ++k) {
+          for (int v = 0; v < kHostWarps; ++v)
+            L.run([&](int lane) {
+              HostWarp w{lane, &L};
+              each(v, [&](int i, int pix, bool, float, float) {
+                fwd_init(p, sc, b, (uint32_t)pix, w, state(i, k));
+              });
+            });
+          for (int q = 0; q < nq; ++q) {
+            const Tables T = chunk_tables(p, p.tab + ((size_t)b * p.rw + (size_t)list[q] * kChunk) * p.dt, sc);
+            for (int v = 0; v < kHostWarps; ++v)
+              L.run([&](int lane) {
+                HostWarp w{lane, &L};
+                const FwdScratch S = fwd_scratch(scratch.data() + (size_t)v * kFwdScratch);
+                each(v, [&](int i, int pix, bool live, float px, float py) {
+                  if (!live) return;
+                  warp_forward_chunk<MULTI, PRUNE, true>(
+                      p, T, b, list[q], px, py, (uint32_t)pix, w, state(i, k), S,
+                      dcs[lane], MULTI ? p.zbuf + zrow(q, i) * kChunk : nullptr,
+                      MULTI ? p.zmask + zrow(q, i) : nullptr);
+                });
+              });
+          }
+          for (int v = 0; v < kHostWarps; ++v)
+            L.run([&](int lane) {
+              HostWarp w{lane, &L};
+              const FwdScratch S = fwd_scratch(scratch.data() + (size_t)v * kFwdScratch);
+              each(v, [&](int i, int, bool live, float px, float py) {
+                fwd_pass_end(p, sc, b, px, py, w, state(i, k), S);
+                if (live) fwd_count_winners(p, w, state(i, k), dcs[lane]);
+              });
+            });
         }
-        if (!live) continue;
-        float rgb[3];
-        state_rgb<MULTI>(p, st, rgb);
-        float* o = out + ((size_t)b * p.image_size * p.image_size + pix) * 4;
-        o[0] = rgb[0]; o[1] = rgb[1]; o[2] = rgb[2]; o[3] = 1.0f - st.alpha;
+        for (int i = 0; i < kBlockPix; ++i) {
+          bool live;
+          const int pix = tile_pixel(p, t, sub * kBlockPix + i, &live);
+          if (live)
+            fwd_rgba(p, state(i, 0),
+                     out + ((size_t)b * p.image_size * p.image_size + pix) * 4);
+        }
       }
     }
+  }
+  for (const DrawCounts& d : dcs) {
+    counts[0] += d.cover_need;
+    counts[1] += d.cover_drawn;
+    counts[2] += d.agg_need;
+    counts[3] += d.agg_drawn;
+    counts[4] += d.winners;
+  }
 }
-
-constexpr int kHostWarps = kStreamWarps;
 
 // The block's records as the card keeps them: windows (the whole record
 // in one pass) in `recs`, above kMaxS samples (MULTI) the whole records
@@ -304,20 +371,26 @@ static void replay(const Params& p, int n, float* out) {
   }
 }
 
-// mode 0: K5's forward into out (N, H, W, 4); 1: K6 (extra g_out); 2: K7;
-// 3: B1's replay into out.
+// mode 0: K5's forward into out (N, H, W, 4), its counts into
+// counts[5]; 4: the same without pruning; 1: K6 (extra g_out); 2: K7; 3:
+// B1's replay into out.
 extern "C" void host_stream(
     int mode, const float* tab, const int* rows, const int* count,
     const int* active, const float* scal, const int* seeds,
     const float* extra, float* out, float* g_tab, float* g_scal,
     float* loss, int n, int nt, int nch, int p_tile, int tile_w, int rw,
-    int dt, const int* cfg, float eps_bg, int loss_kind, float lscale) {
+    int dt, const int* cfg, float eps_bg, int loss_kind, float lscale,
+    unsigned long long* counts) {
   Params p = {};
   fill(p, tab, rows, count, active, scal, seeds, extra, nt, nch, p_tile,
        tile_w, rw, dt, cfg, eps_bg, loss_kind, lscale);
   const bool multi = stream_passes(p) > 1;
   if (mode == 0)
-    multi ? forward<true>(p, n, out) : forward<false>(p, n, out);
+    multi ? forward<true, true>(p, n, out, counts)
+          : forward<false, true>(p, n, out, counts);
+  else if (mode == 4)
+    multi ? forward<true, false>(p, n, out, counts)
+          : forward<false, false>(p, n, out, counts);
   else if (mode == 3)
     multi ? replay<true>(p, n, out) : replay<false>(p, n, out);
   else if (mode == 1)
@@ -351,16 +424,21 @@ def host_lib(tmp_path_factory):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.host_stream.argtypes = ([i32] + [ptr] * 11 + [i32] * 7
                                 + [ptr, ctypes.c_float, i32,
-                                   ctypes.c_float])
+                                   ctypes.c_float, ptr])
     return lib
 
 
-def host_stream(lib, mode, cfg, tin, extra=None, loss_id=0, lscale=0.0):
+def host_stream(lib, mode, cfg, tin, extra=None, loss_id=0, lscale=0.0,
+                counts=None):
     """(image, g_tab, g_scal, loss) of the host build: mode 0 the forward
-    (K5), 1 the backward (K6, ``extra`` = g_out), 2 the loss-and-grad
-    (K7, ``extra`` = target), 3 the gradients' B1 replay as an image."""
+    (K5; its counts into ``counts``, a (5,) int64 tensor), 4 the same
+    with every draw taken, 1 the backward (K6, ``extra`` = g_out), 2 the
+    loss-and-grad (K7, ``extra`` = target), 3 the gradients' B1 replay as
+    an image."""
     tab, rows, count, active, scal, seeds = tin
     n, s, d = tab.shape[0], cfg.image_size, 27 + cfg.tex_d
+    if counts is None:
+        counts = torch.zeros(5, dtype=torch.int64)
     out = torch.zeros(n, s, s, 4)
     g_tab = torch.zeros(n, cfg.rw, tab.shape[2])
     g_rows = torch.zeros(n, cfg.rw, d)
@@ -374,7 +452,7 @@ def host_stream(lib, mode, cfg, tin, extra=None, loss_id=0, lscale=0.0):
                     out.data_ptr(), g_rows.data_ptr(), g_scal.data_ptr(),
                     loss.data_ptr(), n, *tfr._stream_args(cfg, tab),
                     ints.data_ptr(), ctypes.c_float(cfg.eps_bg), loss_id,
-                    ctypes.c_float(lscale))
+                    ctypes.c_float(lscale), counts.data_ptr())
     g_tab[..., :d] = g_rows
     return out, g_tab, g_scal, loss
 
@@ -401,6 +479,39 @@ def test_stream_pipeline_at_128_samples_matches_plain_on_host(noise,
     memory): K5's image, the replay's bits and K6 / K7's gradients as at
     S = 2."""
     check_pipeline(host_lib, noise, "cube", 16, "uv", 128)
+
+
+PRUNE_CASES = [("gaussian", "cube", 16, 2), ("cauchy", "cube", 16, 2),
+               ("gaussian", "icosphere", 32, 2), ("gaussian", "cube", 16, 128)]
+
+
+@pytest.mark.parametrize("noise,kind,imsize,s", PRUNE_CASES)
+def test_stream_forward_pruned_draws_keep_bits(noise, kind, imsize, s,
+                                               host_lib):
+    """K5 draws only where a draw can change the image: the same code with
+    every draw taken (every pair with a candidate row, every sample) gives
+    the same bits (and so the same winners to shade, at least one and at
+    most one per pixel and sample).  The gaussian scenes skip draws of both
+    kinds; Cauchy's 1e7 bound prunes only what is masked."""
+    cube = kind == "cube"
+    mesh, _cams, _lights, renderer = build(
+        noise, imsize=imsize, k=4 if cube else 50, s=s, mesh_kind=kind,
+        sigma=1e-2 if cube else 1e-3, gamma=5e-1 if cube else 1e-2)
+    jcfg, jin = jax_inputs(mesh, renderer)
+    cfg = port_config(jcfg)
+    tin = port_stream_inputs(jcfg, jin)
+    pruned = torch.zeros(5, dtype=torch.int64)
+    full = torch.zeros(5, dtype=torch.int64)
+    img = host_stream(host_lib, 0, cfg, tin, counts=pruned)[0]
+    assert torch.equal(host_stream(host_lib, 4, cfg, tin, counts=full)[0],
+                       img)
+    assert full[1] == full[0] > 0 and full[3] == full[2] > 0
+    assert torch.equal(pruned[0::2], full[0::2])
+    assert 0 < pruned[4] <= tin[0].shape[0] * imsize ** 2 * s
+    if noise == "gaussian":
+        assert pruned[1] < full[1] and pruned[3] < full[3]
+    else:
+        assert pruned[1] <= full[1] and pruned[3] <= full[3]
 
 
 def check_pipeline(host_lib, noise, kind, imsize, textures, s):
