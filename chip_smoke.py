@@ -16,7 +16,11 @@ line; any failure exits non-zero before a result is printed):
    plain PyTorch version on the card;
 3. K3 — the fused forward against its plain version, N=4 random poses.
    MC tolerance: mean |d| <= 1e-5 and >= 99.9% of pixels within 1e-4; the
-   deterministic softras pair at atol 2e-5;
+   deterministic softras pair at atol 2e-5; bit-equal to its per-pixel
+   reference (pixel_forward, every draw taken) and to its counting
+   launch, whose certain pixels and skipped draws it prints and whose
+   draws the bound counts; timed at N=4 and N=1; then gaussian at S=128
+   bit-equal to the reference;
 4. K4 — the fused backward against its plain version (torch autograd
    through the plain forward) for a seeded random cotangent, N=4, gaussian
    and softras.  Each gradient table, and each of the 34 scalar gradients
@@ -125,9 +129,12 @@ line; any failure exits non-zero before a result is printed):
    cube (256^2, K=50, N=4, GaussianRast + GaussianAgg sharding S_local=4
    samples per rank) on shard 1's seed words, each fed its plain
    upstream: K11a's coverage, K3's image and weights with external
-   coverage (MC image rule, per pixel over the rows), K11b's g_zmap and
-   gamma term (1e-3 of max), K11c's tables (1e-3 of max); repeats
-   bit-equal; K11c also timed at N=1, [train-sharded]'s shape;
+   coverage (MC image rule, per pixel over the rows; image and weights
+   bit-equal to the per-pixel reference), K11b's g_zmap and gamma term
+   (1e-3 of max), K11c's tables (1e-3 of max); repeats bit-equal; K3e's
+   and K11b's counting launches (certain pixels, draws skipped); K11b's
+   device time split (pixel kernel, reduction); K11a, K3e, K11b and K11c
+   also timed at N=1, [train-sharded]'s shape;
 23. sharded = folded / sharded-stream = folded — two gloo ranks spawned
    on the one card (NCCL refuses two ranks per device; every average
    stages through the host), each rendering through MeshRenderer.
@@ -212,6 +219,7 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # adjoints per candidate (slot, pixel); aggregation per live z_map row
 # (candidates and the background); noise only for the draws those rows use.
 OPS_GEOM = 121        # per real face and pixel: edges, distances, depth
+OPS_BOX = 4           # ... K3's grown bounding-box test before it
 OPS_CLIP = 9          # ... clipped barycentrics
 OPS_PERSP = 12        # ... perspective correction
 OPS_TEXEL = {"corner": 18, "atlas": 11}   # per candidate
@@ -741,11 +749,70 @@ def phase_k1(dev, smi, report):
           f"({b_by}) | {smi}", flush=True)
 
 
+def k3_ops(cfg, w, counts):
+    """Float32 operations that K3's image needs, on the ``work`` counts and
+    this run's counting launch (``counts``: fr.fused_forward_counts): the
+    grown-box test per real face at each pixel of an active tile and the
+    geometry only where the box holds the pixel (``near``); z_map and the
+    alpha factor per candidate; texel, shading and the weighted colour only
+    for the candidates with a non-zero weight (``weighted``; under the
+    argmax aggregations a pixel's winners); only the noise units that can
+    change the image (``cover_drawn`` / ``agg_drawn``, each counted as one
+    draw and one perturbed test); the softmax per live row; the background
+    per pixel."""
+    geom = OPS_GEOM + OPS_CLIP * cfg.clip_bary + (
+        OPS_PERSP * cfg.perspective_correct)
+    shade = OPS_TEXEL[cfg.tex_mode] + (
+        OPS_PHONG if cfg.shade == "phong" else 0)
+    draw = lambda noise: OPS_PAIR if noise == "gaussian" else OPS_CAUCHY
+    ops = (counts["pixels"] * cfg.f_real * OPS_BOX + counts["near"] * geom
+           + w["pixels"] * OPS_BG + w["cand"] * (OPS_ZMAP + OPS_ALPHA)
+           + counts["weighted"] * (shade + OPS_BLEND - OPS_ALPHA))
+    if cfg.rast_kind == "mc" and not cfg.prob_ext:
+        ops += counts["cover_drawn"] * (draw(cfg.rast_noise) + OPS_COVER)
+    elif not cfg.prob_ext:
+        ops += w["cand"] * OPS_SOFT_COVER
+    if cfg.agg_kind == "mc":
+        ops += counts["agg_drawn"] * (draw(cfg.agg_noise) + OPS_AGG)
+    elif cfg.agg_kind == "soft":
+        ops += w["live"] * OPS_SOFTMAX
+    return ops
+
+
+def k3_counts_text(counts):
+    """The counting launch's certain pixels and draws skipped, as text,
+    and the shares (certain, coverage skipped, aggregation skipped)."""
+    share = lambda a, b: a / b if b else 0.0
+    cert = share(counts["certain"], counts["pixels"])
+    skip = {k: 1.0 - share(counts[f"{k}_drawn"], counts[f"{k}_full"])
+            if counts[f"{k}_full"] else 0.0 for k in ("cover", "agg")}
+    text = (f"certain pixels {counts['certain']} of {counts['pixels']} in "
+            f"active tiles ({cert:.4f}); noise units (Box-Muller pairs) "
+            f"skipped: coverage {counts['cover_full'] - counts['cover_drawn']}"
+            f" of {counts['cover_full']} ({skip['cover']:.4f}), aggregation "
+            f"{counts['agg_full'] - counts['agg_drawn']} of "
+            f"{counts['agg_full']} ({skip['agg']:.4f})")
+    return text, dict(certain_pixels=cert, coverage=skip["cover"],
+                      aggregation=skip["agg"])
+
+
+def n1_ms(fn, ins, *rest):
+    """Mean ms of fn on the first batch element of ins (and of each tensor
+    of rest), two turns of 10 calls: the shape the pose steps launch."""
+    one = lambda t: t[:1].contiguous()
+    args = tuple(one(t) for t in ins) + tuple(one(t) for t in rest)
+    call = lambda: fn(*args)
+    call()
+    return (cuda_ms(call, 10) + cuda_ms(call, 10)) / 2
+
+
 def phase_k3(dev, smi, report):
     for noise in ("gaussian", "softras"):
         cfg, ins = headline_inputs(noise, dev)
         got = fr.fused_forward(cfg, *ins)
         want = fr.forward_plain(cfg, *ins)
+        ref = fr.fused_forward_reference(cfg, *ins)
+        counted, counts = fr.fused_forward_counts(cfg, *ins)
         torch.cuda.synchronize()
         if noise == "gaussian":
             ok, dmax, dmean, flips = mc_close(got, want)
@@ -755,21 +822,54 @@ def phase_k3(dev, smi, report):
             ok = bool(torch.isfinite(got).all()) and dmax <= 2e-5
         if not ok:
             fail(f"K3 {noise}: max {dmax} mean {dmean} flips {flips}")
+        # Softras's softmax sums the same rows in the same order, so every
+        # pair keeps the per-pixel pipeline's bits.
+        if not torch.equal(got, ref) or not torch.equal(counted, got):
+            fail(f"K3 {noise}: differs from the per-pixel pipeline "
+                 f"({(got - ref).abs().max().item()}) or the counting "
+                 f"launch")
         k_ms, p_ms = timed_pair(
             lambda: fr.fused_forward(cfg, *ins),
             lambda: fr.forward_plain(cfg, *ins), 20)
+        ref_ms = cuda_ms(lambda: fr.fused_forward_reference(cfg, *ins), 20)
+        ms1 = n1_ms(lambda *a: fr.fused_forward(cfg, *a), ins)
         w = work(cfg, ins)
         b_ms, b_by = bound(table_bytes(cfg, N_POSES) + 16 * w["pixels"],
-                           forward_ops(cfg, w))
+                           k3_ops(cfg, w, counts))
+        ctext, shares = k3_counts_text(counts)
         if noise == "gaussian":
             report["fused_forward"] = dict(max_abs_err=dmax, ms=k_ms,
                                            plain_ms=p_ms, bound_ms=b_ms,
-                                           bound_by=b_by)
+                                           bound_by=b_by, ms_n1=ms1,
+                                           reference_ms=ref_ms,
+                                           certain=shares)
         print(f"[K3] fused_forward {noise} 256^2 K=50 S=8 N=4 (f_pad "
               f"{cfg.f_pad}, c_zpad {cfg.c_zpad}): max |d| {dmax:.3g}, mean "
-              f"|d| {dmean:.3g}, pixels beyond 1e-4 {flips:.3g}; "
-              f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms per render, bound "
-              f"{b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+              f"|d| {dmean:.3g}, pixels beyond 1e-4 {flips:.3g}; bit-equal "
+              f"to the per-pixel pipeline ({ref_ms:.4f} ms) and the counting "
+              f"launch; {ctext}; {k_ms:.4f} ms vs plain {p_ms:.4f} ms per "
+              f"render, N=1 {ms1:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"geometry inside the grown boxes, the draws taken, the "
+              f"weighted candidates shaded) | {smi}", flush=True)
+    # Above 64 samples (the flat route takes any S).
+    renderer = headline_renderer("gaussian", dev, s=128)
+    mesh = posed_cube(torch.Generator().manual_seed(0), dev)
+    seeds = fr.draw_seeds(N_POSES, torch.Generator().manual_seed(1),
+                          device=dev)
+    cfg, ins = kernel_inputs(renderer, mesh, seeds)
+    got = fr.fused_forward(cfg, *ins)
+    ref = fr.fused_forward_reference(cfg, *ins)
+    ok, dmax, dmean, flips = mc_close(got, fr.forward_plain(cfg, *ins))
+    if not ok or not torch.equal(got, ref):
+        fail(f"K3 S=128: max {dmax} mean {dmean} flips {flips}, bit-equal "
+             f"to the per-pixel pipeline {torch.equal(got, ref)}")
+    ms = (cuda_ms(lambda: fr.fused_forward(cfg, *ins), 5)
+          + cuda_ms(lambda: fr.fused_forward(cfg, *ins), 5)) / 2
+    ref_ms = cuda_ms(lambda: fr.fused_forward_reference(cfg, *ins), 5)
+    print(f"[K3] fused_forward gaussian S=128 N=4: max |d| {dmax:.3g}, mean "
+          f"|d| {dmean:.3g} against plain; bit-equal to the per-pixel "
+          f"pipeline; {ms:.4f} ms vs the per-pixel pipeline {ref_ms:.4f} ms "
+          f"| {smi}", flush=True)
 
 
 def phase_k4(dev, smi, report):
@@ -3104,33 +3204,49 @@ def phase_k11(dev, smi, report):
     times = row("sharded_prob", dmax, k_ms, p_ms,
                 4 * n * (cfg.f_pad * 10 + 34 + 4) + prob_b,
                 w["faces"] * geom + cover_ops)
+    # N=1: the shape [train-sharded] launches K11a, K3e and K11b at.
+    ms1 = n1_ms(lambda *a: fr.fused_prob(cfg, *a), cover)
+    report["sharded_prob"]["ms_n1"] = ms1
     print(f"[K11a] sharded_prob 256^2 K=50 S_local={S_LOCAL} N=4, shard "
           f"{SHARD} (f_pad {cfg.f_pad}): max |d| {dmax:.3g}, mean |d| "
           f"{dmean:.3g}, pixels beyond 1e-4 {flips:.3g}, repeat bit-equal; "
-          f"{times} | {smi}", flush=True)
+          f"{times}; N=1 {ms1:.4f} ms | {smi}", flush=True)
 
     img, wts = fr.fused_forward(cfg, *ins, prob=want_prob)
     want_img, want_w = fr.forward_plain(cfg, *ins, want_prob)
     again = fr.fused_forward(cfg, *ins, prob=want_prob)
+    ref = fr.fused_forward_reference(cfg, *ins, prob=want_prob)
+    counted, counts = fr.fused_forward_counts(cfg, *ins, prob=want_prob)
     torch.cuda.synchronize()
     ok, dmax, dmean, flips = mc_close(img, want_img)
     ok_w, wmax, wmean, wflips = fields_close(wts, want_w)
     same = torch.equal(img, again[0]) and torch.equal(wts, again[1])
-    if not (ok and ok_w and same):
+    bits = all(torch.equal(a, b)
+               for a, b in zip((img, wts) * 2, ref + counted))
+    if not (ok and ok_w and same and bits):
         fail(f"K3e: image max {dmax} mean {dmean} flips {flips}; weights "
-             f"max {wmax} mean {wmean} flips {wflips}; repeat {same}")
+             f"max {wmax} mean {wmean} flips {wflips}; repeat {same}; "
+             f"bit-equal to the per-pixel pipeline and the counting launch "
+             f"{bits}")
     k_ms, p_ms = timed_pair(
         lambda: fr.fused_forward(cfg, *ins, prob=want_prob),
         lambda: fr.forward_plain(cfg, *ins, want_prob), 20)
+    ref_ms = cuda_ms(
+        lambda: fr.fused_forward_reference(cfg, *ins, prob=want_prob), 20)
+    ms1 = n1_ms(lambda *a: fr.fused_forward(cfg, *a[:8], prob=a[8]), ins,
+                want_prob)
     b_ms, b_by = bound(tabs + prob_b + 16 * px + zrows_b,
-                       forward_ops(cfg, w) - cover_ops)
+                       k3_ops(cfg, w, counts))
+    ctext, shares = k3_counts_text(counts)
     report["fused_forward"]["modes"] = {"prob_ext": dict(
         max_abs_err=max(dmax, wmax), ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by)}
+        bound_by=b_by, ms_n1=ms1, reference_ms=ref_ms, certain=shares)}
     print(f"[K3e] fused_forward with external coverage (the sharded "
           f"route's K3), 256^2 N=4: image max |d| {dmax:.3g} mean {dmean:.3g}"
           f", weights max |d| {wmax:.3g} mean {wmean:.3g}, repeat "
-          f"bit-equal; {k_ms:.4f} ms vs plain {p_ms:.4f} ms, bound "
+          f"bit-equal, image and weights bit-equal to the per-pixel "
+          f"pipeline ({ref_ms:.4f} ms) and the counting launch; {ctext}; "
+          f"{k_ms:.4f} ms vs plain {p_ms:.4f} ms, N=1 {ms1:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
 
     g_out = torch.randn(n, IMAGE, IMAGE, 4,
@@ -3144,6 +3260,9 @@ def phase_k11(dev, smi, report):
     same = torch.equal(gz, again[0]) and torch.equal(gg, again[1])
     if max(errs) > 1e-3 or not same:
         fail(f"K11b: g_zmap / gamma term {errs} of max, repeat {same}")
+    counted, counts = fr.agg_bwd_counts(cfg, *ins, want_prob, g_out)
+    if not all(torch.equal(a, b) for a, b in zip(counted, (gz, gg))):
+        fail("K11b: the counting launch differs")
     k_ms, p_ms = timed_pair(
         lambda: fr.fused_agg_bwd(cfg, *ins, want_prob, g_out),
         lambda: fr.agg_bwd_plain(cfg, *ins, want_prob, g_out), 5)
@@ -3151,9 +3270,18 @@ def phase_k11(dev, smi, report):
                 tabs + prob_b + 16 * px + zrows_b + 4 * n,
                 w["faces"] * geom + w["cand"] * (shade + OPS_ZMAP)
                 + agg_grad_ops)
+    ms1 = n1_ms(lambda *a: fr.fused_agg_bwd(cfg, *a), ins, want_prob, g_out)
+    cert = counts["certain"] / max(counts["pixels"], 1)
+    skip = 1.0 - counts["drawn"] / max(counts["full"], 1)
+    report["sharded_agg_bwd"].update(ms_n1=ms1, certain=dict(
+        certain_pixels=cert, aggregation=skip))
     print(f"[K11b] sharded_agg_bwd 256^2 N=4: g_zmap {errs[0]:.3g} and the "
-          f"gamma term {errs[1]:.3g} of max (tolerance 1e-3), repeat "
-          f"bit-equal; {times} | {smi}", flush=True)
+          f"gamma term {errs[1]:.3g} of max (tolerance 1e-3), repeat and "
+          f"counting launch bit-equal; certain pixels {counts['certain']} of "
+          f"{counts['pixels']} in active tiles ({cert:.4f}), replay noise "
+          f"units skipped {counts['full'] - counts['drawn']} of "
+          f"{counts['full']} ({skip:.4f}); {times}; N=1 {ms1:.4f} ms "
+          f"(its device split: kernel_splits k11b) | {smi}", flush=True)
 
     grads = fr.fused_det_bwd(cfg, *ins, want_prob, want_w, want_gz, g_out)
     want = fr.det_bwd_plain(cfg, *ins, want_prob, want_w, want_gz, g_out)
@@ -3589,11 +3717,15 @@ def main():
             "loss_grad": k12["launches_loss_grad"]},
             "modes": k12["modes"]} if kname == "fused_binned" else {})
         if kname == "fused_forward":
-            extra = {"modes": r["modes"]}
+            extra = {"modes": r["modes"], "ms_n1": r["ms_n1"],
+                     "reference_ms": r["reference_ms"],
+                     "certain": r["certain"]}
         if kname == "fused_stream_forward":
             extra = {"draws_skipped": r["draws_skipped"]}
-        if kname == "sharded_det_bwd":
+        if kname in ("sharded_prob", "sharded_det_bwd"):
             extra = {"ms_n1": r["ms_n1"]}
+        if kname == "sharded_agg_bwd":
+            extra = {"ms_n1": r["ms_n1"], "certain": r["certain"]}
         if kname == "scatter_rows_cm":
             extra = {"launches_by_path": k9b_paths, "prep_ms": r["prep_ms"],
                      "sum_ms": r["sum_ms"]}

@@ -30,8 +30,8 @@ SOURCES = ("prng_probe.cu", "fused_forward.cu", "fused_backward.cu",
            "stream_backward.cu", "stream_loss_grad.cu", "gather.cu",
            "interp_gather.cu", "perturbed.cu", "sharded.cu")
 HEADERS = ("hash_prng.cuh", "fused_common.cuh", "fused_grad.cuh", "warp.cuh",
-           "binned_warp.cuh", "stream_grad.cuh", "stream_warp.cuh",
-           "segment_sum.cuh")
+           "flat_warp.cuh", "binned_warp.cuh", "stream_grad.cuh",
+           "stream_warp.cuh", "segment_sum.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v")
@@ -118,15 +118,23 @@ def library() -> ctypes.CDLL:
         fn.argtypes = [ptr] * 8 + config + tiling + [ptr]
         fn.restype = i32
     # The sharded route (K3 with external coverage, K11a-c): their tensors,
-    # then the flat kernels' configuration and tiling.
+    # then the flat kernels' configuration and tiling.  K3's diagnostic
+    # entry takes both modes (prob null: drawn coverage), its counters and
+    # which diagnostic (1 counting, 2 the per-pixel reference); K11b's
+    # counting entry its counters.
     lib.pt_fused_forward_ext.argtypes = [ptr] * 10 + config + tiling + [ptr]
+    lib.pt_fused_forward_diag.argtypes = ([ptr] * 10 + config + tiling
+                                          + [ptr, i32, ptr])
     lib.pt_sharded_prob.argtypes = [ptr] * 5 + config + tiling + [ptr]
     lib.pt_sharded_agg_bwd.argtypes = ([ptr] * 11 + [i32, ptr] + config
                                        + tiling + [ptr])
+    lib.pt_sharded_agg_bwd_count.argtypes = ([ptr] * 11 + [i32, ptr]
+                                             + config + tiling + [ptr] * 2)
     lib.pt_sharded_det_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 6
                                        + config + tiling + [ptr])
-    for fn in (lib.pt_fused_forward_ext, lib.pt_sharded_prob,
-               lib.pt_sharded_agg_bwd, lib.pt_sharded_det_bwd):
+    for fn in (lib.pt_fused_forward_ext, lib.pt_fused_forward_diag,
+               lib.pt_sharded_prob, lib.pt_sharded_agg_bwd,
+               lib.pt_sharded_agg_bwd_count, lib.pt_sharded_det_bwd):
         fn.restype = i32
     grads = ([ptr] * 9 + [i32] + [ptr] * 6 + config
              + [i32, ctypes.c_float] + tiling + [ptr])

@@ -221,6 +221,38 @@ PT_HD void draw_noise(float (&nz)[MAXR], int rows, int noise, uint32_t s0,
   }
 }
 
+// A bound on |noise| for every hash word (hash_prng.cuh's table): a
+// perturbed comparison whose margin exceeds it has one outcome for every
+// draw.
+PT_HD float noise_bound(int noise) {
+  return noise == kGaussian ? ptt::kBoundGaussian : ptt::kBoundCauchy;
+}
+
+// The certainty rules of the MC estimators (K3: flat_warp.cuh; K11b:
+// pixel_agg_grads; the stream route's K5 and the staged K8a / K8b apply
+// the same bounds).  Coverage: with sb = fl(|sigma| B), fl(sigma n) lies
+// within +-sb for every draw and rounding is monotone, so a candidate with
+// -d > sb hits in every sample and one with d > sb in none
+// (cover_certain: +1, -1; 0 where a draw decides).
+PT_HD int cover_certain(float d, float sb) {
+  return -d > sb ? 1 : (d > sb ? -1 : 0);
+}
+
+// Aggregation: with gb = fl(|gamma| B), row r's perturbed value fl(z_r +
+// fl(gamma n)) lies in [fl(z_r - gb), fl(z_r + gb)], so every sample's max
+// is at least lim = max_r fl(z_r - gb) and a row with fl(z_r + gb) < lim
+// never reaches it.  The max is taken by a row that may reach it; where
+// only one row may, that row is every sample's only >=-max row.
+PT_HD float agg_lim(const float* zmap, int C, float gb) {
+  float lim = -INFINITY;
+  for (int r = 0; r < C; ++r) lim = fmaxf(lim, zmap[r] - gb);
+  return lim;
+}
+
+PT_HD bool agg_may_win(float z, float gb, float lim) {
+  return !(z + gb < lim);
+}
+
 // NDC center of row-major pixel `pix`.
 PT_HD void pixel_center(int image_size, int pix, float* px, float* py) {
   const float w = (float)image_size;
@@ -228,33 +260,122 @@ PT_HD void pixel_center(int image_size, int pix, float* px, float* py) {
   *py = (w - 1.0f - 2.0f * (float)(pix / image_size)) / w;
 }
 
-// det1's geometry of slot i at pixel (px, py): signed squared edge
-// distance, depth, candidacy (1 or 0) and the final barycentrics.
-PT_HD void face_geometry(const Params& p, const Tables& T, int i, float px,
-                         float py, bool live, float* d_out, float* z_out,
-                         float* m_out, float w_out[3]) {
-  const float* sc = T.sc;
+// det1's geometry in two steps: what does not depend on the pixel
+// (face_const: a face's corners, barycentric coefficients and edges, and
+// its bounding box grown by more than the blur band), then the values at a
+// pixel (face_geometry_at).  face_geometry takes the two in turn; K3's warp
+// pipeline (flat_warp.cuh) and K11b (pixel_agg_grads) keep one FaceConst
+// per slot in shared memory and run face_geometry_at only where face_near
+// holds: elsewhere the face is no candidate.
+//
+// Why the box drops no candidate.  A candidate is inside the face or
+// within d <= blur of it.  At a pixel outside the grown box the face lies
+// more than `band` away.  So d, whose rounding is some 1e-7 R (R the
+// coordinates' size), exceeds blur: band > 1.0625 sqrt(blur) + 1e-4 +
+// 1e-5 vmax.  And one exact barycentric is below -band / (2 diam), diam
+// the longest edge: were all three above -e, the pixel would lie within
+// 2 e diam of the face.  The computed barycentrics differ from the exact
+// ones by at most err: the area's relative rounding, 4 u P / |area| + 2 u
+// (u = 2^-24, P the sizes of its two products; large where the area
+// cancels, as for a thin face seen nearly edge-on), plus some 8 u, on
+// terms of size 4 M R (M the largest coefficient), twice in w2 = 1 - w0 -
+// w1; err below is twice that.  A face whose err can reach band / (2
+// diam) keeps an unbounded box: it is never culled.
+struct FaceConst {
+  float ax, ay, bx, by, cx, cy, az, bz, cz;
+  float e0x, e0y, k0, e1x, e1y, k1;
+  float ex[3], ey[3], exs[3], eys[3];
+  float x0, x1, y0, y1;
+  int degen;          // |area| < 1e-10: never inside
+  int ok;             // not degenerate, valid and not behind the camera
+};
+
+PT_HD void face_const(const Tables& T, int i, FaceConst& f) {
   const float* v = T.ndc + i * T.rs_geo;
-  const float ax = v[0], ay = v[1], az = v[2], bx = v[3], by = v[4],
-              bz = v[5], cx = v[6], cy = v[7], cz = v[8];
-  const float area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax);
+  f.ax = v[0];
+  f.ay = v[1];
+  f.az = v[2];
+  f.bx = v[3];
+  f.by = v[4];
+  f.bz = v[5];
+  f.cx = v[6];
+  f.cy = v[7];
+  f.cz = v[8];
+  const float p0 = (f.bx - f.ax) * (f.cy - f.ay);
+  const float p1 = (f.by - f.ay) * (f.cx - f.ax);
+  const float area = p0 - p1;
   const bool degen = fabsf(area) < 1e-10f;
   const float inv_area = 1.0f / (degen ? 1.0f : area);
-  const float e0x = (cy - by) * inv_area, e0y = (cx - bx) * inv_area;
-  float w0 = e0y * py - e0x * px + (e0x * bx - e0y * by);
-  const float e1x = (ay - cy) * inv_area, e1y = (ax - cx) * inv_area;
-  float w1 = e1y * py - e1x * px + (e1x * cx - e1y * cy);
+  f.e0x = (f.cy - f.by) * inv_area;
+  f.e0y = (f.cx - f.bx) * inv_area;
+  f.k0 = f.e0x * f.bx - f.e0y * f.by;
+  f.e1x = (f.ay - f.cy) * inv_area;
+  f.e1y = (f.ax - f.cx) * inv_area;
+  f.k1 = f.e1x * f.cx - f.e1y * f.cy;
+  const float sx[3] = {f.ax, f.bx, f.cx}, sy[3] = {f.ay, f.by, f.cy};
+  float vmax = 0.0f, len2 = 0.0f;
+  for (int e = 0; e < 3; ++e) {     // edges a -> b, b -> c, c -> a
+    f.ex[e] = sx[(e + 1) % 3] - sx[e];
+    f.ey[e] = sy[(e + 1) % 3] - sy[e];
+    const float l2 = f.ex[e] * f.ex[e] + f.ey[e] * f.ey[e];
+    const float inv_denom = 1.0f / fmaxf(l2, 1e-12f);
+    f.exs[e] = f.ex[e] * inv_denom;
+    f.eys[e] = f.ey[e] * inv_denom;
+    vmax = fmaxf(vmax, fmaxf(fabsf(sx[e]), fabsf(sy[e])));
+    len2 = fmaxf(len2, l2);
+  }
+  const bool validb =
+      T.key_valid ? T.valid[i * T.rs_valid] < 1e30f
+                  : T.valid[i] > 0.5f && fmaxf(fmaxf(f.az, f.bz), f.cz) > 0.0f;
+  f.degen = degen;
+  f.ok = !degen && validb;
+  const float band =
+      sqrtf(fmaxf(T.sc[kBlur], 0.0f)) * 1.0625f + 1e-4f + 1e-5f * vmax;
+  const float u = 5.9604645e-8f;
+  const float M = fmaxf(fmaxf(fabsf(f.e0x), fabsf(f.e0y)),
+                        fmaxf(fabsf(f.e1x), fabsf(f.e1y)));
+  const float err =
+      16.0f * u * M * fmaxf(vmax, 1.0f) *
+          (4.0f * (fabsf(p0) + fabsf(p1)) / (degen ? 1.0f : fabsf(area)) +
+           10.0f) +
+      4.0f * u;
+  const bool cull = err < band / (2.0f * sqrtf(len2));   // NaN: no cull
+  f.x0 = cull ? fminf(f.ax, fminf(f.bx, f.cx)) - band : -INFINITY;
+  f.x1 = cull ? fmaxf(f.ax, fmaxf(f.bx, f.cx)) + band : INFINITY;
+  f.y0 = cull ? fminf(f.ay, fminf(f.by, f.cy)) - band : -INFINITY;
+  f.y1 = cull ? fmaxf(f.ay, fmaxf(f.by, f.cy)) + band : INFINITY;
+}
+
+// Whether the face may be a candidate at pixel (px, py).
+PT_HD bool face_near(const FaceConst& f, float px, float py) {
+  return f.ok && px >= f.x0 && px <= f.x1 && py >= f.y0 && py <= f.y1;
+}
+
+// det1's geometry at pixel (px, py) from the face's FaceConst: signed
+// squared edge distance, depth, the candidacy (1 or 0) of a face with
+// f.ok and the final barycentrics.
+PT_HD void face_geometry_at(const Params& p, const FaceConst& f, float blur,
+                            float px, float py, float* d_out, float* z_out,
+                            float* m_out, float w_out[3]) {
+  float w0 = f.e0y * py - f.e0x * px + f.k0;
+  float w1 = f.e1y * py - f.e1x * px + f.k1;
   float w2 = 1.0f - w0 - w1;
-  const bool inside = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f && !degen;
-  const float d0 = edge_dist_sq(px, py, ax, ay, bx, by);
-  const float d1 = edge_dist_sq(px, py, bx, by, cx, cy);
-  const float d2 = edge_dist_sq(px, py, cx, cy, ax, ay);
-  const float min_d = fminf(d0, fminf(d1, d2));
+  const bool inside = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f && !f.degen;
+  const float sx[3] = {f.ax, f.bx, f.cx}, sy[3] = {f.ay, f.by, f.cy};
+  float dd[3];
+  for (int e = 0; e < 3; ++e) {
+    const float dx = px - sx[e], dy = py - sy[e];
+    const float t = fminf(fmaxf(dx * f.exs[e] + dy * f.eys[e], 0.0f), 1.0f);
+    const float rx = dx - t * f.ex[e];
+    const float ry = dy - t * f.ey[e];
+    dd[e] = rx * rx + ry * ry;
+  }
+  const float min_d = fminf(dd[0], fminf(dd[1], dd[2]));
   const float d = inside ? -min_d : min_d;
   if (p.persp) {
-    const float s0 = w0 / fmaxf(az, 1e-8f);
-    const float s1 = w1 / fmaxf(bz, 1e-8f);
-    const float s2 = w2 / fmaxf(cz, 1e-8f);
+    const float s0 = w0 / fmaxf(f.az, 1e-8f);
+    const float s1 = w1 / fmaxf(f.bz, 1e-8f);
+    const float s2 = w2 / fmaxf(f.cz, 1e-8f);
     const float den = fmaxf(s0 + s1 + s2, 1e-12f);
     w0 = s0 / den;
     w1 = s1 / den;
@@ -268,20 +389,26 @@ PT_HD void face_geometry(const Params& p, const Tables& T, int i, float px,
     w1 = c1 / den;
     w2 = c2 / den;
   }
-  const float z = w0 * az + w1 * bz + w2 * cz;
-  // Face validity plus the behind-camera cull (a stream key below 1e30
-  // already includes the cull).
-  const bool validb =
-      T.key_valid ? T.valid[i * T.rs_valid] < 1e30f
-                  : T.valid[i] > 0.5f && fmaxf(fmaxf(az, bz), cz) > 0.0f;
-  const bool cand = live && (inside || d <= sc[kBlur]) && !degen && validb &&
-                    z > 0.0f;
+  const float z = w0 * f.az + w1 * f.bz + w2 * f.cz;
   *d_out = d;
   *z_out = z;
-  *m_out = cand ? 1.0f : 0.0f;
+  *m_out = (inside || d <= blur) && z > 0.0f ? 1.0f : 0.0f;
   w_out[0] = w0;
   w_out[1] = w1;
   w_out[2] = w2;
+}
+
+// det1's geometry of slot i at pixel (px, py): signed squared edge
+// distance, depth, candidacy (1 or 0; live and f.ok: the face is valid,
+// not degenerate and not behind the camera, a stream key below 1e30
+// already including the cull) and the final barycentrics.
+PT_HD void face_geometry(const Params& p, const Tables& T, int i, float px,
+                         float py, bool live, float* d_out, float* z_out,
+                         float* m_out, float w_out[3]) {
+  FaceConst f;
+  face_const(T, i, f);
+  face_geometry_at(p, f, T.sc[kBlur], px, py, d_out, z_out, m_out, w_out);
+  if (!(live && f.ok)) *m_out = 0.0f;
 }
 
 // det1's texel select and Phong shading of slot i at final barycentrics

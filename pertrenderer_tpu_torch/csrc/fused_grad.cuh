@@ -839,39 +839,76 @@ PT_HD void pixel_grads(const Params& p, const Tables& T, int b, int pix,
 // K11b's pipeline of one pixel (the JAX _agg_bwd_kernel): the MC
 // aggregation's backward alone, on this shard's aggregation samples,
 // given the coverage mean prob_ext over the sample group and K4's output
-// cotangent g_out (extra).  det1 (colours, depths, candidacy), det2
-// (z_map from prob_ext), the blend's weight cotangent, then one replay of
+// cotangent g_out (extra).  det1's geometry (from the faces' FaceConst
+// fc, only of the slots whose grown box holds the pixel: the others are no
+// candidates there), det2 (z_map from prob_ext),
+// then, under variance reduction, the certainty rule (agg_may_win): a
+// pixel where only one row may reach a sample's max has that row, the
+// baseline's first max, as every sample's one-hot, so oh - w0 = 0 in
+// every row and sample, and g_zmap and the gamma term are +0, as the
+// replay would give them; it stops there (*certain).  Without variance
+// reduction dot = gw[winner] and the replay runs.  The other pixels shade
+// their candidates (the blend's weight cotangent) and run one replay of
 // the aggregation noise: g_zmap's C rows into gz and the pixel's gamma
 // term, returned.  A pixel of an inactive tile gives zeros (bg_only).
+// Phases of a -DPT_PROFILE build (lane 0): 0 det1's geometry, z_map and
+// the certainty test, 1 shading and the replay.
 template <int MAXF>
-PT_HD float pixel_agg_grads(const Params& p, const Tables& T, int b, int pix,
-                            float gz[MAXF + 8]) {
+PT_HD float pixel_agg_grads(const Params& p, const Tables& T,
+                            const FaceConst* fc, int b, int pix,
+                            float gz[MAXF + 8], bool* certain = nullptr) {
   constexpr int MAXC = MAXF + 8;
   const int F = p.f_pad, C = p.c_zpad;
   const size_t npix = (size_t)p.image_size * p.image_size;
   for (int r = 0; r < C; ++r) gz[r] = 0.0f;
   if (!pixel_active(p, b, pix)) return 0.0f;
+  PT_MARK(clk);
   float px, py;
   pixel_center(p.image_size, pix, &px, &py);
-  float dist[MAXF], zz[MAXF], mk[MAXF], col0[MAXF], col1[MAXF], col2[MAXF];
-  float prob[MAXF];
+  float zz[MAXF], mk[MAXF], prob[MAXF];
   for (int i = 0; i < F; ++i) {
-    float c3[3];
-    face_forward(p, T, i, px, py, true, &dist[i], &zz[i], &mk[i], c3);
-    col0[i] = c3[0];
-    col1[i] = c3[1];
-    col2[i] = c3[2];
+    float d, w3[3];
+    zz[i] = mk[i] = 0.0f;
+    if (face_near(fc[i], px, py))
+      face_geometry_at(p, fc[i], T.sc[kBlur], px, py, &d, &zz[i], &mk[i], w3);
     prob[i] = p.prob_ext[((size_t)b * F + i) * npix + pix];
   }
   float zinv[MAXF], zmap[MAXC], zmax_raw, gal;
   z_map_rows<MAXF, float>(p, T.sc, prob, zz, mk, zinv, &zmax_raw, &gal, zmap);
+  if (p.agg_vr) {
+    const float gb = fabsf(T.sc[kGamma]) * noise_bound(p.agg_noise);
+    const float lim = agg_lim(zmap, C, gb);
+    int may = 0;
+    for (int r = 0; r < C; ++r) may += agg_may_win(zmap[r], gb, lim) ? 1 : 0;
+    if (may == 1) {
+      if (certain != nullptr) *certain = true;
+      PT_PHASE_AT(0, clk, threadIdx.x & 31);
+      return 0.0f;
+    }
+  }
+  PT_PHASE_AT(0, clk, threadIdx.x & 31);
+  // The candidates' colours (a slot that is not one: colour 0, weight 0).
+  float col0[MAXF], col1[MAXF], col2[MAXF];
+  for (int i = 0; i < F; ++i) {
+    float c3[3] = {0.0f, 0.0f, 0.0f};
+    if (mk[i] != 0.0f) {
+      float d, z, m, w3[3];
+      face_geometry_at(p, fc[i], T.sc[kBlur], px, py, &d, &z, &m, w3);
+      face_shade(p, T, i, m, w3, c3);
+    }
+    col0[i] = c3[0];
+    col1[i] = c3[1];
+    col2[i] = c3[2];
+  }
   const float* go = p.extra + ((size_t)b * npix + pix) * 4;
   const float g_rgb[3] = {go[0], go[1], go[2]};
   float gw[MAXC], wts[MAXC];
   blend_cotangent<MAXF, float>(p, T.sc, col0, col1, col2, g_rgb, gw);
-  return mc_agg_replay<MAXC, float>(p, T.sc, b, (uint32_t)pix, zmap, gw,
-                                    first_max(zmap, C), false, true, wts,
-                                    gz);
+  const float term = mc_agg_replay<MAXC, float>(
+      p, T.sc, b, (uint32_t)pix, zmap, gw, first_max(zmap, C), false, true,
+      wts, gz);
+  PT_PHASE_AT(1, clk, threadIdx.x & 31);
+  return term;
 }
 
 // The thread's last step: scalar gradients and the loss into the sink.

@@ -27,12 +27,18 @@
 //
 // Bound on the H100: compute, as K3 / K4.  K11a draws S_rast * f_pad / 2
 // Box-Muller pairs per pixel and writes f_pad floats; K11b replays S_agg
-// aggregation draws over c_zpad rows and writes c_zpad floats; K11c draws
-// the coverage noise once more and runs the slot adjoints.  Each keeps a
+// aggregation draws over c_zpad rows and writes c_zpad floats, except
+// where (variance reduction) only one row can win a sample: there g_zmap
+// and the gamma term are 0 without shading or a draw, and a warp whose
+// pixels are all such leaves after det1's geometry (of the slots whose
+// grown box holds the pixel, from each face's FaceConst); K11c draws the
+// coverage noise once more and runs the slot adjoints.  Each keeps a
 // pixel's slot arrays in registers / local memory and the tables in
 // shared memory.  K11b's gamma term is summed per warp with a butterfly of
-// shuffles into one partial per warp, and a second kernel adds the
-// partials in warp order: no atomics, the same bits from run to run.
+// shuffles into one partial per warp, and a second kernel, a block per
+// image, adds the partials in a fixed order (each thread a strided share
+// of them in turn, then a halving tree): no atomics, the same bits from
+// run to run.
 //
 // Numerics: -fmad=false and no fast math, as K3 / K4, so every threshold
 // and sum rounds as the plain PyTorch versions' separate ops.
@@ -76,35 +82,75 @@ sharded_prob_kernel(const Params p) {
     p.prob_out[((size_t)b * F + i) * npix + pix] = prob[i];
 }
 
-template <int MAXF>
+template <int MAXF, bool COUNT>
 __global__ void __launch_bounds__(kThreads)
-sharded_agg_bwd_kernel(const Params p) {
+sharded_agg_bwd_kernel(const Params p, unsigned long long* counts) {
   extern __shared__ float smem[];
   constexpr int MAXC = MAXF + 8;
   const int b = blockIdx.y, C = p.c_zpad;
   const Tables T = load_tables(p, smem, b);
+  FaceConst* fc = (FaceConst*)(smem + table_floats(p));
+  for (int i = threadIdx.x; i < p.f_pad; i += blockDim.x)
+    face_const(T, i, fc[i]);
+  __syncthreads();
   const int npix = p.image_size * p.image_size;
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   float term = 0.0f;
+  bool certain = false;
   if (pix < npix) {
     float gz[MAXC];
-    term = pixel_agg_grads<MAXF>(p, T, b, pix, gz);
+    term = pixel_agg_grads<MAXF>(p, T, fc, b, pix, gz, &certain);
+    PT_MARK(clk);
     for (int r = 0; r < C; ++r)
       p.gz_out[((size_t)b * C + r) * npix + pix] = gz[r];
+    PT_PHASE_AT(2, clk, threadIdx.x & 31);
   }
+  PT_MARK(clk2);
   term = warp_sum(term);        // every lane of the warp takes part
   if ((threadIdx.x & 31) == 0)
     p.partial[(size_t)b * p.warps + blockIdx.x * kWarps +
               (threadIdx.x >> 5)] = term;
+  PT_PHASE_AT(3, clk2, threadIdx.x & 31);
+  if (COUNT) {
+    // Pixels of active tiles, those that took the certain exit, and the
+    // noise units (Box-Muller pairs; Cauchy draws) the replay draws there
+    // (full) and those drawn.
+    const bool act = pix < npix && pixel_active(p, b, pix);
+    const unsigned long long units =
+        (unsigned long long)p.s_agg *
+        (p.agg_noise == kGaussian ? C / 2 : C);
+    const unsigned long long v[4] = {act ? 1ull : 0ull,
+                                     certain ? 1ull : 0ull,
+                                     act ? units : 0ull,
+                                     act && !certain ? units : 0ull};
+    for (int k = 0; k < 4; ++k) {
+      unsigned long long t = v[k];
+      for (int o = 16; o > 0; o >>= 1)
+        t += __shfl_xor_sync(0xffffffffu, t, o);
+      if ((threadIdx.x & 31) == 0) atomicAdd(&counts[k], t);
+    }
+  }
 }
 
-// The gamma term of each image: its warps' partials added in order.
-__global__ void gamma_reduce_kernel(const Params p) {
-  const int b = blockIdx.x;
+// The gamma term of each image: a block per image adds its warps'
+// partials in a fixed order, each thread every kGammaThreads-th partial
+// in turn, then the threads' sums by a fixed halving tree.
+constexpr int kGammaThreads = 256;
+
+__global__ void __launch_bounds__(kGammaThreads)
+gamma_reduce_kernel(const Params p) {
+  __shared__ float part[kGammaThreads];
+  const int b = blockIdx.x, t = threadIdx.x;
   const float* src = p.partial + (size_t)b * p.warps;
   float s = 0.0f;
-  for (int w = 0; w < p.warps; ++w) s += src[w];
-  p.g_gamma[b] = s;
+  for (int w = t; w < p.warps; w += kGammaThreads) s += src[w];
+  part[t] = s;
+  __syncthreads();
+  for (int h = kGammaThreads / 2; h > 0; h >>= 1) {
+    if (t < h) part[t] += part[t + h];
+    __syncthreads();
+  }
+  if (t == 0) p.g_gamma[b] = part[0];
 }
 
 Params base_params(const void* fv_ndc, const void* fv_world, const void* fn,
@@ -131,18 +177,61 @@ cudaError_t launch_prob(const Params& p, int n, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int MAXF>
-cudaError_t launch_agg_bwd(const Params& p, int n, cudaStream_t st) {
+template <int MAXF, bool COUNT>
+cudaError_t launch_agg_bwd(const Params& p, int n, unsigned long long* counts,
+                           cudaStream_t st) {
   const int blocks = (p.image_size * p.image_size + kThreads - 1) / kThreads;
   if (p.warps != blocks * kWarps) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * table_floats(p);
-  cudaError_t e = allow_smem(sharded_agg_bwd_kernel<MAXF>, smem);
+  const size_t smem =
+      sizeof(float) * table_floats(p) + sizeof(FaceConst) * p.f_pad;
+  cudaError_t e = allow_smem(sharded_agg_bwd_kernel<MAXF, COUNT>, smem);
   if (e != cudaSuccess) return e;
-  sharded_agg_bwd_kernel<MAXF><<<dim3(blocks, n), kThreads, smem, st>>>(p);
+  sharded_agg_bwd_kernel<MAXF, COUNT>
+      <<<dim3(blocks, n), kThreads, smem, st>>>(p, counts);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  gamma_reduce_kernel<<<n, 1, 0, st>>>(p);
+  gamma_reduce_kernel<<<n, kGammaThreads, 0, st>>>(p);
   return cudaGetLastError();
+}
+
+// K11b at every slot bucket; counts null, or the COUNT instantiation's
+// counters.
+template <bool COUNT>
+int agg_bwd_bucket(const Params& p, int n, unsigned long long* counts,
+                   cudaStream_t st) {
+  const int f_pad = p.f_pad;
+  if (f_pad <= 16) return (int)launch_agg_bwd<16, COUNT>(p, n, counts, st);
+  if (f_pad <= 32) return (int)launch_agg_bwd<32, COUNT>(p, n, counts, st);
+  if (f_pad <= 64) return (int)launch_agg_bwd<64, COUNT>(p, n, counts, st);
+  if (f_pad <= 128) return (int)launch_agg_bwd<128, COUNT>(p, n, counts, st);
+  if (f_pad <= 256) return (int)launch_agg_bwd<256, COUNT>(p, n, counts, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int agg_bwd_entry(
+    const void* fv_ndc, const void* fv_world, const void* fn, const void* tex,
+    const void* valid, const void* scal, const void* seeds, const void* prob,
+    const void* g_out, void* g_zmap, void* partial, int warps, void* g_gamma,
+    int n, int image_size, int f_pad, int bg_row, int c_zpad, int tex_d,
+    int atlas_r, int rast_kind, int rast_noise, int rast_vr, int s_rast,
+    int agg_kind, int agg_noise, int agg_vr, int s_agg, int k, float eps_bg,
+    int phong, int point_light, int clip, int persp, const void* active,
+    int nt, int p_tile, int tile_w, void* counts, void* stream) {
+  Params p = base_params(fv_ndc, fv_world, fn, tex, valid, scal, seeds);
+  p.prob_ext = (const float*)prob;
+  p.extra = (const float*)g_out;
+  p.gz_out = (float*)g_zmap;
+  p.partial = (float*)partial;
+  p.warps = warps;
+  p.g_gamma = (float*)g_gamma;
+  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
+             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
+             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
+  set_tiling(p, active, nt, p_tile, tile_w);
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* c = (unsigned long long*)counts;
+  return c != nullptr ? agg_bwd_bucket<true>(p, n, c, st)
+                      : agg_bwd_bucket<false>(p, n, nullptr, st);
 }
 
 }  // namespace
@@ -175,6 +264,12 @@ extern "C" int pt_sharded_prob(
 // K11b: g_zmap (N, c_zpad, H * W) and the gamma term g_gamma (N,) of this
 // shard's aggregation samples; partial holds one float per warp (N,
 // warps), warps = 4 per 128-pixel block.
+#define PT_AGG_BWD_ARGS                                                    \
+  fv_ndc, fv_world, fn, tex, valid, scal, seeds, prob, g_out, g_zmap,      \
+      partial, warps, g_gamma, n, image_size, f_pad, bg_row, c_zpad, tex_d, \
+      atlas_r, rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise, \
+      agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp, active,   \
+      nt, p_tile, tile_w
 extern "C" int pt_sharded_agg_bwd(
     const void* fv_ndc, const void* fv_world, const void* fn, const void* tex,
     const void* valid, const void* scal, const void* seeds, const void* prob,
@@ -184,25 +279,24 @@ extern "C" int pt_sharded_agg_bwd(
     int agg_kind, int agg_noise, int agg_vr, int s_agg, int k, float eps_bg,
     int phong, int point_light, int clip, int persp, const void* active,
     int nt, int p_tile, int tile_w, void* stream) {
-  Params p = base_params(fv_ndc, fv_world, fn, tex, valid, scal, seeds);
-  p.prob_ext = (const float*)prob;
-  p.extra = (const float*)g_out;
-  p.gz_out = (float*)g_zmap;
-  p.partial = (float*)partial;
-  p.warps = warps;
-  p.g_gamma = (float*)g_gamma;
-  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
-             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
-             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
-  set_tiling(p, active, nt, p_tile, tile_w);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (f_pad <= 16) return (int)launch_agg_bwd<16>(p, n, st);
-  if (f_pad <= 32) return (int)launch_agg_bwd<32>(p, n, st);
-  if (f_pad <= 64) return (int)launch_agg_bwd<64>(p, n, st);
-  if (f_pad <= 128) return (int)launch_agg_bwd<128>(p, n, st);
-  if (f_pad <= 256) return (int)launch_agg_bwd<256>(p, n, st);
-  return (int)cudaErrorInvalidValue;
+  return agg_bwd_entry(PT_AGG_BWD_ARGS, nullptr, stream);
 }
+
+// K11b's counting launch, a diagnostic: as pt_sharded_agg_bwd, and each
+// warp's counts added to 4 zeroed int64 on the card (counts).
+extern "C" int pt_sharded_agg_bwd_count(
+    const void* fv_ndc, const void* fv_world, const void* fn, const void* tex,
+    const void* valid, const void* scal, const void* seeds, const void* prob,
+    const void* g_out, void* g_zmap, void* partial, int warps, void* g_gamma,
+    int n, int image_size, int f_pad, int bg_row, int c_zpad, int tex_d,
+    int atlas_r, int rast_kind, int rast_noise, int rast_vr, int s_rast,
+    int agg_kind, int agg_noise, int agg_vr, int s_agg, int k, float eps_bg,
+    int phong, int point_light, int clip, int persp, const void* active,
+    int nt, int p_tile, int tile_w, void* counts, void* stream) {
+  if (counts == nullptr) return (int)cudaErrorInvalidValue;
+  return agg_bwd_entry(PT_AGG_BWD_ARGS, counts, stream);
+}
+#undef PT_AGG_BWD_ARGS
 
 // K11c: the table and scalar gradients given the group's prob, weights and
 // g_zmap (each (N, rows, H * W)) and the output cotangent g_out (N, H, W,
@@ -244,3 +338,15 @@ extern "C" int pt_sharded_det_bwd(
   if (f_pad <= 256) return (int)launch_grads<256, false, true>(p, n, st);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifdef PT_PROFILE
+// The phase clocks of the sharded kernels' pixel pipelines (K11b:
+// pixel_agg_grads' det1 and replay, the g_zmap stores, the warp sum; K11c:
+// pixel_grads'), then zeroes them.
+extern "C" int pt_sharded_profile(void* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, pt_prof, sizeof(pt_prof));
+  if (e != cudaSuccess) return (int)e;
+  unsigned long long zero[16] = {};
+  return (int)cudaMemcpyToSymbol(pt_prof, zero, sizeof(zero));
+}
+#endif

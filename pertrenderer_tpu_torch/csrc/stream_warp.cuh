@@ -438,13 +438,6 @@ struct DrawCounts {
   unsigned long long cover_need, cover_drawn, agg_need, agg_drawn, winners;
 };
 
-// A bound on |noise| for every hash word (hash_prng.cuh's table): a
-// perturbed comparison whose margin exceeds it has one outcome for every
-// draw.
-PT_HD float noise_bound(int noise) {
-  return noise == kGaussian ? ptt::kBoundGaussian : ptt::kBoundCauchy;
-}
-
 enum FwdHead { kFAlpha = 0, kFM, kFDen, kFNum, kFSum = kFNum + 3,
                kFHead = kFSum + 3 };
 constexpr int kAggBatch = 4;   // samples whose draws are packed together

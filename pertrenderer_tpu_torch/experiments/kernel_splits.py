@@ -1,5 +1,5 @@
-"""Where K9b's, K12's, K8a-c's, K7's, K5's and K2's time goes on the card
-(a tuning tool).
+"""Where K9b's, K12's, K8a-c's, K7's, K5's, K2's, K3's and K11b's time goes
+on the card (a tuning tool).
 
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k9b
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k12
@@ -9,6 +9,9 @@
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k7
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k5
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k2
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k3
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k11b
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits sass
 
 ``k9b``: the row scatter at the cow's staged shapes (chip_smoke.py's
 [K9b]: 13.1 M columns into 20,480 rows, D = 9), the index preparation
@@ -17,13 +20,15 @@ being their difference.  It only calls ``gather.segments`` and
 ``gather.scatter_rows_cm``, so it also times an older checkout of the
 package: run it from that checkout's root with ``--root``.
 
-``k12``: K12's phase clocks.  The kernels are built a second time with
-``-DPT_PROFILE`` (csrc/binned_warp.cuh: lane 0's clock64 per phase,
-summed over the warps' pixels) and run on config 5 as chip_smoke.py's
-[K12] does (forward N=4, backward and loss-and-grad N=1, gaussian and
-softras), then the loss-and-grad at the pose step's sigma 6e-3 / gamma
-6e-2; each line gives the call's time (CUDA events, profiling build) and
-each phase's share of the clocks.
+``k12``: K12 on config 5 as chip_smoke.py's [K12] runs it (forward N=4,
+backward and loss-and-grad N=1, gaussian and softras), then the
+loss-and-grad at the pose step's sigma 6e-3 / gamma 6e-2, each call
+timed with CUDA events.  With ``--profile`` the kernels are built a
+second time with ``-DPT_PROFILE`` (csrc/binned_warp.cuh: lane 0's
+clock64 per phase, summed over the warps' pixels) and each line gives
+the call's time in that build and each phase's share of the clocks.
+
+``k11b`` also times K11a (``fused_prob``) at the same shapes.
 
 ``k8c``: K8c (``argmax_grads``) and K8b (``argmax_mean``) at the cow's staged shapes (chip_smoke.py's [K8c]: a (4,
 65536, 51) z_map, S = 8, gaussian), timed with CUDA events; with
@@ -64,7 +69,35 @@ memory allow.  With ``--profile`` (a build with ``-DPT_PROFILE``,
 csrc/fused_grad.cuh) the share of lane 0's clocks in the forward (det1,
 coverage, z_map, aggregation, blend), the adjoints and the sink.
 
-``k9b``, ``k8a``, ``k8b``, ``k8c``, ``k7``, ``k5`` and ``k2`` only call the
+``k3``: K3 (``fused_forward``) on the cube at 256^2 (chip_smoke.py's [K3]
+scene, gaussian, S = 8), in both modes: drawn coverage and external
+coverage (K3e: the sharded route's renderer, S_local 4, shard 1's seed
+words, the plain group coverage, as [K3e]), each at N=4 and N=1, timed
+with CUDA events (the call) and by torch.profiler (the kernel's device
+time), with the counting launch's certain pixels and draws
+where the package has ``fused_forward_counts``.  With ``--profile`` (a
+build with ``-DPT_PROFILE``, csrc/flat_warp.cuh) the share of lane 0's
+clocks in det1, the certainty tests and lists, the coverage draws, the
+aggregation draws and the blend; with ``--save PATH`` the images and
+weights, so two checkouts' runs can be compared bit for bit.
+
+``k11b``: K11b (``fused_agg_bwd``) at [K11b]'s shapes, N=4 and N=1, each
+call timed with CUDA events and its device time split by kernel
+(torch.profiler: the pixel kernel, the gamma term's reduction), with the
+counting launch's certain pixels where the package has
+``agg_bwd_counts``.  With ``--profile`` (csrc/fused_grad.cuh's
+``pixel_agg_grads``, csrc/sharded.cu) the share of lane 0's clocks in
+det1 (geometry, z_map, the certainty test), the shading and replay, the
+g_zmap stores and the warp sum.  ``--save`` as ``k3``.
+
+``sass``: each kernel of the checkout's library (``--root``), its
+machine code read back by ``cuobjdump -sass``: the instruction count and
+a digest of the instructions, the anonymous namespaces' hashes and the
+encodings left out, so two checkouts' kernels can be told the same or
+not without a timing (run it on each and compare the lines).
+
+``k9b``, ``k12``, ``k8a``, ``k8b``, ``k8c``, ``k7``, ``k5``, ``k2``,
+``k3`` and ``k11b`` only call the
 package's entry points and the checkout's chip_smoke.py, so they also
 time an older checkout of it: run this file by its path from that
 checkout's root with ``--root .`` (without ``--profile`` where that
@@ -130,25 +163,25 @@ def k9b(root: str) -> None:
           f"{ms - prep:.4f} ms | {_smi()}", flush=True)
 
 
-def k12() -> None:
-    from pertrenderer_tpu_torch import _build
-
-    _build.NVCC_FLAGS = _build.NVCC_FLAGS + ("-DPT_PROFILE",)
+def k12(root: str, profile: bool) -> None:
+    lib, read = _profiled(root, profile, "pt_binned_profile")
     import torch
 
     import chip_smoke as cs
     from pertrenderer_tpu_torch.ops import binned
 
     dev = torch.device("cuda", 0)
-    lib = _build.library()
-    lib.pt_binned_profile.argtypes = [ctypes.c_void_p]
-    lib.pt_binned_profile.restype = ctypes.c_int
     buf = (ctypes.c_ulonglong * 16)()
     smi = _smi()
 
     def run(tag, fn):
         fn()
         torch.cuda.synchronize()
+        if read is None:
+            ms = (_cuda_ms(fn, 3) + _cuda_ms(fn, 3)) / 2
+            print(f"[K12 split] {os.path.abspath(root)}: {tag}: {ms:.3f} "
+                  f"ms | {smi}", flush=True)
+            return
         lib.pt_binned_profile(ctypes.addressof(buf))      # reset
         ms = _cuda_ms(fn, 1)
         lib.pt_binned_profile(ctypes.addressof(buf))
@@ -211,6 +244,7 @@ def _profiled(root: str, profile: bool, entry: str):
 
     def read(names):
         fn(ctypes.addressof(buf))
+        read.raw = list(buf)
         clocks = [buf[i] for i in range(len(names))]
         total = sum(clocks) or 1
         return ", ".join(f"{n} {100.0 * c / total:.1f}%"
@@ -426,20 +460,172 @@ def k2(root: str, profile: bool) -> None:
                   "dead warps' exit")) + f" | {smi}", flush=True)
 
 
+def _k3_cases(cs, fr, torch, dev):
+    """{(mode, N): (call, its result's tensors)} of K3 at [K3]'s and
+    [K3e]'s shapes."""
+    cfg, ins = cs.headline_inputs("gaussian", dev)
+    rend = cs.sharded_renderer(dev)
+    mesh = cs.posed_cube(torch.Generator().manual_seed(0), dev)
+    base = fr.draw_seeds(cs.N_POSES, torch.Generator().manual_seed(1),
+                         device=dev)
+    ecfg, eins = cs.kernel_inputs(rend, mesh, base)
+    eins = (*eins[:6], fr.shard_seeds(ecfg, eins[6], cs.SHARD), eins[7])
+    prob = fr.prob_plain(ecfg, eins[0], eins[4], eins[5], eins[6], eins[7])
+    one = lambda ts: tuple(t[:1].contiguous() for t in ts)
+    out = {}
+    for n in (cs.N_POSES, 1):
+        a = ins if n > 1 else one(ins)
+        e = (eins, prob) if n > 1 else (one(eins), prob[:1].contiguous())
+        out[("drawn", n)] = (cfg, a, None)
+        out[("ext", n)] = (ecfg, e[0], e[1])
+    return out
+
+
+def k3(root: str, profile: bool, save: str = "") -> None:
+    lib, read = _profiled(root, profile, "pt_fused_forward_profile")
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import fused_render as fr
+
+    dev = torch.device("cuda", 0)
+    tag = " (profiling build)" if read else ""
+    smi = _smi()
+    lines = cs.ptxas_report(("fused_forward_kernel",)).get(
+        "fused_forward_kernel", ["?"])
+    print(f"[K3 split] {os.path.abspath(root)}: ptxas fused_forward_kernel: "
+          f"{' | '.join(sorted(set(lines)))}", flush=True)
+    saved = {}
+    for (mode, n), (cfg, ins, prob) in _k3_cases(cs, fr, torch,
+                                                 dev).items():
+        kw = {} if prob is None else {"prob": prob}
+        call = lambda: fr.fused_forward(cfg, *ins, **kw)
+        res = call()
+        saved[f"{mode}_N{n}"] = [t.cpu() for t in (
+            res if isinstance(res, tuple) else (res,))]
+        ms = (_cuda_ms(call, 10) + _cuda_ms(call, 10)) / 2
+        text = "; device: " + cs.kernel_split_text(cs.device_split(call, 10))
+        if hasattr(fr, "fused_forward_counts"):
+            c = fr.fused_forward_counts(cfg, *ins, **kw)[1]
+            text += (f"; certain pixels {c['certain']} of {c['pixels']}, "
+                    f"coverage units drawn {c['cover_drawn']} of "
+                    f"{c['cover_full']}, aggregation units drawn "
+                    f"{c['agg_drawn']} of {c['agg_full']}")
+        if read is not None:
+            read(())
+            call()
+            torch.cuda.synchronize()
+            text += "; clocks: " + read((
+                "det1", "certainty tests and lists", "coverage draws",
+                "aggregation draws", "blend"))
+            r = read.raw
+            if r[10]:
+                text += (f"; warps {r[10]}, with an active pixel {r[11]}: "
+                         f"clocks per warp {r[8] / r[10]:.0f} on average, "
+                         f"{r[12] / max(r[11], 1):.0f} per active warp, "
+                         f"{r[9]} at most")
+        print(f"[K3 split] {os.path.abspath(root)}: fused_forward {mode} "
+              f"coverage cube {cs.IMAGE}^2 N={n}: {ms:.4f} ms{tag}{text} | "
+              f"{smi}", flush=True)
+    if save:
+        torch.save(saved, save)
+
+
+def k11b(root: str, profile: bool, save: str = "") -> None:
+    lib, read = _profiled(root, profile, "pt_sharded_profile")
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import fused_render as fr
+
+    dev = torch.device("cuda", 0)
+    tag = " (profiling build)" if read else ""
+    smi = _smi()
+    saved = {}
+    g_out4 = torch.randn(cs.N_POSES, cs.IMAGE, cs.IMAGE, 4,
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    for (mode, n), (cfg, ins, prob) in _k3_cases(cs, fr, torch,
+                                                 dev).items():
+        if mode != "ext":
+            continue
+        g_out = g_out4[:n].contiguous()
+        call = lambda: fr.fused_agg_bwd(cfg, *ins, prob, g_out)
+        saved[f"N{n}"] = [t.cpu() for t in call()]
+        again = call()
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(again,
+                                                          saved[f"N{n}"]))
+        ms = (_cuda_ms(call, 10) + _cuda_ms(call, 10)) / 2
+        split = cs.kernel_split_text(cs.device_split(call, 10))
+        text = ""
+        if hasattr(fr, "agg_bwd_counts"):
+            c = fr.agg_bwd_counts(cfg, *ins, prob, g_out)[1]
+            text = (f"; certain pixels {c['certain']} of {c['pixels']}, "
+                    f"replay units drawn {c['drawn']} of {c['full']}")
+        if read is not None:
+            read(())
+            call()
+            torch.cuda.synchronize()
+            text += "; clocks: " + read((
+                "det1 and the certainty test", "shading and replay",
+                "g_zmap stores", "warp sum"))
+        print(f"[K11b split] {os.path.abspath(root)}: fused_agg_bwd cube "
+              f"{cs.IMAGE}^2 N={n}: {ms:.4f} ms{tag}, repeat bit-equal "
+              f"{same}; device: {split}{text} | {smi}", flush=True)
+        cover = (ins[0], ins[4], ins[5], ins[6], ins[7])
+        call = lambda: fr.fused_prob(cfg, *cover)
+        ms = (_cuda_ms(call, 10) + _cuda_ms(call, 10)) / 2
+        split = cs.kernel_split_text(cs.device_split(call, 10))
+        print(f"[K11a split] {os.path.abspath(root)}: fused_prob cube "
+              f"{cs.IMAGE}^2 N={n}: {ms:.4f} ms{tag}; device: {split} | "
+              f"{smi}", flush=True)
+    if save:
+        torch.save(saved, save)
+
+
+def sass(root: str) -> None:
+    import hashlib
+    import re
+
+    lib, _read = _profiled(root, False, "")
+    from pertrenderer_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                         text=True, check=True).stdout
+    anon = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+    kernels, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = anon.sub("", m.group(1))
+            kernels[name] = []
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            text = re.sub(r"/\*.*?\*/", "", line).strip()
+            kernels[name].append(anon.sub("", text))
+    for name in sorted(kernels):
+        body = "\n".join(kernels[name])
+        print(f"[sass] {os.path.abspath(root)}: {name} "
+              f"{len(kernels[name])} instructions, "
+              f"{hashlib.sha1(body.encode()).hexdigest()[:16]}", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("k9b", "k12", "k8c", "k8b", "k8a",
-                                     "k7", "k5", "k2"))
+                                     "k7", "k5", "k2", "k3", "k11b",
+                                     "sass"))
     ap.add_argument("--root", default=os.getcwd(),
                     help="checkout whose package and chip_smoke.py to use "
-                         "(k9b, k8a, k8b, k8c, k7, k5, k2)")
+                         "(k9b, k12, k8a, k8b, k8c, k7, k5, k2, k3, "
+                         "k11b, sass)")
     ap.add_argument("--save", default="",
-                    help="k5: save the images it rendered (a dict of CPU "
+                    help="k5, k3, k11b: save the results (a dict of CPU "
                          "tensors) to this path, to compare two checkouts' "
                          "bits")
     ap.add_argument("--profile", action="store_true",
-                    help="k8c, k7, k5, k2: build with -DPT_PROFILE and print "
-                         "the phases' shares of the clocks")
+                    help="k12, k8c, k7, k5, k2, k3, k11b: build with "
+                         "-DPT_PROFILE and print the phases' shares of the "
+                         "clocks")
     args = ap.parse_args(argv)
     if args.what == "k9b":
         k9b(args.root)
@@ -455,9 +641,14 @@ def main(argv=None) -> None:
         k5(args.root, args.profile, args.save)
     elif args.what == "k2":
         k2(args.root, args.profile)
+    elif args.what == "k3":
+        k3(args.root, args.profile, args.save)
+    elif args.what == "k11b":
+        k11b(args.root, args.profile, args.save)
+    elif args.what == "sass":
+        sass(args.root)
     else:
-        sys.path.insert(0, os.getcwd())
-        k12()
+        k12(args.root, args.profile)
 
 
 if __name__ == "__main__":

@@ -1549,6 +1549,25 @@ def _pixel_rows(cfg: FusedConfig, n: int, rows: int):
     return (n, rows, cfg.image_size * cfg.image_size)
 
 
+def _check_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                   seeds, active, prob, kernel: str = "fused_forward"):
+    """K3's input checks; returns the device."""
+    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
+                        active, kernel)
+    n = fv_ndc.shape[0]
+    if cfg.prob_ext:
+        _check_sharded(cfg, kernel)
+        if prob is None:
+            raise ValueError(f"{kernel}: the sharded route's K3 takes the "
+                             "sample group's coverage prob")
+        _check(kernel, fv_ndc, {
+            "prob": (prob, _pixel_rows(cfg, n, cfg.f_pad), torch.float32)})
+    elif prob is not None:
+        raise ValueError(f"{kernel}: prob is the sharded route's input "
+                         "(cfg.prob_ext)")
+    return dev
+
+
 def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
                   seeds, active, prob=None):
     """K3: the flat fused forward (replaces ``_forward_kernel`` of
@@ -1557,47 +1576,85 @@ def fused_forward(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     external coverage (``cfg.prob_ext``, the sharded route): ``prob`` (N,
     F_pad, H * W) is read in place of the drawn coverage, and the result
     is (RGBA, the weights (N, c_zpad, H * W))."""
-    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                        active)
-    n, s = fv_ndc.shape[0], cfg.image_size
-    if cfg.prob_ext:
-        _check_sharded(cfg, "fused_forward")
-        if prob is None:
-            raise ValueError("fused_forward: the sharded route's K3 takes "
-                             "the sample group's coverage prob")
-        _check("fused_forward", fv_ndc, {
-            "prob": (prob, _pixel_rows(cfg, n, cfg.f_pad), torch.float32)})
-    elif prob is not None:
-        raise ValueError("fused_forward: prob is the sharded route's input "
-                         "(cfg.prob_ext)")
+    ins = (fv_ndc, fv_world, fn, tex, valid, scal, seeds, active)
+    dev = _check_forward(cfg, *ins, prob)
     if dev.type == "cpu":
-        return forward_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                             seeds, active, prob)
+        return forward_plain(cfg, *ins, prob)
+    return _launch_forward(cfg, ins, prob)
+
+
+def fused_forward_counts(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid,
+                         scal, seeds, active, prob=None):
+    """K3's counting launch on the card, a diagnostic: (the result of
+    :func:`fused_forward`, whose bits it has, and a dict of the work it
+    did).  ``pixels``: pixels of active tiles; ``certain``: those that drew
+    no noise; ``cover_full`` / ``agg_full``: the noise units (Box-Muller
+    pairs; Cauchy draws) the per-pixel pipeline draws there (every unit of
+    the f_pad / c_zpad rows, every sample); ``cover_drawn`` /
+    ``agg_drawn``: those the kernel drew, only where a draw can change the
+    result; ``near``: the (slot, pixel) pairs whose geometry ran (the
+    face's grown box holds the pixel); ``weighted``: the candidates with a
+    non-zero weight, whose colour reaches the image."""
+    ins = (fv_ndc, fv_world, fn, tex, valid, scal, seeds, active)
+    dev = _check_forward(cfg, *ins, prob, "fused_forward_counts")
+    if dev.type == "cpu":
+        raise ValueError("fused_forward_counts: K3's counting launch runs on "
+                         "the card only")
+    counts = torch.zeros(8, dtype=torch.int64, device=dev)
+    out = _launch_forward(cfg, ins, prob, counts)
+    keys = ("pixels", "certain", "cover_full", "cover_drawn", "agg_full",
+            "agg_drawn", "near", "weighted")
+    return out, dict(zip(keys, counts.tolist()))
+
+
+def fused_forward_reference(cfg: FusedConfig, fv_ndc, fv_world, fn, tex,
+                            valid, scal, seeds, active, prob=None):
+    """K3's per-pixel reference on the card, a diagnostic: the pipeline
+    ``pixel_forward`` of csrc/fused_common.cuh, one thread per pixel with
+    every draw taken, whose bits :func:`fused_forward` keeps.  Result as
+    :func:`fused_forward`'s; it is not counted as a launch of K3."""
+    ins = (fv_ndc, fv_world, fn, tex, valid, scal, seeds, active)
+    dev = _check_forward(cfg, *ins, prob, "fused_forward_reference")
+    if dev.type == "cpu":
+        raise ValueError("fused_forward_reference: runs on the card only")
+    return _launch_forward(cfg, ins, prob, reference=True)
+
+
+def _launch_forward(cfg: FusedConfig, ins, prob, counts=None,
+                    reference=False):
+    """Launch K3 (``counts``: None, or 8 zeroed int64 on the card for the
+    counting launch; ``reference``: the per-pixel pipeline instead) and
+    return its result."""
     from pertrenderer_tpu_torch import _build
 
+    fv_ndc, active = ins[0], ins[7]
+    dev, n, s = fv_ndc.device, fv_ndc.shape[0], cfg.image_size
     lib = _build.library()
     out = torch.empty((n, s, s, 4), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tables = [t.data_ptr() for t in (fv_ndc, fv_world, fn, tex, valid, scal,
-                                     seeds, out)]
+    tables = [t.data_ptr() for t in ins[:7] + (out,)]
+    weights = None
     if cfg.prob_ext:
         weights = torch.empty(_pixel_rows(cfg, n, cfg.c_zpad),
                               dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.pt_fused_forward_ext(
-                *tables, prob.data_ptr(), weights.data_ptr(), n,
-                *_cfg_args(cfg), active.data_ptr(), *_tiling_args(cfg),
-                stream)
-        _build.check(err, "fused_forward (external coverage)")
-        launch_counts["fused_forward_ext"] += 1
-        return out, weights
+    tail = (n, *_cfg_args(cfg), active.data_ptr(), *_tiling_args(cfg))
     with torch.cuda.device(dev):
-        err = lib.pt_fused_forward(*tables, n, *_cfg_args(cfg),
-                                   active.data_ptr(), *_tiling_args(cfg),
-                                   stream)
-    _build.check(err, "fused_forward")
-    launch_counts["fused_forward"] += 1
-    return out
+        if reference or counts is not None:
+            err = lib.pt_fused_forward_diag(
+                *tables, None if prob is None else prob.data_ptr(),
+                None if weights is None else weights.data_ptr(), *tail,
+                None if counts is None else counts.data_ptr(),
+                2 if reference else 1, stream)
+        elif cfg.prob_ext:
+            err = lib.pt_fused_forward_ext(*tables, prob.data_ptr(),
+                                           weights.data_ptr(), *tail, stream)
+        else:
+            err = lib.pt_fused_forward(*tables, *tail, stream)
+    name = "fused_forward_ext" if cfg.prob_ext else "fused_forward"
+    _build.check(err, name)
+    if not reference:
+        launch_counts[name] += 1
+    return out if weights is None else (out, weights)
 
 
 def _launch_grads(kernel: str, cfg: FusedConfig, tables, active, extra,
@@ -1749,17 +1806,50 @@ def fused_agg_bwd(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
     :func:`agg_bwd_plain`; returns (g_zmap (N, c_zpad, H * W), the gamma
     term (N,)).  The kernel sums the gamma term per warp into ``partial``
-    and a second pass adds the warps in order."""
-    dev = _check_inputs(cfg, fv_ndc, fv_world, fn, tex, valid, scal, seeds,
-                        active, "sharded_agg_bwd")
-    _check_sharded(cfg, "sharded_agg_bwd")
-    _check_fields("sharded_agg_bwd", cfg, fv_ndc, {
-        "prob": (prob, cfg.f_pad), "g_out": (g_out, 4)})
+    and a second pass adds the warps in a fixed order."""
+    ins = (fv_ndc, fv_world, fn, tex, valid, scal, seeds, active, prob,
+           g_out)
+    dev = _check_agg_bwd(cfg, ins, "sharded_agg_bwd")
     if dev.type == "cpu":
-        return agg_bwd_plain(cfg, fv_ndc, fv_world, fn, tex, valid, scal,
-                             seeds, active, prob, g_out)
+        return agg_bwd_plain(cfg, *ins)
+    return _launch_agg_bwd(cfg, ins)
+
+
+def agg_bwd_counts(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
+                   seeds, active, prob, g_out):
+    """K11b's counting launch on the card, a diagnostic: (the result of
+    :func:`fused_agg_bwd`, whose bits it has, and a dict of the work it
+    did).  ``pixels``: pixels of active tiles; ``certain``: those that
+    took the certain exit (no shading, no draw); ``full`` / ``drawn``: the
+    replay's noise units (Box-Muller pairs; Cauchy draws) over those pixels
+    and over the pixels that replayed."""
+    ins = (fv_ndc, fv_world, fn, tex, valid, scal, seeds, active, prob,
+           g_out)
+    dev = _check_agg_bwd(cfg, ins, "agg_bwd_counts")
+    if dev.type == "cpu":
+        raise ValueError("agg_bwd_counts: K11b's counting launch runs on the "
+                         "card only")
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    out = _launch_agg_bwd(cfg, ins, counts)
+    return out, dict(zip(("pixels", "certain", "full", "drawn"),
+                         counts.tolist()))
+
+
+def _check_agg_bwd(cfg: FusedConfig, ins, kernel: str):
+    dev = _check_inputs(cfg, *ins[:8], kernel)
+    _check_sharded(cfg, kernel)
+    _check_fields(kernel, cfg, ins[0], {
+        "prob": (ins[8], cfg.f_pad), "g_out": (ins[9], 4)})
+    return dev
+
+
+def _launch_agg_bwd(cfg: FusedConfig, ins, counts=None):
+    """Launch K11b (``counts``: None, or 4 zeroed int64 on the card for the
+    counting launch) and return (g_zmap, the gamma term)."""
     from pertrenderer_tpu_torch import _build
 
+    fv_ndc, active = ins[0], ins[7]
+    dev = fv_ndc.device
     lib = _build.library()
     n, hw = fv_ndc.shape[0], cfg.image_size * cfg.image_size
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
@@ -1767,12 +1857,15 @@ def fused_agg_bwd(cfg: FusedConfig, fv_ndc, fv_world, fn, tex, valid, scal,
     g_zmap, partial, g_gamma = (new(*_pixel_rows(cfg, n, cfg.c_zpad)),
                                 new(n, warps), new(n))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.pt_sharded_agg_bwd(
-            *(t.data_ptr() for t in (fv_ndc, fv_world, fn, tex, valid, scal,
-                                     seeds, prob, g_out, g_zmap, partial)),
+    args = (*(t.data_ptr() for t in ins[:7] + ins[8:] + (g_zmap, partial)),
             warps, g_gamma.data_ptr(), n, *_cfg_args(cfg), active.data_ptr(),
-            *_tiling_args(cfg), stream)
+            *_tiling_args(cfg))
+    with torch.cuda.device(dev):
+        if counts is None:
+            err = lib.pt_sharded_agg_bwd(*args, stream)
+        else:
+            err = lib.pt_sharded_agg_bwd_count(*args, counts.data_ptr(),
+                                               stream)
     _build.check(err, "sharded_agg_bwd")
     launch_counts["sharded_agg_bwd"] += 1
     return g_zmap, g_gamma

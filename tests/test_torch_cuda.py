@@ -171,6 +171,16 @@ def test_fused_forward_kernel_matches_plain(noise, kw, cuda_device):
     assert tfr.launch_counts["fused_forward"] == before + 1
     assert_kernel_close(got, tfr.forward_plain(cfg, *inputs),
                         noise in MC_NOISES)
+    # The warp pipeline keeps the per-pixel pipeline's bits, counted or
+    # not.
+    assert torch.equal(got, tfr.fused_forward_reference(cfg, *inputs))
+    counted, counts = tfr.fused_forward_counts(cfg, *inputs)
+    assert torch.equal(counted, got)
+    assert 0 < counts["pixels"] and counts["certain"] <= counts["pixels"]
+    assert counts["cover_drawn"] <= counts["cover_full"]
+    assert counts["agg_drawn"] <= counts["agg_full"]
+    assert 0 < counts["near"] <= counts["pixels"] * cfg.f_real
+    assert counts["weighted"] <= counts["near"]
 
 
 @pytest.mark.cuda
@@ -969,6 +979,8 @@ def test_sharded_kernels_match_plain(imsize, shift, cuda_device):
     assert_fields_close(w, want_w)
     again = tfr.fused_forward(cfg, *ins, prob=want_prob)
     assert torch.equal(img, again[0]) and torch.equal(w, again[1])
+    ref = tfr.fused_forward_reference(cfg, *ins, prob=want_prob)
+    assert torch.equal(img, ref[0]) and torch.equal(w, ref[1])
 
     g_out = torch.randn(2, imsize, imsize, 4, generator=torch.Generator()
                         .manual_seed(1)).to(cuda_device)
@@ -979,6 +991,9 @@ def test_sharded_kernels_match_plain(imsize, shift, cuda_device):
         assert d <= 1e-3 * want_t.abs().max().item(), d
     assert torch.equal(gg, tfr.fused_agg_bwd(cfg, *ins, want_prob,
                                              g_out)[1])
+    counted, counts = tfr.agg_bwd_counts(cfg, *ins, want_prob, g_out)
+    assert torch.equal(counted[0], gz) and torch.equal(counted[1], gg)
+    assert 0 < counts["certain"] < counts["pixels"]
 
     grads = tfr.fused_det_bwd(cfg, *ins, want_prob, want_w, want_gz, g_out)
     assert_tables_close(grads, tfr.det_bwd_plain(cfg, *ins, want_prob,

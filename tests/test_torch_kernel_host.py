@@ -151,9 +151,11 @@ void sharded(Params& p, int n, int mode, float* out, float* out2) {
   const int F = p.f_pad, C = p.c_zpad, npix = p.image_size * p.image_size;
   const int width = F * (kGeo + p.tex_d) + kNS + 1;
   std::vector<float> buf(table_floats(p));
+  std::vector<FaceConst> fc(F);
   p.w_out = out2;
   for (int b = 0; b < n; ++b) {
     const Tables T = fill(p, buf, b, b);
+    for (int i = 0; i < F; ++i) face_const(T, i, fc[i]);
     if (mode == 3) {
       HostSink sink{out + (size_t)b * width};
       PixelAcc acc;
@@ -176,7 +178,7 @@ void sharded(Params& p, int n, int mode, float* out, float* out2) {
                                          out + ((size_t)b * npix + pix) * 4);
       } else {
         float gz[MAXF + 8];
-        out2[b] += pixel_agg_grads<MAXF>(p, T, b, pix, gz);
+        out2[b] += pixel_agg_grads<MAXF>(p, T, fc.data(), b, pix, gz);
         for (int r = 0; r < C; ++r)
           out[((size_t)b * C + r) * npix + pix] = gz[r];
       }
