@@ -81,8 +81,12 @@ line; any failure exits non-zero before a result is printed):
    normals), and on an edge case with -1 and out-of-range indices: K9a
    bit-exact, K10a within 1 ulp of max |out|, K9b / K10b within 1e-6 of
    the output's max of the nearer of the float32 and float64 plain
-   versions; repeated launches bit-equal; index_select (K9a) and
-   index_add_ (K9b) timed as the library calls; K9b's index preparation
+   versions; repeated launches bit-equal; K10b also bit-equal to the
+   plain mirror of its order (tile partials, then tile order), with its
+   tile counts (distinct faces per tile, partial rows against the filled
+   columns; its device split by kernel is kernel_splits k10b's);
+   index_select (K9a) and index_add_ (K9b) timed as the library calls;
+   K9b's index preparation
    checked against torch.sort(stable=True) / searchsorted and timed apart
    from its sum; ptxas's registers / stack of K9b's kernels;
 15. target — harness.init_target('cube', 256), the reference's K=1
@@ -128,9 +132,12 @@ line; any failure exits non-zero before a result is printed):
 22. K11a / K3e / K11b / K11c — the sample-sharded route's kernels on the
    cube (256^2, K=50, N=4, GaussianRast + GaussianAgg sharding S_local=4
    samples per rank) on shard 1's seed words, each fed its plain
-   upstream: K11a's coverage, K3's image and weights with external
-   coverage (MC image rule, per pixel over the rows; image and weights
-   bit-equal to the per-pixel reference), K11b's g_zmap and gamma term
+   upstream: K11a's coverage (MC image rule, and bit-equal to its
+   per-pixel reference and its counting launch at N=4 and N=1, gaussian
+   and cauchy; its bound recounted from the counting launch), K3's image
+   and weights with external coverage (MC image rule, per pixel over the
+   rows; image and weights bit-equal to the per-pixel reference), K11b's
+   g_zmap and gamma term
    (1e-3 of max), K11c's tables (1e-3 of max); repeats bit-equal; K3e's
    and K11b's counting launches (certain pixels, draws skipped); K11b's
    device time split (pixel kernel, reduction); K11a, K3e, K11b and K11c
@@ -315,6 +322,15 @@ def device_split(fn, reps):
     return out
 
 
+def kernel_name(name):
+    """A profiler kernel name without its namespace, return type, template
+    arguments and parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
 def kernel_split_text(split):
     """A device split's kernels in three groups: memsets, reductions (names
     with "reduce") and the rest."""
@@ -326,8 +342,7 @@ def kernel_split_text(split):
         g = ("memset" if "memset" in name.lower() else
              "reduction" if "reduce" in name else "main")
         groups[g] += ms
-        short = name.split("(")[0].split("<")[0].split("::")[-1].strip()
-        names[g].append(f"{short} {ms:.4f}")
+        names[g].append(f"{kernel_name(name)} {ms:.4f}")
     return ", ".join(f"{g} {groups[g]:.4f} ms ({'; '.join(names[g]) or '-'})"
                      for g in groups)
 
@@ -777,6 +792,24 @@ def k3_ops(cfg, w, counts):
     elif cfg.agg_kind == "soft":
         ops += w["live"] * OPS_SOFTMAX
     return ops
+
+
+def k11a_ops(cfg, counts):
+    """Float32 operations that K11a's coverage needs, on its counting
+    launch (fr.prob_counts): the grown-box test per real face at each pixel
+    of an active tile, the geometry only where the box holds the pixel
+    (``near``) and, under MC coverage, only the noise units drawn
+    (``cover_drawn``, each one draw and one perturbed test per row: two
+    rows a Box-Muller pair); otherwise one soft coverage per geometry
+    run."""
+    geom = OPS_GEOM + OPS_CLIP * cfg.clip_bary + (
+        OPS_PERSP * cfg.perspective_correct)
+    ops = counts["pixels"] * cfg.f_real * OPS_BOX + counts["near"] * geom
+    if cfg.rast_kind != "mc":
+        return ops + counts["near"] * OPS_SOFT_COVER
+    draw = OPS_PAIR + 2 * OPS_COVER if cfg.rast_noise == "gaussian" \
+        else OPS_CAUCHY + OPS_COVER
+    return ops + counts["cover_drawn"] * draw
 
 
 def k3_counts_text(counts):
@@ -1907,11 +1940,24 @@ def phase_k9_k10(dev, smi, report):
           flush=True)
 
     # K10b: a cotangent (6, P) back to the corner table and the weights.
+    # First its tile counts: the distinct faces of each tile of consecutive
+    # columns, and their partial rows against the filled columns.
+    rows = merged.shape[0]
+    for tile in (512, 1024, 2048, 4096):
+        tiles, _faces = ik.tile_partials(idx, rows, tile)
+        per = torch.bincount(tiles, minlength=-(-p // tile)).float()
+        print(f"[K10b] tiles of {tile} columns: {per.numel()} tiles, "
+              f"distinct faces per tile mean {per.mean().item():.1f}, max "
+              f"{int(per.max().item())}; {tiles.numel()} partial rows for "
+              f"{filled} filled columns ({tiles.numel() / filled:.4f})"
+              f"{' (the kernel tile)' if tile == ik.BWD_TILE else ''}",
+              flush=True)
     g6 = torch.randn(6, p, generator=gen).to(dev)
     worst = 0.0
     for ix in (idx, edge):
         got = ik.interp_rows_backward(merged, ix, *ws, g6)
         again = ik.interp_rows_backward(merged, ix, *ws, g6)
+        mirror = ik.interp_rows_backward_tiles_plain(merged, ix, *ws, g6)
         want = ik.interp_rows_backward_plain(merged, ix, *ws, g6)
         want64 = ik.interp_rows_backward_plain(
             merged.double(), ix, *(w.double() for w in ws), g6.double())
@@ -1920,10 +1966,14 @@ def phase_k9_k10(dev, smi, report):
             for a, b, c in zip(got[1], want[1], want64[1])]
         same = torch.equal(got[0], again[0]) and all(
             torch.equal(a, b) for a, b in zip(got[1], again[1]))
+        order = torch.equal(got[0], mirror[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], mirror[1]))
         worst = max(worst, *errs)
-        if max(errs) > 1e-6 or not same:
+        if max(errs) > 1e-6 or not same or not order:
             fail(f"K10b: errors {errs} (table, w0, w1, w2), repeat "
-                 f"bit-equal {same}")
+                 f"bit-equal {same}, bit-equal to the tile-order mirror "
+                 f"{order}")
+        del mirror, want, want64
     ms, plain_ms = timed_pair(
         lambda: ik.interp_rows_backward(merged, idx, *ws, g6),
         lambda: ik.interp_rows_backward_plain(merged, idx, *ws, g6), 5)
@@ -1935,9 +1985,11 @@ def phase_k9_k10(dev, smi, report):
     print(f"[K10b] interp_rows_backward cow staged (6, {p}) cotangent: table "
           f"and weight gradients within {worst:.3g} of their max (nearer "
           f"of the float32 / float64 plain versions), also with -1 / "
-          f"out-of-range indices, repeat bit-equal; {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}",
-          flush=True)
+          f"out-of-range indices, repeat bit-equal, bit-equal to the plain "
+          f"mirror of its order (tiles of {ik.BWD_TILE} columns, then tile "
+          f"order); {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}) (its device split by kernel: "
+          f"kernel_splits k10b) | {smi}", flush=True)
 
 
 def synced_ms(fn, reps=3):
@@ -3178,7 +3230,6 @@ def phase_k11(dev, smi, report):
     geom = OPS_GEOM + OPS_CLIP * cfg.clip_bary + (
         OPS_PERSP * cfg.perspective_correct)
     shade = OPS_TEXEL[cfg.tex_mode] + OPS_PHONG
-    cover_ops = cfg.s_rast * (w["rast_draw_ops"] + w["cand"] * OPS_COVER)
     agg_grad_ops = cfg.s_agg * (w["agg_draw_ops_grad"] + w["live"] * OPS_AGG
                                 + w["grad_rows"] * OPS_AGG_BWD)
     tabs = table_bytes(cfg, n)
@@ -3199,18 +3250,44 @@ def phase_k11(dev, smi, report):
     if not ok or not same:
         fail(f"K11a: max {dmax} mean {dmean} flips {flips}, repeat "
              f"bit-equal {same}")
+    # Bit for bit against the per-pixel reference (pixel_prob) and the
+    # counting launch: N=4 and N=1, gaussian and cauchy (whose band holds
+    # every candidate: it draws them all).
+    one = lambda ts: tuple(t[:1].contiguous() for t in ts)
+    counts = {}
+    for noise in ("gaussian", "cauchy"):
+        ncfg = dataclasses.replace(cfg, rast_noise=noise)
+        for nn, args in ((n, cover), (1, one(cover))):
+            got = fr.fused_prob(ncfg, *args)
+            ref = fr.prob_reference(ncfg, *args)
+            counted, c = fr.prob_counts(ncfg, *args)
+            if not (torch.equal(got, ref) and torch.equal(got, counted)):
+                fail(f"K11a {noise} N={nn}: not bit-equal to the per-pixel "
+                     f"reference ({(got - ref).abs().max().item()}) or the "
+                     f"counting launch")
+            counts[(noise, nn)] = c
+    c = counts[("gaussian", n)]
     k_ms, p_ms = timed_pair(lambda: fr.fused_prob(cfg, *cover),
                             lambda: fr.prob_plain(cfg, *cover), 20)
+    ref_ms = cuda_ms(lambda: fr.prob_reference(cfg, *cover), 20)
     times = row("sharded_prob", dmax, k_ms, p_ms,
-                4 * n * (cfg.f_pad * 10 + 34 + 4) + prob_b,
-                w["faces"] * geom + cover_ops)
+                4 * n * (cfg.f_pad * 10 + 34 + 4) + prob_b, k11a_ops(cfg, c))
     # N=1: the shape [train-sharded] launches K11a, K3e and K11b at.
     ms1 = n1_ms(lambda *a: fr.fused_prob(cfg, *a), cover)
-    report["sharded_prob"]["ms_n1"] = ms1
+    report["sharded_prob"].update(ms_n1=ms1, reference_ms=ref_ms)
+    skip = 1.0 - c["cover_drawn"] / max(c["cover_full"], 1)
+    cc = counts[("cauchy", n)]
     print(f"[K11a] sharded_prob 256^2 K=50 S_local={S_LOCAL} N=4, shard "
           f"{SHARD} (f_pad {cfg.f_pad}): max |d| {dmax:.3g}, mean |d| "
           f"{dmean:.3g}, pixels beyond 1e-4 {flips:.3g}, repeat bit-equal; "
-          f"{times}; N=1 {ms1:.4f} ms | {smi}", flush=True)
+          f"bit-equal to the per-pixel reference ({ref_ms:.4f} ms) and the "
+          f"counting launch at N=4 and N=1, gaussian and cauchy; gaussian: "
+          f"geometry at {c['near']} of {c['pixels'] * cfg.f_real} (face, "
+          f"pixel) pairs, certain pixels {c['certain']} of {c['pixels']}, "
+          f"coverage units drawn {c['cover_drawn']} of {c['cover_full']} "
+          f"(skipped {skip:.4f}); cauchy drew {cc['cover_drawn']} of "
+          f"{cc['cover_full']}; {times} (recounted: box tests, geometry in "
+          f"the boxes, draws taken); N=1 {ms1:.4f} ms | {smi}", flush=True)
 
     img, wts = fr.fused_forward(cfg, *ins, prob=want_prob)
     want_img, want_w = fr.forward_plain(cfg, *ins, want_prob)

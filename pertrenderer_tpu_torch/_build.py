@@ -120,12 +120,14 @@ def library() -> ctypes.CDLL:
     # The sharded route (K3 with external coverage, K11a-c): their tensors,
     # then the flat kernels' configuration and tiling.  K3's diagnostic
     # entry takes both modes (prob null: drawn coverage), its counters and
-    # which diagnostic (1 counting, 2 the per-pixel reference); K11b's
-    # counting entry its counters.
+    # which diagnostic (1 counting, 2 the per-pixel reference), as does
+    # K11a's; K11b's counting entry its counters.
     lib.pt_fused_forward_ext.argtypes = [ptr] * 10 + config + tiling + [ptr]
     lib.pt_fused_forward_diag.argtypes = ([ptr] * 10 + config + tiling
                                           + [ptr, i32, ptr])
     lib.pt_sharded_prob.argtypes = [ptr] * 5 + config + tiling + [ptr]
+    lib.pt_sharded_prob_diag.argtypes = ([ptr] * 5 + config + tiling
+                                         + [ptr, i32, ptr])
     lib.pt_sharded_agg_bwd.argtypes = ([ptr] * 11 + [i32, ptr] + config
                                        + tiling + [ptr])
     lib.pt_sharded_agg_bwd_count.argtypes = ([ptr] * 11 + [i32, ptr]
@@ -133,7 +135,8 @@ def library() -> ctypes.CDLL:
     lib.pt_sharded_det_bwd.argtypes = ([ptr] * 12 + [i32] + [ptr] * 6
                                        + config + tiling + [ptr])
     for fn in (lib.pt_fused_forward_ext, lib.pt_fused_forward_diag,
-               lib.pt_sharded_prob, lib.pt_sharded_agg_bwd,
+               lib.pt_sharded_prob, lib.pt_sharded_prob_diag,
+               lib.pt_sharded_agg_bwd,
                lib.pt_sharded_agg_bwd_count, lib.pt_sharded_det_bwd):
         fn.restype = i32
     grads = ([ptr] * 9 + [i32] + [ptr] * 6 + config
@@ -165,19 +168,16 @@ def library() -> ctypes.CDLL:
     # column count P (64-bit), the row count F and the width D.
     i64 = ctypes.c_longlong
     lib.pt_gather_rows.argtypes = [ptr] * 3 + [i64, i32, i32, ptr]
-    # The segment sums (K9b, K10b's tables): the index preparation's
+    # The segment sums (K9b): the index preparation's
     # idx, P, F and workspace; the sums' tensors, P, F, D and the chunk
     # count.
     lib.pt_segment_prep.argtypes = [ptr, i64, i32] + [ptr] * 11
     lib.pt_scatter_rows.argtypes = [ptr] * 7 + [i64, i32, i32, i64, ptr]
     lib.pt_interp_rows.argtypes = [ptr] * 6 + [i64, i32, i32, ptr]
-    lib.pt_interp_rows_bwd_tables.argtypes = [ptr] * 10 + [i64, i32, i32,
-                                                           i64, ptr]
-    lib.pt_interp_rows_bwd_weights.argtypes = [ptr] * 4 + [i64, i32, i32,
-                                                           ptr]
+    # K10b: its tensors and workspace, P, F, D and the column tile.
+    lib.pt_interp_rows_bwd.argtypes = [ptr] * 16 + [i64, i32, i32, i32, ptr]
     for fn in (lib.pt_gather_rows, lib.pt_segment_prep, lib.pt_scatter_rows,
-               lib.pt_interp_rows, lib.pt_interp_rows_bwd_tables,
-               lib.pt_interp_rows_bwd_weights):
+               lib.pt_interp_rows, lib.pt_interp_rows_bwd):
         fn.restype = i32
     # The staged estimators (ops/perturbed_kernels.py): pointers, then the
     # shape (N or the element count, P, C) and the sampling configuration.

@@ -72,8 +72,10 @@ class PerspectiveCameras:
         return matmul3(points, self.R) + self.T[:, None, :]
 
     def project_view_to_ndc(self, points_view: torch.Tensor) -> torch.Tensor:
-        """View -> (x_ndc, y_ndc, z_view); focal s = 1 / tan(fov / 2)."""
-        s = 1.0 / torch.tan(0.5 * torch.deg2rad(self.fov))
+        """View -> (x_ndc, y_ndc, z_view); focal s = 1 / tan(fov / 2), the
+        tangent correctly rounded (float32 library tangents miss it in the
+        last place for a few percent of angles, and differ by device)."""
+        s = 1.0 / _rounded(torch.tan, 0.5 * torch.deg2rad(self.fov))
         z = points_view[..., 2]
         tiny = torch.where(z < 0, torch.full_like(z, -1e-8),
                            torch.full_like(z, 1e-8))

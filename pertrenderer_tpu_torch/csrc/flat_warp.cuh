@@ -71,6 +71,15 @@ PT_HOST_HD constexpr int kUnits() {
   return (MAXF / 2 + kGroup<MAXF>() - 1) / kGroup<MAXF>();
 }
 
+// Warps per block of K3 and K11a, and the block's pixels: kGroup lanes a
+// pixel.
+constexpr int kFlatWarps = 8;
+
+template <int MAXF>
+PT_HOST_HD constexpr int block_pixels() {
+  return kFlatWarps * (32 / kGroup<MAXF>());
+}
+
 // Entries of a warp's list: coverage entries (a lane's at most 2 kUnits)
 // and the uncertain pixels' aggregation rows (each of the warp's pixels
 // at most MAXF + 8).
@@ -594,6 +603,69 @@ PT_HD void warp_flat_forward(const Params& p, const Tables& T,
   out[2] = rgb2 + wb * sc[kBg + 2];
   out[3] = 1.0f - ap;
   PT_PHASE(4, clk);
+}
+
+
+// K11a at row-major pixel `pix` of batch element b, lane g of the pixel's
+// group (live: the pixel is in the image; every lane of the warp calls
+// it): this shard's coverage of the lane's slots into prob[j], the slot
+// g + (j % kUnits) kGroup + (j / kUnits) f_pad / 2 where that is below
+// f_pad, with pixel_prob's bits (fused_common.cuh): det1's geometry only
+// where the slot's grown box holds the pixel (FaceConst), the MC coverage
+// drawn only in the band, its draws packed across the warp
+// (flat_coverage), the soft / affine / hard coverage per slot (det_prob);
+// 0 on an inactive tile.  Phases of a -DPT_PROFILE build: 0 det1, 1 the
+// certainty tests and the list, 2 the coverage draws.
+template <int MAXF, class Wp>
+PT_HD void warp_flat_prob(const Params& p, const FaceConst* fc,
+                          const float* sc, int b, int pix, bool live, Wp& w,
+                          const FlatScratch& S, FlatCounts& dc,
+                          float prob[2 * kUnits<MAXF>()]) {
+  constexpr int G = kGroup<MAXF>(), KU = kUnits<MAXF>();
+  const int U = p.f_pad / 2;
+  const int g = w.lane % G, q = w.lane / G;
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (q * G);
+  const bool act = live && pixel_active(p, b, pix);
+  PT_MARK(clk);
+  float mk[2 * KU];
+  bool cand = false;
+  float px = 0.0f, py = 0.0f;
+  if (act) pixel_center(p.image_size, pix, &px, &py);
+  for (int j = 0; j < 2 * KU; ++j) {
+    mk[j] = 0.0f;
+    prob[j] = INFINITY;             // soft / affine / hard coverage: 0
+    const int i = g + (j % KU) * G + (j / KU) * U;
+    if (!act || g + (j % KU) * G >= U || !face_near(fc[i], px, py))
+      continue;
+    dc.near += 1;
+    float z, w3[3];
+    face_geometry_at(p, fc[i], sc[kBlur], px, py, &prob[j], &z, &mk[j], w3);
+    cand = cand || mk[j] != 0.0f;
+  }
+  PT_PHASE(0, clk);
+  bool drew = false;
+  if (p.rast_kind == kRastMC) {
+    if (act && g == 0)
+      dc.cover_full += (unsigned long long)p.s_rast *
+                       (p.rast_noise == kGaussian ? U : p.f_pad);
+    if (w.ballot(cand)) {
+      drew = flat_coverage<MAXF>(p, sc[kSigma], b, (uint32_t)pix, act, g, w,
+                                 S, prob, mk, dc PT_CLK_ARG);
+    } else {                        // no candidate: every prob is 0
+      for (int j = 0; j < 2 * KU; ++j) prob[j] = 0.0f * mk[j];
+    }
+  } else {
+    for (int j = 0; j < 2 * KU; ++j)
+      prob[j] = det_prob(p, sc[kSigma], prob[j], mk[j]);
+  }
+  if (!act)
+    for (int j = 0; j < 2 * KU; ++j) prob[j] = 0.0f;
+  const bool gdrew = (w.ballot(drew) & gmask) != 0;
+  if (act && g == 0) {
+    dc.pixels += 1;
+    dc.certain += gdrew ? 0 : 1;
+  }
 }
 
 }  // namespace ptf

@@ -62,14 +62,6 @@ __host__ __device__ inline size_t tables_words(const Params& p) {
   return (table_floats(p) + 3) & ~(size_t)3;
 }
 
-// Warps per block, and the block's pixels: kGroup lanes a pixel.
-constexpr int kFlatWarps = 8;
-
-template <int MAXF>
-__host__ __device__ constexpr int block_pixels() {
-  return kFlatWarps * (32 / kGroup<MAXF>());
-}
-
 template <int MAXF>
 size_t forward_smem(const Params& p) {
   return sizeof(float) * tables_words(p) + sizeof(FaceConst) * p.f_pad +

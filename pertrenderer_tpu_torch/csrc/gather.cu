@@ -57,7 +57,7 @@ extern "C" int pt_gather_rows(const void* table, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-// The index preparation of K9b and K10b (segment_sum.cuh `prepare`).
+// The index preparation of K9b (segment_sum.cuh `prepare`).
 extern "C" int pt_segment_prep(const void* idx, long long p, int f,
                                void* status, void* counts, void* tcount,
                                void* keys_a, void* pos_a, void* keys_b,

@@ -1,6 +1,7 @@
 // Deterministic segment sums: the index preparation and the reduction
-// shared by K9b (csrc/gather.cu) and K10b's table gradient
-// (csrc/interp_gather.cu).
+// of K9b (csrc/gather.cu).  The weighted form was K10b's table gradient
+// until K10b's tile pass (csrc/interp_gather.cu) replaced it; it stays so
+// that K9b's kernels keep their arguments and machine code.
 //
 // out[r, v, j] = sum over the columns p with idx[p] = r of
 // g[j, p] (* w_v[p] when weighted), for rows r < rows, channels j < d and

@@ -1,4 +1,5 @@
-// The sample-sharded route's kernels, K11a-c, one thread per pixel.
+// The sample-sharded route's kernels: K11a (a lane group per pixel, as
+// K3), K11b and K11c (a thread per pixel).
 //
 // Under sample-axis sharding each rank of a sample group draws its own
 // slice [d * S, (d + 1) * S) of one sample sequence (the wrappers offset
@@ -25,8 +26,18 @@
 // tex_d) and the 34 scalar gradients go through K4's warp partials and
 // fixed-order reduction.
 //
-// Bound on the H100: compute, as K3 / K4.  K11a draws S_rast * f_pad / 2
-// Box-Muller pairs per pixel and writes f_pad floats; K11b replays S_agg
+// Bound on the H100: compute, as K3 / K4, except K11a.  K11a runs K3's
+// pipeline up to the coverage (flat_warp.cuh's warp_flat_prob): a group of
+// kGroup lanes per pixel, 8 warps a block, geometry only where a face's
+// grown box (FaceConst, computed once a block) holds the pixel, and a
+// candidate's S_rast samples drawn only where |d| <= fl(|sigma| B)
+// (cover_certain), those draws packed across the warp; it writes f_pad
+// floats per pixel, staged per block in shared memory and written a
+// slot's row of consecutive pixels at a time (128 bytes with 16 slots).
+// Its per-pixel reference (pixel_prob, every draw taken) stays as a
+// diagnostic entry whose bits the warp pipeline keeps; its bound counts
+// the box tests, the geometry in the boxes and the draws taken (the
+// counting launch) against the dense write.  K11b replays S_agg
 // aggregation draws over c_zpad rows and writes c_zpad floats, except
 // where (variance reduction) only one row can win a sample: there g_zmap
 // and the gamma term are 0 without shading or a draw, and a warp whose
@@ -44,18 +55,116 @@
 // and sum rounds as the plain PyTorch versions' separate ops.
 #include <cuda_runtime.h>
 
+#include "flat_warp.cuh"
 #include "fused_grad.cuh"
 
 namespace {
 
 using namespace ptf;
+using ptw::CardWarp;
+
+// K11a's shared memory: the NDC corners, validity and scalars (rounded to
+// 4 floats), the faces' FaceConst, each warp's scratch, then the block's
+// output, f_pad rows of block_pixels floats (one padding float a row).
+__host__ __device__ inline size_t prob_tables_words(const Params& p) {
+  return ((size_t)p.f_pad * 10 + kNS + 3) & ~(size_t)3;
+}
 
 template <int MAXF>
+__host__ __device__ constexpr int prob_row() {
+  return block_pixels<MAXF>() + 1;
+}
+
+template <int MAXF>
+size_t prob_smem(const Params& p) {
+  return sizeof(float) * prob_tables_words(p) + sizeof(FaceConst) * p.f_pad +
+         sizeof(int) * kFlatWarps * flat_scratch_words<MAXF>() +
+         sizeof(float) * p.f_pad * prob_row<MAXF>();
+}
+
+// K11a: warp_flat_prob (flat_warp.cuh) for the block's block_pixels
+// consecutive pixels, kGroup lanes a pixel; the block's (f_pad, pixels)
+// output is staged in shared memory and written a slot's row of
+// consecutive pixels at a time.  A block whose pixels all lie in inactive
+// tiles writes zeros without its tables.
+template <int MAXF, bool COUNT>
+__global__ void __launch_bounds__(kFlatWarps * 32)
+sharded_prob_kernel(const Params p, unsigned long long* counts) {
+  extern __shared__ float smem[];
+  constexpr int G = kGroup<MAXF>(), KU = kUnits<MAXF>();
+  constexpr int BP = block_pixels<MAXF>(), RW = prob_row<MAXF>();
+  const int b = blockIdx.y, F = p.f_pad, U = F / 2, lane = threadIdx.x & 31;
+  const int npix = p.image_size * p.image_size;
+  const int pix0 = blockIdx.x * BP;
+  const int at = (threadIdx.x >> 5) * (32 / G) + lane / G;
+  const int pix = pix0 + at;
+  const bool live = pix < npix;
+  const int width = min(BP, npix - pix0);
+  float* out = p.prob_out + (size_t)b * F * npix + pix0;
+  if (!__syncthreads_or(live && pixel_active(p, b, pix))) {
+    for (int k = threadIdx.x; k < F * BP; k += blockDim.x)
+      if (k % BP < width) out[(size_t)(k / BP) * npix + k % BP] = 0.0f;
+    return;
+  }
+  // Only the NDC corners, validity and scalars: K11a takes no colour.
+  float* s_ndc = smem;
+  float* s_valid = smem + F * 9;
+  float* s_sc = smem + F * 10;
+  for (int i = threadIdx.x; i < F * 9; i += blockDim.x)
+    s_ndc[i] = p.fv_ndc[(size_t)b * F * 9 + i];
+  for (int i = threadIdx.x; i < F; i += blockDim.x)
+    s_valid[i] = p.valid[(size_t)b * F + i];
+  for (int i = threadIdx.x; i < kNS; i += blockDim.x)
+    s_sc[i] = p.scal[(size_t)b * kNS + i];
+  __syncthreads();
+  Tables T = {};
+  T.ndc = s_ndc;
+  T.valid = s_valid;
+  T.sc = s_sc;
+  T.rs_geo = 9;
+  T.rs_valid = 1;
+  T.key_valid = false;
+  FaceConst* fc = (FaceConst*)(smem + prob_tables_words(p));
+  for (int i = threadIdx.x; i < F; i += blockDim.x) face_const(T, i, fc[i]);
+  CardWarp w{lane};
+  constexpr int words = flat_scratch_words<MAXF>();
+  int* scratch = (int*)(fc + F);
+  const FlatScratch S =
+      flat_scratch<MAXF>(scratch + (threadIdx.x >> 5) * words);
+  for (int k = lane; k < 2 * flat_list<MAXF>(); k += 32) S.hits[k] = 0;
+  float* rows = (float*)(scratch + kFlatWarps * words);
+  __syncthreads();
+  FlatCounts dc = {};
+  float pr[2 * KU];
+  warp_flat_prob<MAXF>(p, fc, s_sc, b, live ? pix : 0, live, w, S, dc, pr);
+  const int g = lane % G;
+  for (int j = 0; j < 2 * KU; ++j) {
+    const int u = g + (j % KU) * G;
+    if (u < U) rows[(u + (j / KU) * U) * RW + at] = pr[j];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < F * BP; k += blockDim.x)
+    if (k % BP < width)
+      out[(size_t)(k / BP) * npix + k % BP] = rows[(k / BP) * RW + k % BP];
+  if (COUNT) {
+    const unsigned long long v[8] = {dc.pixels,      dc.certain,
+                                     dc.cover_full,  dc.cover_drawn,
+                                     dc.agg_full,    dc.agg_drawn,
+                                     dc.near,        dc.weighted};
+    for (int k = 0; k < 8; ++k) {
+      const unsigned long long t = ptw::wsum(w, v[k]);
+      if (lane == 0) atomicAdd(&counts[k], t);
+    }
+  }
+}
+
+// K11a's per-pixel reference: pixel_prob, one thread per pixel with every
+// draw taken.
+template <int MAXF>
 __global__ void __launch_bounds__(kThreads)
-sharded_prob_kernel(const Params p) {
+pixel_prob_kernel(const Params p) {
   extern __shared__ float smem[];
   const int b = blockIdx.y, F = p.f_pad;
-  // Only the NDC corners, validity and scalars: K11a takes no colour.
   float* s_ndc = smem;
   float* s_valid = smem + F * 9;
   float* s_sc = smem + F * 10;
@@ -167,14 +276,61 @@ Params base_params(const void* fv_ndc, const void* fv_world, const void* fn,
   return p;
 }
 
+// Which kernel a K11a entry launches: the warp pipeline, its counting
+// instantiation, or the per-pixel reference.
+enum ProbMode { kProbWarp, kProbCount, kProbReference };
+
 template <int MAXF>
-cudaError_t launch_prob(const Params& p, int n, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)p.f_pad * 10 + kNS);
+cudaError_t launch_prob(const Params& p, int n, unsigned long long* counts,
+                        ProbMode mode, cudaStream_t st) {
   const int pixels = p.image_size * p.image_size;
-  sharded_prob_kernel<MAXF>
-      <<<dim3((pixels + kThreads - 1) / kThreads, n), kThreads, smem, st>>>(
-          p);
+  if (mode == kProbReference) {
+    const size_t smem = sizeof(float) * ((size_t)p.f_pad * 10 + kNS);
+    pixel_prob_kernel<MAXF>
+        <<<dim3((pixels + kThreads - 1) / kThreads, n), kThreads, smem,
+           st>>>(p);
+    return cudaGetLastError();
+  }
+  const size_t smem = prob_smem<MAXF>(p);
+  constexpr int per = block_pixels<MAXF>();
+  const dim3 grid((pixels + per - 1) / per, n);
+  if (mode == kProbCount) {
+    const cudaError_t e = allow_smem(sharded_prob_kernel<MAXF, true>, smem);
+    if (e != cudaSuccess) return e;
+    sharded_prob_kernel<MAXF, true>
+        <<<grid, kFlatWarps * 32, smem, st>>>(p, counts);
+    return cudaGetLastError();
+  }
+  const cudaError_t e = allow_smem(sharded_prob_kernel<MAXF, false>, smem);
+  if (e != cudaSuccess) return e;
+  sharded_prob_kernel<MAXF, false>
+      <<<grid, kFlatWarps * 32, smem, st>>>(p, nullptr);
   return cudaGetLastError();
+}
+
+int prob_entry(const void* fv_ndc, const void* valid, const void* scal,
+               const void* seeds, void* prob, int n, int image_size,
+               int f_pad, int bg_row, int c_zpad, int tex_d, int atlas_r,
+               int rast_kind, int rast_noise, int rast_vr, int s_rast,
+               int agg_kind, int agg_noise, int agg_vr, int s_agg, int k,
+               float eps_bg, int phong, int point_light, int clip, int persp,
+               const void* active, int nt, int p_tile, int tile_w,
+               void* counts, ProbMode mode, void* stream) {
+  Params p = base_params(fv_ndc, nullptr, nullptr, nullptr, valid, scal,
+                         seeds);
+  p.prob_out = (float*)prob;
+  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
+             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
+             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
+  set_tiling(p, active, nt, p_tile, tile_w);
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* c = (unsigned long long*)counts;
+  if (f_pad <= 16) return (int)launch_prob<16>(p, n, c, mode, st);
+  if (f_pad <= 32) return (int)launch_prob<32>(p, n, c, mode, st);
+  if (f_pad <= 64) return (int)launch_prob<64>(p, n, c, mode, st);
+  if (f_pad <= 128) return (int)launch_prob<128>(p, n, c, mode, st);
+  if (f_pad <= 256) return (int)launch_prob<256>(p, n, c, mode, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int MAXF, bool COUNT>
@@ -236,6 +392,12 @@ int agg_bwd_entry(
 
 }  // namespace
 
+#define PT_PROB_ARGS                                                        \
+  fv_ndc, valid, scal, seeds, prob, n, image_size, f_pad, bg_row, c_zpad,   \
+      tex_d, atlas_r, rast_kind, rast_noise, rast_vr, s_rast, agg_kind,     \
+      agg_noise, agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp, \
+      active, nt, p_tile, tile_w
+
 // K11a: this shard's coverage mean prob (N, f_pad, H * W).
 extern "C" int pt_sharded_prob(
     const void* fv_ndc, const void* valid, const void* scal,
@@ -245,21 +407,28 @@ extern "C" int pt_sharded_prob(
     int agg_vr, int s_agg, int k, float eps_bg, int phong, int point_light,
     int clip, int persp, const void* active, int nt, int p_tile, int tile_w,
     void* stream) {
-  Params p = base_params(fv_ndc, nullptr, nullptr, nullptr, valid, scal,
-                         seeds);
-  p.prob_out = (float*)prob;
-  set_config(p, image_size, f_pad, bg_row, c_zpad, tex_d, atlas_r,
-             rast_kind, rast_noise, rast_vr, s_rast, agg_kind, agg_noise,
-             agg_vr, s_agg, k, eps_bg, phong, point_light, clip, persp);
-  set_tiling(p, active, nt, p_tile, tile_w);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (f_pad <= 16) return (int)launch_prob<16>(p, n, st);
-  if (f_pad <= 32) return (int)launch_prob<32>(p, n, st);
-  if (f_pad <= 64) return (int)launch_prob<64>(p, n, st);
-  if (f_pad <= 128) return (int)launch_prob<128>(p, n, st);
-  if (f_pad <= 256) return (int)launch_prob<256>(p, n, st);
-  return (int)cudaErrorInvalidValue;
+  return prob_entry(PT_PROB_ARGS, nullptr, kProbWarp, stream);
 }
+
+// K11a's diagnostic entry: diag 1, the counting launch (counts: 8 zeroed
+// int64 on the card, flat_warp.cuh's FlatCounts in order; the
+// aggregation's and the weighted stay 0); diag 2, the per-pixel reference
+// (pixel_prob).
+extern "C" int pt_sharded_prob_diag(
+    const void* fv_ndc, const void* valid, const void* scal,
+    const void* seeds, void* prob, int n, int image_size, int f_pad,
+    int bg_row, int c_zpad, int tex_d, int atlas_r, int rast_kind,
+    int rast_noise, int rast_vr, int s_rast, int agg_kind, int agg_noise,
+    int agg_vr, int s_agg, int k, float eps_bg, int phong, int point_light,
+    int clip, int persp, const void* active, int nt, int p_tile, int tile_w,
+    void* counts, int diag, void* stream) {
+  if (diag != kProbCount && diag != kProbReference)
+    return (int)cudaErrorInvalidValue;
+  if (diag == kProbCount && counts == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return prob_entry(PT_PROB_ARGS, counts, (ProbMode)diag, stream);
+}
+#undef PT_PROB_ARGS
 
 // K11b: g_zmap (N, c_zpad, H * W) and the gamma term g_gamma (N,) of this
 // shard's aggregation samples; partial holds one float per warp (N,

@@ -1,5 +1,5 @@
-"""Where K9b's, K12's, K8a-c's, K7's, K5's, K2's, K3's and K11b's time goes
-on the card (a tuning tool).
+"""Where K9b's, K12's, K8a-c's, K7's, K5's, K2's, K3's, K11b's, K10b's and
+K11a's time goes on the card (a tuning tool).
 
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k9b
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k12
@@ -11,6 +11,8 @@ on the card (a tuning tool).
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k2
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k3
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k11b
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k10b
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k11a
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits sass
 
 ``k9b``: the row scatter at the cow's staged shapes (chip_smoke.py's
@@ -90,6 +92,22 @@ counting launch's certain pixels where the package has
 det1 (geometry, z_map, the certainty test), the shading and replay, the
 g_zmap stores and the warp sum.  ``--save`` as ``k3``.
 
+``k10b``: K10b (``interp_rows_backward``) at the cow's staged shapes
+(chip_smoke.py's [K10b]: a (6, 13.1 M) cotangent into 20,480 rows), each
+call timed with CUDA events and its device time split by kernel
+(torch.profiler: the parent's index preparation, segment sum and weight
+gradient, or the tile pass, scan, fill and merge), with the
+partial rows against the filled columns where the package has
+``tile_partials``.
+
+``k11a``: K11a (``fused_prob``) at [K11a]'s shapes (the sharded cube at
+256^2, shard 1's seed words), gaussian and cauchy coverage, N=4 and N=1,
+timed with CUDA events and by torch.profiler, with the counting launch's
+geometry pairs, certain pixels and draws where the package has
+``prob_counts``.  With ``--profile`` (csrc/flat_warp.cuh's
+``warp_flat_prob``) the share of lane 0's clocks in det1, the certainty
+tests and list, and the coverage draws.
+
 ``sass``: each kernel of the checkout's library (``--root``), its
 machine code read back by ``cuobjdump -sass``: the instruction count and
 a digest of the instructions, the anonymous namespaces' hashes and the
@@ -97,7 +115,7 @@ encodings left out, so two checkouts' kernels can be told the same or
 not without a timing (run it on each and compare the lines).
 
 ``k9b``, ``k12``, ``k8a``, ``k8b``, ``k8c``, ``k7``, ``k5``, ``k2``,
-``k3`` and ``k11b`` only call the
+``k3``, ``k11b``, ``k10b`` and ``k11a`` only call the
 package's entry points and the checkout's chip_smoke.py, so they also
 time an older checkout of it: run this file by its path from that
 checkout's root with ``--root .`` (without ``--profile`` where that
@@ -582,6 +600,73 @@ def k11b(root: str, profile: bool, save: str = "") -> None:
         torch.save(saved, save)
 
 
+def k10b(root: str) -> None:
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import interp_gather as ik
+
+    dev = torch.device("cuda", 0)
+    smi = _smi()
+    _fv9, merged, idx, ws = cs.staged_kernel_inputs(dev)
+    rows, p = merged.shape[0], idx.shape[0]
+    g6 = torch.randn(6, p, generator=torch.Generator().manual_seed(4)).to(
+        dev)
+    filled = int((idx >= 0).sum())
+    call = lambda: ik.interp_rows_backward(merged, idx, *ws, g6)
+    ms = (_cuda_ms(call, 10) + _cuda_ms(call, 10)) / 2
+    split = cs.kernel_split_text(cs.device_split(call, 10))
+    text = ""
+    if hasattr(ik, "tile_partials"):
+        parts = ik.tile_partials(idx, rows)[0].numel()
+        text = (f", tiles of {ik.BWD_TILE} columns: {parts} partial rows "
+                f"({parts / filled:.4f} of the filled columns)")
+    print(f"[K10b split] {os.path.abspath(root)}: interp_rows_backward cow "
+          f"staged (6, {p}), {rows} rows, {filled} filled{text}: {ms:.4f} "
+          f"ms; device: {split} | {smi}", flush=True)
+
+
+def k11a(root: str, profile: bool) -> None:
+    lib, read = _profiled(root, profile, "pt_sharded_profile")
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import fused_render as fr
+
+    dev = torch.device("cuda", 0)
+    tag = " (profiling build)" if read else ""
+    smi = _smi()
+    for (mode, n), (cfg, ins, _prob) in _k3_cases(cs, fr, torch,
+                                                  dev).items():
+        if mode != "ext":
+            continue
+        cover = (ins[0], ins[4], ins[5], ins[6], ins[7])
+        for noise in ("gaussian", "cauchy"):
+            ncfg = dataclasses.replace(cfg, rast_noise=noise)
+            call = lambda: fr.fused_prob(ncfg, *cover)
+            ms = (_cuda_ms(call, 20) + _cuda_ms(call, 20)) / 2
+            split = cs.kernel_split_text(cs.device_split(call, 20))
+            text = ""
+            if hasattr(fr, "prob_counts"):
+                c = fr.prob_counts(ncfg, *cover)[1]
+                text = (f"; geometry at {c['near']} (face, pixel) pairs, "
+                        f"certain pixels {c['certain']} of {c['pixels']}, "
+                        f"coverage units drawn {c['cover_drawn']} of "
+                        f"{c['cover_full']}")
+            if read is not None:
+                read(())
+                call()
+                torch.cuda.synchronize()
+                text += "; clocks: " + read((
+                    "det1", "certainty tests and list", "coverage draws"))
+            print(f"[K11a split] {os.path.abspath(root)}: fused_prob cube "
+                  f"{cs.IMAGE}^2 {noise} N={n}: {ms:.4f} ms{tag}; device: "
+                  f"{split}{text} | {smi}", flush=True)
+
+
 def sass(root: str) -> None:
     import hashlib
     import re
@@ -612,18 +697,18 @@ def sass(root: str) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("k9b", "k12", "k8c", "k8b", "k8a",
-                                     "k7", "k5", "k2", "k3", "k11b",
-                                     "sass"))
+                                     "k7", "k5", "k2", "k3", "k11b", "k10b",
+                                     "k11a", "sass"))
     ap.add_argument("--root", default=os.getcwd(),
                     help="checkout whose package and chip_smoke.py to use "
                          "(k9b, k12, k8a, k8b, k8c, k7, k5, k2, k3, "
-                         "k11b, sass)")
+                         "k11b, k10b, k11a, sass)")
     ap.add_argument("--save", default="",
                     help="k5, k3, k11b: save the results (a dict of CPU "
                          "tensors) to this path, to compare two checkouts' "
                          "bits")
     ap.add_argument("--profile", action="store_true",
-                    help="k12, k8c, k7, k5, k2, k3, k11b: build with "
+                    help="k12, k8c, k7, k5, k2, k3, k11b, k11a: build with "
                          "-DPT_PROFILE and print the phases' shares of the "
                          "clocks")
     args = ap.parse_args(argv)
@@ -645,6 +730,10 @@ def main(argv=None) -> None:
         k3(args.root, args.profile, args.save)
     elif args.what == "k11b":
         k11b(args.root, args.profile, args.save)
+    elif args.what == "k10b":
+        k10b(args.root)
+    elif args.what == "k11a":
+        k11a(args.root, args.profile)
     elif args.what == "sass":
         sass(args.root)
     else:

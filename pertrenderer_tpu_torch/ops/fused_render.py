@@ -1758,34 +1758,83 @@ def fused_prob(cfg: FusedConfig, fv_ndc, valid, scal, seeds,
     """K11a: this shard's coverage mean (replaces ``_prob_kernel`` of
     ``pertrenderer_tpu/ops/fused_render.py``).  Inputs as for
     :func:`prob_plain`; returns (N, F_pad, H * W) float32."""
-    _check_sharded(cfg, "sharded_prob")
+    ins = (fv_ndc, valid, scal, seeds, active)
+    if _check_prob(cfg, ins, "sharded_prob").type == "cpu":
+        return prob_plain(cfg, *ins)
+    return _launch_prob(cfg, ins)
+
+
+def prob_counts(cfg: FusedConfig, fv_ndc, valid, scal, seeds, active):
+    """K11a's counting launch on the card, a diagnostic: (the result of
+    :func:`fused_prob`, whose bits it has, and a dict of the work it did:
+    ``pixels``, ``certain``, ``cover_full``, ``cover_drawn`` and ``near``
+    as :func:`fused_forward_counts` counts them)."""
+    ins = (fv_ndc, valid, scal, seeds, active)
+    if _check_prob(cfg, ins, "prob_counts").type == "cpu":
+        raise ValueError("prob_counts: K11a's counting launch runs on the "
+                         "card only")
+    counts = torch.zeros(8, dtype=torch.int64, device=fv_ndc.device)
+    out = _launch_prob(cfg, ins, counts)
+    keys = ("pixels", "certain", "cover_full", "cover_drawn", "agg_full",
+            "agg_drawn", "near", "weighted")
+    got = dict(zip(keys, counts.tolist()))
+    return out, {k: got[k] for k in ("pixels", "certain", "cover_full",
+                                     "cover_drawn", "near")}
+
+
+def prob_reference(cfg: FusedConfig, fv_ndc, valid, scal, seeds, active):
+    """K11a's per-pixel reference on the card, a diagnostic: ``pixel_prob``
+    of csrc/fused_common.cuh, one thread per pixel with every draw taken,
+    whose bits :func:`fused_prob` keeps.  Not counted as a launch of
+    K11a."""
+    ins = (fv_ndc, valid, scal, seeds, active)
+    if _check_prob(cfg, ins, "prob_reference").type == "cpu":
+        raise ValueError("prob_reference: runs on the card only")
+    return _launch_prob(cfg, ins, reference=True)
+
+
+def _check_prob(cfg: FusedConfig, ins, kernel: str) -> torch.device:
+    fv_ndc, valid, scal, seeds, active = ins
+    _check_sharded(cfg, kernel)
     n, f = fv_ndc.shape[0], cfg.f_pad
-    _check("sharded_prob", fv_ndc, {
+    _check(kernel, fv_ndc, {
         "active": (active, (n, _n_tiles(cfg)), torch.int32),
         "fv_ndc": (fv_ndc, (n, f, 9), torch.float32),
         "valid": (valid, (n, f), torch.float32),
         "scal": (scal, (n, _NS), torch.float32),
         "seeds": (seeds, (n, 4), torch.int32)})
     if f > MAX_SLOTS or f % 8 or cfg.f_real > f:
-        raise ValueError(f"sharded_prob: f_pad={f}, f_real={cfg.f_real}")
+        raise ValueError(f"{kernel}: f_pad={f}, f_real={cfg.f_real}")
     dev = fv_ndc.device
-    if dev.type == "cpu":
-        return prob_plain(cfg, fv_ndc, valid, scal, seeds, active)
-    if dev.type != "cuda":
-        raise ValueError(f"sharded_prob: unsupported device {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    return dev
+
+
+def _launch_prob(cfg: FusedConfig, ins, counts=None, reference=False):
+    """Launch K11a (``counts``: None, or 8 zeroed int64 on the card for the
+    counting launch; ``reference``: the per-pixel pipeline instead) and
+    return this shard's coverage (N, F_pad, H * W)."""
     from pertrenderer_tpu_torch import _build
 
+    fv_ndc, active = ins[0], ins[4]
+    dev, n = fv_ndc.device, fv_ndc.shape[0]
     lib = _build.library()
-    prob = torch.empty(_pixel_rows(cfg, n, f), dtype=torch.float32,
+    prob = torch.empty(_pixel_rows(cfg, n, cfg.f_pad), dtype=torch.float32,
                        device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (*(t.data_ptr() for t in ins[:4]), prob.data_ptr(), n,
+            *_cfg_args(cfg), active.data_ptr(), *_tiling_args(cfg))
     with torch.cuda.device(dev):
-        err = lib.pt_sharded_prob(
-            fv_ndc.data_ptr(), valid.data_ptr(), scal.data_ptr(),
-            seeds.data_ptr(), prob.data_ptr(), n, *_cfg_args(cfg),
-            active.data_ptr(), *_tiling_args(cfg), stream)
+        if reference or counts is not None:
+            err = lib.pt_sharded_prob_diag(
+                *args, None if counts is None else counts.data_ptr(),
+                2 if reference else 1, stream)
+        else:
+            err = lib.pt_sharded_prob(*args, stream)
     _build.check(err, "sharded_prob")
-    launch_counts["sharded_prob"] += 1
+    if not reference:
+        launch_counts["sharded_prob"] += 1
     return prob
 
 

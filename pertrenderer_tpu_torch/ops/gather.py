@@ -40,7 +40,7 @@ __all__ = ["take_rows", "take_rows_cm", "take_rows_batched",
            "segments", "segments_plain", "segment_sum", "segment_sum_plain",
            "Segments", "launch_counts", "SCATTER_CHUNK"]
 
-SCATTER_CHUNK = 256      # sorted columns summed by one warp (K9b, K10b)
+SCATTER_CHUNK = 256      # sorted columns summed by one warp (K9b)
 _SORT_TILE = 4096        # keys per radix tile (csrc/segment_sum.cuh)
 _COUNTS = 258            # a pass's 256 digit totals, the valid count, the
                          # compaction's tile counter
@@ -112,7 +112,7 @@ def gather_rows_cm(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class Segments(NamedTuple):
-    """The index preparation of the segment sums (K9b, K10b).
+    """The index preparation of K9b's segment sums.
 
     ``order[:num_valid]`` lists the valid columns p (0 <= idx[p] < f)
     sorted by row, ascending p within a row; row r owns
@@ -192,8 +192,8 @@ def segments_plain(idx: torch.Tensor, f: int) -> Segments:
 
 
 def segments(idx: torch.Tensor, f: int) -> Segments:
-    """The index preparation of the deterministic segment sums (K9b,
-    K10b): on the card the kernels of csrc/segment_sum.cuh (the valid
+    """The index preparation of K9b's deterministic segment sums: on the
+    card the kernels of csrc/segment_sum.cuh (the valid
     columns compacted, one stable radix pass per 8-bit digit of the row,
     the bounds and the chunk table); on the CPU :func:`segments_plain`.
     See :class:`Segments`."""
@@ -239,7 +239,8 @@ def segment_sum_plain(g: torch.Tensor, seg: Segments, f: int,
     per chunk, lane l adds columns l, l + 32, ... of the chunk, an xor
     butterfly adds the lanes, and each row adds its chunks in ascending
     order.  g (D, P) float32; ``weights``: None, or (w0, w1, w2) each (P,)
-    (K10b: (f, 3, D)).  Returns (f, D) or (f, 3, D)."""
+    (the weighted form, K10b's table gradient before K10b's tile pass:
+    (f, 3, D)).  Returns (f, D) or (f, 3, D)."""
     d, dev = g.shape[0], g.device
     order = seg.order[:int(seg.num_valid[0])].long()
     starts, ends = seg.starts.long(), seg.ends.long()

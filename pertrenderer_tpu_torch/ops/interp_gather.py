@@ -13,10 +13,12 @@ the weights:
 
 * K10a ``interp_rows`` (csrc/interp_gather.cu) — one thread per column
   reads its row's (3, D) corners and writes the D interpolated values;
-* K10b ``interp_rows_backward`` (csrc/interp_gather.cu) — the table
-  gradient as K9b's deterministic segment sum over K9b's index
-  preparation (ops/gather.py ``segments``), weighted by w_v, and the
-  three weight gradients, one thread per column.
+* K10b ``interp_rows_backward`` (csrc/interp_gather.cu) — one pass over
+  the columns in tiles of BWD_TILE: the three weight gradients, and per
+  tile each face's sum of w_v g in column order (the tile's filled
+  columns sorted by face in shared memory); then each face adds its
+  tiles' partials in tile order (``interp_rows_backward_tiles_plain`` is
+  the plain mirror of that order).
 
 A wrapper takes its plain version only for tensors on the CPU; for a CUDA
 tensor it launches its kernel or raises.
@@ -28,13 +30,18 @@ import math
 
 import torch
 
-from pertrenderer_tpu_torch.ops.gather import batch_index, segments
+from pertrenderer_tpu_torch.ops.gather import batch_index
 
 __all__ = ["interp_rows_cm", "interp_rows_cm_batched", "interp_rows",
            "interp_rows_plain", "interp_rows_backward",
-           "interp_rows_backward_plain", "launch_counts"]
+           "interp_rows_backward_plain", "interp_rows_backward_tiles_plain",
+           "tile_partials", "BWD_TILE", "launch_counts"]
 
 launch_counts = {"interp_rows": 0, "interp_rows_backward": 0}
+
+# K10b's tile of consecutive columns (csrc/interp_gather.cu's kTile): each
+# tile sums its faces into one partial row apiece.
+BWD_TILE = 1024
 
 
 def _check(kernel: str, table, idx, ws):
@@ -112,6 +119,63 @@ def interp_rows(table, idx, w0, w1, w2) -> torch.Tensor:
     return out
 
 
+def tile_partials(idx: torch.Tensor, f: int, tile: int = BWD_TILE):
+    """K10b's partial rows: (tile of each, face of each) of the distinct
+    (tile, face) pairs of the filled columns (0 <= idx < f), tiles of
+    ``tile`` consecutive columns, in (tile, face) order."""
+    cols = torch.nonzero((idx >= 0) & (idx < f)).flatten()
+    pairs = torch.unique((cols // tile) * f + idx[cols])
+    return pairs // f, pairs % f
+
+
+def interp_rows_backward_tiles_plain(table, idx, w0, w1, w2, g,
+                                     tile: int = BWD_TILE):
+    """Plain mirror of K10b's order (csrc/interp_gather.cu), bit for bit:
+    dw_v[p] = sum over the channels in order of t[idx[p], v, j] g[j, p]
+    from +0 (0 where idx[p] is outside [0, F)); per tile of ``tile``
+    columns each face's sum of w_v[p] g[:, p] over its columns in column
+    order, then each face's partials added in tile order."""
+    f, _, d = table.shape
+    p = idx.shape[0]
+    valid = (idx >= 0) & (idx < f)
+    rows = table[torch.clamp(idx, 0, f - 1)]            # (P, 3, D)
+    d_ws = []
+    for v in range(3):
+        acc = torch.zeros(p, dtype=g.dtype, device=g.device)
+        for j in range(d):
+            acc = acc + rows[:, v, j] * g[j]
+        d_ws.append(torch.where(valid, acc, torch.zeros_like(acc)))
+    cols = torch.nonzero(valid).flatten()
+    key = (cols // tile) * f + idx[cols]
+    order = torch.sort(key, stable=True).indices        # column order kept
+    cols, key = cols[order], key[order]
+    w = torch.stack([w0, w1, w2])                        # (3, P)
+    contrib = g[:, cols].T[:, None, :] * w[:, cols].T[:, :, None]
+    pairs, run = torch.unique_consecutive(key, return_inverse=True)
+    part = _ordered_sums(contrib, run, len(pairs))      # (R, 3, D)
+    d_table = _ordered_sums(part, pairs % f, f)         # tiles in order
+    return d_table, tuple(d_ws)
+
+
+def _ordered_sums(x, group, groups: int):
+    """out[k] = the rows x[i] with group[i] = k, added from +0 in ascending
+    i."""
+    out = torch.zeros((groups,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    if x.shape[0] == 0:
+        return out
+    counts = torch.bincount(group, minlength=groups)
+    order = torch.sort(group, stable=True).indices
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(len(order), device=x.device) - start[
+        group[order]]
+    for r in range(int(counts.max())):
+        sel = rank == r
+        out[group[sel]] = out[group[sel]] + x[sel]
+    return out
+
+
 def interp_rows_backward(table, idx, w0, w1, w2, g, need_table=True,
                          need_weights=True):
     """K10b: the VJP of K10a for a cotangent g (D, P) (replaces
@@ -129,36 +193,45 @@ def interp_rows_backward(table, idx, w0, w1, w2, g, need_table=True,
         d_table, d_ws = interp_rows_backward_plain(table, idx, w0, w1, w2, g)
         return (d_table if need_table else None,
                 d_ws if need_weights else None)
+    if not (need_table or need_weights):
+        return None, None
+    if d == 0:
+        zeros = torch.zeros(3, p, dtype=torch.float32, device=table.device)
+        return (torch.zeros_like(table) if need_table else None,
+                (zeros[0], zeros[1], zeros[2]) if need_weights else None)
+    if p + BWD_TILE >= 2 ** 31:
+        raise ValueError(f"interp_rows_backward: {p} columns")
     from pertrenderer_tpu_torch import _build
 
     lib = _build.library()
     dev = table.device
+    new = lambda *shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device=dev)
+    i32 = torch.int32
+    slots = -(-p // BWD_TILE) * BWD_TILE
+    dw = new(3, p) if need_weights else None
+    d_table = part = ints = counts = None
+    if need_table:
+        d_table = new(f, 3, d)
+        part = new(slots, 3 * d)
+        ints = new(3, slots, dtype=i32)         # part_face, list, sorted
+        counts = torch.zeros(3 * f + slots // BWD_TILE, dtype=i32,
+                             device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    at = lambda t, k, n: None if t is None else t[k * f:k * f + n].data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    d_table = d_ws = None
     with torch.cuda.device(dev):
-        if need_table:
-            seg = segments(idx, f)
-            partial = torch.empty((seg.n_chunks, 3 * d),
-                                  dtype=torch.float32, device=dev)
-            d_table = torch.empty((f, 3, d), dtype=torch.float32,
-                                  device=dev)
-            err = lib.pt_interp_rows_bwd_tables(
-                g.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                seg.order.data_ptr(), seg.starts.data_ptr(),
-                seg.ends.data_ptr(), seg.chunk_row.data_ptr(),
-                partial.data_ptr(), d_table.data_ptr(), p, f, d,
-                seg.n_chunks, stream)
-            _build.check(err, "interp_rows_backward")
-        if need_weights:
-            dw = torch.empty((3, p), dtype=torch.float32, device=dev)
-            err = lib.pt_interp_rows_bwd_weights(
-                table.data_ptr(), idx.contiguous().data_ptr(), g.data_ptr(),
-                dw.data_ptr(), p, f, d, stream)
-            _build.check(err, "interp_rows_backward")
-            d_ws = (dw[0], dw[1], dw[2])
-    if need_table or need_weights:
-        launch_counts["interp_rows_backward"] += 1
-    return d_table, d_ws
+        err = lib.pt_interp_rows_bwd(
+            table.data_ptr(), idx.contiguous().data_ptr(), w0.data_ptr(),
+            w1.data_ptr(), w2.data_ptr(), g.data_ptr(), ptr(dw),
+            ptr(d_table), ptr(part), *(ptr(None if ints is None else ints[k])
+                                       for k in range(3)),
+            None if counts is None else counts[3 * f:].data_ptr(),
+            at(counts, 0, f), at(counts, 1, f), at(counts, 2, f), p, f, d,
+            BWD_TILE, stream)
+    _build.check(err, "interp_rows_backward")
+    launch_counts["interp_rows_backward"] += 1
+    return d_table, (None if dw is None else (dw[0], dw[1], dw[2]))
 
 
 class _InterpRows(torch.autograd.Function):

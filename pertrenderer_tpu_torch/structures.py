@@ -17,7 +17,7 @@ from typing import Any, Optional
 
 import torch
 
-from pertrenderer_tpu_torch.transforms import cross3
+from pertrenderer_tpu_torch.transforms import _rounded, cross3
 from pertrenderer_tpu_torch.ops.gather import (batch_index, scatter_rows,
                                                take_rows_batched)
 
@@ -150,4 +150,7 @@ class Meshes:
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    """sqrt(sum v^2) over the last axis (the JAX package's ``linalg.norm``),
+    the root correctly rounded (torch's float32 CPU sqrt misses it in the
+    last place for a fifth of inputs on some x86 machines)."""
+    return _rounded(torch.sqrt, torch.sum(v * v, dim=-1, keepdim=True))

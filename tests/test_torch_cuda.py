@@ -718,6 +718,53 @@ def test_interp_kernels_match_plain(d, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 6, 9])
+def test_interp_backward_equals_its_tile_order_mirror(d, cuda_device):
+    """K10b's tile pass and merge equal interp_rows_backward_tiles_plain
+    (the plain mirror of their order, on the card) bit for bit, with -1 /
+    out-of-range indices, empty rows and a first tile of one face (D = 9:
+    two chunks of staged channels); only the weight gradient or only the
+    table gradient when asked."""
+    from pertrenderer_tpu_torch.ops import interp_gather as ti
+
+    f, p = 9000, 200_003
+    _t, corners, idx, ws, cot = _gather_case(d, f, p, cuda_device, seed=3)
+    idx[:ti.BWD_TILE] = 5
+    dt, dws = ti.interp_rows_backward(corners, idx, *ws, cot)
+    mt, mws = ti.interp_rows_backward_tiles_plain(corners, idx, *ws, cot)
+    assert torch.equal(dt, mt)
+    assert all(torch.equal(a, b) for a, b in zip(dws, mws))
+    only_w = ti.interp_rows_backward(corners, idx, *ws, cot,
+                                     need_table=False)
+    only_t = ti.interp_rows_backward(corners, idx, *ws, cot,
+                                     need_weights=False)
+    assert only_w[0] is None and only_t[1] is None
+    assert torch.equal(only_t[0], dt)
+    assert all(torch.equal(a, b) for a, b in zip(only_w[1], dws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", ["gaussian", "cauchy"])
+@pytest.mark.parametrize("imsize,shift", [(48, None), (64, (0.0, 2.5, 0.0))])
+def test_sharded_prob_equals_its_per_pixel_reference(noise, imsize, shift,
+                                                     cuda_device):
+    """K11a's warp pipeline equals its per-pixel reference (pixel_prob,
+    every draw taken) and its counting launch bit for bit, at N=2 and
+    N=1, with an inactive tile; it drew fewer coverage units than the
+    reference and ran the geometry at fewer (face, pixel) pairs."""
+    cfg, ins = sharded_case(cuda_device, imsize, shift)
+    cfg = dataclasses.replace(cfg, rast_noise=noise)
+    cover = (ins[0], ins[4], ins[5], ins[6], ins[7])
+    for args in (cover, tuple(t[:1].contiguous() for t in cover)):
+        got = tfr.fused_prob(cfg, *args)
+        counted, c = tfr.prob_counts(cfg, *args)
+        assert torch.equal(got, tfr.prob_reference(cfg, *args))
+        assert torch.equal(got, counted)
+        assert 0 < c["cover_drawn"] < c["cover_full"]
+        assert 0 < c["near"] < c["pixels"] * cfg.f_real
+
+
+@pytest.mark.cuda
 def test_staged_hard_phong_cube_matches_cpu(cuda_device):
     """A staged Hard-Phong render of the cube (the experiments' target
     renderer, K = 1) on the card through K9a equals the CPU plain render,

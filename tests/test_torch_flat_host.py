@@ -1,4 +1,5 @@
-"""K3's warp pipeline and K11b's certain exit, compiled for the CPU.
+"""K3's and K11a's warp pipelines and K11b's certain exit, compiled for
+the CPU.
 
 ``csrc/flat_warp.cuh`` (K3: a thread per pixel, the warp's noise draws
 packed across its lanes) is built with g++ and its 32 lanes emulated as
@@ -6,7 +7,9 @@ fibers (``FIBERS`` of test_torch_kernel_host.py), and held bit for bit
 against the per-pixel reference ``pixel_forward`` of
 ``csrc/fused_common.cuh``, built beside it: drawn and external coverage,
 every estimator pair, variance reduction on and off, inactive tiles,
-warps with no candidate, S = 8 and S > 64.  K11b's pixel pipeline
+warps with no candidate, S = 8 and S > 64.  K11a's (``warp_flat_prob``,
+the same lane groups and draw lists) is held bit for bit against the
+per-pixel ``pixel_prob``.  K11b's pixel pipeline
 (``pixel_agg_grads``, which stops where only one row can win) is held
 against the full replay (``mc_agg_replay`` on every pixel): g_zmap equal
 up to the sign of zero and each pixel's gamma term equal.  Both
@@ -93,6 +96,56 @@ void flat_run(Params& p, int n, int mode, float* out,
                                      live, w, S, dc, o);
         if (live && lane % G == 0)
           std::memcpy(out + ((size_t)b * npix + pix) * 4, o, sizeof(o));
+        const unsigned long long v[8] = {dc.pixels, dc.certain,
+                                         dc.cover_full, dc.cover_drawn,
+                                         dc.agg_full, dc.agg_drawn,
+                                         dc.near, dc.weighted};
+        for (int k = 0; k < 8; ++k) counts[k] += v[k];
+      });
+      for (int k = 0; k < 2 * flat_list<MAXF>(); ++k)
+        if (S.hits[k] != 0) *dirty = 1;
+    }
+  }
+}
+
+// K11a: mode 0 its warp pipeline (warp_flat_prob) over warps of 32 /
+// kGroup pixels (counts: its FlatCounts summed; *dirty: a hit count left
+// non-zero); 1: the per-pixel pixel_prob.  The coverage into out (n, f_pad,
+// P).
+template <int MAXF>
+void prob_run(Params& p, int n, int mode, float* out,
+              unsigned long long* counts, int* dirty) {
+  const int F = p.f_pad, U = F / 2, npix = p.image_size * p.image_size;
+  std::vector<float> buf;
+  std::vector<int> scratch(flat_scratch_words<MAXF>(), 0);
+  const FlatScratch S = flat_scratch<MAXF>(scratch.data());
+  Lanes L;
+  for (int b = 0; b < n; ++b) {
+    const Tables T = fill(p, buf, b);
+    float* ob = out + (size_t)b * F * npix;
+    if (mode == 1) {
+      for (int pix = 0; pix < npix; ++pix) {
+        float pr[MAXF];
+        pixel_prob<MAXF>(p, T, b, pix, pr);
+        for (int i = 0; i < F; ++i) ob[(size_t)i * npix + pix] = pr[i];
+      }
+      continue;
+    }
+    const std::vector<FaceConst> fc = faces(p, T);
+    constexpr int G = kGroup<MAXF>(), KU = kUnits<MAXF>();
+    for (int base = 0; base < npix; base += 32 / G) {
+      L.run([&](int lane) {
+        HostWarp w{lane, &L};
+        const int pix = base + lane / G, g = lane % G;
+        const bool live = pix < npix;
+        FlatCounts dc = {};
+        float pr[2 * KU];
+        warp_flat_prob<MAXF>(p, fc.data(), T.sc, b, live ? pix : 0, live, w,
+                             S, dc, pr);
+        for (int j = 0; live && j < 2 * KU; ++j) {
+          const int u = g + (j % KU) * G;
+          if (u < U) ob[(size_t)(u + (j / KU) * U) * npix + pix] = pr[j];
+        }
         const unsigned long long v[8] = {dc.pixels, dc.certain,
                                          dc.cover_full, dc.cover_drawn,
                                          dc.agg_full, dc.agg_drawn,
@@ -208,6 +261,15 @@ extern "C" void host_flat(int mode, PARAMS_ARGS, float* out, float* w_out,
   else run(std::integral_constant<int, 128>());
 }
 
+extern "C" void host_prob(int mode, PARAMS_ARGS, float* out,
+                          unsigned long long* counts, int* dirty) {
+  Params p = PARAMS_CALL(nullptr);
+  if (f_pad <= 16) prob_run<16>(p, n, mode, out, counts, dirty);
+  else if (f_pad <= 32) prob_run<32>(p, n, mode, out, counts, dirty);
+  else if (f_pad <= 64) prob_run<64>(p, n, mode, out, counts, dirty);
+  else prob_run<128>(p, n, mode, out, counts, dirty);
+}
+
 extern "C" void host_agg_bwd(PARAMS_ARGS, float* gz, float* term,
                              float* gz_full, float* term_full, int* certain) {
   Params p = PARAMS_CALL(nullptr);
@@ -275,6 +337,7 @@ def flat_lib(tmp_path_factory):
                           ctypes.c_uint32)
     args = [ptr] * 9 + [i32] * 16 + [f32] + [i32] * 4 + [ptr, i32, i32, i32]
     lib.host_flat.argtypes = [i32] + args + [ptr] * 4
+    lib.host_prob.argtypes = [i32] + args + [ptr] * 3
     lib.host_agg_bwd.argtypes = args + [ptr] * 5
     lib.host_agg_rule.argtypes = [ptr, i32, f32, i32, i32, u32, u32, u32,
                                   ptr, ptr]
@@ -407,6 +470,64 @@ def test_flat_warp_forward_ext_equals_pixel_forward_on_host(imsize, shift,
     assert not dirty
     assert _bits(img, want_img) and _bits(w, want_w)
     assert counts["cover_full"] == 0 and counts["certain"] > 0
+
+
+def host_prob(lib, cfg, ins, mode):
+    """K11a on the host over the 8 kernel inputs: mode 0 the warp pipeline,
+    1 pixel_prob.  Returns (coverage (N, F_pad, P), the warp pipeline's
+    counts, whether it left a hit count)."""
+    n, hw = ins[0].shape[0], cfg.image_size ** 2
+    out = torch.full((n, cfg.f_pad, hw), float("nan"))
+    counts = torch.zeros(8, dtype=torch.int64)
+    dirty = torch.zeros(1, dtype=torch.int32)
+    lib.host_prob(mode, *(t.data_ptr() for t in ins[:7]), None, None, n,
+                  *tfr._cfg_args(cfg), ins[7].data_ptr(),
+                  *tfr._tiling_args(cfg), out.data_ptr(), counts.data_ptr(),
+                  dirty.data_ptr())
+    keys = ("pixels", "certain", "cover_full", "cover_drawn", "agg_full",
+            "agg_drawn", "near", "weighted")
+    return out, dict(zip(keys, counts.tolist())), bool(dirty.item())
+
+
+PROB_CASES = [
+    ("sharded", 48, None),                          # the cube at 48^2
+    ("sharded", 48, (0.0, 2.5, 0.0)),               # an inactive tile
+    ("sharded-thin", 16, None),                     # nearly edge-on faces
+    ("cauchy", 48, None),                           # the band: every row
+    ("gaussian", 16, None),                         # S > 64
+    ("softras", 32, None),                          # no draw
+]
+
+
+@pytest.mark.parametrize("case,imsize,shift", PROB_CASES)
+def test_warp_prob_equals_pixel_prob_on_host(case, imsize, shift, flat_lib):
+    """K11a's warp pipeline (warp_flat_prob: geometry only inside the grown
+    boxes, draws only where a draw can change the mean, packed across the
+    warp) equals the per-pixel pixel_prob bit for bit: the sharded cube on
+    shard 1's seed words at 48^2 (also with an inactive tile), thin faces
+    seen nearly edge-on (_slivers), Cauchy noise, S = 96 and softras's
+    coverage; its hit counts are back to zero."""
+    if case.startswith("sharded"):
+        cfg, ins = sharded_case("cpu", imsize, shift)
+        if case == "sharded-thin":
+            ins = _slivers(cfg, ins)
+    else:
+        cfg, ins = _headline(case, imsize, 96 if case == "gaussian" else 8)
+    got, counts, dirty = host_prob(flat_lib, cfg, ins, 0)
+    want = host_prob(flat_lib, cfg, ins, 1)[0]
+    assert not dirty and torch.isfinite(got).all()
+    assert _bits(got, want), (got - want).abs().max()
+    assert counts["pixels"] == _active_pixels(cfg, ins[7])
+    assert 0 < counts["near"] < counts["pixels"] * cfg.f_real
+    if cfg.rast_kind == "mc":
+        assert 0 < counts["cover_drawn"] < counts["cover_full"]
+        if case != "cauchy":
+            assert 0 < counts["certain"] < counts["pixels"]
+    else:
+        assert counts["cover_full"] == 0
+        assert counts["certain"] == counts["pixels"]
+    if shift is not None:
+        assert counts["pixels"] < ins[0].shape[0] * imsize ** 2
 
 
 def host_agg_bwd(lib, cfg, ins, prob, g_out):

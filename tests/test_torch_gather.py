@@ -154,6 +154,85 @@ def test_interp_backward_skips_what_is_not_asked():
     assert d_table is None and len(d_ws) == 3
 
 
+def _nearer(got, want32, want64):
+    """The error of got against the nearer of the float32 / float64 plain
+    versions, relative to the larger of their max |.| (chip_smoke's
+    nearer_error)."""
+    scale = max(want32.abs().max().item(), want64.abs().max().item(), 1e-30)
+    e32 = (got.double() - want32.double()).abs().max().item()
+    e64 = (got.double() - want64).abs().max().item()
+    return min(e32, e64) / scale
+
+
+def _k10b_case(rng, f, p, d, single=False):
+    table = _t(rng.standard_normal((f, 3, d)).astype(np.float32))
+    idx = _t(_idx(rng, (p,), f), torch.int64)
+    idx[::7] = -1                                  # unfilled slots
+    if single:
+        idx[:64] = 2                               # a tile of one face
+    ws = [_t(rng.uniform(0, 1, p).astype(np.float32)) for _ in range(3)]
+    g = _t(rng.standard_normal((d, p)).astype(np.float32))
+    return table, idx, ws, g
+
+
+@pytest.mark.parametrize("tile,d,single", [(8, 2, False), (64, 6, True),
+                                           (1024, 3, False),
+                                           (2048, 1, True)])
+def test_interp_backward_tile_order_within_1e6_of_float64(tile, d, single):
+    """K10b's order (interp_rows_backward_tiles_plain, the plain mirror of
+    csrc/interp_gather.cu): per tile each face's sum over its columns in
+    column order, then each face's partials in tile order.  With -1 and
+    out-of-range indices (their weight gradients exact zeros, no table
+    row) and a tile holding a single face, the table and weight gradients
+    lie within 1e-6 of their max of the nearer of the float32 / float64
+    plain versions; a repeat is bit-equal; the partial rows are the
+    distinct (tile, face) pairs of tile_partials."""
+    rng = np.random.default_rng(RNG_SEED + 9)
+    f, p = 37, 3000
+    table, idx, ws, g = _k10b_case(rng, f, p, d, single)
+    got = tig.interp_rows_backward_tiles_plain(table, idx, *ws, g, tile)
+    again = tig.interp_rows_backward_tiles_plain(table, idx, *ws, g, tile)
+    want = tig.interp_rows_backward_plain(table, idx, *ws, g)
+    want64 = tig.interp_rows_backward_plain(
+        table.double(), idx, *(w.double() for w in ws), g.double())
+    assert got[0].shape == (f, 3, d) and got[0].dtype == torch.float32
+    assert _nearer(got[0], want[0], want64[0]) <= 1e-6
+    for a, b, c in zip(got[1], want[1], want64[1]):
+        assert _nearer(a, b, c) <= 1e-6
+    assert torch.equal(got[0], again[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+    outside = (idx < 0) | (idx >= f)
+    assert all(torch.equal(w[outside], torch.zeros(int(outside.sum())))
+               for w in got[1])
+    tiles, faces = tig.tile_partials(idx, f, tile)
+    assert len(tiles) < int((~outside).sum())
+    if single:
+        assert faces[tiles == 0].tolist() == [2] or tile > 64
+    absent = torch.ones(f, dtype=torch.bool)
+    absent[faces] = False
+    assert torch.all(got[0][absent] == 0.0)
+
+
+def test_interp_backward_tile_order_sums_in_column_then_tile_order():
+    """The mirror's sums in their stated order, on a case where the order
+    shows: one face over two tiles of 2 columns with terms (1, 2^-24) and
+    (2^-24, -1).  Per tile in column order the partials are 1 (1 + 2^-24
+    rounds to 1) and 2^-24 - 1 (exact), and their sum in tile order is
+    2^-24; the same terms added in column order alone give 0."""
+    tiny = np.float32(2.0 ** -24)
+    g = torch.tensor([[1.0, tiny, tiny, -1.0]], dtype=torch.float32)
+    idx = torch.ones(4, dtype=torch.int64)
+    ones = torch.ones(4)
+    d_table, _ = tig.interp_rows_backward_tiles_plain(
+        torch.zeros(2, 3, 1), idx, ones, ones, ones, g, 2)
+    assert d_table[1, :, 0].tolist() == [float(tiny)] * 3
+    assert d_table[0].abs().sum() == 0
+    column_order = np.float32(0.0)
+    for x in (1.0, tiny, tiny, -1.0):
+        column_order = np.float32(column_order + np.float32(x))
+    assert column_order == 0.0
+
+
 def test_wrappers_reject_bad_inputs():
     table = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="int64"):

@@ -7,7 +7,10 @@ port rounds the pose path's 3-term products as XLA does at optimisation
 level 0 (``transforms.matmul3``, ``cross3``) and takes its sqrt / sin /
 cos correctly rounded through float64; the JAX side is compiled at level
 0 (``_torch_parity.jax_exact``).  Here: posed NDC coordinates equal
-JAX's bit for bit; the one op that still parts the packages (XLA's C
+JAX's bit for bit; the focal length's tangent and the vertex normals'
+roots, which the port takes correctly rounded on every machine (as XLA
+folds a closed-over camera's tangent at compile time, and as its sqrt
+rounds); the one op that still parts the packages (XLA's C
 library ``sinf`` / ``cosf``); three multi-chunk GaussianRast +
 GaussianAgg pose steps on the icosphere (1280 faces, 20 chunks) held to
 JAX; and where a free-running run of them parts from JAX's, and why.
@@ -16,6 +19,7 @@ trajectory per scene, shared by the two step tests)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import pertrenderer_tpu_torch as ptt
@@ -98,6 +102,56 @@ def test_posed_ndc_coordinates_equal_jax_bit_for_bit():
         ptt.cameras.look_at_rotation(torch.from_numpy(pos),
                                      device="cpu").numpy(),
         np.asarray(jax_exact(jpt.look_at_rotation, jnp.asarray(pos))))
+
+
+@pytest.mark.parametrize("part", ["focal", "normals"])
+def test_focal_tangent_and_normal_roots_are_correctly_rounded(part):
+    """The two ops whose float32 library versions parted the NDC and
+    vertex-normal parity tests on some x86 machines, bit for bit on every
+    machine.  ``focal``: s = 1 / tan(fov / 2) of the port equals 1 / the
+    correctly rounded tangent at twelve field-of-view angles, and equals
+    the JAX package's, whose camera the tests close over, so that XLA
+    folds the tangent at compile time, correctly rounded (float32 library
+    tangents, the C library's and torch's, miss it in the last place for a
+    few percent of angles, fov 60 among them).  ``normals``: the port's
+    vertex normals divide by sqrt((x^2 + y^2) + z^2) correctly rounded,
+    as XLA's sqrt rounds (torch's float32 CPU sqrt misses it for a fifth
+    of inputs on some machines), and equal JAX's bit for bit."""
+    import pertrenderer_tpu as jpt
+    from _torch_parity import jax_exact, scene_mesh
+
+    if part == "focal":
+        fovs = np.array([20.0, 25.0, 30.0, 37.5, 45.0, 50.0, 55.0, 60.0,
+                         75.0, 90.0, 110.0, 120.0], dtype=np.float32)
+        pts = np.ones((1, 1, 3), dtype=np.float32)
+        for fov in fovs:
+            half = np.float32(0.5) * (fov * np.float32(np.pi / 180.0))
+            want = np.float32(1.0) / np.float32(np.tan(np.float64(half)))
+            tcams = ptt.PerspectiveCameras.create(fov=float(fov),
+                                                  device="cpu")
+            got = tcams.project_view_to_ndc(torch.from_numpy(pts))
+            jcams = jpt.PerspectiveCameras.create(fov=float(fov))
+            jgot = np.asarray(jax_exact(jcams.project_view_to_ndc,
+                                        jnp.asarray(pts)))
+            assert got[0, 0, 1].item() == want, fov
+            np.testing.assert_array_equal(got.numpy(), jgot)
+        return
+    from pertrenderer_tpu_torch import structures
+
+    mesh = scene_mesh("icosphere")
+    tmesh = convert.from_reference(mesh, device="cpu")
+    vn = tmesh.verts_normals().numpy()
+    fn = tmesh.face_normals(normalize=False)
+    un = torch.zeros(tmesh.max_verts, 3).index_add_(
+        0, tmesh.faces[0, :, 0], fn[0]).index_add_(
+        0, tmesh.faces[0, :, 1], fn[0]).index_add_(
+        0, tmesh.faces[0, :, 2], fn[0]).numpy()
+    sq = un * un
+    root = np.sqrt((sq[:, 0] + sq[:, 1]) + sq[:, 2])      # IEEE: rounded
+    np.testing.assert_array_equal(
+        structures._norm(torch.from_numpy(un)).numpy()[:, 0], root)
+    np.testing.assert_array_equal(
+        vn, np.asarray(jax_exact(lambda m: m.verts_normals(), mesh)))
 
 
 def test_so3_exp_map_parts_from_jax_only_where_xla_sin_cos_round_off():
