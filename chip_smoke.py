@@ -163,6 +163,28 @@ line; any failure exits non-zero before a result is printed):
 26. dryrun-sharded — sharding.dryrun_multichip(2, device="cuda"): the
    cube and the 80-face icosphere phases, finite losses.
 
+27. eval-pose / eval-runtime / check-diff — the experiment CLI
+   (``python -m pertrenderer_tpu_torch.experiments.eval``) in one child
+   process, the launch counts reset before and printed after each run:
+   pose_opt (cube, 128^2, 2 problems, gaussian and softras, 150 steps;
+   the 7 JSON files, every gaussian run under 5 degrees; K2 once per
+   step), runtime (1 problem, 100 steps; seconds and peak memory per
+   run), check_diff of the light on the cube (K2) and the 1280-face
+   sphere (K7), 100 steps each: the loss falls (mean of the last 10
+   below the first 10); then, in this process, K2 on the cube and K7 on
+   the sphere on the inputs of check_diff's first step (loss_kind
+   l1_rgb) against their plain versions: the loss within 1e-5, the
+   tables and every scalar (the light location among them) within 1e-3
+   of their max, repeat bit-equal;
+28. resume — optimize_pose for 100 steps straight against 50 steps, a
+   checkpoint and a resume of 50: bit-equal;
+29. config3 — experiments/config3.py at the recipe of
+   artifacts/config3.json (the cow, 4 views, 64 -> 128 -> 256^2, 1480
+   steps, K7 once per step): every view's camera within 2 degrees, the
+   best texture MAE at most 0.25; then K7's share of a synchronised
+   scene step at 256^2, and K7 on the inputs of that scene step (N=4,
+   S=8, l1_rgb) against its plain version, as check-diff holds it.  [phases] prints each phase's seconds.
+
 Phases 6-8, 11-13, 15, 16, 19, 20, 24 and 25 are the main paths: the
 launch
 counts are reset just before each and read just after, and each must have
@@ -171,7 +193,8 @@ once per step; serve-stream: K5; render-grad-stream: K5 and K6;
 train-stream: K7 once per step; target: K9a and no fused kernel;
 staged-softras: K9a, K9b, K10a and K10b and no fused kernel;
 serve-binned: K1 and K12's forward; train-binned: K12's loss-and-grad
-once per step; serve-sharded and train-sharded: counted in rank 0).  Times are CUDA events except the
+once per step; serve-sharded and train-sharded: counted in rank 0; the
+CLI's runs, resume and config3 as above).  Times are CUDA events except the
 per-request and per-step times (host clock ending in a device
 synchronisation).  Kernel and plain version are timed in turns (plain,
 kernel, kernel, plain) after a warm-up call.
@@ -184,13 +207,16 @@ the card's nvidia-smi name and power limit, then
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -199,13 +225,15 @@ import torch
 import pertrenderer_tpu_torch as ptt
 from pertrenderer_tpu_torch import _build, checks, shading
 from pertrenderer_tpu_torch.checks import tables_close
-from pertrenderer_tpu_torch.experiments import config5, harness
+from pertrenderer_tpu_torch.experiments import config3, config5, harness
+from pertrenderer_tpu_torch.experiments import eval as eval_cli
 from pertrenderer_tpu_torch.ops import binned
 from pertrenderer_tpu_torch.ops import fused_render as fr
 from pertrenderer_tpu_torch.ops import gather as gk
 from pertrenderer_tpu_torch.ops import interp_gather as ik
 from pertrenderer_tpu_torch.ops import perturbed_kernels as pk
 from pertrenderer_tpu_torch.parallel import sharding
+from pertrenderer_tpu_torch.utils import checkpoint as ckpt_mod
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens", "prng_goldens.npz")
@@ -756,12 +784,31 @@ def phase_k1(dev, smi, report):
         lambda: fr.prng_probe_plain("gaussian", device=dev), 50)
     # (4, 16, 256) gaussian: 4 * 8 * 256 Box-Muller pairs, 64 KB out.
     b_ms, b_by = bound(4 * 16 * 256 * 4, 4 * 8 * 256 * OPS_PAIR)
+    # No launch finishes in b_ms: the device time of a kernel that does
+    # nothing (the launch floor) is the bound that K1 can be held to.  Both
+    # are profiled in a fresh process (kernel_splits k1): in this one the
+    # later phases' profiler sessions see the device only if theirs come
+    # first.
+    out = subprocess.run(
+        [sys.executable, "-m", "pertrenderer_tpu_torch.experiments."
+         "kernel_splits", "k1", "--root", HERE], capture_output=True,
+        text=True, timeout=300, cwd=HERE)
+    if out.returncode != 0:
+        fail(f"K1: kernel_splits k1 failed: {out.stderr[-2000:]}")
+    split = json.loads(out.stdout.strip().splitlines()[-1])
+    k1_dev, floor = split["prng_probe_ms"], split["launch_floor_ms"]
+    if not (k1_dev > 0 and floor > 0):
+        fail(f"K1: no device time in the profile: {split}")
     report["prng_probe"] = dict(max_abs_err=k1_err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by)
+                                bound_ms=b_ms, bound_by=b_by,
+                                device_ms=k1_dev, launch_floor_ms=floor)
     print(f"[K1] prng_probe: uniform bit-exact vs goldens, gaussian/cauchy "
           f"within 5e-4 abs / 1e-5 rel; max |kernel - plain| {k1_err:.3g}; "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound {b_ms:.2e} ms "
-          f"({b_by}) | {smi}", flush=True)
+          f"({b_by}); device time (torch.profiler) {k1_dev:.5f} ms against "
+          f"an empty kernel's {floor:.5f} ms (the launch floor): "
+          f"{k1_dev / floor:.2f}x | {smi}",
+          flush=True)
 
 
 def k3_ops(cfg, w, counts):
@@ -1466,7 +1513,7 @@ STREAM_S128 = 128     # optimize_pose's anneal_sample_cap
 STREAM_S128_IMAGE = 64
 
 
-def phase_stream_s128(dev, smi):
+def phase_stream_s128(dev, smi, _report):
     """The stream route above 64 aggregation samples (K5, K6 / K7's B1 in
     passes of 64): the gaussian pair at S = 128 on the cow at 64^2, K=50,
     N=1.  A render (K5) at the MC tolerance of its plain version, and K6
@@ -2686,7 +2733,7 @@ def phase_large(dev, smi, report):
     fail(f"large: no K fits: {notes}")
 
 
-def phase_determinism(dev, smi):
+def phase_determinism(dev, smi, _report):
     """Two preparations of the cow's stream inputs (N=4, 256^2), each
     back-propagated from a fixed cotangent of the table and scalars to
     the poses, with torch's default algorithms: the tables, scalars,
@@ -3388,9 +3435,11 @@ def phase_k11(dev, smi, report):
           f"N=1 ([train-sharded]'s shape) {ms1:.4f} ms | {smi}", flush=True)
 
 
-def split_times(fn, reps):
+def split_times(fn, reps, names=None):
     """Milliseconds per call of fn: the whole (host clock, synchronised),
-    its kernels (CUDA events around each kernel wrapper), its collectives
+    its kernels (CUDA events around each of the kernel wrappers ``names``
+    of ops/fused_render.py, the flat sharded route's by default), its
+    collectives
     (host clock around each sharding.axis_mean, synchronised before and
     after: the host copies and the gloo all-reduce) and the rest (host:
     Python, preparation, launches).  The synchronisations make these
@@ -3418,7 +3467,7 @@ def split_times(fn, reps):
         coll[0] += (time.perf_counter() - t0) * 1e3
         return out
 
-    saved = {name: getattr(fr, name) for name in SHARDED_KERNELS}
+    saved = {name: getattr(fr, name) for name in names or SHARDED_KERNELS}
     for name, f in saved.items():
         setattr(fr, name, kernel(f))
     sharding.axis_mean = timed_mean
@@ -3691,7 +3740,7 @@ def phase_sharded(dev, smi, report):
                              step_split=tr["split"])
 
 
-def phase_dryrun_sharded(dev, smi):
+def phase_dryrun_sharded(dev, smi, _report):
     """sharding.dryrun_multichip(2, device='cuda'): the cube (flat
     sharded) and the 80-face icosphere (stream sharded) phases."""
     t0 = time.perf_counter()
@@ -3704,6 +3753,373 @@ def phase_dryrun_sharded(dev, smi):
         fail(f"dryrun-sharded: {out}")
     print(f"[dryrun-sharded] dryrun_multichip(2, device='cuda'): losses "
           f"{out}; {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The experiment CLI, checkpoint / resume and the scene-parameter loop
+# ---------------------------------------------------------------------------
+
+# The child process of the CLI phases: each argv in turn through the CLI's
+# own entry (runpy, as ``python -m``), the launch counts reset just before
+# each run and printed just after it.
+CLI_CHILD = """
+import json, runpy, sys
+sys.path.insert(0, {root!r})
+import chip_smoke as cs
+for i, argv in enumerate({argvs!r}):
+    sys.argv = ["eval"] + argv
+    print("@@run", i, flush=True)
+    cs.reset_counts()
+    runpy.run_module("pertrenderer_tpu_torch.experiments.eval",
+                     run_name="__main__")
+    print("@@counts", json.dumps(cs.all_counts()), flush=True)
+"""
+
+
+def cli_runs(argvs, timeout=900):
+    """[(stdout, launch counts)] of ``python -m
+    pertrenderer_tpu_torch.experiments.eval`` on each argv, in one child
+    process on the card (the kernels already built)."""
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD.format(root=HERE, argvs=argvs)],
+        capture_output=True, text=True, timeout=timeout, cwd=HERE)
+    if out.returncode != 0:
+        fail(f"experiment CLI: rc {out.returncode}: {out.stderr[-3000:]}")
+    runs = []
+    for chunk in out.stdout.split("@@run ")[1:]:
+        text, _sep, counts = chunk.partition("@@counts ")
+        runs.append((text, json.loads(counts.splitlines()[0])))
+    if len(runs) != len(argvs):
+        fail(f"experiment CLI: {len(runs)} of {len(argvs)} runs reported")
+    return runs
+
+
+def read_json(root, eid, name):
+    with open(os.path.join(root, str(eid), name)) as f:
+        return json.load(f)
+
+
+def first_call(name, run):
+    """The arguments of the first call of ``fr.<name>`` that ``run()``
+    makes; every call goes on as usual."""
+    orig, calls = getattr(fr, name), []
+
+    def spy(*a):
+        calls.append(a)
+        return orig(*a)
+
+    setattr(fr, name, spy)
+    try:
+        run()
+    finally:
+        setattr(fr, name, orig)
+    if not calls:
+        fail(f"no call of {name}")
+    return calls[0]
+
+
+def scene_loss_grad_check(tag, a, tol):
+    """K2 (``tag`` K2) or K7 on the arguments ``a`` that a scene step gave
+    it, loss_kind l1_rgb (the sign of d, not 2d), against its plain
+    version on the same inputs: the loss within 1e-5; the tables and
+    every scalar (the light location among them) as [K2] / [K7] hold
+    them, K7's also against the plain version in float64
+    (``checks.stream_grads_close``); repeat bit-equal.  Returns a text."""
+    stream = tag == "K7"
+    if a[-2] != "l1_rgb":
+        fail(f"{tag} in a scene step: loss_kind {a[-2]!r}, not l1_rgb")
+    kern, plain = ((fr.fused_stream_loss_grad, fr.stream_loss_grad_plain)
+                   if stream else (fr.fused_loss_grad, fr.loss_grad_plain))
+    got, again, want = kern(*a), kern(*a), plain(*a)
+    torch.cuda.synchronize()
+    if stream:
+        a64 = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                    else x for x in a)
+        want64 = plain(*a64)
+        ok, err, where, n_thin, _bins = checks.stream_grads_close(
+            a[0], a[1], got[1:], want[1:], want64[1:], tol)
+        thin = f" outside the {n_thin} rows of thin faces"
+    else:
+        ok, err, where = tables_close(got[1:], want[1:], tol)
+        thin = ""
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    lerr = ((got[0] - want[0]).abs() / want[0].abs()).max().item()
+    light = [got[-1][:, fr._S_LIGHT + i].sum().item() for i in range(3)]
+    light_p = [want[-1][:, fr._S_LIGHT + i].sum().item() for i in range(3)]
+    if not ok or not same or lerr > 1e-5:
+        fail(f"{tag} l1_rgb in a scene step: worst error {err} at {where} "
+             f"(tolerance {tol}), loss rel {lerr}, repeat bit-equal {same}; "
+             f"light gradient {light} vs plain {light_p}")
+    return (f"{tag} l1_rgb on a scene step's inputs (N={a[1].shape[0]}) vs "
+            f"its plain version: loss rel {lerr:.3g}, worst error "
+            f"{err:.3g} of max |grad| at {where}{thin} (tolerance {tol}), "
+            f"light-location gradient ({', '.join(f'{x:.6g}' for x in light)}"
+            f") vs plain ({', '.join(f'{x:.6g}' for x in light_p)}), repeat "
+            f"bit-equal")
+
+
+def check_diff_step_checks(dev, tmp):
+    """``scene_loss_grad_check`` of K2 on the cube and K7 on the sphere,
+    each on the inputs of the first step of ``eval -et check_diff``
+    (gaussian, sigma 1e-4: the tolerance of [K2] / [K7] gaussian)."""
+    texts = []
+    for cat, tag, name in (("cube", "K2", "fused_loss_grad"),
+                           ("sphere", "K7", "fused_stream_loss_grad")):
+        args = eval_cli.build_parser().parse_args(
+            ["-et", "check_diff", "-cat", cat, "-ni", "1", "--results-dir",
+             tmp, "--device", "cuda"])
+        with contextlib.redirect_stdout(io.StringIO()):
+            a = first_call(name, lambda: eval_cli.check_differentiability(
+                args, dev))
+        texts.append(f"{cat}: {scene_loss_grad_check(tag, a, 1e-3)}")
+    return texts
+
+
+EVAL_FILES = ("angle_error.txt", "angle_error_final.txt",
+              "angle_error_init.txt", "angle_std.txt",
+              "solved_percentage.txt", "params.txt", "exp_setup.txt")
+EVAL_ITERS, RUNTIME_ITERS, CHECK_DIFF_ITERS = 150, 100, 100
+
+
+def phase_cli(dev, smi, report):
+    """[eval-pose], [eval-runtime], [check-diff]: the port's experiment CLI
+    in one child process on the card; then K2 and K7 (l1_rgb) on the
+    inputs of check_diff's first step against their plain versions."""
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        common = ["--results-dir", tmp, "--device", "cuda"]
+        ckpt_root = os.path.join(tmp, "ckpt")
+        ckpt = [os.path.join(ckpt_root, eid, "check_diff")
+                for eid in ("3", "4")]
+        argvs = [
+            ["-et", "pose_opt", "-eid", "1", "-np", "2", "-ni",
+             str(EVAL_ITERS), "-is", "128", "-sn", "gaussian", "softras"]
+            + common,
+            ["-et", "runtime", "-eid", "2", "-np", "1", "-ni",
+             str(RUNTIME_ITERS)] + common,
+            ["-et", "check_diff", "-eid", "3", "-ni", str(CHECK_DIFF_ITERS),
+             "--checkpoint-dir", ckpt_root] + common,
+            ["-et", "check_diff", "-eid", "4", "-cat", "sphere", "-ni",
+             str(CHECK_DIFF_ITERS), "--checkpoint-dir", ckpt_root] + common]
+        t0 = time.perf_counter()
+        runs = cli_runs(argvs)
+        wall = time.perf_counter() - t0
+
+        # [eval-pose]
+        (text, counts) = runs[0]
+        missing = [f for f in EVAL_FILES
+                   if not os.path.exists(os.path.join(tmp, "1", f))]
+        if missing:
+            fail(f"eval-pose: artifacts missing: {missing}")
+        init = read_json(tmp, 1, "angle_error_init.txt")
+        final = read_json(tmp, 1, "angle_error_final.txt")
+        steps = 2 * 2 * EVAL_ITERS
+        if (counts["fused_loss_grad"] != steps or counts["prng_probe"] < 1
+                or counts["gather_rows_cm"] < 1):
+            fail(f"eval-pose: launch counts {counts}")
+        errs = {nt: list(zip(init[nt][0], final[nt][0])) for nt in init}
+        if not all(0 <= e < 5.0 for _i, e in errs["gaussian"]):
+            fail(f"eval-pose: gaussian errors {errs['gaussian']} (deg), "
+                 "not all below 5")
+        report["paths"]["eval-pose"] = counts
+        per = "; ".join(f"{nt} " + ", ".join(f"{a:.2f} -> {b:.2f}"
+                                             for a, b in pairs)
+                        for nt, pairs in errs.items())
+        print(f"[eval-pose] eval -et pose_opt -np 2 -ni {EVAL_ITERS} -is 128 "
+              f"-sn gaussian softras (the cube, flat route): {per} deg; "
+              f"{len(EVAL_FILES)} JSON artifacts; launches K2 "
+              f"{counts['fused_loss_grad']} ({steps} steps), K1 "
+              f"{counts['prng_probe']}, K9a {counts['gather_rows_cm']} (the "
+              f"targets among them), K9b {counts['scatter_rows_cm']}, K3 "
+              f"{counts['fused_forward']} (the run artifacts' images) | {smi}",
+              flush=True)
+
+        # [eval-runtime]
+        (text, counts) = runs[1]
+        runtimes = read_json(tmp, 2, "runtimes.txt")
+        memory = read_json(tmp, 2, "memory.txt")
+        if counts["fused_loss_grad"] != 2 * RUNTIME_ITERS:
+            fail(f"eval-runtime: launch counts {counts}")
+        if not all(m[0][0] and m[0][0] > 0 for m in memory.values()):
+            fail(f"eval-runtime: peak memory {memory}")
+        report["paths"]["eval-runtime"] = counts
+        runs_text = "; ".join(
+            f"{nt} {runtimes[nt][0][0]:.3f} s ({RUNTIME_ITERS / runtimes[nt][0][0]:.1f} "
+            f"steps/s), peak {memory[nt][0][0]:.1f} MB" for nt in runtimes)
+        print(f"[eval-runtime] eval -et runtime -np 1 -ni {RUNTIME_ITERS} "
+              f"(128^2, S=8): {runs_text} (torch.cuda.max_memory_allocated); "
+              f"launches K2 {counts['fused_loss_grad']} | {smi}", flush=True)
+
+        # [check-diff]
+        lines = []
+        for (text, counts), path, route, key in zip(
+                runs[2:], ckpt, ("cube, flat", "sphere, stream"),
+                ("fused_loss_grad", "fused_stream_loss_grad")):
+            other = ("fused_stream_loss_grad" if key == "fused_loss_grad"
+                     else "fused_loss_grad")
+            if counts[key] != CHECK_DIFF_ITERS or counts[other] != 0:
+                fail(f"check-diff ({route}): launch counts {counts}")
+            st = ckpt_mod.restore_checkpoint(path)
+            losses = st["losses"].numpy()
+            light = st["params"]["lights_location"][0].tolist()
+            best = st["best_params"]["lights_location"][0].tolist()
+            first, last = losses[:10].mean(), losses[-10:].mean()
+            if not (np.all(np.isfinite(losses)) and last < first):
+                fail(f"check-diff ({route}): losses {losses[:10]} ... "
+                     f"{losses[-10:]}: no fall")
+            report["paths"][f"check-diff-{route.split(',')[0]}"] = counts
+            mid = ckpt_mod.restore_checkpoint(path, CHECK_DIFF_ITERS // 2)
+            lines.append(
+                f"{route} (K{'2' if key == 'fused_loss_grad' else '7'} "
+                f"{counts[key]}): loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+                f"(mean of the first / last 10 {first:.5f} / {last:.5f}); "
+                f"light (0, 6, -1) -> "
+                f"{tuple(round(x, 3) for x in mid['params']['lights_location'][0].tolist())}"
+                f" at step {CHECK_DIFF_ITERS // 2} -> "
+                f"{tuple(round(x, 3) for x in light)}, best "
+                f"{tuple(round(x, 3) for x in best)}")
+        print(f"[check-diff] eval -et check_diff -ni {CHECK_DIFF_ITERS} "
+              f"(light only, 128^2, gaussian S=8, sigma 1e-4): "
+              + "; ".join(lines) + f"; the CLI's four runs {wall:.1f} s in "
+              f"one process | {smi}", flush=True)
+        for text in check_diff_step_checks(dev, tmp):
+            print(f"[check-diff] {text} | {smi}", flush=True)
+
+
+def phase_resume(dev, smi, report):
+    """optimize_pose for 100 steps straight, then 50 steps, a checkpoint
+    and a resume of 50 in the same process: bit-equal on the card."""
+    r_true = ptt.random_rotations(1, torch.Generator().manual_seed(2029),
+                                  device="cpu").to(dev)
+    mesh, cams, lights, renderer, log_rot, target = train_setup(dev, r_true,
+                                                                5)
+
+    def run(**extra):
+        return harness.optimize_pose(
+            mesh, cams, lights, log_rot, renderer, [target],
+            generator=torch.Generator().manual_seed(8), lr_init=TRAIN_LR,
+            Niter=100, segment_size=50, **extra)
+
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        full = run()
+        killed = run(checkpoint_dir=tmp, max_segments=1)
+        resumed = run(checkpoint_dir=tmp, resume=True)
+        counts = dict(fr.launch_counts)
+    if counts["fused_loss_grad"] != 200:
+        fail(f"resume: launch counts {counts}")
+    same = (torch.equal(resumed.log_rot, full.log_rot)
+            and torch.equal(resumed.best_log_rot, full.best_log_rot)
+            and np.array_equal(resumed.losses, full.losses)
+            and np.array_equal(resumed.grad_norms, full.grad_norms))
+    if killed.losses.shape != (50,) or not same:
+        fail(f"resume: not bit-equal: log_rot {resumed.log_rot} vs "
+             f"{full.log_rot}, losses differ at "
+             f"{np.flatnonzero(resumed.losses != full.losses)[:5]}")
+    report["paths"]["resume"] = dict(counts, **dict(gk.launch_counts))
+    print(f"[resume] optimize_pose 100 steps (cube, 256^2, N=1, segments of "
+          f"50) = 50 steps, checkpoint, resume 50: log_rot, best iterate, "
+          f"100 losses and gradient norms bit-equal; loss "
+          f"{full.losses[0]:.5g} -> {full.losses[-1]:.5g}, pose error "
+          f"{degrees_off(log_rot, r_true):.2f} -> "
+          f"{degrees_off(full.best_log_rot, r_true):.2f} deg; launches K2 "
+          f"{counts['fused_loss_grad']} | {smi}", flush=True)
+
+
+# The recipe of the JAX run in artifacts/config3.json: its "recipe", and
+# what its commit message and NOTES.md add: the 64 -> 128 -> 256
+# schedule (three refine blocks per finer size), the texture's Laplacian
+# at 3e-3 and a 300-step final refit (1480 steps in all).
+CONFIG3_ARGS = ["--views", "4", "--image", "256", "--schedule", "64,128,256",
+                "--alternate", "8", "--refine-blocks", "3",
+                "--warmup-iters", "60", "--tex-iters", "40",
+                "--cam-iters", "40", "--final-tex-iters", "300",
+                "--sigma0", "3e-3", "--gamma0", "3e-2", "--adapt-sigma",
+                "1.2", "--adapt-gamma", "1.2", "--cam-lr-scale", "8",
+                "--lr-decay", "1.25", "--lr", "5e-2", "--samples", "8",
+                "--tex-smooth", "3e-3",
+                "--seed", "0", "--device", "cuda"]
+
+
+def phase_config3(dev, smi, report):
+    """BASELINE config 3 through experiments/config3.py at the JAX run's
+    recipe: the cow at 4 views, 64 -> 128 -> 256^2, S=8, K7 once per
+    step; then K7's share of a synchronised scene step at 256^2, and K7
+    (l1_rgb) on that step's inputs against its plain version."""
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        rec = config3.main(CONFIG3_ARGS + ["--out",
+                                           os.path.join(tmp, "c3.json")])
+        counts = dict(fr.launch_counts)
+        k9b = k9b_per(report, "config3", rec["iters_total"], "step")
+        counts.update(gk.launch_counts)
+    steps = rec["iters_total"]
+    if (counts["fused_stream_loss_grad"] != steps
+            or counts["fused_loss_grad"] != 0):
+        fail(f"config3: launch counts {counts} for {steps} steps")
+    cam = rec["camera_err_deg_final"]
+    per_view = [max(e, a) for e, a in zip(cam["elev_per_view"],
+                                          cam["azim_per_view"])]
+    if not (rec["loss_best"] is not None and np.isfinite(rec["loss_best"])
+            and max(per_view) < 2.0
+            and rec["texture_mae_vs_true_best"] <= 0.25):
+        fail(f"config3: camera errors {cam}, texture MAE "
+             f"{rec['texture_mae_vs_true_best']}")
+    report["paths"]["config3"] = counts
+
+    # K7's share of a step: ten synchronised scene steps at 256^2, 4
+    # views, the cameras 1 degree off, the texture white.
+    mesh = config3.cow(dev).extend(4)
+    azim = 120.0 + 90.0 * torch.arange(4, device=dev)
+    lights = ptt.PointLights.create(location=(0.0, 2.0, -2.0), batch=4,
+                                    device=dev)
+    r, t = ptt.look_at_view_transform(dist=6.7, elev=30.0, azim=azim,
+                                      device=dev)
+    cams = ptt.PerspectiveCameras.create(R=r, T=t, fov=60.0, device=dev)
+    with torch.no_grad():
+        target = harness.get_hard_rendering(mesh, cams, lights, IMAGE)[
+            ..., :3]
+    rend = config3.renderer(lights, IMAGE, 3e-3 / 1.2 ** 10,
+                            3e-2 / 1.2 ** 10, 8, 50, dev)
+    params = {"verts_rgb": torch.ones(1, mesh.max_verts, 3, device=dev),
+              "deform": torch.zeros(mesh.max_verts, 3, device=dev),
+              "camera_elev": torch.full((4,), 31.0, device=dev),
+              "camera_azim": azim + 1.0,
+              "lights_location": torch.tensor([[0.0, 2.0, -2.0]],
+                                              device=dev)}
+    state = [harness.SceneState.start(params, {
+        "verts_rgb": True, "deform": False, "camera_elev": False,
+        "camera_azim": False, "lights_location": False})]
+    opt = torch.optim.Adam([state[0].params["verts_rgb"]], lr=5e-2)
+    gen = torch.Generator().manual_seed(3)
+
+    def step():
+        seeds = fr.draw_seeds(4, gen, device=dev)
+        state[0] = harness.scene_step(mesh, target, state[0], rend, opt,
+                                      seeds, textured=True)[0]
+
+    l1_text = scene_loss_grad_check(
+        "K7", first_call("fused_stream_loss_grad", step), 1e-3)
+    sp = split_times(step, 10, ("fused_stream_loss_grad",))
+    print(f"[config3] experiments/config3.py at the recipe of "
+          f"artifacts/config3.json (the cow, 5120 faces, 4 views, 64 -> 128 "
+          f"-> 256^2, S=8, {steps} steps): camera error per view "
+          f"{', '.join(f'{e:.3f}' for e in per_view)} deg (from 10 / 20; "
+          f"elev {cam['elev_per_view']}, azim {cam['azim_per_view']}); "
+          f"texture MAE {rec['texture_mae_vs_true_init']:.4f} -> best "
+          f"{rec['texture_mae_vs_true_best']:.4f}; loss "
+          f"{rec['loss_first']:.5f} -> {rec['loss_last']:.5f} (best "
+          f"{rec['loss_best']:.5f}); {rec['steps_per_sec']:.2f} steps/s, "
+          f"{rec['renders_per_sec']:.2f} view renders/s, wall "
+          f"{rec['wall_seconds_total']:.1f} s; launches K7 "
+          f"{counts['fused_stream_loss_grad']} (one per step), {k9b}; a "
+          f"synchronised scene step at 256^2 (4 views): "
+          f"{sp['total']:.2f} ms, K7 {sp['kernels']:.2f} ms "
+          f"({sp['kernels'] / sp['total']:.1%}), the rest {sp['host']:.2f} "
+          f"ms | {smi}", flush=True)
+    print(f"[config3] {l1_text} (cow 256^2, S=8, 4 views, cameras 1 degree "
+          f"off, white texture) | {smi}", flush=True)
 
 
 SOURCES = {
@@ -3734,6 +4150,17 @@ SOURCES = {
 }
 
 
+PHASES = (phase_k1, phase_k3, phase_k4, phase_k2, phase_serve,
+          phase_render_grad, phase_train, phase_k5, phase_k6_k7,
+          phase_stream_s128, phase_serve_stream, phase_render_grad_stream,
+          phase_train_stream, phase_k9_k10, phase_target,
+          phase_staged_softras, phase_k8, phase_staged_mc,
+          phase_staged_uniform, phase_large, phase_k12,
+          phase_capacity_binned, phase_serve_binned, phase_train_binned,
+          phase_determinism, phase_k11, phase_sharded, phase_dryrun_sharded,
+          phase_cli, phase_resume, phase_config3)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs the port on a GPU")
@@ -3750,35 +4177,13 @@ def main():
           f"{torch.__version__} cuda {torch.version.cuda} | kernel build "
           f"{build_s:.2f} s (nvcc {_build.build_seconds})", flush=True)
 
-    report = {}
-    phase_k1(dev, smi, report)
-    phase_k3(dev, smi, report)
-    phase_k4(dev, smi, report)
-    phase_k2(dev, smi, report)
-    phase_serve(dev, smi, report)
-    phase_render_grad(dev, smi, report)
-    phase_train(dev, smi, report)
-    phase_k5(dev, smi, report)
-    phase_k6_k7(dev, smi, report)
-    phase_stream_s128(dev, smi)
-    phase_serve_stream(dev, smi, report)
-    phase_render_grad_stream(dev, smi, report)
-    phase_train_stream(dev, smi, report)
-    phase_k9_k10(dev, smi, report)
-    phase_target(dev, smi, report)
-    phase_staged_softras(dev, smi, report)
-    phase_k8(dev, smi, report)
-    phase_staged_mc(dev, smi, report)
-    phase_staged_uniform(dev, smi, report)
-    phase_large(dev, smi, report)
-    phase_k12(dev, smi, report)
-    phase_capacity_binned(dev, smi, report)
-    phase_serve_binned(dev, smi, report)
-    phase_train_binned(dev, smi, report)
-    phase_determinism(dev, smi)
-    phase_k11(dev, smi, report)
-    phase_sharded(dev, smi, report)
-    phase_dryrun_sharded(dev, smi)
+    report = {"paths": {}}
+    seconds = {}
+    for phase in PHASES:
+        t0 = time.perf_counter()
+        phase(dev, smi, report)
+        seconds[phase.__name__[6:]] = round(time.perf_counter() - t0, 1)
+    print(f"[phases] seconds: {json.dumps(seconds)}", flush=True)
 
     kernels = []
     k12 = report["fused_binned"]
@@ -3797,6 +4202,13 @@ def main():
             extra = {"modes": r["modes"], "ms_n1": r["ms_n1"],
                      "reference_ms": r["reference_ms"],
                      "certain": r["certain"]}
+        if kname == "prng_probe":
+            extra = {"device_ms": r["device_ms"],
+                     "launch_floor_ms": r["launch_floor_ms"]}
+        if kname in ("fused_loss_grad", "fused_stream_loss_grad"):
+            extra = {"launches_by_path": {
+                path: c[kname] for path, c in report["paths"].items()
+                if c.get(kname)}}
         if kname == "fused_stream_forward":
             extra = {"draws_skipped": r["draws_skipped"]}
         if kname in ("sharded_prob", "sharded_det_bwd"):

@@ -16,8 +16,11 @@ row gather K9a / K9b, the shaders sample textures and shade through the
 interpolating gather K10a / K10b, and the Monte-Carlo estimators run as
 K8a (perturbed Heaviside) and K8b / K8c (perturbed argmax and its
 gradients).
-``experiments.harness.optimize_pose`` runs the pose optimisation loop on
-top, and ``init_target`` builds the Hard-Phong target.  On CPU tensors
+``experiments.harness`` runs the pose loop (``optimize_pose``) and the
+scene-parameter loop (``optimize_scene_params``: light, cameras, vertex
+colours and offsets) on top, with checkpoints and resume;
+``init_target`` builds the Hard-Phong target and ``experiments.eval`` is
+the experiment CLI.  On CPU tensors
 every kernel runs as its plain PyTorch version.
 
 Everything is float32.  TF32 is turned off here, at import: a TF32 matmul
@@ -49,6 +52,13 @@ from pertrenderer_tpu_torch.lights import (  # noqa: E402
     DirectionalLights,
     Materials,
     PointLights,
+)
+from pertrenderer_tpu_torch.losses import (  # noqa: E402
+    chamfer_distance,
+    knn_points,
+    mesh_edge_loss,
+    mesh_laplacian_smoothing,
+    mesh_normal_consistency,
 )
 from pertrenderer_tpu_torch.models.renderer import (  # noqa: E402
     MeshRasterizer,
@@ -105,8 +115,12 @@ from pertrenderer_tpu_torch.ops.rasterize import (  # noqa: E402
     rasterize_planar,
 )
 from pertrenderer_tpu_torch.shading import phong_shading  # noqa: E402
-from pertrenderer_tpu_torch.structures import Meshes  # noqa: E402
+from pertrenderer_tpu_torch.structures import (  # noqa: E402
+    Meshes,
+    join_meshes_as_batch,
+)
 from pertrenderer_tpu_torch.textures import (  # noqa: E402
+    Textures,
     TexturesAtlas,
     TexturesUV,
     TexturesVertex,

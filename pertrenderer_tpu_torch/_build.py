@@ -108,6 +108,8 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.pt_prng_probe.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
     lib.pt_prng_probe.restype = i32
+    lib.pt_empty_launch.argtypes = [ptr]
+    lib.pt_empty_launch.restype = i32
     # n and the static configuration (fused_render._cfg_args), then the
     # activity bits and the tiling (nt, p_tile, tile_w).
     config = [i32] * 16 + [ctypes.c_float] + [i32] * 4

@@ -63,6 +63,10 @@ class PerspectiveCameras:
                    zfar=_batched_scalar(zfar, n, device),
                    aspect_ratio=_batched_scalar(aspect_ratio, n, device))
 
+    @property
+    def batch_size(self) -> int:
+        return self.R.shape[0]
+
     def camera_center(self) -> torch.Tensor:
         """World-space camera positions (N, 3): C = -T @ R^T."""
         return -matmul3(self.T[:, None, :], self.R.transpose(-1, -2))[:, 0]

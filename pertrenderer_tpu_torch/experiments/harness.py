@@ -15,14 +15,27 @@ the settings' overflow policy (``check_capacity_host``).
 
 Random numbers come from an explicit CPU ``torch.Generator``: the initial
 pose perturbation, each step's estimator seed words and the guard noise.
+With a ``checkpoint_dir`` the loop saves its whole state at every segment
+boundary (``utils/checkpoint.py``: the pose, the optimizer's state, the
+generator's state, the best iterate, the EMA and the annealing state), and
+``resume`` continues from the latest checkpoint on the uninterrupted run's
+trajectory, bit for bit (the kernels' sums have a fixed order).
+
+``optimize_scene_params`` is the scene-parameter loop: vertex colours,
+vertex offsets, per-view camera elevation and azimuth and the light
+location, the camera and light rebuilt inside every step from the
+optimised scalars (``look_at_view_transform``), an L1 image loss from one
+launch of K2 (flat) or K7 (stream) plus a uniform Laplacian of the mesh
+(K9a / K9b), Adam per parameter group, annealing, checkpoints and resume.
 
 ``init_target`` builds an experiment's scene and its target image through
 ``get_hard_rendering`` — the reference's Hard-Phong render at K = 1, which
-takes the staged route (kernels K9a and K10a on the card).
+takes the staged route (kernels K9a and K10a on the card);
+``init_base_mesh_cameras_lights`` the scene loop's source mesh and start.
 
-Not ported yet (ROADMAP Queue 1): checkpoint and resume, artifacts,
-``max_dispatch_steps``, the ShapeNet categories (they need the dataset)
-and the scene-parameter loop.
+Not ported: ``max_dispatch_steps`` and the scan segments (they exist for
+XLA; the port runs a plain loop) and the ShapeNet categories (they need
+the dataset).
 """
 
 from __future__ import annotations
@@ -36,14 +49,20 @@ import numpy as np
 import torch
 
 import pertrenderer_tpu_torch as ptt
+from pertrenderer_tpu_torch.losses import (mesh_laplacian_smoothing,
+                                           vertex_feature_laplacian)
 from pertrenderer_tpu_torch.ops import binned, fused_render
 from pertrenderer_tpu_torch.transforms import (Rotate, matmul3,
                                                random_rotations, so3_exp_map,
                                                so3_log_map)
+from pertrenderer_tpu_torch.utils import artifacts as _art
+from pertrenderer_tpu_torch.utils import checkpoint as _ckpt
 
 __all__ = ["NOISE_MENU", "make_smoothers", "init_renderers", "init_target",
-           "get_hard_rendering", "PoseState", "StepOut", "pose_step",
-           "optimize_pose", "PoseOptResult"]
+           "init_base_mesh_cameras_lights", "get_hard_rendering",
+           "PoseState", "StepOut", "pose_step", "optimize_pose",
+           "PoseOptResult", "SCENE_PARAMS", "SceneState", "SceneStepOut",
+           "scene_loss", "scene_step", "optimize_scene_params"]
 
 _BLUR_CONST = float(np.log(1.0 / 1e-4 - 1.0))
 
@@ -81,11 +100,13 @@ def make_smoothers(noise_type: str, sigma: float, gamma: float,
 def init_renderers(camera, lights, R_true, generator=None,
                    pert_init_intensity=30.0, sigma=1e-2, gamma=5e-1,
                    alpha=1.0, nb_samples=16, noise_type=("cauchy",),
-                   imsize=128, faces_per_pixel=50):
+                   imsize=128, faces_per_pixel=50, device="cuda"):
     """(log_rot_init (1, 3), renderers): the perturbed renderer bank and an
     initial pose ``pert_init_intensity`` degrees from ``R_true`` about an
-    axis drawn from ``generator`` (a uniformly random pose if 0)."""
-    device = camera.R.device
+    axis drawn from ``generator`` (a uniformly random pose if 0).  With
+    ``camera`` None (the scene loop passes its cameras at every render)
+    the renderers live on ``device``."""
+    device = camera.R.device if camera is not None else torch.device(device)
     if pert_init_intensity == 0.0:
         r_init = random_rotations(1, generator, device=device)
     else:
@@ -114,13 +135,14 @@ def init_renderers(camera, lights, R_true, generator=None,
     return log_rot_init, renderers
 
 
-def _normalize_mesh(mesh):
-    """Centred on the first mesh's vertex mean and scaled to the unit box."""
+def normalize_mesh(mesh, extent: float = 1.0):
+    """Centred on the first mesh's vertex mean and scaled so that its
+    largest |coordinate - centre| is ``extent`` (1: the unit box)."""
     verts = mesh.verts[0]
     center = verts.mean(0)
     scale = torch.max(torch.abs(verts - center))
     return mesh.offset_verts(-center.expand_as(verts)).scale_verts(
-        1.0 / scale)
+        extent / scale)
 
 
 def get_hard_rendering(mesh, camera, lights, imsize):
@@ -160,7 +182,7 @@ def init_target(generator: Optional[torch.Generator] = None,
             f"category {category!r} needs the ShapeNet dataset "
             f"(shapenet_path={shapenet_path!r}); the port renders the cube "
             "and sphere categories")
-    mesh = _normalize_mesh(mesh)
+    mesh = normalize_mesh(mesh)
     if category != "cube":
         mesh = mesh.scale_verts(3.0)
     elev = torch.linspace(30.0, 240.0, 1)
@@ -182,6 +204,38 @@ def init_target(generator: Optional[torch.Generator] = None,
     target = get_hard_rendering(rotated, cameras[0], lights, imsize)
     target_rgb = [target[i, ..., :3] for i in range(len(cameras))]
     return meshes, cameras, lights, target_rgb, R_true, elev, azim
+
+
+def init_base_mesh_cameras_lights(category="sphere", params_to_check=None,
+                                  device="cuda"):
+    """The scene loop's source mesh and starting scalars: (src_mesh,
+    deform_init (V, 3) zeros, verts_rgb_init (1, V, 3) ones, camera_elev
+    (1,), camera_azim (1,), lights_location (1, 3)), as the JAX
+    package's.  The mesh is the level-3 icosphere (untextured, centred and
+    scaled to a box of half-width 0.5) for ``sphere`` or when the vertices
+    are optimised, else the cube; the camera starts at elev 20 / azim 100
+    when it is optimised (else 30 / 120), the light at (0, 6, -1) when it
+    is (else (0, 2, -2))."""
+    params_to_check = params_to_check or {}
+    if category == "sphere" or params_to_check.get("vertices"):
+        verts, faces = ptt.make_icosphere(3)
+        src_mesh = ptt.Meshes.create(verts, faces, device=device)
+    else:
+        src_mesh = ptt.load_cube(device=device)
+    n = src_mesh.verts.shape[1]
+    if category == "sphere":
+        src_mesh = normalize_mesh(src_mesh, 0.5)
+    deform_init = torch.zeros(n, 3, device=device)
+    verts_rgb_init = torch.ones(1, n, 3, device=device)
+    camera = (20.0, 100.0) if params_to_check.get("camera") else (30.0,
+                                                                  120.0)
+    camera_elev = torch.full((1,), camera[0], device=device)
+    camera_azim = torch.full((1,), camera[1], device=device)
+    light = ((0.0, 6.0, -1.0) if params_to_check.get("light")
+             else (0.0, 2.0, -2.0))
+    lights_location = torch.tensor([light], device=device)
+    return (src_mesh, deform_init, verts_rgb_init, camera_elev, camera_azim,
+            lights_location)
 
 
 @dataclasses.dataclass
@@ -278,17 +332,62 @@ class PoseOptResult:
     capacity: List[dict] = dataclasses.field(default_factory=list)
 
 
-def _make_optimizer(name: str, log_rot, lr: float):
+def _make_optimizer(name: str, params, lr: float):
+    """Adam, or SGD with momentum 0.9, over ``params`` (a tensor or a list
+    of parameter groups)."""
+    params = [params] if isinstance(params, torch.Tensor) else params
     if name == "sgd":
-        return torch.optim.SGD([log_rot], lr=lr, momentum=0.9)
-    return torch.optim.Adam([log_rot], lr=lr)
+        return torch.optim.SGD(params, lr=lr, momentum=0.9)
+    return torch.optim.Adam(params, lr=lr)
+
+
+def _boundaries(n_iter: int, segment_size: int) -> List[int]:
+    """The ends of uniform segments of ``segment_size`` steps."""
+    ends = [min(n_iter, segment_size)]
+    while ends[-1] < n_iter:
+        ends.append(min(n_iter, ends[-1] + segment_size))
+    return ends
+
+
+def _smoothing_state(renderer) -> dict:
+    """The renderer's annealed state as Python numbers (exact: float32
+    values round-trip through float64)."""
+    sigma, gamma, alpha = (float(x) for x in renderer.shader.get_smoothing())
+    return {"sigma": sigma, "gamma": gamma, "alpha": alpha,
+            "nb_samples": int(renderer.shader.get_nb_samples()),
+            "blur": float(renderer.rasterizer.blur)}
+
+
+def _restore_smoothing(renderer, st: dict):
+    """``renderer`` with the annealed state of a checkpoint."""
+    return renderer.replace(
+        rasterizer=renderer.rasterizer.update_blur(st["blur"]),
+        shader=renderer.shader.update_smoothing(
+            sigma=st["sigma"], gamma=st["gamma"], alpha=st["alpha"])
+        .update_nb_samples(st["nb_samples"]))
+
+
+def _anneal(renderer, sigma, gamma, sample_cap: int):
+    """``renderer`` at the new sigma and gamma, the blur set from sigma
+    and the sample count doubled up to ``sample_cap``."""
+    nb = renderer.shader.get_nb_samples()
+    return renderer.replace(
+        rasterizer=renderer.rasterizer.update_blur(_BLUR_CONST * sigma),
+        shader=renderer.shader.update_smoothing(sigma=sigma, gamma=gamma)
+        .update_nb_samples(min(2 * nb, sample_cap)))
+
+
+def _history(chunks: List[np.ndarray]) -> np.ndarray:
+    return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
 
 
 def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
                   target_rgb, generator: Optional[torch.Generator] = None,
                   lr_init=5e-2, Niter=100, optimizer="adam", adapt_reg=False,
                   adapt_params=(1.1, 1.5), segment_size=50,
-                  collect_images=False, anneal_sample_cap=128):
+                  collect_images=False, anneal_sample_cap=128,
+                  artifacts_dir=None, checkpoint_dir=None, resume=False,
+                  max_segments=None):
     """Pose optimisation with the reference's schedule.
 
     ``target_rgb``: a list whose first entry is the (H, W, 3) or
@@ -306,11 +405,24 @@ def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
     settings' ``bin_overflow`` policy (``check_capacity_host``: warn,
     raise, or stay silent under 'allow').
 
+    ``checkpoint_dir``: the whole run state is saved there at every
+    segment boundary (after its annealing); ``resume`` restores the latest
+    checkpoint, the caller's generator included, and continues the
+    uninterrupted run's trajectory.  ``max_segments`` stops after that
+    many segments of this call (a killed run; its checkpoint is on disk).
+    ``artifacts_dir``: the loss and gradient-norm histories
+    (``loss_values.npy`` / ``gradient_values.npy``) and a grid of the
+    target and the render at each boundary (``collect_images``; those
+    renders draw their seed words from a generator of their own, so they
+    leave the trajectory as it is).
+
     Returns a :class:`PoseOptResult`; ``runtimes`` holds each segment's
     wall time (ending in a device synchronisation, before the probe), the
     mean per step and the total, ``nb_samples`` the sample count of each
     segment and ``capacity`` the probe's stats at each boundary (binned
     route only)."""
+    if artifacts_dir is not None:
+        collect_images = True
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     target = target_rgb[0][None] if target_rgb[0].dim() == 3 \
@@ -330,17 +442,44 @@ def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
                           lights=lights).mode == "binned"
     capacity: List[dict] = []
 
-    boundaries = [min(Niter, segment_size)]
-    while boundaries[-1] < Niter:
-        boundaries.append(min(Niter, boundaries[-1] + segment_size))
-
     losses: List[np.ndarray] = []
     gnorms: List[np.ndarray] = []
     seg_times: List[float] = []
     images: List[np.ndarray] = []
     samples: List[int] = []
     start = 0
-    for end in boundaries:
+    if resume and checkpoint_dir is not None \
+            and _ckpt.latest_step(checkpoint_dir) is not None:
+        st = _ckpt.restore_checkpoint(checkpoint_dir)
+        lr = st["lr"]
+        renderer = _restore_smoothing(renderer, st)
+        state = PoseState(log_rot=st["log_rot"].to(dev).requires_grad_(),
+                          best_loss=st["best_loss"].to(dev),
+                          best_log_rot=st["best_log_rot"].to(dev),
+                          ema=tuple(x.to(dev) for x in st["ema"]))
+        opt = _make_optimizer(optimizer, state.log_rot, lr)
+        opt.load_state_dict(st["optimizer"])
+        generator.set_state(st["generator"])
+        losses.append(st["losses"].numpy())
+        gnorms.append(st["gnorms"].numpy())
+        start = st["step"]
+
+    def save(step):
+        _ckpt.save_checkpoint(checkpoint_dir, {
+            "log_rot": state.log_rot.detach(), "optimizer": opt.state_dict(),
+            "generator": generator.get_state(),
+            "best_loss": state.best_loss, "best_log_rot": state.best_log_rot,
+            "ema": list(state.ema), **_smoothing_state(renderer), "lr": lr,
+            "step": step, "losses": torch.from_numpy(_history(losses)),
+            "gnorms": torch.from_numpy(_history(gnorms))}, step)
+
+    segments_run = 0
+    for end in _boundaries(Niter, segment_size):
+        if end <= start:
+            continue
+        if max_segments is not None and segments_run >= max_segments:
+            break
+        segments_run += 1
         samples.append(renderer.shader.get_nb_samples())
         seg_loss, seg_gnorm = [], []
         t0 = time.perf_counter()
@@ -370,8 +509,8 @@ def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
                 rot = so3_exp_map(state.log_rot)
                 pred = mesh.update_padded(Rotate(rot).transform_points(
                     mesh.verts_padded()))
-                img = renderer(pred, generator=generator, cameras=cameras,
-                               lights=lights)
+                img = renderer(pred, generator=torch.Generator().manual_seed(
+                    end), cameras=cameras, lights=lights)
             images.append(img[..., :3].cpu().numpy())
         start = end
 
@@ -379,28 +518,280 @@ def optimize_pose(mesh, cameras, lights, init_pose, diff_renderer,
         v_sigma, v_gamma, v_alpha = (float(x) for x in state.ema)
         if adapt_reg and 100 < end < Niter and v_gamma > 0:
             sigma, gamma, _ = renderer.shader.get_smoothing()
-            new_sigma = max(float(sigma) / adapt_params[0], 5e-5)
-            new_gamma = max(float(gamma) / adapt_params[1], 5e-4)
-            nb = renderer.shader.get_nb_samples()
-            renderer = renderer.replace(
-                rasterizer=renderer.rasterizer.update_blur(
-                    _BLUR_CONST * new_sigma),
-                shader=renderer.shader.update_smoothing(
-                    sigma=new_sigma, gamma=new_gamma)
-                .update_nb_samples(min(2 * nb, anneal_sample_cap)))
+            renderer = _anneal(renderer,
+                               max(float(sigma) / adapt_params[0], 5e-5),
+                               max(float(gamma) / adapt_params[1], 5e-4),
+                               anneal_sample_cap)
             lr = max(lr / 1.5, 1e-4)
             opt = _make_optimizer(optimizer, state.log_rot, lr)
             zero = torch.zeros((), device=dev)
             state = dataclasses.replace(state,
                                         ema=(zero, zero.clone(),
                                              zero.clone()))
+        if checkpoint_dir is not None:
+            save(end)
 
+    all_losses, all_gnorms = _history(losses), _history(gnorms)
+    if artifacts_dir is not None:
+        _art.save_histories(artifacts_dir, all_losses, all_gnorms)
+        if images:
+            grid = np.concatenate(
+                [target.reshape((1,) + target.shape[-3:]).cpu().numpy()]
+                + [im[:1] for im in images], axis=0)
+            n = grid.shape[0]
+            _art.image_grid(grid, artifacts_dir, rows=max(1, (n + 3) // 4),
+                            cols=min(n, 4))
     total = float(sum(seg_times))
     runtimes = {"segment": seg_times, "per_iter": [total / max(Niter, 1)],
                 "total": [total]}
     return PoseOptResult(
         best_log_rot=state.best_log_rot, log_rot=state.log_rot.detach(),
-        losses=np.concatenate(losses) if losses else np.zeros(0),
-        grad_norms=np.concatenate(gnorms) if gnorms else np.zeros(0),
+        losses=all_losses, grad_norms=all_gnorms,
         runtimes=runtimes, images=images, nb_samples=samples,
         capacity=capacity)
+
+
+# ---------------------------------------------------------------------------
+# Scene-parameter optimisation
+# ---------------------------------------------------------------------------
+
+SCENE_PARAMS = ("verts_rgb", "deform", "camera_elev", "camera_azim",
+                "lights_location")
+
+
+@dataclasses.dataclass
+class SceneState:
+    """What a scene step carries to the next: the parameters (the
+    trainable ones are the optimizer's leaves), the best loss and the
+    parameters that scored it."""
+
+    params: Dict[str, torch.Tensor]
+    best_loss: torch.Tensor
+    best_params: Dict[str, torch.Tensor]
+
+    @classmethod
+    def start(cls, params: Dict[str, torch.Tensor],
+              trainable: Dict[str, bool]) -> "SceneState":
+        params = {k: v.detach().clone().requires_grad_(trainable[k])
+                  for k, v in params.items()}
+        dev = params["camera_elev"].device
+        return cls(params=params,
+                   best_loss=torch.full((), math.inf, device=dev),
+                   best_params={k: v.detach().clone()
+                                for k, v in params.items()})
+
+
+@dataclasses.dataclass
+class SceneStepOut:
+    """One step's total loss, its L1 image and Laplacian terms, and the
+    trainable parameters' gradients (non-finite entries zeroed)."""
+
+    loss: torch.Tensor
+    loss_rgb: torch.Tensor
+    loss_lap: torch.Tensor
+    grads: Dict[str, torch.Tensor]
+
+
+def scene_loss(base_mesh, target, params, renderer, seeds, textured: bool,
+               laplacian_weight: float = 5e-3,
+               texture_smoothing_weight: float = 0.0):
+    """(total, L1 image loss, Laplacian) of the scene ``params``: the
+    lights and one camera per view built from the scalars through
+    ``look_at_view_transform`` (dist 6.7), the mesh offset by ``deform``
+    and, if ``textured``, coloured by the clipped ``verts_rgb`` shared by
+    every view; the image loss and its gradients from one launch of K2 /
+    K7 (``render_loss``, ``l1_rgb``) on ``seeds``, plus
+    ``laplacian_weight`` times the mesh's uniform Laplacian and, if
+    textured, ``texture_smoothing_weight`` times the colours' own."""
+    dev = base_mesh.device
+    n_views = params["camera_elev"].numel()
+    lights = ptt.PointLights.create(location=params["lights_location"],
+                                    batch=n_views, device=dev)
+    r, t = ptt.look_at_view_transform(dist=6.7, elev=params["camera_elev"],
+                                      azim=params["camera_azim"], device=dev)
+    camera = ptt.PerspectiveCameras.create(R=r, T=t, device=dev)
+    mesh = base_mesh.offset_verts(params["deform"])
+    if textured:
+        # jnp.clip's gradient: half at the bounds (the white start).
+        rgb = torch.minimum(torch.maximum(params["verts_rgb"],
+                                          torch.zeros((), device=dev)),
+                            torch.ones((), device=dev))
+        mesh = mesh.with_textures(ptt.TexturesVertex(rgb.expand(
+            (base_mesh.batch_size,) + tuple(rgb.shape[1:]))))
+    loss_rgb = renderer.render_loss(mesh, target, seeds=seeds,
+                                    loss_kind="l1_rgb", cameras=camera,
+                                    lights=lights)
+    loss_lap = mesh_laplacian_smoothing(mesh)
+    total = loss_rgb + laplacian_weight * loss_lap
+    if texture_smoothing_weight and textured:
+        total = total + texture_smoothing_weight * vertex_feature_laplacian(
+            base_mesh, params["verts_rgb"])
+    return total, loss_rgb, loss_lap
+
+
+def scene_step(base_mesh, target, state: SceneState, renderer,
+               optimizer: Optional[torch.optim.Optimizer], seeds,
+               textured: bool, laplacian_weight: float = 5e-3,
+               texture_smoothing_weight: float = 0.0
+               ) -> Tuple[SceneState, SceneStepOut]:
+    """One step of the scene loop: the loss and the gradients of the
+    trainable parameters (those that require grad), non-finite entries
+    zeroed, an optimizer step, best-iterate tracking.  ``seeds``: the
+    estimators' (N_views, 4) seed words."""
+    total, loss_rgb, loss_lap = scene_loss(
+        base_mesh, target, state.params, renderer, seeds, textured,
+        laplacian_weight, texture_smoothing_weight)
+    train = [k for k in SCENE_PARAMS if state.params[k].requires_grad]
+    grads = {}
+    if train:
+        raw = torch.autograd.grad(total, [state.params[k] for k in train],
+                                  allow_unused=True)
+        grads = {k: (torch.zeros_like(state.params[k]) if g is None
+                     else torch.where(torch.isfinite(g), g,
+                                      torch.zeros_like(g)))
+                 for k, g in zip(train, raw)}
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    total = total.detach()
+    if optimizer is not None:
+        optimizer.zero_grad(set_to_none=True)
+        for k, g in grads.items():
+            state.params[k].grad = g
+        optimizer.step()
+    improved = total < state.best_loss
+    new = SceneState(
+        params=state.params,
+        best_loss=torch.where(improved, total, state.best_loss),
+        best_params={k: torch.where(improved, before[k], state.best_params[k])
+                     for k in SCENE_PARAMS})
+    return new, SceneStepOut(loss=total, loss_rgb=loss_rgb.detach(),
+                             loss_lap=loss_lap.detach(), grads=grads)
+
+
+def _scene_optimizer(name: str, state: SceneState, lr: float,
+                     lr_scales: Dict[str, float]):
+    """One parameter group for the trainable parameters without an lr
+    scale, one for each scaled one (lr times its scale); None if nothing
+    trains."""
+    train = [k for k in SCENE_PARAMS if state.params[k].requires_grad]
+    groups = [{"params": [state.params[k] for k in train
+                          if k not in lr_scales], "lr": lr}]
+    groups += [{"params": [state.params[k]], "lr": lr * lr_scales[k]}
+               for k in sorted(lr_scales) if k in train]
+    groups = [g for g in groups if g["params"]]
+    return _make_optimizer(name, groups, lr) if groups else None
+
+
+def optimize_scene_params(base_mesh, camera_elev_init, camera_azim_init,
+                          lights_location_init, deform_init, verts_rgb_init,
+                          diff_renderer, target_rgb,
+                          generator: Optional[torch.Generator] = None,
+                          lr_init=5e-2, Niter=100, optimizer="adam",
+                          adapt_reg=False, adapt_params=(1.1, 1.5),
+                          param_to_check=None, laplacian_weight=5e-3,
+                          segment_size=50, checkpoint_dir=None, resume=False,
+                          max_segments=None, lr_scales=None,
+                          anneal_start=200, lr_decay=1.5,
+                          texture_smoothing_weight=0.0):
+    """Joint optimisation of the vertex colours (``textures``), vertex
+    offsets (``vertices``), per-view camera elevation and azimuth
+    (``camera``) and the light location (``light``), as selected by
+    ``param_to_check``; the others stay frozen.
+
+    Multi-view: ``camera_elev_init`` / ``camera_azim_init`` of shape
+    (n_views,), ``base_mesh`` extended to n_views and a target (n_views,
+    H, W, 3); the colours, offsets and light are shared by every view.
+    ``lr_scales`` maps a parameter to a multiplier of the learning rate
+    for its own Adam group (the camera scalars are in degrees, the colours
+    in [0, 1]).  ``generator`` (CPU; seed 0 if None) draws every step's
+    seed words.  Uniform segments of ``segment_size`` steps; with
+    ``adapt_reg`` every boundary past ``anneal_start`` and before the end
+    divides sigma by adapt_params[0] and gamma by adapt_params[1], sets
+    the blur from sigma, doubles the sample count up to 128, divides the
+    learning rate by ``lr_decay`` and starts a new optimizer.
+    Checkpoints, ``resume`` and ``max_segments`` as in
+    :func:`optimize_pose`.
+
+    Returns (best_params, params, losses): the parameters of the best
+    loss, the last ones and the total loss of every step."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    param_to_check = param_to_check or {"camera": False, "vertices": True,
+                                        "textures": True, "light": False}
+    target = target_rgb[0] if target_rgb[0].dim() == 4 else target_rgb[0][None]
+    dev = base_mesh.device
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    params = {"verts_rgb": f32(verts_rgb_init), "deform": f32(deform_init),
+              "camera_elev": f32(camera_elev_init),
+              "camera_azim": f32(camera_azim_init),
+              "lights_location": f32(lights_location_init)}
+    group = {"verts_rgb": "textures", "deform": "vertices",
+             "camera_elev": "camera", "camera_azim": "camera",
+             "lights_location": "light"}
+    trainable = {k: bool(param_to_check.get(group[k], False))
+                 for k in SCENE_PARAMS}
+    textured = trainable["verts_rgb"]
+    lr_scales = lr_scales or {}
+    lr = lr_init
+    renderer = diff_renderer.replace(
+        rasterizer=diff_renderer.rasterizer.update_blur(
+            diff_renderer.rasterizer.blur))
+    fixed = getattr(renderer.shader.smoothagg, "fixed_noise", False)
+    state = SceneState.start(params, trainable)
+    opt = _scene_optimizer(optimizer, state, lr, lr_scales)
+    losses: List[np.ndarray] = []
+    start = 0
+    if resume and checkpoint_dir is not None \
+            and _ckpt.latest_step(checkpoint_dir) is not None:
+        st = _ckpt.restore_checkpoint(checkpoint_dir)
+        lr = st["lr"]
+        renderer = _restore_smoothing(renderer, st)
+        state = SceneState(
+            params={k: st["params"][k].to(dev).requires_grad_(trainable[k])
+                    for k in SCENE_PARAMS},
+            best_loss=st["best_loss"].to(dev),
+            best_params={k: st["best_params"][k].to(dev)
+                         for k in SCENE_PARAMS})
+        opt = _scene_optimizer(optimizer, state, lr, lr_scales)
+        if opt is not None:
+            opt.load_state_dict(st["optimizer"])
+        generator.set_state(st["generator"])
+        losses.append(st["losses"].numpy())
+        start = st["step"]
+
+    def save(step):
+        _ckpt.save_checkpoint(checkpoint_dir, {
+            "params": {k: v.detach() for k, v in state.params.items()},
+            "best_params": state.best_params, "best_loss": state.best_loss,
+            "optimizer": None if opt is None else opt.state_dict(),
+            "generator": generator.get_state(), **_smoothing_state(renderer),
+            "lr": lr, "step": step,
+            "losses": torch.from_numpy(_history(losses))}, step)
+
+    segments_run = 0
+    for end in _boundaries(Niter, segment_size):
+        if end <= start:
+            continue
+        if max_segments is not None and segments_run >= max_segments:
+            break
+        segments_run += 1
+        seg = []
+        for _ in range(end - start):
+            seeds = fused_render.draw_seeds(base_mesh.batch_size, generator,
+                                            fixed, device=dev)
+            state, out = scene_step(base_mesh, target, state, renderer, opt,
+                                    seeds, textured, laplacian_weight,
+                                    texture_smoothing_weight)
+            seg.append(out.loss)
+        losses.append(torch.stack(seg).cpu().numpy())     # waits
+        start = end
+        if adapt_reg and anneal_start < end < Niter:
+            sigma, gamma, _ = renderer.shader.get_smoothing()
+            renderer = _anneal(renderer, float(sigma) / adapt_params[0],
+                               float(gamma) / adapt_params[1], 128)
+            lr = lr / lr_decay
+            opt = _scene_optimizer(optimizer, state, lr, lr_scales)
+        if checkpoint_dir is not None:
+            save(end)
+
+    params = {k: v.detach() for k, v in state.params.items()}
+    return state.best_params, params, _history(losses)

@@ -1,6 +1,7 @@
-"""Where K9b's, K12's, K8a-c's, K7's, K5's, K2's, K3's, K11b's, K10b's and
+"""Where K1's, K9b's, K12's, K8a-c's, K7's, K5's, K2's, K3's, K11b's, K10b's and
 K11a's time goes on the card (a tuning tool).
 
+    python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k1
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k9b
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k12
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k8c
@@ -14,6 +15,11 @@ K11a's time goes on the card (a tuning tool).
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k10b
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits k11a
     python3 -m pertrenderer_tpu_torch.experiments.kernel_splits sass
+
+``k1``: K1 (``prng_probe``, (4, 16, 256) gaussian, chip_smoke.py's
+[K1]) and a kernel that does nothing (``empty_launch``, the launch
+floor) in one torch.profiler session, their device times per launch; the
+last line is a JSON object of the two (chip_smoke.py's [K1] reads it).
 
 ``k9b``: the row scatter at the cow's staged shapes (chip_smoke.py's
 [K9b]: 13.1 M columns into 20,480 rows, D = 9), the index preparation
@@ -157,6 +163,28 @@ def _cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def k1(root: str) -> None:
+    sys.path.insert(0, root)
+    import json
+
+    import torch
+
+    import chip_smoke as cs
+    from pertrenderer_tpu_torch.ops import fused_render as fr
+
+    dev = torch.device("cuda", 0)
+    smi = _smi()
+    split = cs.device_split(lambda: (fr.prng_probe("gaussian", device=dev),
+                                     fr.empty_launch(dev)), 50)
+    ms = {key: sum(t for name, t in split.items() if key in name)
+          for key in ("prng_probe", "empty_kernel")}
+    print(f"[K1 split] {os.path.abspath(root)}: device time per launch: "
+          f"prng_probe (4, 16, 256) gaussian {ms['prng_probe']:.5f} ms, "
+          f"an empty kernel {ms['empty_kernel']:.5f} ms | {smi}", flush=True)
+    print(json.dumps({"prng_probe_ms": ms["prng_probe"],
+                      "launch_floor_ms": ms["empty_kernel"]}), flush=True)
 
 
 def k9b(root: str) -> None:
@@ -696,12 +724,12 @@ def sass(root: str) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("k9b", "k12", "k8c", "k8b", "k8a",
+    ap.add_argument("what", choices=("k1", "k9b", "k12", "k8c", "k8b", "k8a",
                                      "k7", "k5", "k2", "k3", "k11b", "k10b",
                                      "k11a", "sass"))
     ap.add_argument("--root", default=os.getcwd(),
                     help="checkout whose package and chip_smoke.py to use "
-                         "(k9b, k12, k8a, k8b, k8c, k7, k5, k2, k3, "
+                         "(k1, k9b, k12, k8a, k8b, k8c, k7, k5, k2, k3, "
                          "k11b, k10b, k11a, sass)")
     ap.add_argument("--save", default="",
                     help="k5, k3, k11b: save the results (a dict of CPU "
@@ -712,7 +740,9 @@ def main(argv=None) -> None:
                          "-DPT_PROFILE and print the phases' shares of the "
                          "clocks")
     args = ap.parse_args(argv)
-    if args.what == "k9b":
+    if args.what == "k1":
+        k1(args.root)
+    elif args.what == "k9b":
         k9b(args.root)
     elif args.what == "k8c":
         k8c(args.root, args.profile)

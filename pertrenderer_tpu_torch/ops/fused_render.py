@@ -328,6 +328,21 @@ def prng_probe(noise_type: str = "gaussian", s: int = 4, c: int = 16,
     return out
 
 
+def empty_launch(device="cuda") -> None:
+    """Launch a kernel that does nothing (``csrc/prng_probe.cu``): its
+    device time is the card's launch floor, which bounds K1.  A
+    measurement aid, on no path and in no launch count."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch: {device} is not a CUDA device")
+    from pertrenderer_tpu_torch import _build
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _build.library().pt_empty_launch(stream)
+    _build.check(err, "empty_launch")
+
+
 def check_prng_stream(device) -> None:
     """Raise unless K1's uniform stage on ``device`` equals the plain
     version bit for bit.  Every MC render draws its noise from this stream

@@ -21,7 +21,7 @@ from pertrenderer_tpu_torch.transforms import _rounded, cross3
 from pertrenderer_tpu_torch.ops.gather import (batch_index, scatter_rows,
                                                take_rows_batched)
 
-__all__ = ["Meshes"]
+__all__ = ["Meshes", "join_meshes_as_batch"]
 
 
 @dataclasses.dataclass
@@ -72,6 +72,11 @@ class Meshes:
 
     def faces_padded(self) -> torch.Tensor:
         return self.faces
+
+    def verts_packed(self) -> torch.Tensor:
+        """Every mesh's vertices stacked, (N V, 3) (the JAX package packs
+        the padded batch as it is)."""
+        return self.verts.reshape(-1, 3)
 
     def faces_mask(self) -> torch.Tensor:
         """(N, F) bool — True for valid (non-padding) faces."""
@@ -147,6 +152,23 @@ class Meshes:
             raise ValueError("Meshes has no textures attached.")
         return self.textures.sample_cm(self.faces, pfrag.pix_to_face,
                                        pfrag.w0, pfrag.w1, pfrag.w2)
+
+
+    def edges(self) -> torch.Tensor:
+        """(N, 3F, 2) every face's edges (v0, v1), (v1, v2), (v2, v0), all
+        the faces' first edges first; duplicates kept, padding -1."""
+        f = self.faces
+        return torch.cat([f[..., [0, 1]], f[..., [1, 2]], f[..., [2, 0]]],
+                         dim=1)
+
+
+def join_meshes_as_batch(meshes_list) -> Meshes:
+    """Concatenate meshes of the same padding along the batch axis (the
+    first mesh's textures are kept, as in the JAX package)."""
+    cat = lambda name: torch.cat([getattr(m, name) for m in meshes_list])
+    return Meshes(verts=cat("verts"), faces=cat("faces"),
+                  num_verts=cat("num_verts"), num_faces=cat("num_faces"),
+                  textures=meshes_list[0].textures)
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:

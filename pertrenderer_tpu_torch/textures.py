@@ -22,7 +22,7 @@ from pertrenderer_tpu_torch.ops.gather import (take_rows_batched,
                                                take_rows_cm_batched)
 from pertrenderer_tpu_torch.ops.interp_gather import interp_rows_cm_batched
 
-__all__ = ["TexturesVertex", "TexturesUV", "TexturesAtlas",
+__all__ = ["Textures", "TexturesVertex", "TexturesUV", "TexturesAtlas",
            "interpolate_face_attributes", "interpolate_face_attributes_cm"]
 
 
@@ -205,3 +205,9 @@ class TexturesAtlas:
 
     def extend(self, n: int) -> "TexturesAtlas":
         return TexturesAtlas(_repeat(self.atlas, n))
+
+
+def Textures(maps=None, verts_uvs=None, faces_uvs=None):
+    """PyTorch3D 0.4's ``Textures(verts_uvs, faces_uvs, maps)``, the form
+    the reference builds the cube's texture with: a ``TexturesUV``."""
+    return TexturesUV(maps=maps, verts_uvs=verts_uvs, faces_uvs=faces_uvs)

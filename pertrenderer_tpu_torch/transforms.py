@@ -131,3 +131,6 @@ class Rotate:
     def transform_points(self, points: torch.Tensor) -> torch.Tensor:
         """points: (N, P, 3) -> (N, P, 3)."""
         return matmul3(points, self.R)
+
+    def inverse(self) -> "Rotate":
+        return Rotate(self.R.transpose(-1, -2))
