@@ -58,11 +58,14 @@ line; any failure exits non-zero before a result is printed):
    the two gradient kernels (csrc/stream_warp.cuh: B1, B2) and their
    resident blocks per SM at N=1 by the occupancy API (>= 2 blocks or >= 16
    warps); then [stream S=128]: the gaussian pair at S = 128 (two passes
-   of 64 samples over the chunk list) on the cow at 64^2, N=1: K5, K6 and
-   K7 against their plain versions at the same tolerances, repeats
-   bit-equal, through MeshRenderer.forward and render_loss, and K7 = K5 +
-   K6; then K5 / K6 at N=4 and K7 at N=1 on the cow at 256^2, S = 64
-   beside S = 128, timed, finite, repeats bit-equal;
+   of 64 samples over the chunk list) on the level-3 cow (1280 faces: the
+   plain versions' time goes with the chunks) at 64^2, N=1: K5, K6 and K7
+   against their plain versions at the same tolerances, repeats
+   bit-equal; K7 on the 5120-face cow (80 chunks) at 32^2 against its
+   float64 plain version; the cow at 64^2 through MeshRenderer.forward and
+   render_loss, and K7 = K5 + K6; then K5 / K6 at N=4 and K7 at N=1 on
+   the cow at 256^2, S = 64 beside S = 128, timed, finite, repeats
+   bit-equal;
 11. serve-stream — 8 render requests of N=4 cow poses through
    MeshRenderer;
 12. render-grad-stream — 4 requests that render N=4 cow poses and take
@@ -183,20 +186,55 @@ line; any failure exits non-zero before a result is printed):
    steps, K7 once per step): every view's camera within 2 degrees, the
    best texture MAE at most 0.25; then K7's share of a synchronised
    scene step at 256^2, and K7 on the inputs of that scene step (N=4,
-   S=8, l1_rgb) against its plain version, as check-diff holds it.  [phases] prints each phase's seconds.
+   S=8, l1_rgb) against its plain version, as check-diff holds it.
 
-Phases 6-8, 11-13, 15, 16, 19, 20, 24 and 25 are the main paths: the
-launch
-counts are reset just before each and read just after, and each must have
-launched its kernels (serve: K1 and K3; render-grad: K3 and K4; train: K2
-once per step; serve-stream: K5; render-grad-stream: K5 and K6;
-train-stream: K7 once per step; target: K9a and no fused kernel;
-staged-softras: K9a, K9b, K10a and K10b and no fused kernel;
+30. obj-io — the level-6 icosphere (81,920 faces) through save_obj and
+   load_obj: the native (C++, built with g++) and the Python parser give
+   the same arrays, their parse times in host seconds; the cow through
+   save_obj -> load_objs_as_meshes -> a K5 render (256^2, N=1) bit-equal
+   to the render of the same vertices rounded to %.6f in memory; a
+   synthetic ShapeNet model (written here, PNG map included) through
+   harness.init_target (TexturesAtlas, the staged Hard-Phong target) and
+   FileNotFoundError without shapenet_path;
+31. config2 — BASELINE config 2 through experiments/config2.py's main at
+   128^2: the level-2 icosphere's silhouette (staged select, K9a / K9b,
+   K8a): the 60-step scale fit from 0.7 within 0.08 of 1; the
+   gradient-variance sweep S in {4, 16, 64} over 24 seed words on the
+   synthetic field and on the scene's dists (falling, var(4) / var(64) >
+   4); gumbel aggregation (K8b) weights summing to 1 within 1e-5; then
+   K8a (mean and coefficient) on the scene's -dists and K8b with gumbel
+   noise on the scene's z_map against their plain versions on shared
+   noise (MC tolerance; coefficient 1e-3 of max), bit-equal where no draw
+   is made, K8b bit-equal to the path's weights;
+32. config4 — BASELINE config 4 through experiments/config4.py's main:
+   the cube x2 in 16 views at 256^2, K=50, S=4, 30 Adam steps on log_rot
+   and per-vertex offsets through render_loss (K2 at N=16, the offsets
+   through K9b), twice: step time, view-renders/s, pose error before and
+   after, the dual path at step 0 (K2 vs K3 + K4, 1e-3 of max), both
+   gradients finite and non-zero, the second run bit-equal; then K2 vs
+   its plain version on step 0's inputs at N=16 (tables 1e-3 of max, loss
+   1e-5);
+33. oracle-config5 — experiments/oracle_config5.py on one 32-row strip:
+   count pass and K_exact, the K ladder, stream and binned forward
+   against both rungs (stream within 5e-5 of K_exact), the dual-path pose
+   gradient (1e-4), FD rows, the strip gradient against the K_exact
+   staged oracle (stream 1e-4) and the binned capacity.
+
+[phases] prints each phase's seconds.
+
+Phases 6-8, 11-13, 15, 16, 19, 20, 24, 25 and 27-33 are the main paths:
+the launch counts are reset just before each and read just after, and
+each must have launched its kernels (serve: K1 and K3; render-grad: K3
+and K4; train: K2 once per step; serve-stream: K5; render-grad-stream:
+K5 and K6; train-stream: K7 once per step; target: K9a and no fused
+kernel; staged-softras: K9a, K9b, K10a and K10b and no fused kernel;
 serve-binned: K1 and K12's forward; train-binned: K12's loss-and-grad
 once per step; serve-sharded and train-sharded: counted in rank 0; the
-CLI's runs, resume and config3 as above).  Times are CUDA events except the
-per-request and per-step times (host clock ending in a device
-synchronisation).  Kernel and plain version are timed in turns (plain,
+CLI's runs, resume and config3 as above; obj-io: K5 and K9a; config2:
+K9a, K9b, K8a and K8b; config4: K2 once per step (and once for the dual
+path) and K9b; oracle-config5: K5-K7, K12's three modes, K9a, K9b, K10a
+and K10b).  Times are CUDA events except the per-request and per-step
+times (host clock ending in a device synchronisation).  Kernel and plain version are timed in turns (plain,
 kernel, kernel, plain) after a warm-up call.
 
 The last lines are the per-kernel report (one JSON object, eighteen
@@ -214,18 +252,22 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
 
 import pertrenderer_tpu_torch as ptt
-from pertrenderer_tpu_torch import _build, checks, shading
+from pertrenderer_tpu_torch import _build, checks, native, shading
 from pertrenderer_tpu_torch.checks import tables_close
-from pertrenderer_tpu_torch.experiments import config3, config5, harness
+from pertrenderer_tpu_torch.experiments import (config2, config3, config4,
+                                                config5, harness,
+                                                oracle_config5)
 from pertrenderer_tpu_torch.experiments import eval as eval_cli
 from pertrenderer_tpu_torch.ops import binned
 from pertrenderer_tpu_torch.ops import fused_render as fr
@@ -699,10 +741,11 @@ def headline_renderer(noise, device, n=N_POSES, size=None, s=S):
     return ptt.MeshRenderer(ptt.MeshRasterizer(cams, settings), shader)
 
 
-def cow_mesh(device):
+def cow_mesh(device, level=4):
     """The config-3 cow (``make_cow``: 2562 verts, 5120 faces, UV atlas
-    4), centred and scaled to 3 / max |v| as tools/run_config3.py does."""
-    cow = ptt.make_cow(device=device)
+    4; at level 3 642 verts, 1280 faces), centred and scaled to 3 / max |v|
+    as tools/run_config3.py does."""
+    cow = ptt.make_cow(level=level, device=device)
     verts = cow.verts[0]
     center = verts.mean(0)
     scale = torch.max(torch.abs(verts - center))
@@ -710,19 +753,20 @@ def cow_mesh(device):
         3.0 / scale)
 
 
-def posed_cow(generator, device, n=N_POSES, log_rot=None):
+def posed_cow(generator, device, n=N_POSES, log_rot=None, level=4):
     """The cow at n random rotations drawn from ``generator``."""
-    cow = cow_mesh(device).extend(n)
+    cow = cow_mesh(device, level).extend(n)
     if log_rot is None:
         log_rot = torch.randn(n, 3, generator=generator).to(device)
     rot = ptt.so3_exp_map(log_rot)
     return cow.update_padded(ptt.Rotate(rot).transform_points(cow.verts))
 
 
-def stream_inputs(noise, dev, n, size=None, s=S):
-    """(cfg, K5-K7 arguments) of the cow at n random poses."""
+def stream_inputs(noise, dev, n, size=None, s=S, level=4):
+    """(cfg, K5-K7 arguments) of the cow (``make_cow(level)``) at n random
+    poses."""
     renderer = headline_renderer(noise, dev, n, size, s)
-    mesh = posed_cow(torch.Generator().manual_seed(0), dev, n)
+    mesh = posed_cow(torch.Generator().manual_seed(0), dev, n, level=level)
     seeds = fr.draw_seeds(n, torch.Generator().manual_seed(1), device=dev)
     cfg, (tab, scal, rows, count, active, seeds) = kernel_inputs(
         renderer, mesh, seeds)
@@ -1511,19 +1555,27 @@ def k7_equals_k5_k6(dev, smi, n=N_POSES, size=IMAGE, s=S):
 
 STREAM_S128 = 128     # optimize_pose's anneal_sample_cap
 STREAM_S128_IMAGE = 64
+# The plain versions at S = 128 sweep every chunk once per sample, so
+# their time goes with the chunks (5120 faces: 80; level 3: 20), not with
+# the pixels: they are held on the level-3 cow.
+STREAM_S128_LEVEL = 3
+STREAM_S128_FULL_IMAGE = 32
 
 
 def phase_stream_s128(dev, smi, _report):
     """The stream route above 64 aggregation samples (K5, K6 / K7's B1 in
-    passes of 64): the gaussian pair at S = 128 on the cow at 64^2, K=50,
-    N=1.  A render (K5) at the MC tolerance of its plain version, and K6
-    and K7 (a pose step's loss and gradients) within 1e-3 of the nearer of
-    the float32 and float64 plain versions (``checks.stream_grads_close``),
-    each repeat bit-equal; K7 = K5 + K6 (1e-5).  The render goes through
+    passes of 64): the gaussian pair at S = 128 on the level-3 cow (1280
+    faces, 20 chunks) at 64^2, K=50, N=1.  A render (K5) at the MC
+    tolerance of its plain version, and K6 and K7 (a pose step's loss
+    and gradients) within 1e-3 of the nearer of the float32 and float64
+    plain versions (``checks.stream_grads_close``),
+    each repeat bit-equal; K7 = K5 + K6 (1e-5).  K7 also on the 5120-face
+    cow (80 chunks) at 32^2 against its float64 plain version (1e-3 of
+    max), the stream main paths' chunk list.  The render goes through
     MeshRenderer.forward and the step through render_loss as well, with
     the launch counts read around them."""
     size, s = STREAM_S128_IMAGE, STREAM_S128
-    cfg, args = stream_inputs("gaussian", dev, 1, size, s)
+    cfg, args = stream_inputs("gaussian", dev, 1, size, s, STREAM_S128_LEVEL)
     got = fr.fused_stream_forward(cfg, *args)
     again = fr.fused_stream_forward(cfg, *args)
     want = fr.stream_forward_plain(cfg, *args)
@@ -1555,6 +1607,30 @@ def phase_stream_s128(dev, smi, _report):
         texts.append(f"{'K7' if got[0] is not None else 'K6'} worst error "
                      f"{err:.3g} of max |grad| at {where} outside {n_thin} "
                      f"thin rows, loss rel {lerr:.3g}, {ms:.3f} ms")
+    # K7 alone on the 5120-face cow (80 chunks, the stream main paths'
+    # chunk list) at 32^2 against its float64 plain version.
+    size_full = STREAM_S128_FULL_IMAGE
+    cfg, args = stream_inputs("gaussian", dev, 1, size_full, s)
+    args64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    kern = stream_grad_calls(cfg, args, size_full)[
+        "fused_stream_loss_grad"][0]
+    got, again = kern(), kern()
+    want64 = stream_grad_calls(cfg, args64, size_full)[
+        "fused_stream_loss_grad"][1]()
+    torch.cuda.synchronize()
+    ok, err, where, n_thin, bins = checks.stream_grads_close(
+        cfg, args[0], got[1:], want64[1:], want64[1:], 1e-3)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    lerr = ((got[0] - want64[0]).abs() / want64[0].abs()).max().item()
+    if not ok or not same or lerr > 1e-5:
+        fail(f"stream S={s} K7 on the 5120-face cow at {size_full}^2 vs "
+             f"float64 plain: worst error {err} at {where}, thin rows "
+             f"{checks.witness_text(bins)}, repeat bit-equal {same}, loss "
+             f"rel {lerr}")
+    texts.append(f"K7 on the 5120-face cow ({cfg.rw // 64} chunks) at "
+                 f"{size_full}^2 vs float64 plain: worst error {err:.3g} of "
+                 f"max |grad| at {where} outside {n_thin} thin rows, loss "
+                 f"rel {lerr:.3g}")
     rend = headline_renderer("gaussian", dev, 1, size, s)
     mesh = posed_cow(torch.Generator().manual_seed(0), dev, 1)
     target = torch.rand(1, size, size, 3,
@@ -1571,7 +1647,8 @@ def phase_stream_s128(dev, smi, _report):
             or not bool(torch.isfinite(loss).all())):
         fail(f"stream S={s} through MeshRenderer: plan "
              f"{rend.plan(mesh).mode}, launches {counts}")
-    print(f"[stream S={s}] gaussian cow {size}^2 K={K} N=1: "
+    print(f"[stream S={s}] gaussian cow (level {STREAM_S128_LEVEL}, "
+          f"{20 * 4 ** STREAM_S128_LEVEL} faces) {size}^2 K={K} N=1: "
           + "; ".join(texts)
           + f"; repeats bit-equal; MeshRenderer.forward and render_loss "
           f"launch K5 {counts['fused_stream_forward']}, K7 "
@@ -4122,6 +4199,382 @@ def phase_config3(dev, smi, report):
           f"off, white texture) | {smi}", flush=True)
 
 
+def png_bytes(img):
+    """An 8-bit RGB PNG (every row filter 0) of img (H, W, 3) uint8."""
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def write_shapenet_fixture(root):
+    """A two-triangle model in ShapeNetCore's layout for the mug category
+    (``<synset>/<model>/models/model_normalized.obj`` with its MTL and an
+    8 x 8 PNG map, red left, blue right), as tests/test_structures_io.py
+    builds it."""
+    model = os.path.join(root, harness.SHAPENET_CATEGORIES["mug"],
+                         harness.SHAPENET_MODELS["mug"], "models")
+    os.makedirs(model)
+    tex = np.zeros((8, 8, 3), np.uint8)
+    tex[:, :4] = (255, 0, 0)
+    tex[:, 4:] = (0, 0, 255)
+    with open(os.path.join(model, "tex.png"), "wb") as f:
+        f.write(png_bytes(tex))
+    with open(os.path.join(model, "model_normalized.mtl"), "w") as f:
+        f.write("newmtl m0\nKd 1.0 1.0 1.0\nmap_Kd tex.png\n")
+    with open(os.path.join(model, "model_normalized.obj"), "w") as f:
+        f.write("mtllib model_normalized.mtl\n"
+                "v -1 -1 0\nv 1 -1 0\nv 1 1 0\nv -1 1 0\n"
+                "vt 0.1 0.1\nvt 0.9 0.1\nvt 0.9 0.9\nvt 0.1 0.9\n"
+                "usemtl m0\nf 1/1 2/2 3/3\nf 1/1 3/3 4/4\n")
+
+
+def phase_obj_io(dev, smi, report):
+    """OBJ I/O: the native and the Python parser agree on the 81,920-face
+    icosphere written by save_obj (parse times in host seconds); the cow
+    through save_obj -> load_objs_as_meshes -> a K5 render, bit-equal to
+    the render of the same vertices rounded to %.6f in memory; the
+    synthetic ShapeNet model through harness.init_target (TexturesAtlas,
+    the staged Hard-Phong target)."""
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        verts, faces = ptt.make_icosphere(6)
+        path = os.path.join(tmp, "icosphere6.obj")
+        t0 = time.perf_counter()
+        ptt.save_obj(path, verts, faces)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.library()
+        build_s = time.perf_counter() - t0
+        times = {}
+        for name, use_native in (("native", True), ("python", False)):
+            t0 = time.perf_counter()
+            got = ptt.load_obj(path, use_native=use_native)
+            times[name] = time.perf_counter() - t0
+            if name == "native":
+                nat = got
+        if not (np.array_equal(nat[0], got[0])
+                and np.array_equal(nat[1].verts_idx, got[1].verts_idx)
+                and np.array_equal(nat[1].verts_idx, faces)
+                and np.abs(nat[0] - verts).max() <= 1e-6):
+            fail("obj-io: the native and the Python parser disagree on the "
+                 "level-6 icosphere")
+
+        cow = cow_mesh(dev)
+        cpath = os.path.join(tmp, "cow.obj")
+        ptt.save_obj(cpath, cow.verts[0], cow.faces[0])
+        rounded = np.array([[float(f"{x:.6f}") for x in row]
+                            for row in cow.verts[0].cpu().numpy()],
+                           np.float32)
+        rend = headline_renderer("gaussian", dev, 1)
+        seeds = fr.draw_seeds(1, torch.Generator().manual_seed(4),
+                              device=dev)
+        write_shapenet_fixture(tmp)
+        torch.cuda.synchronize()
+        reset_counts()
+        loaded = ptt.load_objs_as_meshes([cpath], device=dev)
+        img = rend(loaded, seeds=seeds)
+        target = harness.init_target(
+            torch.Generator().manual_seed(7), category="mug",
+            shapenet_path=tmp, imsize=IMAGE, device=dev)[3][0]
+        torch.cuda.synchronize()
+        counts = all_counts()
+        k9b = k9b_per(report, "obj-io", 1, "run")
+        mug = harness._load_shapenet("mug", tmp, dev)
+    mem = ptt.Meshes.create(rounded, cow.faces[0], device=dev,
+                            textures=ptt.TexturesVertex(torch.ones(
+                                1, rounded.shape[0], 3, device=dev)))
+    img_mem = rend(mem, seeds=seeds)
+    if not (torch.equal(loaded.verts, mem.verts)
+            and torch.equal(loaded.faces, mem.faces)
+            and rend.plan(loaded).mode == "stream"
+            and torch.equal(img, img_mem)
+            and bool(torch.isfinite(img).all())
+            and (img[..., 3] > 0.5).float().mean().item() > 0.05):
+        fail(f"obj-io: the loaded cow's render differs from the in-memory "
+             f"one (verts equal {torch.equal(loaded.verts, mem.verts)}, "
+             f"max |d| {(img - img_mem).abs().max().item()})")
+    atlas = mug.textures.atlas
+    lit = int((target.sum(-1) > 0).sum().item())
+    if not (isinstance(mug.textures, ptt.TexturesAtlas)
+            and tuple(atlas.shape) == (1, 2, 4, 4, 3)
+            and atlas[..., 0].max() > 0.9 and atlas[..., 2].max() > 0.9
+            and bool(torch.isfinite(target).all()) and lit > 100):
+        fail(f"obj-io: the ShapeNet fixture: textures "
+             f"{type(mug.textures).__name__}, atlas {tuple(atlas.shape)}, "
+             f"{lit} lit pixels")
+    try:
+        harness.init_target(category="mug", shapenet_path=None, device=dev)
+    except FileNotFoundError:
+        pass
+    else:
+        fail("obj-io: a ShapeNet category without shapenet_path did not "
+             "raise FileNotFoundError")
+    if counts["fused_stream_forward"] < 1 or counts["gather_rows_cm"] < 1:
+        fail(f"obj-io: launch counts {counts}")
+    report["paths"]["obj-io"] = counts
+    used = {k: v for k, v in counts.items() if v}
+    print(f"[obj-io] the level-6 icosphere (40,962 verts, 81,920 faces) "
+          f"through save_obj ({save_s:.3f} s) and load_obj: native and "
+          f"Python parsers equal; host seconds: native parse "
+          f"{times['native']:.4f} s (its g++ build {build_s:.2f} s, once), "
+          f"Python parse {times['python']:.4f} s "
+          f"({times['python'] / times['native']:.1f}x); the cow (5120 "
+          f"faces) save_obj -> load_objs_as_meshes -> K5 render at "
+          f"{IMAGE}^2 bit-equal to the in-memory mesh of the same rounded "
+          f"vertices; the ShapeNet fixture (mug) -> init_target: "
+          f"TexturesAtlas {tuple(atlas.shape)}, Hard-Phong target {lit} lit "
+          f"pixels; no shapenet_path -> FileNotFoundError; launches {used}, "
+          f"{k9b} | {smi}", flush=True)
+
+
+def phase_config2(dev, smi, report):
+    """BASELINE config 2 through experiments/config2.py's main at 128^2:
+    the level-2 icosphere's silhouette through the staged rasterizer (K9a,
+    gradient K9b) and GaussianRast's perturbed Heaviside (K8a): the
+    60-step scale fit from 0.7 within 0.08 of 1; the gradient-variance
+    sweep over S in {4, 16, 64}, 24 seed words each, on the synthetic field
+    and on the scene's own dists (falling, var(4) / var(64) > 4); the
+    gumbel perturbed argmax (K8b) whose weights sum to 1 within 1e-5.
+    Then the estimator kernels of the path against their plain versions at
+    its own shapes, on shared noise: K8a's mean and coefficient on the
+    scene's -dists (gaussian, sigma 1e-3, S=8), K8b with gumbel noise on
+    the scene's z_map (gamma 1e-2, S=16); the forwards at the MC tolerance
+    (``estimator_close``) and bit-equal where no draw is made, the
+    coefficient within 1e-3 of its max; K8b's output bit-equal to the
+    path's gumbel weights."""
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = config2.main(["--device", str(dev), "--out",
+                                os.path.join(tmp, "config2.json")])
+        torch.cuda.synchronize()
+        counts = all_counts()
+    k9b = k9b_per(report, "config2", config2.FIT_STEPS, "fit step")
+    fit, var = rec["fit"], rec["variance"]
+    wsum = rec["gumbel_max_abs_sum_minus_1"]
+    falls = lambda v: v[0] > v[1] > v[2] and v[0] / v[2] > 4.0
+    if not (fit["within_0.08"] and falls(var["field"])
+            and falls(var["scene"]) and wsum <= 1e-5
+            and rec["gumbel_finite"]):
+        fail(f"config2: {json.dumps(rec)}")
+    if (counts["gather_rows_cm"] < 1 or counts["scatter_rows_cm"] < 1
+            or counts["heaviside_mean"] < 1 or counts["argmax_mean"] < 1):
+        fail(f"config2: launch counts {counts}")
+    report["paths"]["config2"] = counts
+
+    from pertrenderer_tpu_torch.models import smoothagg
+    mesh, cams = config2.scene(dev)
+    seeds = fr.draw_seeds(1, torch.Generator().manual_seed(
+        config2.GUMBEL_SEED), device=dev)
+    rs, ags = seeds[:, :2].contiguous(), seeds[:, 2:].contiguous()
+    with torch.no_grad():
+        frags = ptt.rasterize_meshes(mesh, cams,
+                                     config2.settings(config2.IMAGE))
+        agg, zbuf, prob, mask = config2.gumbel_inputs(mesh, cams,
+                                                      config2.IMAGE)
+        z = smoothagg._z_map(agg.gamma.to(dev), agg.alpha.to(dev), agg.eps,
+                             zbuf, config2.ZFAR, config2.ZNEAR, prob, mask,
+                             corrected_prod=agg.corrected_prod).contiguous()
+        w_path = config2.gumbel_weights(mesh, cams, config2.IMAGE, seeds)
+    d = (-frags.dists).contiguous()
+    sigma = torch.tensor(config2.SIGMA, device=dev)
+    gamma = agg.gamma.to(dev)
+    band = pk.heaviside_band(d, sigma, "gaussian")
+    cand = pk.argmax_candidates(z, gamma, "gumbel")
+    drawn = cand & ~(cand.sum(-1, keepdim=True) == 1)
+    texts = []
+    for tag, kern, plain, where in (
+            ("K8a heaviside_mean",
+             lambda: pk.heaviside_mean(d, sigma, rs, config2.S, "gaussian"),
+             lambda: pk.heaviside_mean_plain(d, sigma, rs, config2.S,
+                                             "gaussian"), band),
+            ("K8a heaviside_coeff",
+             lambda: pk.heaviside_coeff(d, sigma, rs, config2.S, "gaussian"),
+             lambda: pk.heaviside_coeff_plain(d, sigma, rs, config2.S,
+                                              "gaussian", True), band),
+            ("K8b argmax_mean gumbel",
+             lambda: pk.argmax_mean(z, gamma, ags, agg.nb_samples, "gumbel"),
+             lambda: pk.argmax_mean_plain(z, gamma, ags, agg.nb_samples,
+                                          "gumbel"), drawn)):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        exact = torch.equal(got[~where], want[~where])
+        if "coeff" in tag:
+            ok, err = grad_close(got, want)
+            text = f"within {err:.3g} of max"
+        else:
+            ok, err, dmean, flips = estimator_close(got, want)
+            text = (f"max |d| {err:.3g}, mean |d| {dmean:.3g}, elements "
+                    f"beyond 1e-4 {flips:.3g}")
+        same = torch.equal(got, again)
+        if "argmax" in tag:
+            same = same and torch.equal(got, w_path)
+        if not ok or not same or not exact:
+            fail(f"config2 {tag} {tuple(got.shape)}: {text}, repeat and "
+                 f"path bit-equal {same}, bit-equal where no draw is made "
+                 f"{exact}")
+        texts.append(f"{tag} {tuple(got.shape)} {text}")
+    used = {k: v for k, v in counts.items() if v}
+    ratio = lambda v: ", ".join(f"{x:.4g}" for x in v) + (
+        f" (4 / 64: {v[0] / v[2]:.2f}x)")
+    print(f"[config2] level-2 icosphere silhouette at {config2.IMAGE}^2, "
+          f"K={config2.K}, GaussianRast sigma {config2.SIGMA} S={config2.S}: "
+          f"scale fit 0.7 -> {fit['final_scale']:.4f} in "
+          f"{config2.FIT_STEPS} steps ({fit['seconds']:.2f} s, loss "
+          f"{fit['loss_first']:.4g} -> {fit['loss_last']:.4g}); gradient "
+          f"variance at S = 4, 16, 64 over 24 seed words: synthetic field "
+          f"{ratio(var['field'])}, the scene's dists {ratio(var['scene'])}; "
+          f"gumbel weights |sum - 1| <= {wsum:.2g}; vs plain on shared "
+          f"noise: {'; '.join(texts)}; bit-equal where no draw is made, "
+          f"repeats bit-equal, K8b = the path's weights; launches {used}, "
+          f"{k9b} | {smi}", flush=True)
+
+
+def phase_config4(dev, smi, report):
+    """BASELINE config 4 through experiments/config4.py's main: the cube x2
+    in 16 views at 256^2, K=50 (flat route), GaussianRast + GaussianAgg
+    S=4; 30 Adam steps on log_rot and the per-vertex offsets through
+    render_loss (K2 at N=16, the offsets' gradient through K9b), from 20
+    degrees off, twice (bit-equal); the dual path at step 0 (K2 against
+    K3 + K4 with the L2 in autograd on the same seed words, 1e-3 of each
+    gradient's max); both gradients finite and non-zero.  Then K2 against
+    its plain version on step 0's inputs (``problem``: the 16 views at the
+    start pose with step 0's seed words), tables within 1e-3 of their max
+    (``tables_close``) and the loss within 1e-5."""
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = config4.main(["--device", str(dev), "--out",
+                                os.path.join(tmp, "config4.json")])
+        torch.cuda.synchronize()
+        counts = all_counts()
+    steps = 2 * config4.STEPS
+    k9b = k9b_per(report, "config4", steps, "step")
+    dual = rec["dual_path_rel_err"]
+    grads_ok = all(rec["grads_finite_nonzero"].values())
+    if (rec["route"] != "flat" or max(dual.values()) > 1e-3 or not grads_ok
+            or rec["dual_path_loss_rel_err"] > 1e-5
+            or not rec["repeat_bit_equal"] or not rec["losses_finite"]):
+        fail(f"config4: {json.dumps(rec)}")
+    # K2: two runs of STEPS steps and the dual path's one call.
+    if (counts["fused_loss_grad"] != steps + 1
+            or counts["scatter_rows_cm"] < steps):
+        fail(f"config4: launch counts {counts}")
+    report["paths"]["config4"] = counts
+
+    mesh, rend, _r, target, log_rot0, seeds0 = config4.problem(
+        config4.VIEWS, config4.IMAGE, config4.K, dev)
+    zero = torch.zeros(mesh.max_verts, 3, device=dev)
+    cfg, ins = kernel_inputs(rend, config4.predict(mesh, log_rot0, zero),
+                             seeds0)
+    n = config4.VIEWS
+    hw = config4.IMAGE * config4.IMAGE
+    tgt = target.reshape(n, hw, 3).transpose(1, 2).contiguous()
+    lscale = 1.0 / (n * hw * 3)
+    loss, *got = fr.fused_loss_grad(cfg, *ins, tgt, "l2_rgb", lscale)
+    want_loss, *want = fr.loss_grad_plain(cfg, *ins, tgt, "l2_rgb", lscale)
+    torch.cuda.synchronize()
+    ok, err, where = tables_close(got, want, 1e-3)
+    lerr = ((loss - want_loss).abs() / want_loss.abs()).max().item()
+    if cfg.stream or not ok or lerr > 1e-5:
+        fail(f"config4 K2 vs plain at N={n}: worst table error {err} at "
+             f"{where}, loss rel error {lerr}")
+    pose = rec["pose_error_deg"]
+    print(f"[config4] cube x2, {n} views at {config4.IMAGE}^2, "
+          f"K={config4.K} (flat), GaussianRast + GaussianAgg S={config4.S}, "
+          f"joint log_rot + deform ({rec['verts']} verts), {config4.STEPS} "
+          f"Adam steps: {rec['step_ms']:.3f} ms a step (steps "
+          f"2-{config4.STEPS}, host clock with a synchronisation), "
+          f"{rec['view_renders_per_s']:.1f} view-renders/s; pose error "
+          f"{pose['start']:.2f} -> {pose['end']:.2f} deg, loss "
+          f"{rec['loss_first']:.5g} -> {rec['loss_last']:.5g}; dual path at "
+          f"step 0 (K2 vs K3 + K4): log_rot {dual['log_rot']:.3g}, deform "
+          f"{dual['deform']:.3g} of max, loss rel "
+          f"{rec['dual_path_loss_rel_err']:.3g}; K2 vs plain at step 0: "
+          f"worst table error {err:.3g} at {where}, loss rel {lerr:.3g}; "
+          f"both gradients finite and non-zero; a second run bit-equal; "
+          f"launches K2 {counts['fused_loss_grad']} (N={n}), {k9b} | {smi}",
+          flush=True)
+
+
+ORACLE_ARGS = ["--strips", "1", "--no-full-staged", "--device", "cuda"]
+
+
+def phase_oracle_config5(dev, smi, report):
+    """experiments/oracle_config5.py on one strip of 32 rows (H/4): the
+    count pass and K_exact, the K ladder (K=150, K_exact untruncated), the
+    stream and binned routes' forward against both rungs, the dual-path
+    pose gradient (K7 / K12's loss-and-grad against forward + backward),
+    the FD rows, the strip gradient against the K_exact staged oracle
+    (K9a / K9b / K10a / K10b) and the binned capacity.  The stream route
+    must match K_exact within 5e-5 and its strip gradient within 1e-4 of
+    max; both routes' dual paths within 1e-4."""
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = oracle_config5.main(ORACLE_ARGS + [
+                "--out", os.path.join(tmp, "oracle.json")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = all_counts()
+    k9b_per(report, "oracle-config5", 1, "run")
+    kx = str(rec["grad_oracle_k"])
+    st, bn = rec["modes"]["stream"], rec["modes"]["binned"]
+    st_fwd = max(st["forward_max_abs_err_by_oracle_k"][kx].values())
+    bn_fwd = max(bn["forward_max_abs_err_by_oracle_k"][kx].values())
+    finite = all(np.isfinite(v) for m in (st, bn) for v in (
+        m["pose_grad_dual_path_rel_err"], m["pose_grad_strip_parity_rel_err"],
+        m["step_ms"]))
+    if not (finite and not rec["oracle_k_ladder"][-1]["saturated"]
+            and st_fwd <= 5e-5
+            and st["pose_grad_strip_parity_rel_err"] <= 1e-4
+            and st["pose_grad_dual_path_rel_err"] <= 1e-4
+            and bn["pose_grad_dual_path_rel_err"] <= 1e-4):
+        fail(f"oracle-config5: {json.dumps(rec)}")
+    need = ("fused_stream_forward", "fused_stream_backward",
+            "fused_stream_loss_grad", "fused_binned_forward",
+            "fused_binned_backward", "fused_binned_loss_grad",
+            "gather_rows_cm", "scatter_rows_cm", "interp_rows",
+            "interp_rows_backward")
+    if any(counts[k] < 1 for k in need):
+        fail(f"oracle-config5: launch counts {counts}")
+    report["paths"]["oracle-config5"] = counts
+    used = {k: v for k, v in counts.items() if v}
+    cap = bn["capacity"]
+    fd = lambda m: ", ".join(
+        f"h={h}: cos {m['pose_grad_vs_fd_by_h'][h]['cosine']:.4f}"
+        for h in ("0.003", "0.01"))
+    print(f"[oracle-config5] config 5 (81,920 faces, 512^2, K=150, softras), "
+          f"one strip of {rec['rows_per_strip']} rows at "
+          f"{rec['strips'][0]}: count pass {rec['count_max']} candidates -> "
+          f"K_exact {kx} (filled at most "
+          f"{rec['oracle_k_ladder'][-1]['max_valid_slots']}); forward max "
+          f"|d| vs K=150 / K_exact: stream "
+          f"{max(st['forward_max_abs_err_by_oracle_k']['150'].values()):.3g}"
+          f" / {st_fwd:.3g}, binned "
+          f"{max(bn['forward_max_abs_err_by_oracle_k']['150'].values()):.3g}"
+          f" / {bn_fwd:.3g}; pose gradient dual path stream "
+          f"{st['pose_grad_dual_path_rel_err']:.3g}, binned "
+          f"{bn['pose_grad_dual_path_rel_err']:.3g}; strip gradient vs the "
+          f"K_exact oracle stream {st['pose_grad_strip_parity_rel_err']:.3g}"
+          f", binned {bn['pose_grad_strip_parity_rel_err']:.3g}; FD stream "
+          f"{fd(st)}, binned {fd(bn)}; binned capacity "
+          f"{cap['max_tile_candidates']} candidates / {cap['slots']} slots, "
+          f"range {cap['max_range']}; loss + grad step stream "
+          f"{st['step_ms']:.1f} ms, binned {bn['step_ms']:.1f} ms; wall "
+          f"{wall:.1f} s; launches {used} | {smi}", flush=True)
+
+
 SOURCES = {
     "prng_probe": ("csrc/prng_probe.cu", "ops/fused_render.py:263"),
     "fused_forward": ("csrc/fused_forward.cu", "ops/fused_render.py:799"),
@@ -4158,7 +4611,8 @@ PHASES = (phase_k1, phase_k3, phase_k4, phase_k2, phase_serve,
           phase_staged_uniform, phase_large, phase_k12,
           phase_capacity_binned, phase_serve_binned, phase_train_binned,
           phase_determinism, phase_k11, phase_sharded, phase_dryrun_sharded,
-          phase_cli, phase_resume, phase_config3)
+          phase_cli, phase_resume, phase_config3, phase_obj_io,
+          phase_config2, phase_config4, phase_oracle_config5)
 
 
 def main():

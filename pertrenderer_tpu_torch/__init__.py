@@ -20,7 +20,9 @@ gradients).
 scene-parameter loop (``optimize_scene_params``: light, cameras, vertex
 colours and offsets) on top, with checkpoints and resume;
 ``init_target`` builds the Hard-Phong target and ``experiments.eval`` is
-the experiment CLI.  On CPU tensors
+the experiment CLI.  ``load_obj`` / ``load_objs_as_meshes`` / ``save_obj``
+read and write OBJ meshes (a native C++ parser built at first use).  On
+CPU tensors
 every kernel runs as its plain PyTorch version.
 
 Everything is float32.  TF32 is turned off here, at import: a TF32 matmul
@@ -46,8 +48,14 @@ from pertrenderer_tpu_torch.cameras import (  # noqa: E402
     look_at_rotation,
     look_at_view_transform,
 )
-from pertrenderer_tpu_torch.io import (load_cube, make_cow,  # noqa: E402
-                                       make_icosphere)
+from pertrenderer_tpu_torch.io import (  # noqa: E402
+    load_cube,
+    load_obj,
+    load_objs_as_meshes,
+    make_cow,
+    make_icosphere,
+    save_obj,
+)
 from pertrenderer_tpu_torch.lights import (  # noqa: E402
     DirectionalLights,
     Materials,

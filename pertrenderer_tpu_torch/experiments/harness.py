@@ -33,15 +33,19 @@ launch of K2 (flat) or K7 (stream) plus a uniform Laplacian of the mesh
 takes the staged route (kernels K9a and K10a on the card);
 ``init_base_mesh_cameras_lights`` the scene loop's source mesh and start.
 
+The ShapeNet categories load one model each from an extracted
+ShapeNetCore directory (``shapenet_path``) with its texture baked into a
+4 x 4 atlas (``_load_shapenet``); without the directory they raise.
+
 Not ported: ``max_dispatch_steps`` and the scan segments (they exist for
-XLA; the port runs a plain loop) and the ShapeNet categories (they need
-the dataset).
+XLA; the port runs a plain loop).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -168,8 +172,9 @@ def init_target(generator: Optional[torch.Generator] = None,
     ``init_target``.  ``category`` is ``cube`` or ``sphere`` (level-3
     icosphere, white per-vertex colour, scaled x3); the true pose is
     ``R_true`` (1, 3, 3), or drawn from ``generator`` (a CPU generator,
-    seed 0 if None).  ShapeNet categories need the dataset, which the
-    repository does not hold: they raise."""
+    seed 0 if None).  Any other category is a ShapeNet category
+    (``SHAPENET_CATEGORIES``), loaded from ``shapenet_path`` by
+    ``_load_shapenet`` (FileNotFoundError without it) and scaled x3."""
     if category == "cube":
         mesh = ptt.load_cube(device=device)
     elif category == "sphere":
@@ -178,10 +183,7 @@ def init_target(generator: Optional[torch.Generator] = None,
                                  textures=ptt.TexturesVertex(torch.ones(
                                      1, verts.shape[0], 3, device=device)))
     else:
-        raise FileNotFoundError(
-            f"category {category!r} needs the ShapeNet dataset "
-            f"(shapenet_path={shapenet_path!r}); the port renders the cube "
-            "and sphere categories")
+        mesh = _load_shapenet(category, shapenet_path, device)
     mesh = normalize_mesh(mesh)
     if category != "cube":
         mesh = mesh.scale_verts(3.0)
@@ -204,6 +206,58 @@ def init_target(generator: Optional[torch.Generator] = None,
     target = get_hard_rendering(rotated, cameras[0], lights, imsize)
     target_rgb = [target[i, ..., :3] for i in range(len(cameras))]
     return meshes, cameras, lights, target_rgb, R_true, elev, azim
+
+
+# ShapeNetCore synset ids and the model used per category, as the
+# reference's loader names them.
+SHAPENET_CATEGORIES = {
+    "table": "04379243", "car": "02958343", "chair": "03001627",
+    "airplane": "02691156", "sofa": "04256520", "rifle": "04090263",
+    "mug": "03797390", "microwave": "03761084", "mailbox": "03710193",
+    "bus": "02924116", "speaker": "03691459", "display": "03211117",
+    "dishwasher": "03207941", "bag": "02773838", "lamp": "03636649",
+    "birdhouse": "02843684",
+}
+SHAPENET_MODELS = {
+    "mug": "bea77759a3e5f9037ae0031c221d81a4",
+    "airplane": "ffccda82ecc0d0f71740529c616cd4c7",
+    "microwave": "c1851c910969d154df78375e5c76ea3d",
+    "mailbox": "10e1051cbe10626e30a706157956b491",
+    "bus": "7ad09b362de71bfaadcb6d6a1ff60276",
+    "speaker": "1d4bb07ac73996182339c28050e32573",
+    "display": "2e6204b4aa7ba83fbd28395acf9af65e",
+    "dishwasher": "fb15942e4096d8f0263a7f81856f9708",
+    "bag": "a55b721ea5a29d7f639ff561fa3f5bac",
+    "lamp": "4a868756ae6404a5c0bc57897eddf6f",
+    "birdhouse": "7f53db3b31fe08283c2748dd7bf1793a",
+}
+
+
+def _load_shapenet(category, shapenet_path, device="cuda"):
+    """The category's ShapeNetCore model
+    (``<shapenet_path>/<synset>/<model>/models/model_normalized.obj``)
+    with its texture baked into a 4 x 4 atlas (``TexturesAtlas``), or
+    white per-vertex colour where the model has no texture map.  Raises
+    FileNotFoundError if ``shapenet_path`` is not a directory."""
+    if shapenet_path is None or not os.path.isdir(shapenet_path):
+        raise FileNotFoundError(
+            f"ShapeNet category {category!r} requires --dataset-directory "
+            f"pointing at ShapeNetCore (got {shapenet_path!r})")
+    obj = os.path.join(shapenet_path, SHAPENET_CATEGORIES[category],
+                       SHAPENET_MODELS[category], "models",
+                       "model_normalized.obj")
+    verts, faces, aux = ptt.load_obj(obj, load_textures=True,
+                                     create_texture_atlas=True,
+                                     texture_atlas_size=4,
+                                     texture_wrap="repeat")
+    if aux.texture_atlas is not None:
+        textures = ptt.TexturesAtlas(torch.as_tensor(
+            aux.texture_atlas[None], dtype=torch.float32, device=device))
+    else:
+        textures = ptt.TexturesVertex(torch.ones(
+            1, verts.shape[0], 3, device=device))
+    return ptt.Meshes.create(verts, faces.verts_idx, textures=textures,
+                             device=device)
 
 
 def init_base_mesh_cameras_lights(category="sphere", params_to_check=None,

@@ -35,7 +35,8 @@ from pertrenderer_tpu_torch.ops.gather import (take_rows_batched,
                                                take_rows_cm_batched)
 
 __all__ = ["Fragments", "PlanarFragments", "RasterizationSettings",
-           "as_planar", "rasterize_meshes", "rasterize_planar"]
+           "as_planar", "rasterize_meshes", "rasterize_planar",
+           "rasterize_planar_rows"]
 
 _INF = float("inf")
 
@@ -259,11 +260,14 @@ def _select_topk_core(px, py, fv, face_ids, valid, blur_radius, k: int,
 
 def _select_topk(verts_ndc, faces, num_faces, image_size, blur_radius, k,
                  faces_per_chunk, clip, perspective_correct,
-                 cull_backfaces) -> torch.Tensor:
+                 cull_backfaces, rows=None) -> torch.Tensor:
     """Flat top-K selection: every face tested at every pixel.  Returns
-    (N, H, W, K) ids."""
+    (N, H, W, K) ids; ``rows=(start, count)`` selects on that strip of
+    image rows only (H = count)."""
     fv, valid = _face_validity(verts_ndc, faces, num_faces, cull_backfaces)
     xs, ys = _pixel_grid(image_size, image_size, verts_ndc.device)
+    if rows is not None:
+        ys = ys[rows[0]:rows[0] + rows[1]]
     face_ids = torch.arange(fv.shape[1], device=fv.device).expand(
         fv.shape[0], -1)
     return _select_topk_core(xs[None, None, :, None], ys[None, :, None, None],
@@ -332,15 +336,18 @@ def _select_topk_binned(verts_ndc, faces, num_faces, image_size,
 
 
 def _derive_planar(verts_ndc, faces, idx, image_size: int, clip: bool,
-                   perspective_correct: bool):
+                   perspective_correct: bool, rows=None):
     """Differentiable fragment attributes of the selected faces: (zbuf,
     dists, w0, w1, w2), each (N, H, W, K), with -1 in zbuf and dists at
     empty slots.  The corners are gathered per pixel channel-major in one
-    call: (9, N, H, W, K)."""
+    call: (9, N, H, W, K).  ``rows=(start, count)`` restricts the pixels to
+    that strip of image rows (idx then holds ``count`` rows)."""
     n, fcount = faces.shape[0], faces.shape[1]
     face_verts = take_rows_batched(verts_ndc, torch.clamp(faces, min=0))
     fv9 = take_rows_cm_batched(face_verts.reshape(n, fcount, 9), idx)
     xs, ys = _pixel_grid(image_size, image_size, verts_ndc.device)
+    if rows is not None:
+        ys = ys[rows[0]:rows[0] + rows[1]]
     w0, w1, w2, z, dist, _, _ = _face_pixel_geometry(
         xs[None, None, :, None], ys[None, :, None, None], *fv9, clip,
         perspective_correct)
@@ -376,6 +383,37 @@ def rasterize_planar(meshes, cameras, settings: RasterizationSettings,
     zbuf, dists, w0, w1, w2 = _derive_planar(
         verts_ndc, meshes.faces, idx, settings.image_size, clip,
         settings.perspective_correct)
+    return PlanarFragments(pix_to_face=idx, zbuf=zbuf, dists=dists, w0=w0,
+                           w1=w1, w2=w2)
+
+
+def rasterize_planar_rows(meshes, cameras, settings: RasterizationSettings,
+                          row_start: int, row_count: int,
+                          blur_radius=None) -> PlanarFragments:
+    """Staged rasterization of the image-row strip [row_start, row_start +
+    row_count) at full-image NDC coordinates: planar fragments (N,
+    row_count, W, K).
+
+    The memory-bounded oracle path: work and residency scale with the
+    strip's pixels, so a scene whose full-image staged pass would not fit
+    (BASELINE config 5: 81,920 faces at 512^2, K=150) can be rendered
+    strip by strip.  Selection is always flat and chunked (every face
+    tested at every pixel of the strip, no binning), a code path
+    independent of the fused kernels and of the binned selection; the
+    derive pass gathers the corners through K9a (gradient K9b)."""
+    blur = settings.blur_radius if blur_radius is None else blur_radius
+    verts_ndc = cameras.transform_points_ndc(meshes.verts)
+    clip = settings.resolve_clip()
+    rows = (row_start, row_count)
+    with torch.no_grad():
+        idx = _select_topk(
+            verts_ndc.detach(), meshes.faces, meshes.num_faces,
+            settings.image_size, blur, settings.faces_per_pixel,
+            settings.faces_per_chunk, clip, settings.perspective_correct,
+            settings.cull_backfaces, rows=rows)
+    zbuf, dists, w0, w1, w2 = _derive_planar(
+        verts_ndc, meshes.faces, idx, settings.image_size, clip,
+        settings.perspective_correct, rows=rows)
     return PlanarFragments(pix_to_face=idx, zbuf=zbuf, dists=dists, w0=w0,
                            w1=w1, w2=w2)
 

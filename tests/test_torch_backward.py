@@ -25,8 +25,11 @@ import jax.numpy as jnp
 from pertrenderer_tpu.ops import fused_render as jfr
 from pertrenderer_tpu_torch.ops import fused_render as tfr
 
-from _torch_parity import (MC_NOISES, build, interpret_env, jax_inputs,
-                           port_config, port_inputs)
+from _torch_parity import (MC_NOISES, build, interpret_env,  # noqa: F401
+                           jax_inputs, one_torch_thread, port_config,
+                           port_inputs)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TABLES = ("g_ndc", "g_world", "g_fn", "g_tex", "g_scal")
 

@@ -4,8 +4,10 @@ tolerances of test_torch_backward.py."""
 
 import pytest
 
-from _torch_parity import interpret_env
+from _torch_parity import interpret_env, one_torch_thread  # noqa: F401
 from test_torch_backward import check_menu_pair
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(autouse=True)

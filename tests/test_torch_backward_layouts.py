@@ -9,9 +9,12 @@ import torch
 
 from pertrenderer_tpu_torch.ops import fused_render as tfr
 
-from _torch_parity import MC_NOISES, interpret_env
+from _torch_parity import (MC_NOISES, interpret_env,  # noqa: F401
+                           one_torch_thread)
 from test_torch_backward import (_case, _g_out, assert_grads_close,
                                  jax_backward)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(autouse=True)

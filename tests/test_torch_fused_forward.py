@@ -13,9 +13,11 @@ import pytest
 from pertrenderer_tpu.experiments.harness import NOISE_MENU
 from pertrenderer_tpu_torch.ops import fused_render as tfr
 
-from _torch_parity import (KEY, MC_NOISES, assert_image_close, build,
-                           interpret_env, jax_inputs, port_config,
-                           port_inputs)
+from _torch_parity import (KEY, MC_NOISES, assert_image_close,  # noqa: F401
+                           build, interpret_env, jax_inputs, one_torch_thread,
+                           port_config, port_inputs)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(autouse=True)

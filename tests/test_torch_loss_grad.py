@@ -24,9 +24,11 @@ from pertrenderer_tpu.ops import perturbed as jperturbed
 from pertrenderer_tpu_torch.ops import fused_render as tfr
 from pertrenderer_tpu_torch.ops import perturbed as tperturbed
 
-from _torch_parity import (build, interpret_env, jax_inputs, port_config,
-                           port_inputs)
+from _torch_parity import (build, interpret_env, jax_inputs,  # noqa: F401
+                           one_torch_thread, port_config, port_inputs)
 from test_torch_backward import assert_grads_close, jax_backward
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 IMAGE = 16
 

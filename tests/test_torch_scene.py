@@ -19,7 +19,10 @@ from pertrenderer_tpu.transforms import so3_exp_map as j_exp
 from pertrenderer_tpu_torch import convert
 from pertrenderer_tpu_torch.ops import fused_render as tfr
 
-from _torch_parity import build, interpret_env, jax_inputs, port_config
+from _torch_parity import (build, interpret_env, jax_inputs,  # noqa: F401
+                           one_torch_thread, port_config)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -18,8 +18,10 @@ from pertrenderer_tpu.transforms import so3_exp_map as j_exp
 from pertrenderer_tpu_torch import convert
 from pertrenderer_tpu_torch.ops import fused_render as tfr
 
-from _torch_parity import (KEY, MC_NOISES, assert_image_close, build,
-                           interpret_env, jax_inputs)
+from _torch_parity import (KEY, MC_NOISES, assert_image_close,  # noqa: F401
+                           build, interpret_env, jax_inputs, one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOG_ROT = np.array([[0.1, -0.2, 0.3], [-0.4, 0.25, 0.05]], np.float32)
 

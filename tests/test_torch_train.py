@@ -26,7 +26,10 @@ from pertrenderer_tpu.experiments import harness as jh
 from pertrenderer_tpu_torch import convert
 from pertrenderer_tpu_torch.experiments import harness as th
 
-from _torch_parity import build, interpret_env, jax_inputs
+from _torch_parity import (build, interpret_env, jax_inputs,  # noqa: F401
+                           one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LR = 5e-2
 LOG_ROT = np.array([[0.25, -0.15, 0.35]], np.float32)
